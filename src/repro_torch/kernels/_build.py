@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+with ``nvcc`` for Hopper (``sm_90a``) into a shared library, which
+``ctypes`` loads.  Libraries land in ``repro_torch/_build/`` (listed in
+``.gitignore``) under a name keyed on a hash of the source and flags, so
+an edited source (or shared ``csrc/*.cuh`` header) rebuilds and an
+unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per stale
+source, all at once; :func:`entry` returns a source's C entry point with
+its argument types bound once, when the library loads.
+
+No ``--use_fast_math``: the packed matmul's bit-exactness against its
+plain version rests on IEEE division and round-half-even, and the
+attention kernels use full-precision ``expf``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("ent_matmul", "flash_attention", "paged_attention")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each source's extern "C" entry point and its argument types (all return
+# a cudaError_t as int)
+ENTRY_POINTS = {
+    "ent_matmul": ("ent_matmul_packed_fused",
+                   [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention_masked",
+                        [_P] * 5 + [_I] * 10 + [_F, _P]),
+    "paged_attention": ("paged_attention", [_P] * 7 + [_I] * 7 + [_F, _P]),
+}
+
+_entries: dict = {}      # name -> bound ctypes function
+build_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "at first use on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    digest = h.hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names=SOURCES) -> list[str]:
+    """Compile every stale library among ``names`` in parallel; returns
+    the names it built.  Raises with the compiler's output on failure."""
+    nvcc = None
+    procs = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        build_logs[name] = out
+        if proc.returncode:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return list(procs)
+
+
+def entry(name: str):
+    """The C entry point of ``csrc/<name>.cu``, built and loaded on first
+    use, with its ctypes signature bound."""
+    if name not in _entries:
+        build_all((name,))
+        fname, argtypes = ENTRY_POINTS[name]
+        fn = getattr(ctypes.CDLL(str(library_path(name))), fname)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _entries[name] = fn
+    return _entries[name]
+
+
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as an int handle."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

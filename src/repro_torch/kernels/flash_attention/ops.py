@@ -1,0 +1,54 @@
+"""Public op: serving (masked) attention (port of
+``repro/kernels/flash_attention/ops.py:44``).
+
+``masked_attention`` sends every call to the masked flash kernel, whose
+wrapper takes the plain version only for CPU tensors; unlike the
+reference there is no "tiles don't divide -> oracle" route, because the
+kernel masks ragged tiles itself.  Two reference routes are not ported
+in this slice: int8-KV dequant scales (``k_scale``/``v_scale``) and the
+explicit ``valid`` mask of ring/dense decode run the plain version on
+the CPU only and raise on the card.  ``use_kernel=False`` asks for the
+plain version explicitly (counted in ``masked_attention.plain_launches``
+on the card).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention_masked)
+from repro_torch.kernels.flash_attention.ref import masked_attention_ref
+
+
+def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
+                     window=None, scale=None, k_scale=None, v_scale=None,
+                     valid=None, use_kernel: bool = True, chunk=None):
+    """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D]: in q's
+    dtype from the kernel (as the Pallas kernel writes it), float32 from
+    the plain version.  The reference op upcasts the kernel's output to
+    float32; here the caller's cast to the compute dtype (``_finish``)
+    makes both the same, so the kernel's output stays in q's dtype."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "int8-KV attention waits for a later slice (ROADMAP: int8-KV "
+            "paged/flash)")
+    if valid is None and use_kernel:
+        if start is None:
+            start = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
+        return flash_attention_masked(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            start.to(torch.int32).contiguous(), q_offset=q_offset,
+            causal=causal, window=window, scale=scale)
+    if q.is_cuda:
+        if valid is not None:
+            raise NotImplementedError(
+                "the explicit-mask (ring/dense decode) attention has no "
+                "kernel in this slice; the card serves the paged backend")
+        masked_attention.plain_launches += 1
+    return masked_attention_ref(q, k, v, start=start, q_offset=q_offset,
+                                causal=causal, window=window, scale=scale,
+                                valid=valid, chunk=chunk)
+
+
+masked_attention.plain_launches = 0

@@ -1,0 +1,60 @@
+"""Plain PyTorch version of in-place paged decode attention (port of
+``paged_attention_ref``, ``repro/kernels/paged_attention/ref.py:55``).
+
+One-token attention straight off the page pool + block table: column
+``j`` (table order * page_size + offset — table order is position
+order) attends iff ``start[b] <= j <= pos[b]`` and its table entry is
+mapped (page 0 is the reserved null page).  The softmax runs over the
+whole [B, Hkv, G, W] score tensor and the value side is one
+position-ordered float32 contraction of probabilities cast to the value
+dtype — the reduction order of the dense backend's single-block
+``masked_attention_ref``, which keeps paged decode equal to dense
+decode.  A fully masked slot returns exact zeros.  Returns
+[B, Hq, 1, D] float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_NEG_INF = -1e30
+
+
+def _take_pages(pool, table):
+    """[P, page, H, D] pool + [B, n] ids -> [B, H, n*page, D]."""
+    g = pool[table]                                   # [B, n, page, H, D]
+    g = g.reshape((g.shape[0], -1) + tuple(pool.shape[2:]))
+    return g.permute(0, 2, 1, 3)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_table, pos, start=None,
+                        *, page_size: int, scale=None):
+    b, hq, sq, d = q.shape
+    if sq != 1:
+        raise ValueError("paged_attention is a decode (Sq=1) op")
+    _, page, hkv, _ = k_pages.shape
+    if page != page_size:
+        raise ValueError(f"pool page {page} != page_size {page_size}")
+    group = hq // hkv
+    w = block_table.shape[-1] * page_size
+    if scale is None:
+        scale = d**-0.5
+    if start is None:
+        start = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    qg = q.reshape(b, hkv, group, sq, d).to(torch.float32)
+    kb = _take_pages(k_pages, block_table).to(torch.float32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
+    cols = torch.arange(w, dtype=torch.int32, device=q.device)[None, :]
+    mapped = torch.repeat_interleave(block_table != 0, page_size, dim=-1)
+    valid = (cols <= pos[:, None]) & (cols >= start[:, None]) & mapped
+    mask = valid[:, None, None, None, :]
+    s = torch.where(mask, s, _NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(mask, p, 0.0)                     # fully masked rows: 0
+    l = p.sum(-1, keepdim=True)
+    vb = _take_pages(v_pages, block_table)
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vb.dtype).to(torch.float32),
+                       vb.to(torch.float32))
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, hq, sq, d)

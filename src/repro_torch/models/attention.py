@@ -1,0 +1,126 @@
+"""GQA attention layer with RoPE and KV-cache serving paths (port of
+``repro/models/attention.py``).
+
+``prefill_step`` writes the prompt chunk's rotated K/V through the cache
+and attends through the masked flash kernel; ``decode_step`` writes one
+row and, for the paged backend, reads the pool in place through the
+paged decode kernel (dense rows go through the plain masked version,
+for the paged ≡ dense test).  The full-sequence ``apply`` needs the
+unmasked flash kernel, which this slice has not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models import kv_cache
+from repro_torch.models import layers as L
+
+
+def init(generator, cfg: ModelConfig):
+    hd, h, hkv, d = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    return {
+        "wq": L.dense_init(generator, cfg, d, h * hd, bias=cfg.qkv_bias),
+        "wk": L.dense_init(generator, cfg, d, hkv * hd, bias=cfg.qkv_bias),
+        "wv": L.dense_init(generator, cfg, d, hkv * hd, bias=cfg.qkv_bias),
+        "wo": L.dense_init(generator, cfg, h * hd, d, scale=(h * hd) ** -0.5),
+    }
+
+
+def _project(cfg: ModelConfig, p, x, positions, use_kernel: bool = True):
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    dt = L.cdtype(cfg)
+    q = L.dense_apply(p["wq"], x, dt, use_kernel).reshape(b, s, cfg.num_heads, hd)
+    k = L.dense_apply(p["wk"], x, dt, use_kernel).reshape(b, s, cfg.num_kv_heads, hd)
+    v = L.dense_apply(p["wv"], x, dt, use_kernel).reshape(b, s, cfg.num_kv_heads, hd)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
+               kind: str = "paged", page_size: int | None = None,
+               pages: int | None = None, mapped: bool = True, device=None):
+    """One attention layer's KV cache: ``"paged"`` or ``"dense"``."""
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "sliding-window models serve through the ring cache, which "
+            "this slice has not ported")
+    if kind == "paged":
+        return kv_cache.paged_init(
+            batch, max_len, cfg.num_kv_heads, cfg.head_dim, dtype,
+            page_size=page_size or kv_cache.DEFAULT_PAGE_SIZE, pages=pages,
+            mapped=mapped, device=device)
+    if kind == "dense":
+        return kv_cache.dense_init(batch, max_len, cfg.num_kv_heads,
+                                   cfg.head_dim, dtype, device=device)
+    raise NotImplementedError(f"cache kind {kind!r} is not ported "
+                              "(ported: 'paged', 'dense')")
+
+
+def _finish(cfg: ModelConfig, p, out, use_kernel: bool = True):
+    """[B, Hq, S, hd] attention (f32, or the compute dtype from the
+    flash kernel) -> output projection."""
+    b, _, s, _ = out.shape
+    out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return L.dense_apply(p["wo"], out.to(L.cdtype(cfg)), L.cdtype(cfg), use_kernel)
+
+
+def decode_step(cfg: ModelConfig, p, x, cache, pos, start=None,
+                use_kernel: bool = True):
+    """One-token decode.  x: [B, 1, D]; pos: [B] int32 (or a scalar).
+    Returns (y [B, 1, D], cache written in place)."""
+    b = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    per_seq = pos.dim() > 0
+    pos_b = pos.expand(b)
+    start_b = (torch.zeros((b,), dtype=torch.int32, device=x.device)
+               if start is None else
+               torch.as_tensor(start, dtype=torch.int32, device=x.device).expand(b))
+    positions = (pos_b - start_b)[:, None]
+    q, k, v = _project(cfg, p, x, positions, use_kernel)       # q: [B,1,H,hd]
+
+    new = cache.write_token(k, v, pos, per_seq)
+    view = new.token_view(pos_b, start_b)
+    if isinstance(view, kv_cache.PagedView):
+        out = paged_ops.paged_attention(
+            q.transpose(1, 2), view.k, view.v, view.block_table, pos_b,
+            start_b, page_size=view.page_size, use_kernel=use_kernel)
+        return _finish(cfg, p, out, use_kernel), new
+    kop, vop, _, _, valid = view
+    out = attn_ops.masked_attention(
+        q.transpose(1, 2), kop.transpose(1, 2), vop.transpose(1, 2),
+        valid=valid[:, None, :], use_kernel=use_kernel)
+    return _finish(cfg, p, out, use_kernel), new
+
+
+def prefill_step(cfg: ModelConfig, p, x, cache, start=None, pos0: int = 0,
+                 use_kernel: bool = True):
+    """Prompt-chunk forward with KV write-through at positions
+    ``pos0 .. pos0+S-1``.  x: [B, S, D] -> (y [B, S, D], cache).  The
+    queries attend over the retained context ``[0, pos0)`` read after
+    the write (the chunk's positions are disjoint from it) plus the
+    chunk itself, through the masked flash kernel."""
+    b, s, _ = x.shape
+    pos0 = int(pos0)
+    cols = pos0 + torch.arange(s, dtype=torch.int32, device=x.device)
+    start_b = (torch.zeros((b,), dtype=torch.int32, device=x.device)
+               if start is None else
+               torch.as_tensor(start, dtype=torch.int32, device=x.device).expand(b))
+    positions = cols[None, :] - start_b[:, None]             # [B, S] relative
+    q, k, v = _project(cfg, p, x, positions, use_kernel)
+
+    new, kf, vf, _, _ = cache.write_prompt(k, v, pos0)
+    kc, vc, _, _, ctx = new.context(pos0)
+    kop = kf if kc is None else torch.cat([kc, kf.to(kc.dtype)], dim=1)
+    vop = vf if vc is None else torch.cat([vc, vf.to(vc.dtype)], dim=1)
+    # kv column j holds position pos0 - ctx + j; q row t sits at ctx + t
+    start_local = torch.clamp_min(start_b - (pos0 - ctx), 0)
+    out = attn_ops.masked_attention(
+        q.transpose(1, 2), kop.transpose(1, 2), vop.transpose(1, 2),
+        start=start_local, q_offset=ctx, use_kernel=use_kernel)
+    return _finish(cfg, p, out, use_kernel), new

@@ -1,0 +1,206 @@
+"""Decoder-only LM for serving (port of ``repro/models/transformer.py``).
+
+The reference stacks each group position's params ``[G, ...]`` and
+traverses them with ``jax.lax.scan``; the port keeps one param dict per
+layer under ``params["layers"]`` (layer ``g * len(group) + i`` has spec
+``cfg.group[i]``) and loops over the layers.  This slice serves
+attention + dense-FFN layers; ``ssm``/``moe`` layer specs raise
+``NotImplementedError``, as does the full-sequence forward without a
+cache (it needs the unmasked flash kernel).
+
+``Model(..., use_kernels=False)`` runs every kernel's plain PyTorch
+version instead, on any device — the explicit switch a kernel-vs-plain
+comparison uses.  By default the kernels run on CUDA tensors and the
+plain versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, layers as L
+from repro_torch.quant.quantize import quantize_params
+
+
+def _check_spec(spec):
+    mixer, ffn = spec
+    if mixer != "attn" or ffn not in ("dense", "none"):
+        raise NotImplementedError(
+            f"layer spec {spec} is not ported yet: this slice serves "
+            "attention + dense-FFN layers (SSM and MoE are later slices)")
+
+
+class Model:
+    """Serving model: init / apply (cache write-through prefill) /
+    init_cache / prefill / decode_step."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 use_kernels: bool = True):
+        for spec in cfg.group:
+            _check_spec(spec)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.use_kernels = use_kernels
+
+    def _specs(self):
+        return [self.cfg.group[i % len(self.cfg.group)]
+                for i in range(self.cfg.num_layers)]
+
+    # .. params ..
+    def init_layer(self, generator, spec):
+        cfg = self.cfg
+        mixer, ffn = spec
+        p = {"mixer_norm": L.norm_init(cfg, cfg.d_model, generator.device),
+             "mixer": attention.init(generator, cfg)}
+        if ffn == "dense":
+            p["ffn_norm"] = L.norm_init(cfg, cfg.d_model, generator.device)
+            p["ffn"] = L.mlp_init(generator, cfg)
+        return p
+
+    def init(self, generator: torch.Generator, quant: QuantConfig | None = None):
+        """Random params from ``generator`` (on the model's device).  With
+        ``quant``, each layer is quantized as soon as it is made, so the
+        float weights of all layers never sit on the device at once."""
+        cfg = self.cfg
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on {self.device}")
+        params = {"embed": L.embed_init(generator, cfg),
+                  "final_norm": L.norm_init(cfg, cfg.d_model, self.device)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(generator, cfg, cfg.d_model,
+                                             cfg.padded_vocab)
+        layers = []
+        for i, spec in enumerate(self._specs()):
+            layer = self.init_layer(generator, spec)
+            if quant is not None:
+                layer = quantize_params(layer, quant, f"/layers/{i}")
+            layers.append(layer)
+        params["layers"] = layers
+        return params
+
+    # .. serving prefill ..
+    def apply(self, params, tokens=None, *, cache=None,
+              write_cache: bool = False, last_only: bool = False,
+              pad_mask=None, pos0: int = 0, start=None,
+              need_logits: bool = True):
+        """Cache write-through prefill of chunk ``[pos0, pos0+S)``.
+        ``pad_mask`` ([B, S] bool, True = real token) marks LEFT padding
+        of the first chunk; ``start`` overrides the pad count derived
+        from it.  Returns {"logits", "cache"}."""
+        cfg = self.cfg
+        if not write_cache:
+            raise NotImplementedError(
+                "the full-sequence forward without a cache needs the "
+                "unmasked flash_attention kernel (ROADMAP: still to port)")
+        if cache is None:
+            raise ValueError("write_cache=True requires a cache from init_cache")
+        cpos = torch.as_tensor(cache["pos"]).cpu()
+        if bool((cpos != pos0).any()):
+            raise ValueError(f"write_cache prefill chunk at pos0={pos0} "
+                             f"requires the cache there; got pos={cpos.tolist()}")
+        x = L.embed_apply(cfg, params["embed"], tokens)
+        s = x.shape[1]
+        if start is None and pad_mask is not None and pos0 == 0:
+            start = s - pad_mask.to(torch.int32).sum(dim=1)
+        if start is not None:
+            start = start.to(torch.int32)
+        layers = list(cache["layers"])
+        for i, spec in enumerate(self._specs()):
+            p = params["layers"][i]
+            h = L.norm_apply(cfg, p["mixer_norm"], x)
+            y, layers[i] = attention.prefill_step(
+                cfg, p["mixer"], h, layers[i], start=start, pos0=pos0,
+                use_kernel=self.use_kernels)
+            x = x + y
+            if spec[1] == "dense":
+                h = L.norm_apply(cfg, p["ffn_norm"], x)
+                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels)
+        new_cache = dict(cache)
+        new_cache["layers"] = layers
+        new_cache["pos"] = cache["pos"] + s
+        if start is not None:
+            new_cache["start"] = start
+        out = {"cache": new_cache}
+        if not need_logits:
+            return out
+        if last_only:
+            x = x[:, -1:, :]
+        x = L.norm_apply(cfg, params["final_norm"], x)
+        out["logits"] = L.lm_head_apply(cfg, params.get("lm_head"),
+                                        params["embed"], x)
+        return out
+
+    # .. decode ..
+    def init_cache(self, batch: int, max_len: int, kind: str = "paged",
+                   **cache_kw):
+        """One KV backend per layer (``"paged"`` or ``"dense"``);
+        ``cache_kw`` (page_size, pages, mapped) configures the paged pool."""
+        cfg = self.cfg
+        layers = [attention.init_cache(cfg, batch, max_len, L.cdtype(cfg),
+                                       kind=kind, device=self.device,
+                                       **cache_kw)
+                  for _ in range(cfg.num_layers)]
+        return {"layers": layers, "pos": 0}
+
+    def decode_step(self, params, cache, tokens):
+        """One token for the whole batch.  tokens: [B] int.  ``cache["pos"]``
+        is an int or a [B] int32 tensor; ``cache.get("start")`` marks
+        left-pad slots.  Returns (logits [B, V], cache)."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        start = cache.get("start")
+        x = L.embed_apply(cfg, params["embed"], tokens[:, None])
+        layers = list(cache["layers"])
+        for i, spec in enumerate(self._specs()):
+            p = params["layers"][i]
+            h = L.norm_apply(cfg, p["mixer_norm"], x)
+            y, layers[i] = attention.decode_step(
+                cfg, p["mixer"], h, layers[i], pos, start=start,
+                use_kernel=self.use_kernels)
+            x = x + y
+            if spec[1] == "dense":
+                h = L.norm_apply(cfg, p["ffn_norm"], x)
+                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels)
+        x = L.norm_apply(cfg, params["final_norm"], x)
+        logits = L.lm_head_apply(cfg, params.get("lm_head"), params["embed"], x)
+        new_cache = dict(cache)
+        new_cache["layers"] = layers
+        new_cache["pos"] = pos + 1
+        return logits[:, 0], new_cache
+
+    def prefill(self, params, cache, tokens, pad_mask=None,
+                chunk: int | None = None, pos0: int = 0):
+        """Batched serving prefill: (last-token logits [B, V], cache at
+        pos0 + S0).  ``chunk`` (or ``cfg.prefill_chunk``) splits the
+        prompt into cache-write-through chunks."""
+        s0 = tokens.shape[1]
+        if pos0 and pad_mask is not None:
+            raise ValueError("pos0 > 0 resumes an unpadded prompt; pad_mask "
+                             "is unsupported on the resumed-suffix path")
+        chunk = chunk if chunk is not None else self.cfg.prefill_chunk
+        width = cache["layers"][0].width
+        if chunk is None and pos0 + s0 <= width:
+            out = self.apply(params, tokens, cache=cache, write_cache=True,
+                             last_only=True, pad_mask=pad_mask, pos0=pos0)
+            return out["logits"][:, 0], out["cache"]
+        c = max(int(min(chunk or width, width)), 1)
+        start = None
+        if pad_mask is not None:
+            start = s0 - pad_mask.to(torch.int32).sum(dim=1)
+        logits = None
+        for lo in range(0, s0, c):
+            hi = min(lo + c, s0)
+            out = self.apply(params, tokens[:, lo:hi], cache=cache,
+                             write_cache=True, last_only=True,
+                             pos0=pos0 + lo, start=start,
+                             need_logits=(hi == s0))
+            cache = out["cache"]
+            if hi == s0:
+                logits = out["logits"][:, 0]
+        return logits, cache
+
+
+def build_model(cfg: ModelConfig, **kw) -> Model:
+    return Model(cfg, **kw)
