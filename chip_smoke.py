@@ -6,24 +6,33 @@
 Phases (each prints its seconds; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+2. build the four CUDA sources from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (kernel 1 bit for bit; kernels 2 and 3 in bf16 and
-   float32 within limits derived from the data, see TOL_BF16), check that
-   planted faults (a wrong plane code, a wrong mask argument) fail those
-   checks, and time kernel, plain version and a library yardstick with
-   CUDA events (L2 flushed before every launch);
+   main paths' shapes: the four serving matmuls (packed fused EN-T,
+   w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
+   projection shapes, with the EN-T identity (all four int32
+   accumulators equal); the flash and paged attention kernels, the
+   latter with bf16 pools and with int8 pools + bf16 scales, in bf16 and
+   float32 within limits derived from the data (see TOL_BF16).  Planted
+   faults (a wrong weight or plane code, a wrong mask argument, a wrong
+   scale pool) must fail those checks.  Kernel, plain version and a
+   library yardstick are timed with CUDA events (L2 flushed before every
+   launch);
 4. serve 16 ragged greedy requests (prompts 256..512 tokens, 32 new
-   tokens each) on EN-T-quantized qwen2.5-3b at full width (36 layers,
-   random weights from a seed) through ``repro_torch.launch.serve``'s
-   code, asserting every kernel launched and no plain version ran, and
-   profile full-batch decode ticks; then one prefill + 4 decode ticks of
-   the same widths at 2 layers with the kernels and with the plain
-   versions, compared (bf16 and float32 with EN-T weights, float32 with
-   float weights), and with planted mask faults that the limits must
-   reject;
-5. a ``kernels`` JSON line, the card line, and the final result line.
+   tokens each) on qwen2.5-3b at full width (36 layers, random weights
+   from a seed) through ``repro_torch.launch.serve``'s code, in two
+   configurations: EN-T w8a8 with a bf16 KV cache, and w8a8 int8
+   (``QuantConfig(ent_encode=False)``) with an int8 KV cache.  Each
+   asserts that the kernels of its path launched, no other serving
+   kernel and no plain version ran, and profiles full-batch decode
+   ticks;
+5. one prefill + 4 decode ticks of the same widths at 2 layers with the
+   kernels and with the plain versions, compared (bf16 and float32 with
+   EN-T weights, float32 with float weights, bf16 with int8 weights and
+   int8 KV, bf16 with legacy 4-plane records), and with planted mask and
+   scale faults that the limits must reject;
+6. a ``kernels`` JSON line, the card line, and the final result line.
 
 Without a CUDA card it prints nothing but an error and exits 2.
 """
@@ -42,6 +51,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+DEV = "cuda"
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
@@ -90,7 +100,7 @@ class Timer:
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+        self.flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEV)
 
     def __call__(self, fn, reps=15):
         torch = self.torch
@@ -114,59 +124,102 @@ def bound_ms(nbytes, ops, peak_ops):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def check_ent_matmul(torch, timer):
+def check_matmuls(torch, timer):
+    """The four serving matmuls at the full-width projection shapes:
+    kernel 1 (``ent_matmul_packed_fused``) and kernels A (``int8_matmul``),
+    C (``ent_matmul``, 4-plane) and D (``ent_matmul_packed``).  Each is
+    held bit for bit against its plain version; the four int32
+    accumulators at the same Xq (kernel 1 quantizes X with the same sx)
+    must all be equal, the EN-T identity; one planted fault per kernel
+    (one weight or plane code off by one) must fail the exact check; and
+    all four, their plain versions and ``torch._int_mm`` are timed.
+    Returns {kernel name: [row per shape]}."""
     from repro_torch.core.multiplier import ent_packed_planes
-    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused
-    from repro_torch.kernels.ent_matmul.ops import row_scale
-    from repro_torch.kernels.ent_matmul.ref import (ent_packed_matmul_ref,
+    from repro_torch.kernels.ent_matmul.ent_matmul import (ent_matmul, ent_matmul_packed,
+                                                           ent_matmul_packed_fused)
+    from repro_torch.kernels.ent_matmul.ops import encode_weights, row_scale
+    from repro_torch.kernels.ent_matmul.ref import (ent_matmul_ref, ent_packed_matmul_ref,
                                                     quantize_with_scale)
-    g = torch.Generator(device="cuda").manual_seed(11)
-    rows = []
+    from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref, int8_matmul_ref
+    g = torch.Generator(device=DEV).manual_seed(11)
+    rows = {n: [] for n in ("ent_matmul_packed_fused", "int8_matmul", "ent_matmul",
+                            "ent_matmul_packed")}
     for k, n in [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]:
-        w8 = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV,
                            dtype=torch.int8)
         packed = ent_packed_planes(w8).contiguous()
-        sw = torch.rand((1, n), generator=g, device="cuda") * 1e-2 + 1e-4
+        planes = encode_weights(w8).contiguous()
+        sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
         for m in (8, 512):
-            x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+            x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
             sx = row_scale(x)
-            got = ent_matmul_packed_fused(x, packed, sx, sw)
-            plain = lambda: ent_packed_matmul_ref(quantize_with_scale(x, sx),
-                                                  packed, sx, sw)
-            want = plain()
-            torch.cuda.synchronize()
-            exact = torch.equal(got, want)
-            err = float((got - want).abs().max())
-            if not exact:
-                raise AssertionError(f"ent_matmul_packed_fused M={m} K={k} N={n}: "
-                                     f"not bit-identical to the plain version "
-                                     f"(max abs err {err})")
-            if m == 8 and n == k:   # planted fault: one plane code off by one
-                bad = packed.clone()
-                bad[0, 0, 0] += 1 if int(bad[0, 0, 0]) < 10 else -1
-                n_bad = int((ent_matmul_packed_fused(x, bad, sx, sw) != want).sum())
-                print(f"  planted fault 'one plane code off by one': {n_bad} of "
-                      f"{m * n} outputs differ", flush=True)
-                if not n_bad:
-                    raise AssertionError("the exact check misses a wrong plane code")
-            ms = timer(lambda: ent_matmul_packed_fused(x, packed, sx, sw))
-            plain_ms = timer(plain, reps=5)
             xq = quantize_with_scale(x, sx)
+            # name -> (kernel on weights w, weights, plain version, planes, x bytes)
+            cases = {
+                "ent_matmul_packed_fused": (
+                    lambda w, o=torch.float32: ent_matmul_packed_fused(x, w, sx, sw, o),
+                    packed, lambda: ent_packed_matmul_ref(xq, packed, sx, sw), 2, 2),
+                "int8_matmul": (
+                    lambda w, o=torch.float32: int8_matmul(xq, w, sx, sw, o),
+                    w8, lambda: int8_matmul_ref(xq, w8, sx, sw, torch.float32), 1, 1),
+                "ent_matmul": (
+                    lambda w, o=torch.float32: ent_matmul(xq, w, sx, sw, o),
+                    planes, lambda: ent_matmul_ref(xq, planes, sx, sw), 4, 1),
+                "ent_matmul_packed": (
+                    lambda w, o=torch.float32: ent_matmul_packed(xq, w, sx, sw, o),
+                    packed, lambda: ent_packed_matmul_ref(xq, packed, sx, sw), 2, 1),
+            }
+            # the EN-T identity: one int32 accumulator for all four
+            acc = int8_matmul_int32_ref(xq, w8)
+            for name, (kern, w, _, _, _) in cases.items():
+                got = kern(w, torch.int32)
+                torch.cuda.synchronize()
+                if not torch.equal(got, acc):
+                    raise AssertionError(f"EN-T identity: {name} M={m} K={k} N={n}: int32 "
+                                         f"accumulator differs from X @ W in "
+                                         f"{int((got != acc).sum())} places")
             xq_lib = torch.cat([xq, xq.new_zeros((max(0, 32 - m), k))]) if m < 32 else xq
             try:   # w8a8 yardstick: one int8 GEMM (M padded to 32 rows)
                 library_ms = timer(lambda: torch._int_mm(xq_lib, w8))
             except RuntimeError as e:
                 print(f"  torch._int_mm unavailable: {e}")
                 library_ms = None
-            nbytes = m * k * 2 + 2 * k * n + 4 * m + 4 * n + 4 * m * n
-            b, by = bound_ms(nbytes, 2 * 2 * m * k * n, INT8_OPS_S)
-            print(f"kernel ent_matmul_packed_fused M={m} K={k} N={n} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
-                  f"bound_ms={b:.4f} ({by}) max_abs_err={err} bit_exact={exact}",
-                  flush=True)
-            rows.append(dict(M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=b, bound_by=by,
-                             max_abs_err=err))
+            for name, (kern, w, plain, nplanes, x_bytes) in cases.items():
+                got, want = kern(w), plain()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} M={m} K={k} N={n}: not bit-identical "
+                                         f"to the plain version (max abs err {err})")
+                if name == "int8_matmul" and not torch.equal(
+                        kern(w, torch.bfloat16),
+                        int8_matmul_ref(xq, w8, sx, sw, torch.bfloat16)):
+                    raise AssertionError(f"int8_matmul M={m} K={k} N={n}: bf16 output "
+                                         f"not bit-identical")
+                if m == 8 and n == k:   # planted fault: one weight/plane code off by one
+                    bad = w.clone()
+                    flat = bad.view(-1)
+                    flat[0] += 1 if int(flat[0]) < 1 else -1
+                    n_bad = int((kern(bad) != want).sum())
+                    print(f"  {name}: planted fault 'one code off by one': {n_bad} of "
+                          f"{m * n} outputs differ", flush=True)
+                    if not n_bad:
+                        raise AssertionError(f"{name}: the exact check misses a wrong code")
+                ms = timer(lambda: kern(w))
+                plain_ms = timer(plain, reps=5)
+                nbytes = m * k * x_bytes + nplanes * k * n + 4 * m + 4 * n + 4 * m * n
+                b, by = bound_ms(nbytes, nplanes * 2 * m * k * n, INT8_OPS_S)
+                print(f"kernel {name} M={m} K={k} N={n} ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
+                      f"bound_ms={b:.4f} ({by}) max_abs_err={err} bit_exact=True",
+                      flush=True)
+                rows[name].append(dict(M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
+                                       library_ms=library_ms, bound_ms=b, bound_by=by,
+                                       max_abs_err=err))
+    print("  EN-T identity: int8_matmul, ent_matmul (4-plane), ent_matmul_packed and "
+          "ent_matmul_packed_fused gave the same int32 accumulator at all 8 shapes",
+          flush=True)
     return rows
 
 
@@ -182,10 +235,12 @@ def attn_check(torch, what, kernel, plain, operands, faults):
     a wrong mask argument) must fail the float32 check.  Returns the bf16
     max abs error."""
     q, k, v, *rest = operands
-    att = plain(q.float(), k.float(), v.float().abs(), *rest)
+    # int8 KV pools stay int8 (their scales ride in ``rest``)
+    cast = lambda t, dt: t.to(dt) if t.is_floating_point() else t   # noqa: E731
+    att = plain(q.float(), cast(k, torch.float32), cast(v, torch.float32).abs(), *rest)
     reads = {}
     for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
-        ops = [t.to(dt) for t in (q, k, v)] + rest
+        ops = [cast(t, dt) for t in (q, k, v)] + rest
         got, want = kernel(*ops), plain(*ops)
         if not torch.isfinite(got).all():
             raise AssertionError(f"{what} {dt}: non-finite output")
@@ -211,14 +266,14 @@ def check_flash(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked
     from repro_torch.kernels.flash_attention.ref import masked_attention_ref
-    g = torch.Generator(device="cuda").manual_seed(12)
+    g = torch.Generator(device=DEV).manual_seed(12)
     rows = []
     for s, window in [(64, None), (200, None), (512, None), (512, 128)]:
         hq, hkv, d = 16, 2, 128
-        q = torch.randn((1, hq, s, d), generator=g, device="cuda").to(torch.bfloat16)
-        k = torch.randn((1, hkv, s, d), generator=g, device="cuda").to(torch.bfloat16)
-        v = torch.randn((1, hkv, s, d), generator=g, device="cuda").to(torch.bfloat16)
-        start = torch.tensor([s // 5], dtype=torch.int32, device="cuda")
+        q = torch.randn((1, hq, s, d), generator=g, device=DEV).to(torch.bfloat16)
+        k = torch.randn((1, hkv, s, d), generator=g, device=DEV).to(torch.bfloat16)
+        v = torch.randn((1, hkv, s, d), generator=g, device=DEV).to(torch.bfloat16)
+        start = torch.tensor([s // 5], dtype=torch.int32, device=DEV)
         faults = {"start + 1": lambda q, k, v, st: flash_attention_masked(
             q, k, v, st + 1, window=window)}
         if window:
@@ -233,8 +288,8 @@ def check_flash(torch, timer):
         plain = lambda: masked_attention_ref(q, k, v, start=start, window=window)
         ms = timer(lambda: flash_attention_masked(q, k, v, start, window=window))
         plain_ms = timer(plain, reps=5)
-        qp = torch.arange(s, device="cuda")[:, None]
-        kp = torch.arange(s, device="cuda")[None, :]
+        qp = torch.arange(s, device=DEV)[:, None]
+        kp = torch.arange(s, device=DEV)[None, :]
         mask = (kp <= qp) & (kp >= s // 5)
         if window:
             mask &= kp > qp - window
@@ -255,15 +310,27 @@ def check_flash(torch, timer):
     return rows
 
 
-def check_paged(torch, timer):
+def check_paged(torch, timer, int8_kv=False):
+    """The paged decode kernel at 8 slots against its plain version, with
+    bf16 pools or (``int8_kv``) int8 pools and bf16 scale pools as
+    ``quantize_kv`` writes them.  The int8 branch's limits are the same
+    att|v| multiples (TOL_BF16, TOL_F32), with att|v| the plain version
+    applied to |codes| and the same scales: the kernel and the plain
+    version both fold the V scale into the f32 probability before its
+    bf16 rounding, so the rounding argument above holds per column."""
     from repro_torch.kernels.paged_attention.paged_attention import paged_attention_kernel
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    g = torch.Generator(device="cuda").manual_seed(13)
+    from repro_torch.models.kv_cache import quantize_kv
+    g = torch.Generator(device=DEV).manual_seed(13)
     b, hq, hkv, d, page, pps = 8, 16, 2, 128, 16, 36
     npool = b * pps + 1
-    q = torch.randn((b, hq, 1, d), generator=g, device="cuda").to(torch.bfloat16)
-    kp = torch.randn((npool, page, hkv, d), generator=g, device="cuda").to(torch.bfloat16)
-    vp = torch.randn((npool, page, hkv, d), generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, hq, 1, d), generator=g, device=DEV).to(torch.bfloat16)
+    kp = torch.randn((npool, page, hkv, d), generator=g, device=DEV).to(torch.bfloat16)
+    vp = torch.randn((npool, page, hkv, d), generator=g, device=DEV).to(torch.bfloat16)
+    scales = ()
+    if int8_kv:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        scales = (ks, vs)
     pos = torch.tensor([300, 511, 270, 543, 289, 400, 17, 0], dtype=torch.int32)
     start = torch.tensor([0, 200, 14, 31, 0, 399, 3, 0], dtype=torch.int32)
     table = torch.zeros((b, pps), dtype=torch.int32)
@@ -273,82 +340,155 @@ def check_paged(torch, timer):
         table[i, :live] = perm[i * pps:i * pps + live].to(torch.int32)
     table[1, 3] = 0                 # null entries inside live ranges
     table[3, 10] = 0
-    table, pos, start = table.cuda(), pos.cuda(), start.cuda()
-    kernel = lambda q, kp, vp, pos: paged_attention_kernel(q, kp, vp, table, pos, start,
-                                                           page_size=page)
-    err = attn_check(
-        torch, "paged_attention_kernel", kernel,
-        lambda q, kp, vp, pos: paged_attention_ref(q, kp, vp, table, pos, start,
-                                                   page_size=page),
-        (q, kp, vp, pos), {"pos - 1": lambda q, kp, vp, pos: kernel(q, kp, vp, pos - 1)})
-    got = kernel(q, kp, vp, pos)
-    plain = lambda: paged_attention_ref(q, kp, vp, table, pos, start, page_size=page)
-    ms = timer(lambda: kernel(q, kp, vp, pos))
+    table, pos, start = table.to(DEV), pos.to(DEV), start.to(DEV)
+
+    def kernel(q, kp, vp, pos, ks=None, vs=None):
+        return paged_attention_kernel(q, kp, vp, table, pos, start, ks, vs,
+                                      page_size=page)
+
+    def plain_fn(q, kp, vp, pos, ks=None, vs=None):
+        return paged_attention_ref(q, kp, vp, table, pos, start, page_size=page,
+                                   k_scales=ks, v_scales=vs)
+
+    faults = {"pos - 1": lambda q, kp, vp, pos, *sc: kernel(q, kp, vp, pos - 1, *sc)}
+    if int8_kv:
+        faults["V scale not folded"] = lambda q, kp, vp, pos, ks, vs: kernel(
+            q, kp, vp, pos, ks, torch.ones_like(vs))
+        faults["K scale of the neighbouring page"] = lambda q, kp, vp, pos, ks, vs: kernel(
+            q, kp, vp, pos, ks.roll(1, 0), vs)
+    name = "paged_attention_kernel[int8_kv]" if int8_kv else "paged_attention_kernel"
+    err = attn_check(torch, name, kernel, plain_fn, (q, kp, vp, pos, *scales), faults)
+    got = kernel(q, kp, vp, pos, *scales)
+    plain = lambda: plain_fn(q, kp, vp, pos, *scales)   # noqa: E731
+    ms = timer(lambda: kernel(q, kp, vp, pos, *scales))
     plain_ms = timer(plain, reps=5)
     # what this run's data needs: live (non-null, in-band) pages, valid columns
-    cols = torch.arange(pps * page, device="cuda")[None, :]
+    cols = torch.arange(pps * page, device=DEV)[None, :]
     mapped = torch.repeat_interleave(table != 0, page, dim=1)
     valid = mapped & (cols <= pos[:, None]) & (cols >= start[:, None])
     live_pages = int(valid.reshape(b, pps, page).any(-1).sum())
-    nbytes = (q.numel() * 2 + live_pages * page * hkv * d * 2 * 2
+    # K and V pages (with their bf16 row scales when int8) read once
+    row_bytes = (d + 2) if int8_kv else 2 * d
+    nbytes = (q.numel() * 2 + live_pages * page * hkv * row_bytes * 2
               + table.numel() * 4 + 8 * b + got.numel() * 4)
     bnd, by = bound_ms(nbytes, int(valid.sum()) * hq * d * 4, BF16_FLOPS_S)
-    print(f"kernel paged_attention_kernel B={b} Hq={hq} Hkv={hkv} D={d} page={page} "
+    print(f"kernel {name} B={b} Hq={hq} Hkv={hkv} D={d} page={page} "
           f"pps={pps} live_pages={live_pages} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms=None bound_ms={bnd:.5f} ({by}) max_abs_err={err}", flush=True)
     return [dict(B=b, live_pages=live_pages, ms=ms, plain_ms=plain_ms,
                  library_ms=None, bound_ms=bnd, bound_by=by, max_abs_err=err)]
 
 
-def serve_full_width(torch):
-    import numpy as np
-    from repro_torch.configs import get_config
+def wrappers(torch):
+    """Every kernel wrapper of the port (name -> wrapper with its
+    ``launches`` count) and every ops-level plain route (with its
+    ``plain_launches`` count)."""
     from repro_torch.kernels.ent_matmul import ops as ent_ops
-    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused
+    from repro_torch.kernels.ent_matmul.ent_matmul import (ent_matmul, ent_matmul_packed,
+                                                           ent_matmul_packed_fused)
     from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked
+    from repro_torch.kernels.int8_matmul import ops as int8_ops
+    from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.paged_attention import paged_attention_kernel
+    kernels = (ent_matmul_packed_fused, flash_attention_masked, paged_attention_kernel,
+               int8_matmul, ent_matmul, ent_matmul_packed)
+    plains = (ent_ops.ent_quantized_matmul_fused, ent_ops.ent_quantized_matmul,
+              ent_ops.ent_quantized_matmul_packed, int8_ops.quantized_matmul,
+              attn_ops.masked_attention, paged_ops.paged_attention)
+    return kernels, plains, paged_attention_kernel
+
+
+def reset_counts(torch):
+    kernels, plains, paged = wrappers(torch)
+    for f in kernels:
+        f.launches = 0
+    paged.int8_kv_launches = 0
+    for f in plains:
+        f.plain_launches = 0
+
+
+def read_counts(torch):
+    """(kernel launches by JSON name, plain versions run by op name)."""
+    kernels, plains, paged = wrappers(torch)
+    launches = {f.__name__: f.launches for f in kernels}
+    launches["paged_attention_kernel"] = paged.launches - paged.int8_kv_launches
+    launches["paged_attention_kernel[int8_kv]"] = paged.int8_kv_launches
+    return launches, {f.__name__: f.plain_launches for f in plains}
+
+
+# the serving configurations chip_smoke runs at full width: name ->
+# (launch.build keyword arguments, kernels that must launch, kernels that
+# must not)
+SERVE_CONFIGS = {
+    "EN-T w8a8, bf16 KV": (
+        dict(quantize=True),
+        ("ent_matmul_packed_fused", "flash_attention_masked", "paged_attention_kernel"),
+        ("int8_matmul", "paged_attention_kernel[int8_kv]")),
+    "w8a8 int8, int8 KV": (
+        dict(quant="int8", kv_quant=True),
+        ("int8_matmul", "flash_attention_masked", "paged_attention_kernel[int8_kv]"),
+        ("ent_matmul_packed_fused", "paged_attention_kernel")),
+}
+
+
+def build_kw(kw):
+    from repro_torch.configs.base import QuantConfig
+    if kw.get("quant") == "int8":   # the plain int8 records of launch/specs.py:111-113
+        kw = dict(kw, quant=QuantConfig(enabled=True, ent_encode=False))
+    return kw
+
+
+def serve_full_width(torch, config):
+    """Serve 16 ragged greedy requests on full-width qwen2.5-3b in one of
+    SERVE_CONFIGS; every kernel of its path must launch (counts set to 0
+    just before the run and read just after), no other serving kernel
+    and no plain version may.  Returns (launches, tokens/s)."""
+    import numpy as np
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch
     from repro_torch.runtime.serve_loop import ServeEngine
 
+    kw, must, must_not = SERVE_CONFIGS[config]
     cfg = get_config("qwen2.5-3b")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, params = launch.build(cfg, quantize=True, seed=0)
+    model, params = launch.build(cfg, seed=0, **build_kw(kw))
     torch.cuda.synchronize()
     print(f"qwen2.5-3b full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}): init + EN-T encode {time.perf_counter() - t0:.2f}s, "
+          f"{cfg.vocab_size}), {config}: init + quantize {time.perf_counter() - t0:.2f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
     engine = ServeEngine(model, params, slots=8, max_len=576, page_size=16,
                          prefix_cache=False, seed=0)
     rng = np.random.default_rng(0)
     prompts = launch.ragged_prompts(rng, 16, 256, 512, cfg.vocab_size)
-    counters = (ent_matmul_packed_fused, flash_attention_masked, paged_attention_kernel)
-    plains = (ent_ops.ent_quantized_matmul_fused, attn_ops.masked_attention,
-              paged_ops.paged_attention)
-    for f in counters:
-        f.launches = 0
-    for f in plains:
-        f.plain_launches = 0
+    reset_counts(torch)
     results, dt = launch.serve(engine, prompts, max_new_tokens=32)
-    launches = {f.__name__: f.launches for f in counters}
+    launches, plain_runs = read_counts(torch)
     engine.check_leaks()
     if sorted(results) != list(range(16)) or any(len(v) != 32 for v in results.values()):
         raise AssertionError(f"serve: {len(results)} results, lengths "
                              f"{sorted(len(v) for v in results.values())}")
-    if any(v < 1 for v in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    plain_runs = {f.__name__: f.plain_launches for f in plains}
+    if any(launches[n] < 1 for n in must):
+        raise AssertionError(f"{config}: a kernel of the path never launched: {launches}")
+    if any(launches[n] for n in must_not):
+        raise AssertionError(f"{config}: kernels of another path launched: {launches}")
     if any(plain_runs.values()):
-        raise AssertionError(f"plain versions ran on the main path: {plain_runs}")
+        raise AssertionError(f"{config}: plain versions ran on the path: {plain_runs}")
     toks = sum(len(v) for v in results.values())
-    per_layer = launches["paged_attention_kernel"] // cfg.num_layers
-    print(f"serve: 16 requests (prompts {min(map(len, prompts))}..{max(map(len, prompts))}"
-          f" tokens) x 32 new tokens on 8 slots: {toks} tokens in {dt:.3f}s = "
-          f"{toks / dt:.2f} tok/s; decode ticks {per_layer}, prefills "
+    layers = engine.cache["layers"]
+    pool = engine.pool_bytes
+    bf16_pool = sum(2 * c.k.numel() * 2 for c in layers)   # the same pools in bf16
+    ticks = max(launches[n] for n in ("paged_attention_kernel",
+                                      "paged_attention_kernel[int8_kv]")) // cfg.num_layers
+    print(f"serve [{config}]: 16 requests (prompts {min(map(len, prompts))}.."
+          f"{max(map(len, prompts))} tokens) x 32 new tokens on 8 slots: {toks} tokens in "
+          f"{dt:.3f}s = {toks / dt:.2f} tok/s; decode ticks {ticks}, prefills "
           f"{launches['flash_attention_masked'] // cfg.num_layers}; launches {launches}; "
-          f"plain versions run {plain_runs}; peak "
+          f"plain versions run {plain_runs}; KV pools {pool} bytes ({pool / 2**20:.1f} MiB, "
+          f"{pool / bf16_pool:.4f} of the {bf16_pool} bytes of bf16 pools); peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_decode_ticks(torch, engine, prompts[:8])
     del engine, params, model
@@ -393,10 +533,11 @@ def profile_decode_ticks(torch, engine, prompts, ticks=3):
     engine.check_leaks()
 
 
-def e2e_faults(torch):
+def e2e_faults(torch, kv_quant):
     """Planted faults for the end-to-end comparison: each replaces one
     kernel wrapper, as its ops module calls it, with the real wrapper fed
-    one wrong mask argument.  name -> (module, attribute, wrap)."""
+    one wrong mask argument (or, with an int8 KV cache, one wrong scale
+    pool).  name -> (module, attribute, wrap)."""
     from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
 
@@ -408,7 +549,15 @@ def e2e_faults(torch):
         return g
 
     paged = (paged_ops, "paged_attention_kernel")
+    scale_faults = {
+        "decode ignores the V scale": (*paged, lambda f: lambda q, kp, vp, t, pos, st, ks, vs, **kw:
+                                       f(q, kp, vp, t, pos, st, ks, torch.ones_like(vs), **kw)),
+        "decode reads the neighbouring page's K scale": (
+            *paged, lambda f: lambda q, kp, vp, t, pos, st, ks, vs, **kw:
+            f(q, kp, vp, t, pos, st, ks.roll(1, 0), vs, **kw)),
+    } if kv_quant else {}
     return {
+        **scale_faults,
         "decode misses its own token (pos - 1)": (*paged, lambda f: lambda q, kp, vp, t, pos, st, *a, **kw:
                                                   f(q, kp, vp, t, pos - 1, st, *a, **kw)),
         "decode skips the page holding pos": (*paged, skip_pos_page),
@@ -430,21 +579,42 @@ def planted(module, name, wrap):
         setattr(module, name, real)
 
 
-def kernels_vs_plain_end_to_end(torch, compute_dtype, quantize, bound):
+def with_legacy_planes(params):
+    """Give every plane-less int8 record its legacy 4-plane ``planes``
+    (``ent_ops.encode_weights``), as old checkpoints hold them, so that
+    ``qdense_apply`` serves it through the 4-plane kernel."""
+    from repro_torch.kernels.ent_matmul.ops import encode_weights
+    if isinstance(params, dict):
+        if "q" in params:
+            return dict(params, planes=encode_weights(params["q"]))
+        return {k: with_legacy_planes(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [with_legacy_planes(v) for v in params]
+    return params
+
+
+# weights of the end-to-end runs -> launch.build keyword arguments
+E2E_WEIGHTS = {"float": {}, "EN-T": dict(quantize=True), "int8": dict(quant="int8"),
+               "4-plane": dict(quant="int8")}
+
+
+def kernels_vs_plain_end_to_end(torch, compute_dtype, weights, bound, kv_quant=False):
     """One prefill (2 x 256 tokens, one left-padded to 200) + 4 decode
     ticks of full-width qwen2.5-3b at 2 layers, with the kernels and with
     the plain versions (``use_kernels=False``), on the same
     teacher-forced tokens; fails when the logits' relative L2 difference
     exceeds ``bound``, or when a planted fault (``e2e_faults``) stays
-    within it.  Per call the kernels agree with the plain versions
-    (kernel 1 bit for bit, float32 attention to ~1e-6); with EN-T weights
-    every projection re-quantizes its input to int8, so the first code
-    that a last-bit difference flips re-draws the rounding of everything
-    downstream, and the quantized runs differ by int8 rounding noise
-    (~1e-2 relative) however small the kernel error.  Also prints the
-    free-running difference (each path fed its own greedy tokens), which
-    is not bounded: once one greedy token differs, the two paths decode
-    different inputs."""
+    within it.  Per call the kernels agree with the plain versions (the
+    matmuls bit for bit, float32 attention to ~1e-6); with quantized
+    weights every projection re-quantizes its input to int8, so the first
+    code that a last-bit difference flips re-draws the rounding of
+    everything downstream, and the quantized runs differ by int8 rounding
+    noise (~1e-2 relative) however small the kernel error.  An int8 KV
+    cache re-quantizes every K/V row on its way in, with the same effect.
+    Also prints the free-running difference (each path fed its own greedy
+    tokens), which is not bounded: once one greedy token differs, the two
+    paths decode different inputs.  Returns the kernel launches of the
+    kernel run (counts set to 0 just before it)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch
@@ -452,13 +622,18 @@ def kernels_vs_plain_end_to_end(torch, compute_dtype, quantize, bound):
 
     cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2,
                               compute_dtype=compute_dtype)
-    model, params = launch.build(cfg, quantize=quantize, seed=1)
-    plain_model = Model(cfg, use_kernels=False)
+    model, params = launch.build(cfg, seed=1, kv_quant=kv_quant,
+                                 **build_kw(E2E_WEIGHTS[weights]))
+    if weights == "4-plane":
+        params = with_legacy_planes(params)
+    plain_model = Model(cfg, use_kernels=False, kv_quant=kv_quant)
+    label = f"{weights} weights{', int8 KV' if kv_quant else ''}"
     rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256))).cuda()
-    mask = torch.ones((2, 256), dtype=torch.bool, device="cuda")
+    dev = model.device
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256))).to(dev)
+    mask = torch.ones((2, 256), dtype=torch.bool, device=dev)
     mask[1, :56] = False
-    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2))).cuda()
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2))).to(dev)
 
     def run(m, teacher_forced=True):
         cache = m.init_cache(2, 288, kind="paged")
@@ -473,21 +648,26 @@ def kernels_vs_plain_end_to_end(torch, compute_dtype, quantize, bound):
     def rel(a, b):
         return float((a - b).norm() / b.norm())
 
-    a, b = run(model), run(plain_model)
+    reset_counts(torch)
+    a = run(model)
+    launches, plain_runs = read_counts(torch)
+    if any(plain_runs.values()):
+        raise AssertionError(f"{label}: the kernel run ran plain versions {plain_runs}")
+    b = run(plain_model)
     if a.shape != (5, 2, cfg.padded_vocab) or not torch.isfinite(a).all():
         raise AssertionError(f"logits shape {tuple(a.shape)} / finite "
                              f"{bool(torch.isfinite(a).all())}")
     diff, sound = float((a - b).abs().max()), rel(a, b)
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
     fa, fb = run(model, False), run(plain_model, False)
-    print(f"2-layer full width, {compute_dtype}, "
-          f"{'EN-T int8' if quantize else 'float'} weights: prefill + 4 decode ticks, kernels "
+    print(f"2-layer full width, {compute_dtype}, {label}: prefill + 4 decode ticks, kernels "
           f"vs plain: logits max abs diff {diff:.3e} (max |logit| "
           f"{float(b.abs().max()):.3e}), relative L2 {sound:.3e} (limit {bound}), "
           f"greedy agreement {agree:.3f}; free-running: max abs diff "
-          f"{float((fa - fb).abs().max()):.3e}, relative L2 {rel(fa, fb):.3e}", flush=True)
+          f"{float((fa - fb).abs().max()):.3e}, relative L2 {rel(fa, fb):.3e}; "
+          f"kernel launches {launches}", flush=True)
     missed = []
-    for name, (module, attr, wrap) in e2e_faults(torch).items():
+    for name, (module, attr, wrap) in e2e_faults(torch, kv_quant).items():
         with planted(module, attr, wrap):
             reading = rel(run(model), b)
         caught = reading > bound
@@ -497,10 +677,10 @@ def kernels_vs_plain_end_to_end(torch, compute_dtype, quantize, bound):
             missed.append(name)
     if sound > bound:
         raise AssertionError(f"kernel path disagrees with the plain path "
-                             f"({compute_dtype}, quantize={quantize}: relative "
-                             f"L2 {sound} > {bound})")
+                             f"({compute_dtype}, {label}: relative L2 {sound} > {bound})")
     if missed:
         raise AssertionError(f"the limit {bound} misses planted faults {missed}")
+    return launches
 
 
 def main():
@@ -528,47 +708,77 @@ def main():
 
     t = phase("kernel checks")
     timer = Timer(torch)
-    k1 = check_ent_matmul(torch, timer)
+    mm = check_matmuls(torch, timer)
     k2 = check_flash(torch, timer)
     k3 = check_paged(torch, timer)
+    k3i = check_paged(torch, timer, int8_kv=True)
     del timer
     done(t, "kernel checks")
 
-    t = phase("serve qwen2.5-3b full width")
-    launches, tps = serve_full_width(torch)
-    done(t, "serve qwen2.5-3b full width")
+    serves = {}
+    for config in SERVE_CONFIGS:
+        t = phase(f"serve qwen2.5-3b full width, {config}")
+        serves[config] = serve_full_width(torch, config)
+        done(t, f"serve qwen2.5-3b full width, {config}")
 
     t = phase("kernels vs plain, 2 layers")
     # Limits between the sound readings and the planted faults' on the
     # H100 (PERF.md): EN-T runs read 4.3e-2 (bf16) and 1.5e-2 (float32)
     # sound and >= 0.11 under every fault; the float-weight run reads
-    # 1.1e-6 sound and >= 0.10 under every fault.
-    kernels_vs_plain_end_to_end(torch, "bfloat16", True, 0.07)   # as served
-    kernels_vs_plain_end_to_end(torch, "float32", True, 0.07)
-    kernels_vs_plain_end_to_end(torch, "float32", False, 1e-4)   # no int8 cascade
+    # 1.1e-6 sound and >= 0.10 under every fault; the int8 + int8-KV run
+    # reads 4.5e-2 sound and >= 0.115 under every fault (0.49 and 0.97
+    # under the two scale faults); the 4-plane run gives the EN-T bf16
+    # run's logits (the same int32 accumulators), 4.3e-2.
+    kernels_vs_plain_end_to_end(torch, "bfloat16", "EN-T", 0.07)   # as served
+    kernels_vs_plain_end_to_end(torch, "float32", "EN-T", 0.07)
+    kernels_vs_plain_end_to_end(torch, "float32", "float", 1e-4)   # no int8 cascade
+    kernels_vs_plain_end_to_end(torch, "bfloat16", "int8", 0.07, kv_quant=True)  # as served
+    legacy = kernels_vs_plain_end_to_end(torch, "bfloat16", "4-plane", 0.07)
+    if legacy["ent_matmul"] < 1:
+        raise AssertionError(f"legacy 4-plane records did not reach ent_matmul: {legacy}")
     done(t, "kernels vs plain, 2 layers")
 
-    def entry(name, source, replaces, rows, pick):
+    ent_t, int8 = (serves[c][0] for c in SERVE_CONFIGS)
+    at_decode = lambda rows: next(r for r in rows if r["M"] == 8 and r["N"] == 11008)  # noqa: E731
+
+    def entry(name, source, replaces, rows, pick, launches, **extra):
         row = pick(rows)
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "checks": rows}
+                "library_ms": row["library_ms"], **extra, "checks": rows}
 
+    ent = "src/repro/kernels/ent_matmul/ent_matmul.py"
+    paged = "src/repro/kernels/paged_attention/paged_attention.py"
     kernels = [
-        entry("ent_matmul_packed_fused", "src/repro_torch/csrc/ent_matmul.cu",
-              "src/repro/kernels/ent_matmul/ent_matmul.py:227", k1,
-              lambda rows: next(r for r in rows if r["M"] == 8 and r["N"] == 11008)),
+        entry("ent_matmul_packed_fused", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:227",
+              mm["ent_matmul_packed_fused"], at_decode, ent_t["ent_matmul_packed_fused"]),
         entry("flash_attention_masked", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/flash_attention.py:145", k2,
-              lambda rows: next(r for r in rows if r["S"] == 512 and r["window"] is None)),
+              lambda rows: next(r for r in rows if r["S"] == 512 and r["window"] is None),
+              ent_t["flash_attention_masked"],
+              launches_by_path={c: serves[c][0]["flash_attention_masked"]
+                                for c in SERVE_CONFIGS}),
         entry("paged_attention_kernel", "src/repro_torch/csrc/paged_attention.cu",
-              "src/repro/kernels/paged_attention/paged_attention.py:109", k3,
-              lambda rows: rows[0]),
+              f"{paged}:109", k3, lambda rows: rows[0], ent_t["paged_attention_kernel"]),
+        entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
+              "src/repro/kernels/int8_matmul/int8_matmul.py:47", mm["int8_matmul"],
+              at_decode, int8["int8_matmul"]),
+        entry("paged_attention_kernel[int8_kv]", "src/repro_torch/csrc/paged_attention.cu",
+              f"{paged}:109", k3i, lambda rows: rows[0],
+              int8["paged_attention_kernel[int8_kv]"],
+              branch=f"int8-KV, {paged}:49-56, :77-78, :92-94"),
+        entry("ent_matmul", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:75",
+              mm["ent_matmul"], at_decode, legacy["ent_matmul"],
+              launches_from="2-layer run with legacy 4-plane records"),
+        entry("ent_matmul_packed", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:205",
+              mm["ent_matmul_packed"], at_decode, int8["ent_matmul_packed"],
+              launches_from="no serving path; run by the kernel checks only"),
     ]
-    print(f"serve tokens/s {tps:.3f}")
+    for config in SERVE_CONFIGS:
+        print(f"serve tokens/s [{config}] {serves[config][1]:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

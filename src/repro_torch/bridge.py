@@ -3,8 +3,10 @@
 The reference's ``Model.init`` returns plain dicts whose layer stack sits
 under ``"groups"``: a tuple with one dict per group position, every leaf
 stacked ``[G, ...]`` over the layer groups (``models/transformer.py``).
-Quantized trees carry the same records ``{"q", "scale",
-"planes_packed"[, "bias"]}`` with the ``[G]`` axis in front.  The port
+Quantized trees carry the same records (int8 ``"q"``, f32 ``"scale"``,
+and int8 ``"planes_packed"`` or legacy ``"planes"`` where the reference
+encoded them, ``[, "bias"]``) with the ``[G]`` axis in front; every
+leaf crosses bit for bit, in its own dtype.  The port
 keeps one dict per layer under ``"layers"`` (layer ``g * len(group) + i``
 is group ``g``'s position ``i``), so :func:`params_from_numpy` unstacks
 the groups and moves every leaf onto ``device`` as a torch tensor.

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace ent_attn {
 
@@ -17,6 +18,7 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -37,18 +39,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // One row's step over a tile of `ncols` columns: lane j's scaled score s
 // and whether column j attends; vs holds the tile's V rows in f32 (row
-// stride VS); the lane owns accumulator columns lane + 32 * t.  A fully
+// stride VS); the lane owns accumulator columns lane + 32 * t.  vscale
+// is column j's int8-KV V scale (1 without one): it multiplies the
+// probability after l has summed it, before the rounding to T.  A fully
 // masked tile leaves m, l and acc unchanged.
 template <typename T, int VS, int DT>
 __device__ __forceinline__ void online_softmax_update(
     float s, bool valid, int ncols, const float* vs, float& m, float& l,
-    float (&acc)[DT], int lane) {
+    float (&acc)[DT], int lane, float vscale = 1.0f) {
   s = valid ? s : NEG_INF;
   const float m_new = fmaxf(m, warp_max(s));
   const float p = valid ? expf(s - m_new) : 0.0f;
   const float alpha = expf(m - m_new);
   l = alpha * l + warp_sum(p);
-  const float pv = to_f32(from_f32<T>(p));
+  const float pv = to_f32(from_f32<T>(p * vscale));
 #pragma unroll
   for (int t = 0; t < DT; ++t) acc[t] *= alpha;
 #pragma unroll 8

@@ -1,4 +1,5 @@
 """Hand-written Hopper kernels of the port, each beside its plain
-PyTorch version: ``ent_matmul`` (packed fused EN-T matmul),
-``flash_attention`` (masked flash prefill) and ``paged_attention``
-(in-place paged decode).  Sources live in ``repro_torch/csrc``."""
+PyTorch version: ``ent_matmul`` (the EN-T digit-plane matmuls: packed
+fused, packed, 4-plane), ``int8_matmul`` (w8a8), ``flash_attention``
+(masked flash prefill) and ``paged_attention`` (in-place paged decode,
+bf16 or int8 KV).  Sources live in ``repro_torch/csrc``."""

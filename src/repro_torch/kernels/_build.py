@@ -6,8 +6,8 @@ with ``nvcc`` for Hopper (``sm_90a``) into a shared library, which
 ``.gitignore``) under a name keyed on a hash of the source and flags, so
 an edited source (or shared ``csrc/*.cuh`` header) rebuilds and an
 unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per stale
-source, all at once; :func:`entry` returns a source's C entry point with
-its argument types bound once, when the library loads.
+source, all at once; :func:`entry` returns one of a source's C entry
+points with its argument types bound once, when the library loads.
 
 No ``--use_fast_math``: the packed matmul's bit-exactness against its
 plain version rests on IEEE division and round-half-even, and the
@@ -26,22 +26,23 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ent_matmul", "flash_attention", "paged_attention")
+SOURCES = ("ent_matmul", "int8_matmul", "flash_attention", "paged_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# each source's extern "C" entry point and its argument types (all return
-# a cudaError_t as int)
+# each source's extern "C" entry points and their argument types (all
+# return a cudaError_t as int)
 ENTRY_POINTS = {
-    "ent_matmul": ("ent_matmul_packed_fused",
-                   [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "flash_attention": ("flash_attention_masked",
-                        [_P] * 5 + [_I] * 10 + [_F, _P]),
-    "paged_attention": ("paged_attention", [_P] * 7 + [_I] * 7 + [_F, _P]),
+    "ent_matmul": {
+        "ent_matmul_packed_fused": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ent_matmul_planes": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "int8_matmul": {"int8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
+    "flash_attention": {"flash_attention_masked": [_P] * 5 + [_I] * 10 + [_F, _P]},
+    "paged_attention": {"paged_attention": [_P] * 9 + [_I] * 8 + [_F, _P]},
 }
 
-_entries: dict = {}      # name -> bound ctypes function
+_entries: dict = {}      # (source, function) -> bound ctypes function
 build_logs: dict[str, str] = {}
 
 
@@ -95,16 +96,20 @@ def build_all(names=SOURCES) -> list[str]:
     return list(procs)
 
 
-def entry(name: str):
-    """The C entry point of ``csrc/<name>.cu``, built and loaded on first
-    use, with its ctypes signature bound."""
-    if name not in _entries:
+def entry(name: str, fname: str | None = None):
+    """C entry point ``fname`` (default: the source's only one) of
+    ``csrc/<name>.cu``, built and loaded on first use, with its ctypes
+    signature bound."""
+    if fname is None:
+        (fname,) = ENTRY_POINTS[name]
+    if (name, fname) not in _entries:
         build_all((name,))
-        fname, argtypes = ENTRY_POINTS[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), fname)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _entries[name] = fn
-    return _entries[name]
+        lib = ctypes.CDLL(str(library_path(name)))
+        for f, argtypes in ENTRY_POINTS[name].items():
+            fn = getattr(lib, f)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _entries[name, f] = fn
+    return _entries[name, fname]
 
 
 def stream_of(t) -> int:

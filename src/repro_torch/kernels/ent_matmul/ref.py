@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the packed EN-T matmul (port of
-``repro/kernels/ent_matmul/ref.py``).
+"""Plain PyTorch versions of the EN-T digit-plane matmuls, 4-plane and
+packed (port of ``repro/kernels/ent_matmul/ref.py``).
 
 The int32 products run as float64 matmuls: every partial sum is an
 integer below 2**53 (|acc| <= K * 21760 for K <= PACKED_MAX_K), so the
@@ -10,6 +10,8 @@ CPU and on the card alike (CUDA has no integer matmul).
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.multiplier import planes_to_weight
 
 
 def quantize_rows(x):
@@ -31,6 +33,18 @@ def quantize_with_scale(x, scale):
 def _int_matmul(a, b):
     """Exact integer matmul via float64 (see module docstring) -> int32."""
     return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+
+
+def ent_matmul_int32_ref(x, planes):
+    """Bit-exactness oracle of the 4-plane kernel (no scales): int32."""
+    return _int_matmul(x, planes_to_weight(planes))
+
+
+def ent_matmul_ref(x, planes, scale_x, scale_w, out_dtype=torch.float32):
+    """4-plane matmul: reconstruct W from the planes, matmul exactly,
+    dequant in the reference's order ``(float(acc) * sx) * sw``."""
+    acc = ent_matmul_int32_ref(x, planes)
+    return (acc.to(torch.float32) * scale_x * scale_w).to(out_dtype)
 
 
 def ent_packed_matmul_int32_ref(x, packed):

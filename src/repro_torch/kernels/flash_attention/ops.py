@@ -4,12 +4,15 @@
 ``masked_attention`` sends every call to the masked flash kernel, whose
 wrapper takes the plain version only for CPU tensors; unlike the
 reference there is no "tiles don't divide -> oracle" route, because the
-kernel masks ragged tiles itself.  Two reference routes are not ported
-in this slice: int8-KV dequant scales (``k_scale``/``v_scale``) and the
-explicit ``valid`` mask of ring/dense decode run the plain version on
-the CPU only and raise on the card.  ``use_kernel=False`` asks for the
-plain version explicitly (counted in ``masked_attention.plain_launches``
-on the card).
+kernel masks ragged tiles itself.  int8-KV dequant scales
+(``k_scale``/``v_scale``) on the card take the reference's kernel route:
+K and V are dequantized to q's dtype before the kernel (``ops.py:75-78``,
+:func:`dequantize`).  On CPU tensors a scaled call takes the plain
+version, which folds the scales exactly, as the reference's CPU route
+does.  The explicit ``valid`` mask of ring/dense decode has no kernel:
+it runs the plain version on the CPU and raises on the card.
+``use_kernel=False`` asks for the plain version explicitly (counted in
+``masked_attention.plain_launches`` on the card).
 """
 
 from __future__ import annotations
@@ -21,6 +24,12 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 from repro_torch.kernels.flash_attention.ref import masked_attention_ref
 
 
+def dequantize(t, t_scale, dtype):
+    """[B, Hkv, S, D] codes x [B, Hkv, S] scale -> ``dtype`` operand,
+    multiplied in ``dtype`` as the reference's kernel route does."""
+    return t.to(dtype) * t_scale[..., None].to(dtype)
+
+
 def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
                      window=None, scale=None, k_scale=None, v_scale=None,
                      valid=None, use_kernel: bool = True, chunk=None):
@@ -29,11 +38,16 @@ def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
     the plain version.  The reference op upcasts the kernel's output to
     float32; here the caller's cast to the compute dtype (``_finish``)
     makes both the same, so the kernel's output stays in q's dtype."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8-KV attention waits for a later slice (ROADMAP: int8-KV "
-            "paged/flash)")
-    if valid is None and use_kernel:
+    for name, s, t in (("k_scale", k_scale, k), ("v_scale", v_scale, v)):
+        if s is not None and tuple(s.shape) != tuple(t.shape[:3]):
+            raise ValueError(f"{name} {tuple(s.shape)} must be [B, Hkv, Skv] = "
+                             f"{tuple(t.shape[:3])}")
+    scaled = k_scale is not None or v_scale is not None
+    if valid is None and use_kernel and (q.is_cuda or not scaled):
+        if k_scale is not None:   # the kernel takes dequantized operands
+            k = dequantize(k, k_scale, q.dtype)
+        if v_scale is not None:
+            v = dequantize(v, v_scale, q.dtype)
         if start is None:
             start = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
         return flash_attention_masked(
@@ -48,7 +62,8 @@ def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
         masked_attention.plain_launches += 1
     return masked_attention_ref(q, k, v, start=start, q_offset=q_offset,
                                 causal=causal, window=window, scale=scale,
-                                valid=valid, chunk=chunk)
+                                k_scale=k_scale, v_scale=v_scale, valid=valid,
+                                chunk=chunk)
 
 
 masked_attention.plain_launches = 0

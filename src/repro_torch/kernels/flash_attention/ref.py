@@ -11,7 +11,10 @@ column j and query row t (q row t sits at position ``q_offset + t``):
 
 Scores are q.k dots accumulated in float32; the probabilities are cast
 to the value dtype before the value contraction, as the reference does.
-Fully masked query rows return exact zeros.  Returns [B, Hq, Sq, D] f32.
+``k_scale``/``v_scale`` ([B, Hkv, Skv] f32) are int8-KV dequant scales,
+folded exactly as the reference folds them: K after the q.k dot, V into
+the probabilities after they are summed into the denominator.  Fully
+masked query rows return exact zeros.  Returns [B, Hq, Sq, D] f32.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ _NEG_INF = -1e30
 
 
 def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,
-                         window=None, scale=None, valid=None, chunk=None):
+                         window=None, scale=None, k_scale=None, v_scale=None,
+                         valid=None, chunk=None):
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     group = hq // hkv
@@ -41,6 +45,8 @@ def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,
         ki = k[:, :, lo:lo + chunk].to(torch.float32)
         vi = v[:, :, lo:lo + chunk]
         s = torch.einsum("bhgqd,bhkd->bhgqk", qg, ki) * scale
+        if k_scale is not None:   # K dequant scale, folded after the dot
+            s = s * k_scale[:, :, None, None, lo:lo + chunk]
         kv_pos = lo + torch.arange(chunk, device=dev)[None, :]         # [1, C]
         if valid is not None:
             mask = valid[:, None, None, :, lo:lo + chunk]               # [B,1,1,Sq,C]
@@ -61,6 +67,8 @@ def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,
         p = torch.where(mask, p, 0.0)                                    # masked rows: 0
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(-1, keepdim=True)
+        if v_scale is not None:   # V dequant scale, folded into the probs
+            p = p * v_scale[:, :, None, None, lo:lo + chunk]
         acc = acc * alpha + torch.einsum(
             "bhgqk,bhkd->bhgqd", p.to(v.dtype).to(torch.float32),
             vi.to(torch.float32))

@@ -4,8 +4,10 @@
 ``paged_attention`` takes the page pools and block table as stored — no
 gathered [B, max_len] KV view — and hands them to the paged decode
 kernel, whose wrapper takes the plain version only for CPU tensors.
-``use_kernel=False`` asks for the plain version explicitly (counted in
-``paged_attention.plain_launches`` on the card).
+int8 pools come with their bf16 scale pools (``k_scales``/``v_scales``),
+which the kernel folds as it reads the pages: no dequantized copy of the
+pool is made.  ``use_kernel=False`` asks for the plain version
+explicitly (counted in ``paged_attention.plain_launches`` on the card).
 """
 
 from __future__ import annotations
@@ -26,12 +28,11 @@ def paged_attention(q, k_pages, v_pages, block_table, pos, start=None, *,
         start = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
     pos, start = pos.to(torch.int32), start.to(torch.int32)
     if not use_kernel:
-        if k_scales is not None or v_scales is not None:
-            raise NotImplementedError("int8-KV paged attention waits for a later slice")
         if q.is_cuda:
             paged_attention.plain_launches += 1
         return paged_attention_ref(q, k_pages, v_pages, block_table, pos,
-                                   start, page_size=page_size, scale=scale)
+                                   start, page_size=page_size, k_scales=k_scales,
+                                   v_scales=v_scales, scale=scale)
     return paged_attention_kernel(
         q.contiguous(), k_pages, v_pages, block_table.contiguous(),
         pos.contiguous(), start.contiguous(), k_scales, v_scales,

@@ -9,7 +9,10 @@ whole [B, Hkv, G, W] score tensor and the value side is one
 position-ordered float32 contraction of probabilities cast to the value
 dtype — the reduction order of the dense backend's single-block
 ``masked_attention_ref``, which keeps paged decode equal to dense
-decode.  A fully masked slot returns exact zeros.  Returns
+decode.  int8 pools are cast to q's dtype, and their per-row scale pools
+([P, page, Hkv, 1]) fold exactly where the reference folds them: K
+after the q.k dot, V into the probabilities after they are summed into
+the denominator.  A fully masked slot returns exact zeros.  Returns
 [B, Hq, 1, D] float32.
 """
 
@@ -27,8 +30,20 @@ def _take_pages(pool, table):
     return g.permute(0, 2, 1, 3)
 
 
+def _operand(pool, table, dtype):
+    """Pages as a [B, H, C, D] operand, int8 codes cast to ``dtype``."""
+    g = _take_pages(pool, table)
+    return g.to(dtype) if g.dtype == torch.int8 else g
+
+
+def _scale_cols(pool, table):
+    """[P, page, H, 1] scale pool -> [B, H, 1, 1, C] f32 fold operand."""
+    return _take_pages(pool, table)[..., 0].to(torch.float32)[:, :, None, None, :]
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_table, pos, start=None,
-                        *, page_size: int, scale=None):
+                        *, page_size: int, k_scales=None, v_scales=None,
+                        scale=None):
     b, hq, sq, d = q.shape
     if sq != 1:
         raise ValueError("paged_attention is a decode (Sq=1) op")
@@ -42,8 +57,10 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, pos, start=None,
     if start is None:
         start = torch.zeros((b,), dtype=torch.int32, device=q.device)
     qg = q.reshape(b, hkv, group, sq, d).to(torch.float32)
-    kb = _take_pages(k_pages, block_table).to(torch.float32)
+    kb = _operand(k_pages, block_table, q.dtype).to(torch.float32)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
+    if k_scales is not None:   # K dequant scale, folded after the dot
+        s = s * _scale_cols(k_scales, block_table)
     cols = torch.arange(w, dtype=torch.int32, device=q.device)[None, :]
     mapped = torch.repeat_interleave(block_table != 0, page_size, dim=-1)
     valid = (cols <= pos[:, None]) & (cols >= start[:, None]) & mapped
@@ -53,7 +70,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, pos, start=None,
     p = torch.exp(s - m)
     p = torch.where(mask, p, 0.0)                     # fully masked rows: 0
     l = p.sum(-1, keepdim=True)
-    vb = _take_pages(v_pages, block_table)
+    if v_scales is not None:   # V dequant scale, folded into the probs
+        p = p * _scale_cols(v_scales, block_table)
+    vb = _operand(v_pages, block_table, q.dtype)
     acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vb.dtype).to(torch.float32),
                        vb.to(torch.float32))
     out = acc / torch.clamp_min(l, 1e-30)

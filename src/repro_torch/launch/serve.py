@@ -27,15 +27,21 @@ from repro_torch.models.transformer import Model, build_model
 from repro_torch.runtime.serve_loop import ServeEngine
 
 
-def build(cfg: ModelConfig, *, quantize: bool, seed: int = 0, device=None,
-          use_kernels: bool = True) -> tuple[Model, dict]:
-    """Model + random params drawn on the device from ``seed`` (EN-T
-    encoded layer by layer when ``quantize``)."""
+def build(cfg: ModelConfig, *, quantize: bool = False, seed: int = 0,
+          device=None, use_kernels: bool = True, quant: QuantConfig | None = None,
+          kv_quant: bool = False) -> tuple[Model, dict]:
+    """Model + random params drawn on the device from ``seed``, quantized
+    layer by layer with ``quant`` (``quantize``: EN-T, the default
+    ``QuantConfig(enabled=True)``; ``QuantConfig(enabled=True,
+    ent_encode=False)`` keeps plain w8a8 int8 records).  ``kv_quant``
+    serves from an int8 KV cache."""
     dev = resolve_device(device)
-    model = build_model(cfg, device=dev, use_kernels=use_kernels)
+    if quant is None and quantize:
+        quant = QuantConfig(enabled=True)
+    model = build_model(cfg, device=dev, use_kernels=use_kernels, kv_quant=kv_quant)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params = model.init(gen, quant=QuantConfig(enabled=True) if quantize else None)
+    params = model.init(gen, quant=quant)
     return model, params
 
 
@@ -120,7 +126,7 @@ def main(argv=None):
           f"{dt:.2f}s ({total / dt:.1f} tok/s)")
     ps = engine.page_stats
     print(f"pages: {ps['total']} total, {ps['free']} free, "
-          f"{ps['resident']} resident")
+          f"{ps['resident']} resident; KV pools {engine.pool_bytes / 2**20:.2f} MiB")
     print("sample:", results[min(results)][:16])
 
 

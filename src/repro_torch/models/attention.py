@@ -5,8 +5,12 @@
 and attends through the masked flash kernel; ``decode_step`` writes one
 row and, for the paged backend, reads the pool in place through the
 paged decode kernel (dense rows go through the plain masked version,
-for the paged ≡ dense test).  The full-sequence ``apply`` needs the
-unmasked flash kernel, which this slice has not ported.
+for the paged ≡ dense test).  With an int8 KV cache the stored codes
+are cast to the compute dtype and the bf16 per-row scales fold into the
+attention (K after the q.k dot, V into the probabilities): the paged
+kernel dequantizes in the kernel, and the flash route takes operands
+dequantized to q's dtype.  The full-sequence ``apply`` needs the
+unmasked flash kernel, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,9 +47,11 @@ def _project(cfg: ModelConfig, p, x, positions, use_kernel: bool = True):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
-               kind: str = "paged", page_size: int | None = None,
-               pages: int | None = None, mapped: bool = True, device=None):
-    """One attention layer's KV cache: ``"paged"`` or ``"dense"``."""
+               quantized: bool = False, kind: str = "paged",
+               page_size: int | None = None, pages: int | None = None,
+               mapped: bool = True, device=None):
+    """One attention layer's KV cache: ``"paged"`` or ``"dense"``;
+    ``quantized`` stores int8 KV with bf16 per-(row, head) scales."""
     if cfg.sliding_window:
         raise NotImplementedError(
             "sliding-window models serve through the ring cache, which "
@@ -53,13 +59,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
     if kind == "paged":
         return kv_cache.paged_init(
             batch, max_len, cfg.num_kv_heads, cfg.head_dim, dtype,
+            quantized=quantized,
             page_size=page_size or kv_cache.DEFAULT_PAGE_SIZE, pages=pages,
             mapped=mapped, device=device)
     if kind == "dense":
         return kv_cache.dense_init(batch, max_len, cfg.num_kv_heads,
-                                   cfg.head_dim, dtype, device=device)
+                                   cfg.head_dim, dtype, quantized=quantized,
+                                   device=device)
     raise NotImplementedError(f"cache kind {kind!r} is not ported "
                               "(ported: 'paged', 'dense')")
+
+
+def _scale_op(s):
+    """[B, S, Hkv, 1] stored scale -> [B, Hkv, S] f32 fold operand."""
+    return None if s is None else s[..., 0].transpose(1, 2).to(torch.float32)
 
 
 def _finish(cfg: ModelConfig, p, out, use_kernel: bool = True):
@@ -89,12 +102,17 @@ def decode_step(cfg: ModelConfig, p, x, cache, pos, start=None,
     if isinstance(view, kv_cache.PagedView):
         out = paged_ops.paged_attention(
             q.transpose(1, 2), view.k, view.v, view.block_table, pos_b,
-            start_b, page_size=view.page_size, use_kernel=use_kernel)
+            start_b, page_size=view.page_size, k_scales=view.k_s,
+            v_scales=view.v_s, use_kernel=use_kernel)
         return _finish(cfg, p, out, use_kernel), new
-    kop, vop, _, _, valid = view
+    kop, vop, ks, vs, valid = view
+    dt = L.cdtype(cfg)
+    if kop.dtype == torch.int8:
+        kop, vop = kop.to(dt), vop.to(dt)
     out = attn_ops.masked_attention(
         q.transpose(1, 2), kop.transpose(1, 2), vop.transpose(1, 2),
-        valid=valid[:, None, :], use_kernel=use_kernel)
+        valid=valid[:, None, :], k_scale=_scale_op(ks), v_scale=_scale_op(vs),
+        use_kernel=use_kernel)
     return _finish(cfg, p, out, use_kernel), new
 
 
@@ -114,13 +132,23 @@ def prefill_step(cfg: ModelConfig, p, x, cache, start=None, pos0: int = 0,
     positions = cols[None, :] - start_b[:, None]             # [B, S] relative
     q, k, v = _project(cfg, p, x, positions, use_kernel)
 
-    new, kf, vf, _, _ = cache.write_prompt(k, v, pos0)
-    kc, vc, _, _, ctx = new.context(pos0)
-    kop = kf if kc is None else torch.cat([kc, kf.to(kc.dtype)], dim=1)
-    vop = vf if vc is None else torch.cat([vc, vf.to(vc.dtype)], dim=1)
+    new, kf, vf, ksf, vsf = cache.write_prompt(k, v, pos0)
+    kc, vc, ksc, vsc, ctx = new.context(pos0)
+
+    def cat(prev, fresh):
+        return fresh if prev is None else torch.cat([prev, fresh.to(prev.dtype)], dim=1)
+
+    kop, vop = cat(kc, kf), cat(vc, vf)
+    ks = vs = None
+    if new.quantized:
+        ks, vs = cat(ksc, ksf), cat(vsc, vsf)
+    dt = L.cdtype(cfg)
+    if kop.dtype == torch.int8:
+        kop, vop = kop.to(dt), vop.to(dt)
     # kv column j holds position pos0 - ctx + j; q row t sits at ctx + t
     start_local = torch.clamp_min(start_b - (pos0 - ctx), 0)
     out = attn_ops.masked_attention(
         q.transpose(1, 2), kop.transpose(1, 2), vop.transpose(1, 2),
-        start=start_local, q_offset=ctx, use_kernel=use_kernel)
+        start=start_local, q_offset=ctx, k_scale=_scale_op(ks),
+        v_scale=_scale_op(vs), use_kernel=use_kernel)
     return _finish(cfg, p, out, use_kernel), new

@@ -8,6 +8,8 @@ attention + dense-FFN layers; ``ssm``/``moe`` layer specs raise
 ``NotImplementedError``, as does the full-sequence forward without a
 cache (it needs the unmasked flash kernel).
 
+``Model(..., kv_quant=True)`` serves from an int8 KV cache with bf16
+per-(row, head) scales, as the reference's ``Model(kv_quant=True)``.
 ``Model(..., use_kernels=False)`` runs every kernel's plain PyTorch
 version instead, on any device — the explicit switch a kernel-vs-plain
 comparison uses.  By default the kernels run on CUDA tensors and the
@@ -37,12 +39,13 @@ class Model:
     init_cache / prefill / decode_step."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, kv_quant: bool = False):
         for spec in cfg.group:
             _check_spec(spec)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernels = use_kernels
+        self.kv_quant = kv_quant    # int8 KV cache (decode)
 
     def _specs(self):
         return [self.cfg.group[i % len(self.cfg.group)]
@@ -139,8 +142,8 @@ class Model:
         ``cache_kw`` (page_size, pages, mapped) configures the paged pool."""
         cfg = self.cfg
         layers = [attention.init_cache(cfg, batch, max_len, L.cdtype(cfg),
-                                       kind=kind, device=self.device,
-                                       **cache_kw)
+                                       quantized=self.kv_quant, kind=kind,
+                                       device=self.device, **cache_kw)
                   for _ in range(cfg.num_layers)]
         return {"layers": layers, "pos": 0}
 

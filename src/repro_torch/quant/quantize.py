@@ -6,11 +6,14 @@ kernel (minus skip patterns) with a record bit-equal to the reference's:
     {"q": int8 [I, O], "scale": f32 [1, O],          # per-out-channel
      "planes_packed": int8 [2, I, O]}                # packed EN-T planes
 
-``qdense_apply`` feeds the float activations straight into the fused
-packed matmul, which quantizes each row inside the kernel.  Legacy
-4-plane ``planes`` records and plane-less ``q`` records need the
-``ent_matmul`` and ``int8_matmul`` kernels, which this slice has not
-ported; they raise ``NotImplementedError``.
+With ``QuantConfig(ent_encode=False)`` the record keeps no planes (the
+plain w8a8 int8 form).  ``qdense_apply`` serves all three record kinds,
+as the reference does: packed records feed the float activations
+straight into the fused packed matmul, which quantizes each row inside
+the kernel; legacy 4-plane ``planes`` records (``ent_ops.encode_weights``,
+old checkpoints) and plane-less ``q`` records quantize the activations
+first (``quantize_acts``) and run the 4-plane ``ent_matmul`` or the
+``int8_matmul`` kernel.
 """
 
 from __future__ import annotations
@@ -22,8 +25,11 @@ import torch
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core.multiplier import ent_packed_planes
 from repro_torch.kernels.ent_matmul import ops as ent_ops
+from repro_torch.kernels.ent_matmul.ref import quantize_rows
+from repro_torch.kernels.int8_matmul import ops as int8_ops
 
-__all__ = ["quantize_weight", "quantize_params", "qdense_apply"]
+__all__ = ["quantize_weight", "quantize_params", "quantize_acts",
+           "qdense_apply", "dequantize_weight"]
 
 
 def quantize_weight(w, *, ent_encode: bool = True, per_channel: bool = True):
@@ -42,18 +48,36 @@ def quantize_weight(w, *, ent_encode: bool = True, per_channel: bool = True):
     return rec
 
 
+def dequantize_weight(rec):
+    return rec["q"].to(torch.float32) * rec["scale"]
+
+
+def quantize_acts(x):
+    """Dynamic symmetric per-row int8 activation quantization: x [..., K]
+    float -> (q int8, scale f32 [..., 1]), the reference's ``x / scale``
+    with round half to even (the same function as ``quantize_rows``)."""
+    return quantize_rows(x)
+
+
 def qdense_apply(rec, x, out_dtype=torch.bfloat16, use_kernel: bool = True):
     """Quantized matmul: x [..., K] float x rec -> [..., O]."""
-    if "planes_packed" not in rec:
-        raise NotImplementedError(
-            "only packed-plane records are served in this slice: legacy "
-            "4-plane 'planes' records need the ent_matmul kernel and "
-            "plane-less 'q' records the int8_matmul kernel (ROADMAP, "
-            "kernels still to port)")
     lead = x.shape[:-1]
-    y = ent_ops.ent_quantized_matmul_fused(
-        x.reshape(-1, x.shape[-1]), rec["planes_packed"], rec["scale"],
-        out_dtype=torch.float32, use_kernel=use_kernel)
+    x2 = x.reshape(-1, x.shape[-1])
+    if "planes_packed" in rec:
+        # fused path: per-row act-quant happens inside the packed kernel
+        y = ent_ops.ent_quantized_matmul_fused(
+            x2, rec["planes_packed"], rec["scale"], out_dtype=torch.float32,
+            use_kernel=use_kernel)
+    elif "planes" in rec:   # legacy 4-plane records
+        xq, sx = quantize_acts(x2)
+        y = ent_ops.ent_quantized_matmul(
+            xq, rec["planes"], sx, rec["scale"], out_dtype=torch.float32,
+            use_kernel=use_kernel)
+    else:
+        xq, sx = quantize_acts(x2)
+        y = int8_ops.quantized_matmul(
+            xq, rec["q"], sx, rec["scale"], out_dtype=torch.float32,
+            use_kernel=use_kernel)
     y = y.to(out_dtype).reshape(*lead, -1)
     if "bias" in rec:
         y = y + rec["bias"].to(out_dtype)

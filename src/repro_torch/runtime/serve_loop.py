@@ -9,9 +9,11 @@ power-of-two bucket, reserves the request's worst case in pages from the
 refcounted :class:`PageAllocator`, maps the prompt's pages into the
 slot's block-table row and prefills straight through the pool; decode
 maps one reserved page at a time as a slot crosses a page boundary, and
-EOS / max_new_tokens releases the slot's pages.  Every projection runs
-the packed EN-T matmul kernel, admission prefill the masked flash
-kernel and the decode tick the paged decode kernel.
+EOS / max_new_tokens releases the slot's pages.  Every quantized
+projection runs its matmul kernel (packed EN-T, or w8a8 int8 for
+plane-less records), admission prefill the masked flash kernel and the
+decode tick the paged decode kernel.  A ``kv_quant``
+model serves from int8 pools with bf16 scale pools (``pool_bytes``).
 
 Not ported in this slice (each raises ``NotImplementedError``): the
 prefix cache (``prefix_cache`` True or "auto"), speculative decoding
@@ -206,6 +208,11 @@ class ServeEngine:
         """Worst-case pages one request can touch: positions
         [0, prompt + max_new), capped at the per-slot table length."""
         return min(-(-(prompt_len + max_new) // self.page_size), self._pps)
+
+    @property
+    def pool_bytes(self) -> int:
+        """Bytes of every layer's K/V pools and int8-KV scale pools."""
+        return sum(c.nbytes for c in self.cache["layers"])
 
     @property
     def page_stats(self) -> dict:

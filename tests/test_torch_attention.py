@@ -137,7 +137,18 @@ def test_paged_attention_equals_gathered_masked_attention():
 
 
 def test_int8_kv_scales_are_refused():
-    x = torch.zeros((1, 2, 4, 16))
-    with pytest.raises(NotImplementedError):
-        attn_ops.masked_attention(x, x[:, :1], x[:, :1], k_scale=torch.ones(1, 1, 4),
-                                  v_scale=torch.ones(1, 1, 4))
+    """int8-KV scales fold into masked attention as in the reference;
+    scales whose shape is not k/v's [B, Hkv, Skv] are refused."""
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, 2, 4, 2, 6, 6, 16)
+    k, v = np.round(k * 40), np.round(v * 40)            # int8-like codes
+    ks, vs = (rng.uniform(1e-3, 5e-2, (2, 2, 6)).astype(np.float32) for _ in range(2))
+    st = np.asarray([0, 2], np.int32)
+    want = np.asarray(ref_masked(*map(jnp.asarray, (q, k, v)), start=jnp.asarray(st),
+                                 k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    got = attn_ops.masked_attention(*map(_t, (q, k, v)), start=_t(st), k_scale=_t(ks),
+                                    v_scale=_t(vs))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    with pytest.raises(ValueError):
+        attn_ops.masked_attention(*map(_t, (q, k, v)), k_scale=_t(ks)[:, :, :4],
+                                  v_scale=_t(vs))

@@ -19,8 +19,10 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import reduced_config as port_reduced  # noqa: E402
 from repro_torch.configs import get_config as port_get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused  # noqa: E402
-from repro_torch.kernels.ent_matmul.ref import ent_packed_fused_ref  # noqa: E402
+from repro_torch.kernels.ent_matmul.ent_matmul import (  # noqa: E402
+    ent_matmul, ent_matmul_packed, ent_matmul_packed_fused)
+from repro_torch.kernels.ent_matmul.ref import (  # noqa: E402
+    ent_matmul_ref, ent_packed_fused_ref, ent_packed_matmul_ref, quantize_rows)
 from repro_torch.kernels.ent_matmul.ops import row_scale  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import masked_attention_ref  # noqa: E402
@@ -42,7 +44,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        assert len(names) >= 25, names
+        assert len(names) >= 29, names
+        assert "repro_torch.kernels.int8_matmul.int8_matmul" in names, names
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -94,16 +97,46 @@ def test_bridge_unstacks_groups_bit_exact():
             tree["groups"][0]["ffn"]["wi_gate"]["kernel"][g])
 
 
+def test_bridge_carries_quantized_trees_bit_exact():
+    """int8 ``q``, ``planes`` and ``planes_packed`` and f32 ``scale``
+    leaves of a reference-quantized tree cross bit for bit."""
+    from repro.configs import QuantConfig
+    from repro.kernels.ent_matmul.ops import encode_weights
+    from repro.quant.quantize import quantize_params
+    cfg = reduced_config(get_config("qwen2.5-3b"))
+    params = ref_build(cfg).init(jax.random.PRNGKey(2))
+    for ent in (True, False):
+        tree = quantize_params(params, QuantConfig(enabled=True, ent_encode=ent))
+        wq = dict(tree["groups"][0]["mixer"]["wq"])
+        if not ent:    # a legacy 4-plane record, as old checkpoints hold
+            wq["planes"] = jax.vmap(encode_weights)(wq["q"])
+            tree["groups"][0]["mixer"]["wq"] = wq
+        port = bridge.params_from_numpy(jax.tree.map(np.asarray, tree), "cpu")
+        for g in range(cfg.num_groups):
+            rec = port["layers"][g]["mixer"]["wq"]
+            assert set(rec) == set(wq)
+            for key, leaf in wq.items():
+                want = np.asarray(leaf[g])
+                assert str(rec[key].dtype).endswith(str(want.dtype))
+                np.testing.assert_array_equal(rec[key].numpy(), want)
+
+
 def test_kernel_wrappers_take_the_plain_version_on_cpu():
     rng = np.random.default_rng(0)
-    launches = (ent_matmul_packed_fused.launches, flash_attention_masked.launches,
-                paged_attention_kernel.launches)
+    counters = (ent_matmul_packed_fused, ent_matmul_packed, ent_matmul,
+                flash_attention_masked, paged_attention_kernel)
+    launches = [f.launches for f in counters]
 
     x = torch.from_numpy(rng.standard_normal((5, 70)).astype(np.float32))
     packed = torch.from_numpy(rng.integers(-10, 11, (2, 70, 9)).astype(np.int8))
     sw = torch.from_numpy(rng.random((1, 9)).astype(np.float32))
     assert torch.equal(ent_matmul_packed_fused(x, packed, row_scale(x), sw),
                        ent_packed_fused_ref(x, packed, sw))
+    xq, sx = quantize_rows(x)
+    assert torch.equal(ent_matmul_packed(xq, packed, sx, sw),
+                       ent_packed_matmul_ref(xq, packed, sx, sw))
+    planes = torch.from_numpy(rng.integers(-2, 3, (4, 70, 9)).astype(np.int8))
+    assert torch.equal(ent_matmul(xq, planes, sx, sw), ent_matmul_ref(xq, planes, sx, sw))
 
     q = torch.from_numpy(rng.standard_normal((1, 4, 6, 16)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((1, 2, 6, 16)).astype(np.float32))
@@ -119,8 +152,7 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
     got = paged_attention_kernel(qd, pool, pool, table, pos, z, page_size=4)
     assert torch.equal(got, paged_attention_ref(qd, pool, pool, table, pos, z,
                                                 page_size=4))
-    assert (ent_matmul_packed_fused.launches, flash_attention_masked.launches,
-            paged_attention_kernel.launches) == launches
+    assert [f.launches for f in counters] == launches
 
 
 def test_kernel_wrappers_refuse_bad_operands():

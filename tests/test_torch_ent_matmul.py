@@ -1,5 +1,7 @@
-"""EN-T encoders, quantized records and the packed fused matmul: the port
-against the reference, on the same numpy inputs."""
+"""EN-T encoders, quantized records and the EN-T matmuls (4-plane,
+packed, packed fused): the port against the reference, on the same numpy
+inputs.  Integer work is compared exactly, and so is every epilogue (the
+same float32 roundings of the same integers)."""
 
 import numpy as np
 import pytest
@@ -11,9 +13,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import QuantConfig, get_config, reduced_config  # noqa: E402
 from repro.core import multiplier as ref_mult  # noqa: E402
+from repro.kernels.ent_matmul import ops as ref_ent_ops  # noqa: E402
 from repro.kernels.ent_matmul import ref as ref_ent  # noqa: E402
 from repro.kernels.ent_matmul.ent_matmul import (  # noqa: E402
+    ent_matmul as pallas_4plane, ent_matmul_packed as pallas_packed,
     ent_matmul_packed_fused as pallas_packed_fused)
+from repro.quant import quantize as ref_quant  # noqa: E402
 from repro.models.transformer import build_model as ref_build  # noqa: E402
 from repro.quant.quantize import quantize_params as ref_quantize_params  # noqa: E402
 from repro.quant.quantize import quantize_weight as ref_quantize_weight  # noqa: E402
@@ -22,7 +27,9 @@ from repro_torch.configs.base import QuantConfig as PortQuantConfig  # noqa: E40
 from repro_torch.core import multiplier as mult  # noqa: E402
 from repro_torch.kernels.ent_matmul import ops  # noqa: E402
 from repro_torch.kernels.ent_matmul import ref  # noqa: E402
-from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused  # noqa: E402
+from repro_torch.kernels.ent_matmul.ent_matmul import (  # noqa: E402
+    ent_matmul, ent_matmul_packed, ent_matmul_packed_fused)
+from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul  # noqa: E402
 from repro_torch.quant import quantize  # noqa: E402
 
 ALL_INT8 = np.arange(-128, 128, dtype=np.int8)
@@ -146,10 +153,117 @@ def test_against_pallas_interpret(m, k, n, bk):
     assert np.all(np.abs(port - pallas) <= diff_rows * step * (1 + 1e-5) + 1e-6)
 
 
+def _int8_case(rng, m, k, n):
+    xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    w8 = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    sx = rng.uniform(1e-3, 1e-1, (m, 1)).astype(np.float32)
+    sw = rng.uniform(1e-3, 1e-2, (1, n)).astype(np.float32)
+    return xq, w8, sx, sw
+
+
+def test_weight_encoders_bit_equal():
+    w8 = np.random.default_rng(2).integers(-128, 128, (40, 24)).astype(np.int8)
+    np.testing.assert_array_equal(ops.encode_weights(_t(w8)).numpy(),
+                                  np.asarray(ref_ent_ops.encode_weights(jnp.asarray(w8))))
+    np.testing.assert_array_equal(
+        ops.encode_weights_packed(_t(w8)).numpy(),
+        np.asarray(ref_ent_ops.encode_weights_packed(jnp.asarray(w8))))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 32), (8, 130, 77), (37, 256, 96)])
+def test_4plane_and_packed_refs_bit_equal_to_reference(m, k, n):
+    rng = np.random.default_rng(m + 2 * k + n)
+    xq, w8, sx, sw = _int8_case(rng, m, k, n)
+    planes = np.asarray(ref_mult.ent_digit_planes(jnp.asarray(w8)))
+    packed = np.asarray(ref_mult.ent_packed_planes(jnp.asarray(w8)))
+    j = lambda *a: tuple(map(jnp.asarray, a))   # noqa: E731
+    t = lambda *a: tuple(map(_t, a))            # noqa: E731
+    np.testing.assert_array_equal(ref.ent_matmul_int32_ref(*t(xq, planes)).numpy(),
+                                  np.asarray(ref_ent.ent_matmul_int32_ref(*j(xq, planes))))
+    want4 = np.asarray(ref_ent.ent_matmul_ref(*j(xq, planes, sx, sw)))
+    wantp = np.asarray(ref_ent.ent_packed_matmul_ref(*j(xq, packed, sx, sw)))
+    np.testing.assert_array_equal(ref.ent_matmul_ref(*t(xq, planes, sx, sw)).numpy(), want4)
+    # the ops and the kernel wrappers on CPU: the same bits, no launch
+    launches = (ent_matmul.launches, ent_matmul_packed.launches)
+    np.testing.assert_array_equal(
+        ops.ent_quantized_matmul(*t(xq, planes, sx, sw)).numpy(), want4)
+    np.testing.assert_array_equal(
+        ops.ent_quantized_matmul_packed(*t(xq, packed, sx, sw)).numpy(), wantp)
+    np.testing.assert_array_equal(
+        ops.ent_quantized_matmul_packed(*t(xq, packed, sx, sw), use_kernel=False).numpy(),
+        np.asarray(ref_ent_ops.ent_quantized_matmul_packed(*j(xq, packed, sx, sw))))
+    assert (ent_matmul.launches, ent_matmul_packed.launches) == launches
+    # EN-T identity: the encoded products equal the plain int8 product
+    np.testing.assert_array_equal(want4, wantp)
+
+
+@pytest.mark.parametrize("m,k,n,bk", [(16, 256, 128, 128), (8, 512, 256, 256)])
+def test_4plane_and_packed_against_pallas_interpret(m, k, n, bk):
+    rng = np.random.default_rng(3 * k + n)
+    xq, w8, sx, sw = _int8_case(rng, m, k, n)
+    planes = np.asarray(ref_mult.ent_digit_planes(jnp.asarray(w8)))
+    packed = np.asarray(ref_mult.ent_packed_planes(jnp.asarray(w8)))
+    blocks = dict(block_m=m, block_n=n, block_k=bk, interpret=True)
+    for pallas, port, p in ((pallas_4plane, ent_matmul, planes),
+                            (pallas_packed, ent_matmul_packed, packed)):
+        want = np.asarray(pallas(*map(jnp.asarray, (xq, p, sx, sw)), **blocks))
+        np.testing.assert_array_equal(port(*map(_t, (xq, p, sx, sw))).numpy(), want)
+        # unit scales: the Pallas f32 output is its int32 accumulator
+        one = (np.ones((m, 1), np.float32), np.ones((1, n), np.float32))
+        acc = np.asarray(pallas(*map(jnp.asarray, (xq, p, *one)), **blocks))
+        np.testing.assert_array_equal(
+            port(*map(_t, (xq, p, *one)), torch.int32).numpy(), acc.astype(np.int32))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 70, 9), (16, 2048 + 3, 40)])
+def test_four_variant_int32_identity(m, k, n):
+    """The int32 results of int8_matmul(Xq, q), ent_matmul(Xq, planes4),
+    ent_matmul_packed(Xq, packed) and ent_matmul_packed_fused(X, packed)
+    at the same Xq (the fused one quantizes X with the sx of
+    quantize_rows) are all X @ W."""
+    rng = np.random.default_rng(m + k)
+    x = _t((rng.standard_normal((m, k)) * 3).astype(np.float32))
+    w8 = _t(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    sw = _t(rng.uniform(1e-3, 1e-2, (1, n)).astype(np.float32))
+    xq, sx = ref.quantize_rows(x)
+    want = xq.numpy().astype(np.int64) @ w8.numpy().astype(np.int64)
+    planes, packed = ops.encode_weights(w8), ops.encode_weights_packed(w8)
+    got = [int8_matmul(xq, w8, sx, sw, torch.int32),
+           ent_matmul(xq, planes, sx, sw, torch.int32),
+           ent_matmul_packed(xq, packed, sx, sw, torch.int32),
+           ent_matmul_packed_fused(x, packed, sx, sw, torch.int32)]
+    for g in got:
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), want)
+    # and the dequantized outputs agree bit for bit as well
+    outs = [int8_matmul(xq, w8, sx, sw, torch.float32), ent_matmul(xq, planes, sx, sw),
+            ent_matmul_packed(xq, packed, sx, sw), ent_matmul_packed_fused(x, packed, sx, sw)]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
 def test_legacy_records_raise():
-    rec = {"q": torch.zeros((4, 3), dtype=torch.int8), "scale": torch.ones((1, 3))}
-    with pytest.raises(NotImplementedError):
-        quantize.qdense_apply(rec, torch.zeros((2, 4)))
-    with pytest.raises(NotImplementedError):
-        quantize.qdense_apply(dict(rec, planes=torch.zeros((4, 4, 3), dtype=torch.int8)),
-                              torch.zeros((2, 4)))
+    """Legacy 4-plane ``planes`` records and plane-less ``q`` records are
+    served, bit-equal to the reference's ``qdense_apply``; a record whose
+    planes do not match the activations is refused."""
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((48, 40)).astype(np.float32)
+    rec = ref_quantize_weight(jnp.asarray(w), ent_encode=False)
+    legacy = dict(rec, planes=ref_ent_ops.encode_weights(rec["q"]),
+                  bias=jnp.asarray(rng.standard_normal(40).astype(np.float32)))
+    x = (rng.standard_normal((3, 4, 48)) * 2).astype(np.float32)
+    launches = (ent_matmul.launches, int8_matmul.launches)
+    for r in (rec, legacy):
+        want = np.asarray(ref_quant.qdense_apply(r, jnp.asarray(x), out_dtype=jnp.float32))
+        port_rec = {key: _t(v) for key, v in r.items()}
+        got = quantize.qdense_apply(port_rec, _t(x), out_dtype=torch.float32)
+        np.testing.assert_array_equal(got.numpy(), want)
+        plain = quantize.qdense_apply(port_rec, _t(x), out_dtype=torch.float32,
+                                      use_kernel=False)
+        np.testing.assert_array_equal(plain.numpy(), want)
+    assert (ent_matmul.launches, int8_matmul.launches) == launches
+    with pytest.raises(ValueError):
+        quantize.qdense_apply(dict(port_rec, planes=port_rec["planes"][:3]), _t(x))
+    with pytest.raises(ValueError):
+        quantize.qdense_apply({key: v for key, v in port_rec.items() if key != "planes"},
+                              _t(x[..., :40]))
