@@ -32,7 +32,25 @@ Phases (each prints its seconds; any failure exits non-zero):
    EN-T weights, float32 with float weights, bf16 with int8 weights and
    int8 KV, bf16 with legacy 4-plane records), and with planted mask and
    scale faults that the limits must reject;
-6. a ``kernels`` JSON line, the card line, and the final result line.
+6. the training kernels: the flash forward (kernel 7) against
+   ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
+   against ``flash_attention_bwd_ref``, at the training shape (B=1,
+   H=36, S=4096, D=64, causal) and at a GQA + window shape (Hq=16,
+   Hkv=2, D=128, S=1024, window 256), in bf16 and float32, per element
+   within limits derived like TOL_BF16's, with planted faults (a causal
+   mask off by one, lse of the neighbouring row, dK/dV of only the first
+   q head of a group) that must fail; each kernel, its plain version and
+   SDPA (forward; backward through autograd) timed at the training shape;
+7. loss and every gradient leaf of full-width minicpm-2b at 2 layers
+   (S=1024) with the kernels and with the plain versions, bf16 and
+   float32, with planted faults in the attention wrappers, and with
+   remat full and dots against no remat;
+8. 3 training steps of full-width minicpm-2b (40 layers, seq 4096,
+   global batch 2, microbatch 1, remat full) through
+   ``repro_torch.launch.train``'s code, each step's launches of kernels
+   7 / 7b / 7c checked against 160 / 80 / 80, then one more step under
+   ``torch.profiler``;
+9. a ``kernels`` JSON line, the card line, and the final result line.
 
 Without a CUDA card it prints nothing but an error and exits 2.
 """
@@ -75,6 +93,14 @@ BF16_FLOPS_S = 989e12
 # N = 128; the planted faults below (must fail) show it on the card.
 TOL_BF16 = 2.0**-6
 TOL_F32 = 2.0**-11
+# Training, kernels vs plain versions end to end (loss and per-leaf
+# gradient relative L2 of full-width minicpm-2b at 2 layers): set between
+# the sound readings and the planted faults' on the H100 (PERF.md): bf16
+# reads 4.3e-3 sound (the two paths round dq, dk, dv and the attention
+# output to bf16 at different points), float32 1.2e-6; the three planted
+# faults read 0.24-0.66 in both.
+TRAIN_BOUND_BF16 = 2e-2
+TRAIN_BOUND_F32 = 1e-4
 
 
 def phase(name):
@@ -379,6 +405,216 @@ def check_paged(torch, timer, int8_kv=False):
                  library_ms=None, bound_ms=bnd, bound_by=by, max_abs_err=err)]
 
 
+def band_mask(torch, sq, skv, q_offset, causal, window):
+    qp = torch.arange(sq, device=DEV)[:, None] + q_offset
+    kp = torch.arange(skv, device=DEV)[None, :]
+    mask = (kp <= qp) if causal else torch.ones((sq, skv), dtype=torch.bool, device=DEV)
+    if window:
+        mask &= kp > qp - window
+    return mask
+
+
+def bwd_units(torch, q, k, v, o, lse, do, window):
+    """Per-element units of the backward kernels' limits, float32 (causal,
+    q_offset 0).  With P the probabilities on the band and W = P (|dO|
+    |V|^T + rowsum(|dO| |O|)), which bounds |dS| and the rounding of
+    dP - D: dQ's unit is scale W |K|, dK's scale W^T |Q| and dV's P^T |dO|
+    (dK and dV summed over each kv head's group of q heads).  Each output
+    is a sum of at most Skv + D terms of its unit, each computed in f32
+    from the same operands on both sides: their orders differ by at most
+    (Skv + D) 2^-24 of the unit (2.5e-4 at Skv = 4096), under TOL_F32;
+    with bf16 outputs both sides round once more, 2^-8 each, under
+    TOL_BF16 (the operands are the same bf16 values on both sides)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kr, vr = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * d**-0.5
+    mask = band_mask(torch, sq, skv, 0, True, window)
+    p = torch.exp(torch.where(mask, s - lse[..., None], -float("inf")))
+    del s
+    dabs = do.float().abs()
+    w = p * (torch.einsum("bhqd,bhkd->bhqk", dabs, vr.abs())
+             + (dabs * o.float().abs()).sum(-1, keepdim=True))
+    unit_dq = d**-0.5 * torch.einsum("bhqk,bhkd->bhqd", w, kr.abs())
+    unit_dk = d**-0.5 * torch.einsum("bhqk,bhqd->bhkd", w, q.float().abs())
+    unit_dv = torch.einsum("bhqk,bhqd->bhkd", p, dabs)
+    return (unit_dq, unit_dk.reshape(b, hkv, g, skv, d).sum(2),
+            unit_dv.reshape(b, hkv, g, skv, d).sum(2))
+
+
+def bwd_check(torch, what, q, k, v, do, window, faults):
+    """Kernels 7b + 7c (``flash_attention_bwd``) against
+    ``flash_attention_bwd_ref`` on the same operands, with o and lse from
+    the plain forward, per element in units of ``bwd_units``, in bf16 and
+    float32; each planted fault (a function of the same operands giving
+    (dq, dk, dv)) must fail the float32 check.  Returns the bf16 max abs
+    error."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_ref)
+    reads = {}
+    for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        qd, kd, vd, dod = (t.to(dt) for t in (q, k, v, do))
+        o, lse = flash_attention_ref(qd, kd, vd, window=window)
+        ops = (qd, kd, vd, o, lse, dod)
+        units = bwd_units(torch, *ops, window)
+        want = [t.float() for t in flash_attention_bwd_ref(*ops, window=window)]
+        got = flash_attention_bwd(*ops, window=window)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in got):
+            raise AssertionError(f"{what} {dt}: non-finite gradient")
+        reads[dt] = (max(excess(a, w, u, tol) for a, w, u in zip(got, want, units)),
+                     max(float((a.float() - w).abs().max()) for a, w in zip(got, want)))
+        for name, bad in faults.items():
+            reads[(dt, name)] = max(excess(a, w, u, tol)
+                                    for a, w, u in zip(bad(*ops), want, units))
+        del units, want, got
+    line = (f"  {what}: err/limit bf16 {reads[torch.bfloat16][0]:.3f} "
+            f"(max abs {reads[torch.bfloat16][1]:.3e}), float32 "
+            f"{reads[torch.float32][0]:.3f} (max abs {reads[torch.float32][1]:.3e})")
+    for name in faults:
+        line += (f"; planted fault '{name}': float32 {reads[(torch.float32, name)]:.1f}"
+                 f", bf16 {reads[(torch.bfloat16, name)]:.2f}")
+    print(line, flush=True)
+    if reads[torch.bfloat16][0] > 1 or reads[torch.float32][0] > 1:
+        raise AssertionError(f"{what}: kernels disagree with the plain version")
+    missed = [n for n in faults if reads[(torch.float32, n)] <= 1]
+    if missed:
+        raise AssertionError(f"{what}: the float32 check misses planted faults {missed}")
+    return reads[torch.bfloat16][1]
+
+
+# the training kernels' check shapes: (B, Hq, Hkv, S, D, window); the first
+# is one attention call of full-width minicpm-2b training at seq 4096
+TRAIN_ATTN_SHAPES = [(1, 36, 36, 4096, 64, None), (1, 16, 2, 1024, 128, 256)]
+
+
+def check_flash_train(torch, timer):
+    """Kernels 7, 7b and 7c at TRAIN_ATTN_SHAPES (causal, Sq = Skv):
+    checked against their plain versions (forward with ``attn_check``,
+    plus the lse to TOL_F32 absolute, which bounds a sum of Skv positive
+    f32 terms; backward with ``bwd_check``) and timed in bf16 beside
+    their plain versions and SDPA (forward, and its autograd backward for
+    7b and 7c, which computes all three gradients).  Returns {kernel:
+    [row per shape]}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq)
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         flash_attention_bwd_ref,
+                                                         flash_attention_ref)
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    rows = {n: [] for n in ("flash_attention", "flash_attention_bwd_dkdv",
+                            "flash_attention_bwd_dq")}
+    # what the kernels do not take must raise on the card, not fall back
+    for what, bad, exc in (("head_dim 32", torch.zeros((1, 2, 8, 32), device=DEV), ValueError),
+                           ("float16", torch.zeros((1, 2, 8, 64), device=DEV).half(),
+                            TypeError)):
+        for name, call in (("forward", lambda t: flash_attention(t, t, t)),
+                           ("backward", lambda t: flash_attention_bwd(
+                               t, t, t, t, torch.zeros(t.shape[:3], device=DEV), t))):
+            try:
+                call(bad)
+            except exc:
+                continue
+            raise AssertionError(f"flash_attention {name} took {what} on the card")
+    print("  flash_attention forward and backward refuse head_dim 32 and float16 "
+          "on the card", flush=True)
+    for b, hq, hkv, s, d, window in TRAIN_ATTN_SHAPES:
+        q, do = (torch.randn((b, hq, s, d), generator=gen, device=DEV) for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=DEV) for _ in range(2))
+        shape = f"B={b} Hq={hq} Hkv={hkv} D={d} S={s} window={window}"
+        fwd_faults = {"causal mask off by one": lambda q, k, v: flash_attention(
+            q, k, v, window=window, q_offset=1)[0]}
+        if window:
+            fwd_faults["window + 1"] = lambda q, k, v: flash_attention(
+                q, k, v, window=window + 1)[0]
+        err_f = attn_check(
+            torch, f"flash_attention {shape}",
+            lambda q, k, v: flash_attention(q, k, v, window=window)[0],
+            lambda q, k, v: attention_ref(q, k, v, window=window).float(),
+            (q, k, v), fwd_faults)
+        lse_err = 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            ops = [t.to(dt) for t in (q, k, v)]
+            lse_err = max(lse_err, float((flash_attention(*ops, window=window)[1]
+                                          - flash_attention_ref(*ops, window=window)[1])
+                                         .abs().max()))
+        print(f"  flash_attention {shape}: lse max abs err {lse_err:.3e} "
+              f"(limit {TOL_F32:.3e})", flush=True)
+        if lse_err > TOL_F32:
+            raise AssertionError(f"flash_attention {shape}: lse disagrees")
+
+        def causal_off_by_one(q, k, v, o, lse, do):
+            return flash_attention_bwd(q, k, v, o, lse, do, window=window, q_offset=1)
+
+        def lse_of_neighbour(q, k, v, o, lse, do):
+            return flash_attention_bwd(q, k, v, o, lse.roll(1, -1).contiguous(), do,
+                                       window=window)
+
+        bwd_faults = {"causal mask off by one in the backward": causal_off_by_one,
+                      "lse of the neighbouring row": lse_of_neighbour}
+        if hq > hkv:
+            def first_head_only(q, k, v, o, lse, do):
+                sel = lambda t: t[:, ::hq // hkv].contiguous()   # noqa: E731
+                dk, dv = flash_attention_bwd_dkdv(sel(q), k, v, sel(o), sel(lse), sel(do),
+                                                  window=window)
+                return flash_attention_bwd_dq(q, k, v, o, lse, do, window=window), dk, dv
+            bwd_faults["dK/dV of only the first q head of a group"] = first_head_only
+        err_b = bwd_check(torch, f"flash_attention_bwd {shape}", q, k, v, do, window,
+                          bwd_faults)
+
+        # times, bf16 (the training dtype)
+        qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
+        del q, k, v, do
+        o, lse = flash_attention(qb, kb, vb, window=window)
+        mask = band_mask(torch, s, s, 0, True, window)
+        pairs = int(mask.sum())
+        fw = dict(window=window)
+        lib_mask = None if window is None else mask[None, None]
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qb, kb, vb))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=lib_mask,
+                                                 is_causal=lib_mask is None,
+                                                 enable_gqa=hq > hkv)
+        lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=lib_mask, is_causal=lib_mask is None, enable_gqa=hq > hkv))
+        lib_bwd = timer(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dob,
+                                                    retain_graph=True))
+        plain_bwd = timer(lambda: flash_attention_bwd_ref(qb, kb, vb, o, lse, dob, **fw),
+                          reps=3)
+        e = 2   # bf16 bytes
+        io = qb.numel() * e                       # one [B, Hq, S, D] tensor
+        kv = kb.numel() * e
+        lse_b = lse.numel() * 4
+        cases = {   # name -> (kernel, plain, library, bytes, flops)
+            "flash_attention": (lambda: flash_attention(qb, kb, vb, **fw),
+                                lambda: flash_attention_ref(qb, kb, vb, **fw), lib_fwd,
+                                io + 2 * kv + io + lse_b, 4 * pairs * hq * d,
+                                err_f),
+            "flash_attention_bwd_dkdv": (
+                lambda: flash_attention_bwd_dkdv(qb, kb, vb, o, lse, dob, **fw), None,
+                lib_bwd, 3 * io + 2 * kv + lse_b + 2 * kv, 8 * pairs * hq * d, err_b),
+            "flash_attention_bwd_dq": (
+                lambda: flash_attention_bwd_dq(qb, kb, vb, o, lse, dob, **fw), None,
+                lib_bwd, 3 * io + 2 * kv + lse_b + io, 6 * pairs * hq * d, err_b),
+        }
+        for name, (kern, plain, lib_ms, nbytes, flops, err) in cases.items():
+            ms = timer(kern)
+            plain_ms = timer(plain, reps=3) if plain is not None else plain_bwd
+            bnd, by = bound_ms(nbytes, flops, BF16_FLOPS_S)
+            print(f"kernel {name} {shape} causal ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} bound_ms={bnd:.5f} ({by}) "
+                  f"max_abs_err={err}", flush=True)
+            rows[name].append(dict(S=s, Hq=hq, Hkv=hkv, D=d, window=window, ms=ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                                   bound_by=by, max_abs_err=err))
+        del qb, kb, vb, dob, o, lse, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def wrappers(torch):
     """Every kernel wrapper of the port (name -> wrapper with its
     ``launches`` count) and every ops-level plain route (with its
@@ -390,13 +626,16 @@ def wrappers(torch):
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked
     from repro_torch.kernels.int8_matmul import ops as int8_ops
     from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq)
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.paged_attention import paged_attention_kernel
     kernels = (ent_matmul_packed_fused, flash_attention_masked, paged_attention_kernel,
-               int8_matmul, ent_matmul, ent_matmul_packed)
+               int8_matmul, ent_matmul, ent_matmul_packed, flash_attention,
+               flash_attention_bwd_dkdv, flash_attention_bwd_dq)
     plains = (ent_ops.ent_quantized_matmul_fused, ent_ops.ent_quantized_matmul,
               ent_ops.ent_quantized_matmul_packed, int8_ops.quantized_matmul,
-              attn_ops.masked_attention, paged_ops.paged_attention)
+              attn_ops.masked_attention, paged_ops.paged_attention, attn_ops.attention)
     return kernels, plains, paged_attention_kernel
 
 
@@ -418,6 +657,7 @@ def read_counts(torch):
     return launches, {f.__name__: f.plain_launches for f in plains}
 
 
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 # the serving configurations chip_smoke runs at full width: name ->
 # (launch.build keyword arguments, kernels that must launch, kernels that
 # must not)
@@ -425,11 +665,11 @@ SERVE_CONFIGS = {
     "EN-T w8a8, bf16 KV": (
         dict(quantize=True),
         ("ent_matmul_packed_fused", "flash_attention_masked", "paged_attention_kernel"),
-        ("int8_matmul", "paged_attention_kernel[int8_kv]")),
+        ("int8_matmul", "paged_attention_kernel[int8_kv]", *TRAIN_KERNELS)),
     "w8a8 int8, int8 KV": (
         dict(quant="int8", kv_quant=True),
         ("int8_matmul", "flash_attention_masked", "paged_attention_kernel[int8_kv]"),
-        ("ent_matmul_packed_fused", "paged_attention_kernel")),
+        ("ent_matmul_packed_fused", "paged_attention_kernel", *TRAIN_KERNELS)),
 }
 
 
@@ -683,6 +923,209 @@ def kernels_vs_plain_end_to_end(torch, compute_dtype, weights, bound, kv_quant=F
     return launches
 
 
+def loss_and_grads(model, params, batch, remat="none"):
+    """The train step's loss and float32 master-weight gradients, without
+    the optimizer update."""
+    from repro_torch.optim.grad import accumulate
+    from repro_torch.runtime.train_loop import make_loss
+    from repro_torch.tree import leaves
+    loss, grads = accumulate(make_loss(model, remat), params, [batch])
+    return loss, leaves(grads)
+
+
+def train_faults():
+    """Planted faults for the training comparison: each replaces one
+    attention wrapper, as ``FlashAttention`` calls it, with the real
+    wrapper fed one wrong argument.  name -> (module, attribute, wrap)."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    return {
+        "forward sees one key ahead (q_offset + 1)": (
+            attn_ops, "flash_attention",
+            lambda f: lambda q, k, v, **kw: f(q, k, v, q_offset=1, **kw)),
+        "backward causal mask off by one": (
+            attn_ops, "flash_attention_bwd",
+            lambda f: lambda *a, **kw: f(*a, q_offset=1, **kw)),
+        "backward reads the neighbouring row's lse": (
+            attn_ops, "flash_attention_bwd",
+            lambda f: lambda q, k, v, o, lse, do, **kw: f(
+                q, k, v, o, lse.roll(1, -1).contiguous(), do, **kw)),
+    }
+
+
+def train_kernels_vs_plain(torch, compute_dtype, bound):
+    """Loss and every gradient leaf of full-width minicpm-2b at 2 layers
+    (seq 1024, one row of ``SyntheticSource(seed=1234)``) with the kernels
+    and with the plain versions (``use_kernels=False``); the reading is
+    the larger of the loss's relative difference and the largest per-leaf
+    relative L2 difference of the gradients, and must stay within
+    ``bound``; each planted fault (``train_faults``) must exceed it.
+    Returns the kernel launches of the kernel run."""
+    from repro_torch.configs import get_config, get_optim
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticSource, TokenStream
+    from repro_torch.launch import train as launch
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2,
+                              compute_dtype=compute_dtype)
+    model, params, _, _ = launch.build(cfg, TrainConfig(seq_len=1024, global_batch=1),
+                                       get_optim("minicpm-2b"), seed=2)
+    plain_model = Model(cfg, use_kernels=False)
+    stream = TokenStream(SyntheticSource(cfg.vocab_size, seed=1234), global_batch=1,
+                         seq_len=1024)
+    batch = launch.to_device(stream.next(), model.device)
+
+    def reading(grads_a, loss_a, grads_b, loss_b):
+        rel = max(float((a - b).norm() / b.norm()) for a, b in zip(grads_a, grads_b))
+        return max(abs(float(loss_a) - float(loss_b)) / abs(float(loss_b)), rel)
+
+    reset_counts(torch)
+    loss_k, grads_k = loss_and_grads(model, params, batch)
+    launches, plain_runs = read_counts(torch)
+    if any(plain_runs.values()):
+        raise AssertionError(f"training kernel run ran plain versions {plain_runs}")
+    loss_p, grads_p = loss_and_grads(plain_model, params, batch)
+    if not (torch.isfinite(loss_k) and all(torch.isfinite(g).all() for g in grads_k)):
+        raise AssertionError("training kernel run: non-finite loss or gradient")
+    sound = reading(grads_k, loss_k, grads_p, loss_p)
+    worst = max(range(len(grads_p)), key=lambda i: float(
+        (grads_k[i] - grads_p[i]).norm() / grads_p[i].norm()))
+    print(f"minicpm-2b full width, 2 layers, {compute_dtype}, seq 1024: loss kernels "
+          f"{float(loss_k):.6f} plain {float(loss_p):.6f}; reading (max of loss and "
+          f"per-leaf gradient relative L2) {sound:.3e} (limit {bound}; worst leaf "
+          f"#{worst} of {len(grads_p)}); kernel launches "
+          f"{ {n: launches[n] for n in TRAIN_KERNELS} }", flush=True)
+    missed = []
+    for name, (module, attr, wrap) in train_faults().items():
+        with planted(module, attr, wrap):
+            loss_f, grads_f = loss_and_grads(model, params, batch)
+        r = reading(grads_f, loss_f, grads_p, loss_p)
+        del grads_f
+        caught = r > bound
+        print(f"  planted fault '{name}': {r:.3e} ({'over' if caught else 'within'} "
+              f"the limit)", flush=True)
+        if not caught:
+            missed.append(name)
+    # recomputation replays the same deterministic kernels: remat full and
+    # dots must give the no-remat kernel run's loss and gradients
+    for remat in ("full", "dots"):
+        loss_r, grads_r = loss_and_grads(model, params, batch, remat)
+        r = reading(grads_r, loss_r, grads_k, loss_k)
+        del grads_r
+        print(f"  remat {remat} vs none (kernels): {r:.3e} (limit {bound})", flush=True)
+        if r > bound:
+            raise AssertionError(f"remat {remat} changes the gradients ({r} > {bound})")
+    if sound > bound:
+        raise AssertionError(f"training kernel path disagrees with the plain path "
+                             f"({compute_dtype}: {sound} > {bound})")
+    if missed:
+        raise AssertionError(f"the limit {bound} misses planted faults {missed}")
+    del model, params, plain_model, grads_p, grads_k
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train_step(torch, step_fn, params, opt, batch, step_wall):
+    """One train step under torch.profiler: device busy vs the unprofiled
+    step time ``step_wall`` (host clock, seconds) and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+    dev = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us and getattr(ev, "device_type", None) is not None and \
+                str(ev.device_type).endswith("CUDA"):
+            dev[ev.key] = us / 1e6
+    busy = sum(dev.values())
+    idle = "not measured" if not busy else f"{100 * (1 - busy / step_wall):.1f}% idle"
+    print(f"profiled train step: loss {loss:.4f}; {wall:.3f} s host-clock under the "
+          f"profiler ({step_wall:.3f} s unprofiled); device busy {busy:.3f} s ({idle} "
+          f"of the unprofiled step)", flush=True)
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    for name, sec in top:
+        print(f"  {sec * 1e3:10.2f} ms/step ({100 * sec / max(busy, 1e-12):5.1f}%)  "
+              f"{name[:90]}", flush=True)
+    return dict(busy_s=busy, wall_s=wall, step_s=step_wall,
+                top=[(n[:90], sec) for n, sec in top])
+
+
+def train_full_width(torch):
+    """Three training steps of full-width minicpm-2b (40 layers, random
+    float32 master weights from seed 0) at seq 4096, global batch 2,
+    microbatch 1, remat full, on ``SyntheticSource(seed=1234)``, through
+    ``repro_torch.launch.train``'s ``build`` and ``train``.  Counts are
+    set to 0 just before the run and read (and set to 0) after each
+    step; every step must launch kernel 7 twice per layer and
+    microbatch (forward and recomputation) and 7b and 7c once, and
+    nothing else of the port's kernels or plain versions.  Then one more
+    step under the profiler.  Returns the run's record."""
+    import math
+
+    from repro_torch.configs import get_config, get_optim
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticSource, TokenStream
+    from repro_torch.launch import train as launch
+
+    cfg = get_config("minicpm-2b")
+    tcfg = TrainConfig(seq_len=4096, global_batch=2, microbatch=1, remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, opt, step_fn = launch.build(cfg, tcfg, get_optim("minicpm-2b"), seed=0)
+    torch.cuda.synchronize()
+    print(f"minicpm-2b full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.3f}B params): "
+          f"init {time.perf_counter() - t0:.2f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+    stream = TokenStream(SyntheticSource(cfg.vocab_size, seed=1234),
+                         global_batch=tcfg.global_batch, seq_len=tcfg.seq_len)
+    n_micro = tcfg.global_batch // tcfg.microbatch
+    expected = {"flash_attention": 2 * cfg.num_layers * n_micro,
+                "flash_attention_bwd_dkdv": cfg.num_layers * n_micro,
+                "flash_attention_bwd_dq": cfg.num_layers * n_micro}
+    steps = []
+
+    def on_step(rec):
+        launches, plain_runs = read_counts(torch)
+        reset_counts(torch)
+        rec.update(launches=launches, plain_runs=plain_runs,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        steps.append(rec)
+        print(f"  step {rec['step']}: loss {rec['loss']:.4f} grad-norm "
+              f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e} time {rec['seconds']:.3f}s "
+              f"tokens/s {rec['tokens_per_s']:.1f} peak {rec['peak_gib']:.2f} GiB; "
+              f"launches {({n: launches[n] for n in TRAIN_KERNELS})}", flush=True)
+
+    reset_counts(torch)
+    params, opt, _ = launch.train(step_fn, params, opt, stream, 3, device=model.device,
+                                  log_every=1, on_step=on_step)
+    for rec in steps:
+        got = {n: rec["launches"][n] for n in TRAIN_KERNELS}
+        if got != expected:
+            raise AssertionError(f"step {rec['step']}: launches {got}, expected {expected}")
+        others = {n: c for n, c in rec["launches"].items() if n not in TRAIN_KERNELS and c}
+        if others or any(rec["plain_runs"].values()):
+            raise AssertionError(f"step {rec['step']}: other kernels {others} or plain "
+                                 f"versions {rec['plain_runs']} ran")
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"step {rec['step']}: non-finite loss or grad-norm")
+    print(f"first step's loss {steps[0]['loss']:.4f} beside ln(vocab) = "
+          f"{math.log(cfg.vocab_size):.4f} (random weights; not a check)", flush=True)
+    step_wall = statistics.mean(r["seconds"] for r in steps[1:])
+    prof = profile_train_step(torch, step_fn, params, opt,
+                              launch.to_device(stream.next(), model.device), step_wall)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, params, opt, step_fn
+    torch.cuda.empty_cache()
+    return dict(steps=steps, expected=expected, profile=prof, peak_gib=peak,
+                launches={n: sum(r["launches"][n] for r in steps) for n in TRAIN_KERNELS})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -738,6 +1181,22 @@ def main():
         raise AssertionError(f"legacy 4-plane records did not reach ent_matmul: {legacy}")
     done(t, "kernels vs plain, 2 layers")
 
+    t = phase("training kernel checks")
+    timer = Timer(torch)
+    k7 = check_flash_train(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    done(t, "training kernel checks")
+
+    t = phase("training kernels vs plain, minicpm-2b 2 layers")
+    train_kernels_vs_plain(torch, "bfloat16", TRAIN_BOUND_BF16)
+    train_kernels_vs_plain(torch, "float32", TRAIN_BOUND_F32)
+    done(t, "training kernels vs plain, minicpm-2b 2 layers")
+
+    t = phase("train minicpm-2b full width")
+    tr = train_full_width(torch)
+    done(t, "train minicpm-2b full width")
+
     ent_t, int8 = (serves[c][0] for c in SERVE_CONFIGS)
     at_decode = lambda rows: next(r for r in rows if r["M"] == 8 and r["N"] == 11008)  # noqa: E731
 
@@ -777,6 +1236,23 @@ def main():
               mm["ent_matmul_packed"], at_decode, int8["ent_matmul_packed"],
               launches_from="no serving path; run by the kernel checks only"),
     ]
+    flash = "src/repro/kernels/flash_attention/flash_attention.py"
+    at_train = lambda rows: rows[0]   # noqa: E731  (B=1, H=36, S=4096, D=64)
+    for name in TRAIN_KERNELS:
+        extra = dict(launches_per_step=tr["expected"][name],
+                     launches_from="3 training steps of full-width minicpm-2b")
+        if name != "flash_attention":
+            extra["note"] = ("backward of flash_attention (:92); the reference has no "
+                             "backward kernel and differentiates attention_ref "
+                             "(src/repro/kernels/flash_attention/ref.py:25); plain_ms "
+                             "and library_ms compute all three gradients")
+        kernels.append(entry(name, "src/repro_torch/csrc/flash_attention.cu",
+                             f"{flash}:92", k7[name], at_train, tr["launches"][name],
+                             **extra))
+    steps = tr["steps"]
+    print(f"train minicpm-2b: step seconds {[round(r['seconds'], 4) for r in steps]}, "
+          f"tokens/s {[round(r['tokens_per_s'], 2) for r in steps]}, peak "
+          f"{tr['peak_gib']:.2f} GiB")
     for config in SERVE_CONFIGS:
         print(f"serve tokens/s [{config}] {serves[config][1]:.3f}")
     print(json.dumps({"kernels": kernels}))

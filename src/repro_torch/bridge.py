@@ -1,4 +1,5 @@
-"""numpy bridge from the reference's param tree to the port's model state.
+"""numpy bridge between the reference's param tree and the port's model
+state.
 
 The reference's ``Model.init`` returns plain dicts whose layer stack sits
 under ``"groups"``: a tuple with one dict per group position, every leaf
@@ -13,6 +14,9 @@ the groups and moves every leaf onto ``device`` as a torch tensor.
 
 Callers convert the reference tree to numpy first
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX.
+:func:`params_to_numpy` goes back: it re-stacks ``"layers"`` into the
+reference's ``"groups"`` layout, so that port trees (params, gradients,
+optimizer moments) compare leaf by leaf with the reference's.
 """
 
 from __future__ import annotations
@@ -59,3 +63,36 @@ def _leaves(node):
             yield from _leaves(v)
     else:
         yield node
+
+
+def _to_numpy(node, like):
+    if isinstance(node, dict):
+        return {k: _to_numpy(v, like[k]) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_to_numpy(v, w) for v, w in zip(node, like))
+    t = node.detach().cpu()
+    if t.dtype == torch.bfloat16:   # numpy has no bfloat16: widen exactly
+        t = t.to(torch.float32)
+    return t.numpy().astype(np.asarray(like).dtype, copy=False)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_numpy(state, like):
+    """The port's state (or a tree of its structure: gradients, moments)
+    -> a numpy tree in the layout of the reference tree ``like``: layer
+    ``g * len(groups) + i`` goes to ``like["groups"][i]`` at index ``g``,
+    every leaf in ``like``'s leaf dtype."""
+    groups = like["groups"]
+    n = len(groups)
+    out = {k: _to_numpy(v, like[k]) for k, v in state.items() if k != "layers"}
+    layers = state["layers"]
+    out["groups"] = type(groups)(
+        _stack([_to_numpy(layer, _index(groups[i], g))
+                for g, layer in enumerate(layers[i::n])])
+        for i in range(n))
+    return out

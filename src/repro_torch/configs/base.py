@@ -221,6 +221,8 @@ class TrainConfig:
     global_batch: int = 256
     microbatch: int = 0           # 0 = no accumulation
     remat: str = "none"           # none | full | dots
+    checkpoint_every: int = 500
+    checkpoint_dir: str = "/tmp/repro_ckpt"
     log_every: int = 10
     grad_compression: str = "none"  # none | int8_ef (cross-pod int8 + error feedback)
     grad_prepin: bool = False       # pin per-microbatch grads (reduce-scatter hint)

@@ -5,7 +5,8 @@
 //
 // As in the plain versions (masked_attention_ref, paged_attention_ref),
 // the row sum l adds the f32 probabilities and the value product uses
-// the probabilities rounded to the value dtype T.
+// the probabilities rounded to the value dtype T; with ROUND_P = false
+// (the training forward, as attention_ref) it keeps them in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,8 +43,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // stride VS); the lane owns accumulator columns lane + 32 * t.  vscale
 // is column j's int8-KV V scale (1 without one): it multiplies the
 // probability after l has summed it, before the rounding to T.  A fully
-// masked tile leaves m, l and acc unchanged.
-template <typename T, int VS, int DT>
+// masked tile leaves m, l and acc unchanged.  ROUND_P = false keeps the
+// probabilities in f32 for the value product.
+template <typename T, int VS, int DT, bool ROUND_P = true>
 __device__ __forceinline__ void online_softmax_update(
     float s, bool valid, int ncols, const float* vs, float& m, float& l,
     float (&acc)[DT], int lane, float vscale = 1.0f) {
@@ -52,7 +54,7 @@ __device__ __forceinline__ void online_softmax_update(
   const float p = valid ? expf(s - m_new) : 0.0f;
   const float alpha = expf(m - m_new);
   l = alpha * l + warp_sum(p);
-  const float pv = to_f32(from_f32<T>(p * vscale));
+  const float pv = ROUND_P ? to_f32(from_f32<T>(p * vscale)) : p * vscale;
 #pragma unroll
   for (int t = 0; t < DT; ++t) acc[t] *= alpha;
 #pragma unroll 8

@@ -38,7 +38,11 @@ ENTRY_POINTS = {
         "ent_matmul_packed_fused": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "ent_matmul_planes": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]},
     "int8_matmul": {"int8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
-    "flash_attention": {"flash_attention_masked": [_P] * 5 + [_I] * 10 + [_F, _P]},
+    "flash_attention": {
+        "flash_attention_masked": [_P] * 5 + [_I] * 10 + [_F, _P],
+        "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
+        "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 10 + [_F, _P],
+        "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P]},
     "paged_attention": {"paged_attention": [_P] * 9 + [_I] * 8 + [_F, _P]},
 }
 

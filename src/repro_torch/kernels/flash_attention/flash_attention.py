@@ -1,10 +1,18 @@
-"""Wrapper of the CUDA kernel ``csrc/flash_attention.cu``: masked flash
-prefill (replaces the Pallas ``flash_attention_masked``,
-``repro/kernels/flash_attention/flash_attention.py:145``).
+"""Wrappers of the CUDA kernels in ``csrc/flash_attention.cu``:
 
-On a CUDA tensor the wrapper launches the kernel or raises; only CPU
-tensors take the plain PyTorch version.  ``flash_attention_masked.launches``
-counts kernel launches.
+* ``flash_attention_masked``: masked flash prefill (kernel 2, replaces
+  the Pallas ``flash_attention_masked``,
+  ``repro/kernels/flash_attention/flash_attention.py:145``);
+* ``flash_attention``: the training forward (kernel 7, replaces the
+  Pallas ``flash_attention``, ``flash_attention.py:92``), which also
+  returns each row's log-sum-exp;
+* ``flash_attention_bwd_dkdv`` and ``flash_attention_bwd_dq``: its
+  backward (kernels 7b and 7c; the reference has no backward kernel),
+  run together by ``flash_attention_bwd``.
+
+On a CUDA tensor each wrapper launches its kernel or raises; only CPU
+tensors take the plain PyTorch version.  Each kernel wrapper's
+``.launches`` counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -12,9 +20,42 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import masked_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref, flash_attention_ref, masked_attention_ref)
 
 HEAD_DIMS = (64, 128)
+
+
+def _check_qkv(q, k, v):
+    b, hq, _, d = q.shape
+    _, hkv, _, _ = k.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+
+
+def _check_cuda(q, *tensors):
+    """Dtype, head_dim, device and contiguity checks for a kernel launch;
+    ``tensors`` must share q's dtype."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for t in tensors:
+        if t.dtype != q.dtype:
+            raise TypeError(f"operands must share q's dtype {q.dtype}, got {t.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[3]} not supported by the kernel "
+                         f"(supported: {HEAD_DIMS})")
+    for t in (q, *tensors):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("operands must be contiguous and on one device")
+
+
+def _mask_args(sq, skv, d, causal, window, scale, q_offset):
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive or None, got {window}")
+    return (skv - sq if q_offset is None else int(q_offset), int(causal),
+            0 if window is None else int(window), d**-0.5 if scale is None else float(scale))
 
 
 def flash_attention_masked(q, k, v, start, *, q_offset: int = 0,
@@ -23,12 +64,9 @@ def flash_attention_masked(q, k, v, start, *, q_offset: int = 0,
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (f32 or bf16, one dtype),
     start int32 [B] -> [B, Hq, Sq, D] in q's dtype (as the Pallas kernel;
     softmax and accumulation in f32)."""
+    _check_qkv(q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if hq % hkv:
-        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
     if start.shape != (b,) or start.dtype != torch.int32:
         raise ValueError("start must be int32 [B]")
     if scale is None:
@@ -37,17 +75,13 @@ def flash_attention_masked(q, k, v, start, *, q_offset: int = 0,
         return masked_attention_ref(q, k, v, start=start, q_offset=q_offset,
                                     causal=causal, window=window,
                                     scale=scale).to(q.dtype)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q/k/v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported by the kernel (supported: {HEAD_DIMS})")
-    for t in (q, k, v, start):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("operands must be contiguous and on one device")
+    _check_cuda(q, k, v)
+    if start.device != q.device or not start.is_contiguous():
+        raise ValueError("operands must be contiguous and on one device")
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if b * hq * sq == 0:
         return out
-    fn = _build.entry("flash_attention")
+    fn = _build.entry("flash_attention", "flash_attention_masked")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
             out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv, sq,
             skv, d, int(q_offset), int(causal),
@@ -58,4 +92,115 @@ def flash_attention_masked(q, k, v, start, *, q_offset: int = 0,
     return out
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    scale: float | None = None, q_offset: int | None = None):
+    """Training forward.  q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (f32 or
+    bf16, one dtype) -> (out [B, Hq, Sq, D] in q's dtype, lse float32
+    [B, Hq, Sq]).  Query row t sits at kv position ``q_offset + t``
+    (default ``Skv - Sq``, as the Pallas kernel); probabilities stay f32."""
+    _check_qkv(q, k, v)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    off, c, w, sc = _mask_args(sq, skv, d, causal, window, scale, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=sc, q_offset=off)
+    _check_cuda(q, k, v)
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if b * hq * sq == 0:
+        return out, lse
+    fn = _build.entry("flash_attention", "flash_attention_fwd")
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv,
+            d, off, c, w, sc, _build.stream_of(q))
+    _build.check(rc, "flash_attention_fwd")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _check_bwd(q, k, v, o, lse, do):
+    _check_qkv(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "
+                         f"q's {tuple(q.shape)}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}")
+
+
+def _bwd_launch(fname, outs, q, k, v, o, lse, do, causal, window, scale,
+                q_offset):
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    off, c, w, sc = _mask_args(sq, skv, d, causal, window, scale, q_offset)
+    _check_cuda(q, k, v, o, do)
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("operands must be contiguous and on one device")
+    if b * hq * sq == 0 or skv == 0:
+        for t in outs:
+            t.zero_()
+        return False
+    fn = _build.entry("flash_attention", fname)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), *(t.data_ptr() for t in outs),
+            int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv, d, off, c, w,
+            sc, _build.stream_of(q))
+    _build.check(rc, fname)
+    return True
+
+
+def flash_attention_bwd_dkdv(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int | None = None,
+                             scale: float | None = None,
+                             q_offset: int | None = None):
+    """(dk, dv) [B, Hkv, Skv, D] in k's dtype, summed over each kv head's
+    group of q heads, from the forward's output ``o`` and ``lse`` and the
+    output gradient ``do`` (q's shape and dtype)."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        _, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                            window=window, scale=scale,
+                                            q_offset=q_offset)
+        return dk, dv
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if _bwd_launch("flash_attention_bwd_dkdv", (dk, dv), q, k, v, o, lse, do,
+                   causal, window, scale, q_offset):
+        flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
+                           window: int | None = None,
+                           scale: float | None = None,
+                           q_offset: int | None = None):
+    """dq [B, Hq, Sq, D] in q's dtype (arguments as
+    :func:`flash_attention_bwd_dkdv`)."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, scale=scale,
+                                       q_offset=q_offset)[0]
+    dq = torch.empty_like(q)
+    if _bwd_launch("flash_attention_bwd_dq", (dq,), q, k, v, o, lse, do,
+                   causal, window, scale, q_offset):
+        flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int | None = None, scale: float | None = None,
+                        q_offset: int | None = None):
+    """(dq, dk, dv) of :func:`flash_attention`: kernels 7b and 7c on CUDA
+    tensors, ``flash_attention_bwd_ref`` on CPU tensors."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if q.device.type == "cpu":
+        _check_bwd(q, k, v, o, lse, do)
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, o, lse, do, **kw)
+    return flash_attention_bwd_dq(q, k, v, o, lse, do, **kw), dk, dv
+
+
 flash_attention_masked.launches = 0
+flash_attention.launches = 0
+flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dq.launches = 0

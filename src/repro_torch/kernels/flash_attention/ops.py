@@ -1,10 +1,20 @@
-"""Public op: serving (masked) attention (port of
-``repro/kernels/flash_attention/ops.py:44``).
+"""Public ops: training attention and serving (masked) attention (port
+of ``repro/kernels/flash_attention/ops.py``).
 
-``masked_attention`` sends every call to the masked flash kernel, whose
-wrapper takes the plain version only for CPU tensors; unlike the
-reference there is no "tiles don't divide -> oracle" route, because the
-kernel masks ragged tiles itself.  int8-KV dequant scales
+``attention`` (reference :19) is the full-sequence op of the training
+forward.  With ``use_kernel=True`` it runs :class:`FlashAttention`, an
+autograd function whose forward is the flash kernel (saving q, k, v, the
+output and the row log-sum-exp) and whose backward is the two backward
+kernels; on CPU tensors the same wrappers run their plain versions.
+``use_kernel=False`` runs the reference's plain route under autograd
+(``attention_ref``, or ``attention_blockwise`` at ``Skv >=
+BLOCKWISE_THRESHOLD``), the only way to reach it on the card (counted in
+``attention.plain_launches`` there).
+
+``masked_attention`` (reference :44) sends every call to the masked
+flash kernel, whose wrapper takes the plain version only for CPU
+tensors; unlike the reference there is no "tiles don't divide ->
+oracle" route, because the kernel masks ragged tiles itself.  int8-KV dequant scales
 (``k_scale``/``v_scale``) on the card take the reference's kernel route:
 K and V are dequantized to q's dtype before the kernel (``ops.py:75-78``,
 :func:`dequantize`).  On CPU tensors a scaled call takes the plain
@@ -20,8 +30,54 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention_masked)
-from repro_torch.kernels.flash_attention.ref import masked_attention_ref
+    flash_attention, flash_attention_bwd, flash_attention_masked)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_blockwise, attention_ref, masked_attention_ref)
+
+# at or above this many kv columns the plain route is the O(chunk)-memory
+# blockwise version, as the reference's CPU route (reference :16)
+BLOCKWISE_THRESHOLD = 2048
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the hand-written backward: forward saves
+    (q, k, v, out, lse); backward computes (dq, dk, dv) from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def attention(q, k, v, *, causal=True, window=None, scale=None,
+              use_kernel: bool = True):
+    """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D] in q's
+    dtype, differentiable in q, k and v; query row t sits at kv position
+    ``Skv - Sq + t``."""
+    if use_kernel:
+        return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, window, scale)
+    if q.is_cuda:
+        attention.plain_launches += 1
+    if k.shape[2] >= BLOCKWISE_THRESHOLD:
+        return attention_blockwise(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+attention.plain_launches = 0
 
 
 def dequantize(t, t_scale, dtype):

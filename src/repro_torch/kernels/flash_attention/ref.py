@@ -1,7 +1,19 @@
-"""Plain PyTorch version of masked (serving) attention (port of
-``masked_attention_ref``, ``repro/kernels/flash_attention/ref.py:102``).
+"""Plain PyTorch versions of the flash attention kernels (port of
+``repro/kernels/flash_attention/ref.py``).
 
-Blocked online-softmax attention with ragged/serving masking, per kv
+``attention_ref`` (reference :25) materializes the [Sq, Skv] scores;
+``attention_blockwise`` (:50) is the same math with an online softmax
+over kv chunks.  Both keep the probabilities in float32 and cast the
+output to q's dtype.  ``flash_attention_ref`` is ``attention_ref`` that
+also returns each row's log-sum-exp (the plain version of the training
+forward kernel), and ``flash_attention_bwd_ref`` its backward from the
+saved lse with the flash-attention-2 formulas (the plain version of the
+two backward kernels; the reference has no backward kernel and
+differentiates ``attention_ref``).  Query row t sits at kv position
+``q_offset + t`` with ``q_offset = Skv - Sq`` unless given.
+
+``masked_attention_ref`` (reference :102) is the serving core: blocked
+online-softmax attention with ragged/serving masking, per kv
 column j and query row t (q row t sits at position ``q_offset + t``):
 
   * causal:  j <= q_offset + t
@@ -22,6 +34,116 @@ from __future__ import annotations
 import torch
 
 _NEG_INF = -1e30
+
+
+def _band(sq, skv, q_offset, causal, window, device):
+    """[Sq, Skv] bool: kv column j attends to query row t (position
+    ``q_offset + t``)."""
+    q_pos = torch.arange(sq, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kv_pos <= q_pos)
+    if window is not None:
+        mask = mask & (kv_pos > q_pos - window)
+    return mask
+
+
+def _repeat_kv(q, k, v):
+    group = q.shape[1] // k.shape[1]
+    return k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None,
+                        q_offset=None):
+    """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> (out [B, Hq, Sq, D] in q's
+    dtype, lse float32 [B, Hq, Sq]); lse is +inf on a fully masked row."""
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    if q_offset is None:
+        q_offset = skv - sq
+    kr, vr = _repeat_kv(q, k, v)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kr.to(torch.float32))
+    s = s * scale
+    mask = _band(sq, skv, q_offset, causal, window, q.device)
+    s = torch.where(mask, s, _NEG_INF)
+    mx = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - mx), 0.0)
+    den = p.sum(-1, keepdim=True)
+    p = p / torch.clamp_min(den, 1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vr.to(torch.float32))
+    lse = torch.where(den > 0, mx + torch.log(den), float("inf"))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, scale=None):
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               scale=scale)[0]
+
+
+def attention_blockwise(q, k, v, *, causal=True, window=None, scale=None,
+                        chunk=1024):
+    """Online-softmax attention over kv chunks of ``chunk`` columns:
+    O(Sq x chunk) scores at a time (reference :50)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    chunk = min(chunk, skv)
+    if skv % chunk:
+        raise ValueError(f"chunk {chunk} does not divide Skv={skv}")
+    kr, vr = _repeat_kv(q, k, v)
+    qf = q.to(torch.float32) * scale
+    dev = q.device
+    m = torch.full((b, hq, sq, 1), _NEG_INF, device=dev)
+    l = torch.zeros((b, hq, sq, 1), device=dev)
+    acc = torch.zeros((b, hq, sq, d), device=dev)
+    for lo in range(0, skv, chunk):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf,
+                         kr[:, :, lo:lo + chunk].to(torch.float32))
+        mask = _band(sq, skv, skv - sq, causal, window, dev)[:, lo:lo + chunk]
+        s = torch.where(mask, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bhkd->bhqd", p, vr[:, :, lo:lo + chunk].to(torch.float32))
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
+                            scale=None, q_offset=None):
+    """Backward of :func:`flash_attention_ref` from its output ``o`` and
+    ``lse``: with S the scaled scores on the band, P = exp(S - lse),
+    D = rowsum(dO * O), dP = dO V^T and dS = P * (dP - D): dQ = scale dS K,
+    dK = scale dS^T Q, dV = P^T dO, dK and dV summed over each kv head's
+    group of q heads in float32.  Returns (dq, dk, dv) in q's / k's / v's
+    dtypes."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    if q_offset is None:
+        q_offset = skv - sq
+    f32 = torch.float32
+    kr, vr = _repeat_kv(q, k, v)
+    qf, kf, vf, dof = q.to(f32), kr.to(f32), vr.to(f32), do.to(f32)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    mask = _band(sq, skv, q_offset, causal, window, q.device)
+    p = torch.exp(torch.where(mask, s - lse[..., None], -float("inf")))
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    dd = (dof * o.to(f32)).sum(-1, keepdim=True)
+    ds = p * (dp - dd)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, hkv, hq // hkv, skv, d).sum(2)
+    dv = dv.reshape(b, hkv, hq // hkv, skv, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,

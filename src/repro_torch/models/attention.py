@@ -9,8 +9,8 @@ for the paged ≡ dense test).  With an int8 KV cache the stored codes
 are cast to the compute dtype and the bf16 per-row scales fold into the
 attention (K after the q.k dot, V into the probabilities): the paged
 kernel dequantizes in the kernel, and the flash route takes operands
-dequantized to q's dtype.  The full-sequence ``apply`` needs the
-unmasked flash kernel, which is not ported yet.
+dequantized to q's dtype.  The full-sequence ``apply`` (training)
+attends through the flash kernel and its hand-written backward.
 """
 
 from __future__ import annotations
@@ -44,6 +44,19 @@ def _project(cfg: ModelConfig, p, x, positions, use_kernel: bool = True):
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def apply(cfg: ModelConfig, p, x, positions=None, use_kernel: bool = True):
+    """Full-sequence (training) forward.  x: [B, S, D] -> [B, S, D];
+    ``positions`` default to ``arange(S)`` for every row."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    q, k, v = _project(cfg, p, x, positions, use_kernel)
+    out = attn_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=True,
+                             window=cfg.sliding_window, use_kernel=use_kernel)
+    return _finish(cfg, p, out, use_kernel)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,

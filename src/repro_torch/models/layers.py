@@ -1,5 +1,6 @@
 """Shared model building blocks (port of ``repro/models/layers.py``):
-norms, rotary embeddings, dense projections, MLP, embedding, LM head.
+norms, rotary embeddings, dense projections, MLP, embedding, LM head and
+the training cross-entropies.
 
 Functions take plain dicts of tensors, as the reference does.  Every
 function that reaches a kernel takes ``use_kernel`` (True: the Hopper
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -147,3 +149,52 @@ def lm_head_apply(cfg: ModelConfig, p_head, p_embed, x):
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# --- Cross-entropy -----------------------------------------------------------
+
+def _masked_nll(logits, labels, vocab_size: int):
+    """(sum of the nll over labels >= 0, their count): padded vocab
+    columns masked to -1e30 before the log-sum-exp."""
+    v = logits.shape[-1]
+    if v > vocab_size:
+        pad = torch.arange(v, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits, labels, vocab_size: int):
+    """Mean CE over labels >= 0 (negative labels = padding).  logits:
+    [..., V_padded] f32; labels int."""
+    nll, n = _masked_nll(logits, labels, vocab_size)
+    return nll / torch.clamp_min(n, 1.0)
+
+
+def fused_cross_entropy(cfg: ModelConfig, p_head, p_embed, x, labels,
+                        chunk: int = 8192):
+    """LM head + CE over chunks of ``chunk`` token rows: each chunk's f32
+    logits are recomputed in the backward (``torch.utils.checkpoint``), so
+    at most one chunk's [chunk, V] logits exist at a time."""
+    kernel = (p_embed["embedding"].T if cfg.tie_embeddings
+              else p_head["kernel"])
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    lt = labels.reshape(-1)
+
+    def chunk_loss(xi, li, kernel):
+        logits = xi.to(torch.float32) @ kernel.to(torch.float32)
+        if cfg.logit_softcap:
+            c = cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
+        return _masked_nll(logits, li, cfg.vocab_size)
+
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, xt.shape[0], chunk):
+        a, c = checkpoint(chunk_loss, xt[lo:lo + chunk], lt[lo:lo + chunk],
+                          kernel, use_reentrant=False)
+        nll, n = nll + a, n + c
+    return nll / torch.clamp_min(n, 1.0)

@@ -1,12 +1,17 @@
-"""Decoder-only LM for serving (port of ``repro/models/transformer.py``).
+"""Decoder-only LM for training and serving (port of
+``repro/models/transformer.py``).
 
 The reference stacks each group position's params ``[G, ...]`` and
 traverses them with ``jax.lax.scan``; the port keeps one param dict per
 layer under ``params["layers"]`` (layer ``g * len(group) + i`` has spec
-``cfg.group[i]``) and loops over the layers.  This slice serves
-attention + dense-FFN layers; ``ssm``/``moe`` layer specs raise
-``NotImplementedError``, as does the full-sequence forward without a
-cache (it needs the unmasked flash kernel).
+``cfg.group[i]``) and loops over the layers.  The port runs attention +
+dense-FFN layers; ``ssm``/``moe`` layer specs raise
+``NotImplementedError``.  ``Model.apply`` without a cache is the
+full-sequence (training) forward, with the reference's remat policies:
+``remat="full"`` recomputes each layer group in the backward
+(``torch.utils.checkpoint``), ``remat="dots"`` keeps the outputs of the
+2-D projection matmuls and recomputes the rest (a selective-checkpoint
+policy, the counterpart of ``checkpoint_dots_with_no_batch_dims``).
 
 ``Model(..., kv_quant=True)`` serves from an int8 KV cache with bf16
 per-(row, head) scales, as the reference's ``Model(kv_quant=True)``.
@@ -18,7 +23,11 @@ plain versions on CPU tensors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.device import resolve_device
@@ -34,9 +43,18 @@ def _check_spec(spec):
             "attention + dense-FFN layers (SSM and MoE are later slices)")
 
 
+# remat="dots": the 2-D projection products whose outputs are kept
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 class Model:
-    """Serving model: init / apply (cache write-through prefill) /
-    init_cache / prefill / decode_step."""
+    """Decoder-only LM: init / apply (full-sequence forward, or cache
+    write-through prefill) / init_cache / prefill / decode_step."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  use_kernels: bool = True, kv_quant: bool = False):
@@ -65,7 +83,10 @@ class Model:
     def init(self, generator: torch.Generator, quant: QuantConfig | None = None):
         """Random params from ``generator`` (on the model's device).  With
         ``quant``, each layer is quantized as soon as it is made, so the
-        float weights of all layers never sit on the device at once."""
+        float weights of all layers never sit on the device at once.
+        Without it every leaf is a float tensor in ``cfg.param_dtype``
+        (float32 by default): the master weights that training makes
+        leaves with ``requires_grad``."""
         cfg = self.cfg
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
@@ -83,20 +104,56 @@ class Model:
         params["layers"] = layers
         return params
 
-    # .. serving prefill ..
-    def apply(self, params, tokens=None, *, cache=None,
-              write_cache: bool = False, last_only: bool = False,
-              pad_mask=None, pos0: int = 0, start=None,
-              need_logits: bool = True):
-        """Cache write-through prefill of chunk ``[pos0, pos0+S)``.
-        ``pad_mask`` ([B, S] bool, True = real token) marks LEFT padding
-        of the first chunk; ``start`` overrides the pad count derived
-        from it.  Returns {"logits", "cache"}."""
+    # .. full-sequence forward (train) ..
+    def _group_apply(self, layers, specs, x):
+        cfg = self.cfg
+        for p, spec in zip(layers, specs):
+            h = L.norm_apply(cfg, p["mixer_norm"], x)
+            x = x + attention.apply(cfg, p["mixer"], h, use_kernel=self.use_kernels)
+            if spec[1] == "dense":
+                h = L.norm_apply(cfg, p["ffn_norm"], x)
+                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels)
+        return x
+
+    def _forward(self, params, tokens, remat: str):
+        """Embedding and the layer stack, each group of ``len(cfg.group)``
+        layers under the remat policy.  The layers draw no random numbers,
+        so recomputation keeps no RNG state."""
+        cfg = self.cfg
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be none | full | dots, got {remat!r}")
+        x = L.embed_apply(cfg, params["embed"], tokens)
+        n = len(cfg.group)
+        for g in range(cfg.num_groups):
+            body = functools.partial(self._group_apply,
+                                     params["layers"][g * n:(g + 1) * n], cfg.group)
+            if remat == "none":
+                x = body(x)
+            elif remat == "full":
+                x = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False,
+                               context_fn=functools.partial(
+                                   create_selective_checkpoint_contexts, _save_dots))
+        return x
+
+    def apply(self, params, tokens=None, *, labels=None, remat: str = "none",
+              fused_loss: bool = False, cache=None, write_cache: bool = False,
+              last_only: bool = False, pad_mask=None, pos0: int = 0,
+              start=None, need_logits: bool = True):
+        """Without ``write_cache``: the full-sequence forward of ``tokens``
+        [B, S] (training), returning {"logits" [B, S, V_padded] f32 (not
+        with ``fused_loss``), "aux_loss"} and, given ``labels``, "loss" and
+        "ce_loss"; ``fused_loss`` never materializes the logits.
+
+        With ``write_cache``: cache write-through prefill of chunk
+        ``[pos0, pos0+S)``.  ``pad_mask`` ([B, S] bool, True = real token)
+        marks LEFT padding of the first chunk; ``start`` overrides the pad
+        count derived from it.  Returns {"logits", "cache"}."""
         cfg = self.cfg
         if not write_cache:
-            raise NotImplementedError(
-                "the full-sequence forward without a cache needs the "
-                "unmasked flash_attention kernel (ROADMAP: still to port)")
+            return self._apply_full(params, tokens, labels, remat, fused_loss,
+                                    last_only)
         if cache is None:
             raise ValueError("write_cache=True requires a cache from init_cache")
         cpos = torch.as_tensor(cache["pos"]).cpu()
@@ -133,6 +190,30 @@ class Model:
         x = L.norm_apply(cfg, params["final_norm"], x)
         out["logits"] = L.lm_head_apply(cfg, params.get("lm_head"),
                                         params["embed"], x)
+        return out
+
+    def _apply_full(self, params, tokens, labels, remat, fused_loss, last_only):
+        cfg = self.cfg
+        x = self._forward(params, tokens, remat)
+        # attention + dense layers carry no auxiliary loss (MoE's is unported)
+        out = {"aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+        if last_only:
+            x = x[:, -1:, :]
+        x = L.norm_apply(cfg, params["final_norm"], x)
+        head = params.get("lm_head")
+        if fused_loss:
+            if labels is None:
+                raise ValueError("fused_loss needs labels")
+            ce = L.fused_cross_entropy(cfg, head, params["embed"], x, labels)
+            out["loss"] = ce + out["aux_loss"]
+            out["ce_loss"] = ce
+            return out
+        logits = L.lm_head_apply(cfg, head, params["embed"], x)
+        out["logits"] = logits
+        if labels is not None:
+            ce = L.cross_entropy(logits, labels, cfg.vocab_size)
+            out["loss"] = ce + out["aux_loss"]
+            out["ce_loss"] = ce
         return out
 
     # .. decode ..
@@ -207,3 +288,12 @@ class Model:
 
 def build_model(cfg: ModelConfig, **kw) -> Model:
     return Model(cfg, **kw)
+
+
+def loss_fn(model: Model, params, batch, remat: str = "none",
+            fused_loss: bool = False):
+    """Scalar training loss of a {"tokens", "labels"} batch: (loss,
+    {"ce_loss", "aux_loss"})."""
+    out = model.apply(params, batch["tokens"], labels=batch["labels"],
+                      remat=remat, fused_loss=fused_loss)
+    return out["loss"], {"ce_loss": out["ce_loss"], "aux_loss": out["aux_loss"]}

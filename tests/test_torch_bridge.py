@@ -44,8 +44,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        assert len(names) >= 29, names
+        assert len(names) >= 56, names
         assert "repro_torch.kernels.int8_matmul.int8_matmul" in names, names
+        assert "repro_torch.launch.train" in names, names
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
