@@ -6,7 +6,7 @@
 Phases (each prints its seconds; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the four CUDA sources from ``src/repro_torch/csrc`` (one nvcc
+2. build the five CUDA sources from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
@@ -50,7 +50,25 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``repro_torch.launch.train``'s code, each step's launches of kernels
    7 / 7b / 7c checked against 160 / 80 / 80, then one more step under
    ``torch.profiler``;
-9. a ``kernels`` JSON line, the card line, and the final result line.
+9. the SSD kernels: the scan (kernel 8) against ``ssd_scan_fwd_ref`` (y
+   and each chunk's entering state) and its backward (8b the state
+   gradients, 8c the chunk's gradients) against ``ssd_scan_bwd_ref``,
+   all five gradients, float32, at SSD_SHAPES (mamba2-370m's training
+   call, jamba's 8 groups, one short chunk), per element within limits
+   derived in ``ssd_units``, with planted faults (the carried state not
+   decayed, the mask off by one, dh not carried, dB / dC of one head of
+   a group, da of the first chunk) that must fail; bfloat16 and L %
+   chunk != 0 must raise on the card; each kernel and its plain version
+   timed at the training step's call (B=4, L=4096, H=32);
+10. loss and every gradient leaf of full-width mamba2-370m at 2 layers
+   (S=1024) with the kernels and with the plain versions, bf16 and
+   float32, with planted faults in the SSD wrappers, and remat full and
+   dots against no remat;
+11. 3 training steps of full-width mamba2-370m (48 layers, seq 4096,
+   global batch 8, microbatch 4, remat full), each step's launches of
+   kernels 8 / 8b / 8c checked against 192 / 96 / 96, then one more
+   step under ``torch.profiler``;
+12. a ``kernels`` JSON line, the card line, and the final result line.
 
 Without a CUDA card it prints nothing but an error and exits 2.
 """
@@ -60,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -74,6 +93,7 @@ DEV = "cuda"
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 BF16_FLOPS_S = 989e12
+F32_FLOPS_S = 67e12    # float32 outside the tensor cores
 # Kernels 2 and 3 against their plain versions, per element, with a limit
 # in units of att|v| = the plain version applied to |v| (sum_j p_j |v_j| /
 # l, per output element).  Both sides compute the scores in f32 from the
@@ -101,6 +121,10 @@ TOL_F32 = 2.0**-11
 # faults read 0.24-0.66 in both.
 TRAIN_BOUND_BF16 = 2e-2
 TRAIN_BOUND_F32 = 1e-4
+# The same reading for full-width mamba2-370m at 2 layers through the SSD
+# kernels; PERF.md has the sound and the planted faults' readings.
+SSM_BOUND_BF16 = 2e-2
+SSM_BOUND_F32 = 1e-4
 
 
 def phase(name):
@@ -615,6 +639,359 @@ def check_flash_train(torch, timer):
     return rows
 
 
+# The SSD kernels' check shapes: (B, L, H, P, G, N, chunk).  The first is
+# one SSD call of full-width mamba2-370m training per batch row; the
+# second jamba's grouped B/C (ngroups 8); the third one short chunk
+# (L < chunk).  SSD_TIME_SHAPE is the training step's call (microbatch 4).
+SSD_SHAPES = [(1, 4096, 32, 64, 1, 128, 128), (2, 1024, 64, 64, 8, 128, 128),
+              (1, 64, 32, 64, 1, 128, 128)]
+SSD_TIME_SHAPE = (4, 4096, 32, 64, 1, 128, 128)
+SSD_KERNELS = ("ssd_scan", "ssd_scan_bwd_state", "ssd_scan_bwd_chunk")
+
+
+def ssd_inputs(torch, gen, shape):
+    """x, dt, a, b, c and an output gradient dy at ``shape``, as the
+    model makes them at init: dt log-uniform in [0.001, 0.1] (as
+    ``ssm.init`` draws it between ``SSMConfig`` dt_min and dt_max), a =
+    -(1..H) (``a_log = log(1..H)``), x, B, C, dy normal.  The slowest
+    heads then carry ~6% of the state across a 128-step chunk."""
+    b, l, h, p, g, n, _ = shape
+    x, dy = (torch.randn((b, l, h, p), generator=gen, device=DEV) for _ in range(2))
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(torch.rand((b, l, h), generator=gen, device=DEV) * (hi - lo) + lo)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=DEV)
+    bm, cm = (torch.randn((b, l, g, n), generator=gen, device=DEV) for _ in range(2))
+    return x, dt, a, bm, cm, dy
+
+
+def ssd_units(torch, x, dt, a, b, c, dy, chunk):
+    """Per-element units and decay slack of the SSD kernels' limits.
+
+    The unit of each output is its plain computation on absolute values
+    (|x|, |B|, |C|, |dy|, and in the backward every subtraction an
+    addition and |a| for a): it bounds the sum of the absolute values of
+    the terms the output sums.  Kernel and plain version compute the
+    same terms in float32 from the same operands in other orders: the
+    in-chunk dots (N or P terms), the sums over the chunk's Q positions
+    and the state carried over the nc chunks ((Q + 2) roundings a chunk)
+    differ by at most (N + P + Q + 8 + nc (Q + 2)) 2^-24 of the unit,
+    2.7e-4 at nc = 32 and Q = 128, under TOL_F32 = 2^-11.  The in-chunk
+    cumsum is sequential in the kernel and a parallel scan in
+    torch.cumsum: each side's cum_i is within Q 2^-24 |cum|max of the
+    exact sum, so each decay factor (exp of a difference of two cums)
+    differs between the sides by a relative 4 Q 2^-24 |cum|max, and a
+    term carries at most two of them: the slack E = 8 Q 2^-24 |cum|max
+    per (batch row, head), from this run's data (|cum| reaches ~400 at
+    a = -32).
+
+    da is a sum over every position of every chunk and batch row of
+    terms of both signs, and the in-chunk terms cancel exactly in
+    exact arithmetic (the intra-chunk dcum sums to 0 over a chunk): its
+    unit is ~1e4 |da|, a sound limit that no wrong da reaches (leaving
+    out 31 of 32 chunks reads ~0.1 of it).  So da is held to a second,
+    tighter limit: each side's da is sum_k S_k dcum_k (S_k = sum_{m<=k}
+    dt_m, the weight of the reverse cumsum), each dcum_k a sum of 2Q + 3
+    terms rounded within (2Q + 8) 2^-24 of its unit; over the K = B nc Q
+    positions of a head these per-position errors are independent and
+    add as a random walk, so the two sides differ by about
+    sigma_h = (2Q + 8) 2^-24 sqrt(sum_k (S_k unit(dcum_k))^2); the
+    limit is 6 sigma_h (+ E of the decays).  Returns (units, E, sigma)
+    with units and E dicts keyed y, h0s, dhs, dx, ddt, da, db, dc and
+    sigma [H]."""
+    from repro_torch.kernels.ssd_scan.ref import (_chunk_operands, ssd_scan_bwd_state_ref,
+                                                  ssd_scan_fwd_ref)
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    ax, ab, ac, ady = x.abs(), b.abs(), c.abs(), dy.abs()
+    y_u, h0 = ssd_scan_fwd_ref(ax, dt, a, ab, ac, chunk)
+    dhs = ssd_scan_bwd_state_ref(dt, a, ac, ady, chunk)
+    xf, dtf, bf, cf, cum, decay = _chunk_operands(ax, dt, a, ab, ac, chunk)
+    nc, q = xf.shape[1], xf.shape[2]
+    dyf = ady.reshape(bsz, nc, q, h, p)
+    h0c, dhc = h0.transpose(1, 2), dhs.transpose(1, 2)
+    dt_j = dtf.transpose(2, 3)[..., None, :]
+    s = torch.einsum("bcihn,bcjhn->bchij", cf, bf)
+    w = torch.einsum("bcihp,bcjhp->bchij", dyf, xf) * decay
+    ws = w * s
+    ddt = ws.sum(-2).transpose(2, 3)
+    t = ws * dt_j
+    dcum = (t.sum(-1) + t.sum(-2)).transpose(2, 3)
+    dx = torch.einsum("bchij,bcihp->bcjhp", s * decay * dt_j, dyf)
+    del s, ws, t
+    wd = w * dt_j
+    del w
+    dc = torch.einsum("bchij,bcjhn->bcihn", wd, bf)
+    db = torch.einsum("bchij,bcihn->bcjhn", wd, cf)
+    del wd
+    tail = torch.exp(cum[:, :, -1:, :] - cum)
+    dcs = torch.einsum("bchpn,bcihp->bcihn", h0c, dyf) * torch.exp(cum)[..., None]
+    dc = dc + dcs
+    dcum = dcum + (cf * dcs).sum(-1)
+    v = torch.einsum("bchpn,bcjhp->bcjhn", dhc, xf) * tail[..., None]
+    db = db + v * dtf[..., None]
+    dds = (bf * v).sum(-1)
+    ddt = ddt + dds
+    dx = dx + torch.einsum("bchpn,bcjhn->bcjhp", dhc, bf) * (tail * dtf)[..., None]
+    u = dtf * dds
+    last = torch.exp(cum[:, :, -1]) * (h0c * dhc).sum((-2, -1)) + u.sum(2)
+    dcum = dcum + u
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + last[:, :, None]], dim=2)
+    dda = dcum.flip(2).cumsum(2).flip(2)
+    ddt = ddt + a.abs() * dda
+    sigma = (2 * q + 8) * 2.0**-24 * (torch.cumsum(dtf, 2) * dcum).square().sum((0, 1, 2)).sqrt()
+    units = dict(y=y_u, h0s=h0, dhs=dhs, dx=dx.reshape(bsz, l, h, p),
+                 ddt=ddt.reshape(bsz, l, h), da=(dtf * dda).sum((0, 1, 2)),
+                 db=db.reshape(bsz, l, g, h // g, n).sum(3),
+                 dc=dc.reshape(bsz, l, g, h // g, n).sum(3))
+    e = 8 * q * 2.0**-24 * cum.abs().amax(dim=(1, 2))            # [B, H]
+    eg = e.reshape(bsz, g, h // g).amax(-1)
+    slack = dict(y=e[:, None, :, None], h0s=e[:, :, None, None, None],
+                 dhs=e[:, :, None, None, None], dx=e[:, None, :, None],
+                 ddt=e[:, None, :], da=e.amax(0), db=eg[:, None, :, None],
+                 dc=eg[:, None, :, None])
+    return units, slack, sigma
+
+
+SSD_FWD_OUT = ("y", "h0s")
+SSD_BWD_OUT = ("dx", "ddt", "da", "db", "dc")
+
+
+def ssd_reading(got, want, units, slack, names, sigma=None):
+    """max over ``names`` of max |got - want| / ((TOL_F32 + E) unit): <= 1
+    passes (an output whose unit is 0 must be exactly 0); with ``sigma``,
+    da is also held to 6 sigma (1 + E) (see ``ssd_units``)."""
+    r = max(float(((g - w).abs() / ((TOL_F32 + slack[k]) * units[k] + 1e-30)).max())
+            for k, g, w in zip(names, got, want))
+    if sigma is not None and "da" in names:
+        g, w = got[names.index("da")], want[names.index("da")]
+        r = max(r, float(((g - w).abs() / (6 * sigma * (1 + slack["da"]) + 1e-30)).max()))
+    return r
+
+
+def ssd_bounds(shape):
+    """(bytes, flops) per kernel at ``shape``: each input read once, each
+    output written once, float32; flops on the causal half of the [Q, Q]
+    chunk products (the pairs j <= i this run's data needs) plus the
+    [Q, P, N] state products."""
+    b, l, h, p, g, n, q = shape
+    nc, e, pairs = l // q, 4, q * (q + 1) // 2
+    xb, dtb, bcb, st = b * l * h * p, b * l * h, b * l * g * n, b * h * nc * p * n
+    return {
+        "ssd_scan": (e * (2 * xb + dtb + h + 2 * bcb + st),
+                     b * h * nc * (2 * pairs * (n + p) + 4 * q * p * n)),
+        "ssd_scan_bwd_state": (e * (dtb + h + bcb + xb + st),
+                               b * h * (nc - 1) * 2 * q * p * n),
+        "ssd_scan_bwd_chunk": (e * (3 * xb + 2 * dtb + 2 * h + 4 * bcb + 2 * st),
+                               b * h * nc * (2 * pairs * (2 * p + 3 * n) + 6 * q * p * n)),
+    }
+
+
+def check_ssd(torch, timer):
+    """Kernels 8, 8b and 8c at SSD_SHAPES, float32: the forward's y and
+    h0s against ``ssd_scan_fwd_ref`` (``ssd_scan_chunked`` with its
+    states), 8b's dhs against ``ssd_scan_bwd_state_ref`` and the five
+    gradients of 8b + 8c against ``ssd_scan_bwd_ref``, per element
+    within (TOL_F32 + E) units (``ssd_units``); planted faults must read
+    above 1.  What the wrappers do not take must raise on the card.  Then
+    all three, their plain versions and their bounds at SSD_TIME_SHAPE.
+    No single PyTorch call computes the SSD scan: library_ms is None.
+    Returns {kernel: [row per shape]}."""
+    from repro_torch.kernels.ssd_scan.ref import (ssd_scan_bwd_chunk_ref,
+                                                  ssd_scan_bwd_state_ref, ssd_scan_fwd_ref)
+    from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                                       ssd_scan_bwd_chunk,
+                                                       ssd_scan_bwd_state)
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    rows = {k: [] for k in SSD_KERNELS}
+    x, dt, a, bm, cm, dy = ssd_inputs(torch, gen, (1, 128, 2, 64, 1, 128, 64))
+    h0 = torch.zeros((1, 2, 2, 64, 128), device=DEV)
+    refusals = {
+        "bfloat16 input": (TypeError, lambda: ssd_scan(x.bfloat16(), dt, a, bm, cm, chunk=64)),
+        "bfloat16 in the backward": (TypeError, lambda: ssd_scan_bwd(
+            x, dt, a, bm, cm, h0, dy.bfloat16(), chunk=64)),
+        "L not a multiple of chunk": (ValueError, lambda: ssd_scan(
+            x[:, :96].contiguous(), dt[:, :96].contiguous(), a, bm[:, :96].contiguous(),
+            cm[:, :96].contiguous(), chunk=64)),
+        "L not a multiple of chunk, backward": (ValueError, lambda: ssd_scan_bwd_state(
+            dt[:, :96].contiguous(), a, cm[:, :96].contiguous(), dy[:, :96].contiguous(),
+            chunk=64)),
+    }
+    for what, (exc, call) in refusals.items():
+        try:
+            call()
+        except exc:
+            continue
+        raise AssertionError(f"the SSD wrappers took {what} on the card")
+    print("  ssd_scan forward and backward refuse bfloat16 and L % chunk != 0 on the card",
+          flush=True)
+
+    for shape in SSD_SHAPES:
+        b, l, h, p, g, n, q = shape
+        hpg, nc = h // g, l // min(q, l)
+        tag = f"B={b} L={l} H={h} P={p} G={g} N={n} chunk={q}"
+        x, dt, a, bm, cm, dy = ssd_inputs(torch, gen, shape)
+        units, slack, sigma = ssd_units(torch, x, dt, a, bm, cm, dy, q)
+        want_f = ssd_scan_fwd_ref(x, dt, a, bm, cm, q)
+        got_f = ssd_scan(x, dt, a, bm, cm, chunk=q, save_states=True)
+        dhs_ref = ssd_scan_bwd_state_ref(dt, a, cm, dy, q)
+        want_b = ssd_scan_bwd_chunk_ref(x, dt, a, bm, cm, want_f[1], dhs_ref, dy, q)
+        got_dhs = ssd_scan_bwd_state(dt, a, cm, dy, chunk=q)
+        got_b = ssd_scan_bwd(x, dt, a, bm, cm, got_f[1], dy, chunk=q)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (*got_f, got_dhs, *got_b)):
+            raise AssertionError(f"ssd_scan {tag}: non-finite output or gradient")
+        reads = {
+            "ssd_scan": ssd_reading(got_f, want_f, units, slack, SSD_FWD_OUT),
+            "ssd_scan_bwd_state": ssd_reading((got_dhs,), (dhs_ref,), units, slack, ("dhs",)),
+            "ssd_scan_bwd_chunk": ssd_reading(got_b, want_b, units, slack, SSD_BWD_OUT,
+                                              sigma),
+        }
+        errs = {
+            "ssd_scan": max(float((u - v).abs().max()) for u, v in zip(got_f, want_f)),
+            "ssd_scan_bwd_state": float((got_dhs - dhs_ref).abs().max()),
+            "ssd_scan_bwd_chunk": max(float((u - v).abs().max()) for u, v in zip(got_b, want_b)),
+        }
+
+        # planted faults: each must read above its limit
+        faults = {"intra-chunk mask off by one (j < i)": (
+            "ssd_scan", lambda: ssd_scan(x, dt, a, bm, cm, chunk=q, save_states=True, fault=2),
+            SSD_FWD_OUT, want_f)}
+        if nc > 1:
+            faults["carried state not decayed"] = (
+                "ssd_scan", lambda: ssd_scan(x, dt, a, bm, cm, chunk=q, save_states=True,
+                                             fault=1), SSD_FWD_OUT, want_f)
+            faults["dh not carried across chunks (8b)"] = (
+                "ssd_scan_bwd_chunk", lambda: ssd_scan_bwd_chunk(
+                    x, dt, a, bm, cm, got_f[1],
+                    ssd_scan_bwd_state(dt, a, cm, dy, chunk=q, fault=3), dy, chunk=q),
+                SSD_BWD_OUT, want_b)
+
+            def first_chunk_da():
+                dx, ddt, _, db, dc = got_b
+                sl = lambda t: t[:, :q].contiguous()   # noqa: E731
+                da0 = ssd_scan_bwd_chunk(sl(x), sl(dt), a, sl(bm), sl(cm),
+                                         got_f[1][:, :, :1].contiguous(),
+                                         got_dhs[:, :, :1].contiguous(), sl(dy), chunk=q)[2]
+                return dx, ddt, da0, db, dc
+            faults["da from only the first chunk"] = ("ssd_scan_bwd_chunk", first_chunk_da,
+                                                      SSD_BWD_OUT, want_b)
+        if hpg > 1:
+            def first_head_dbdc():
+                dx, ddt, da, _, _ = got_b
+                hs = lambda t: t[:, :, ::hpg].contiguous()   # noqa: E731
+                _, _, _, db, dc = ssd_scan_bwd_chunk(
+                    hs(x), hs(dt), a[::hpg].contiguous(), bm, cm,
+                    got_f[1][:, ::hpg].contiguous(), got_dhs[:, ::hpg].contiguous(), hs(dy),
+                    chunk=q)
+                return dx, ddt, da, db, dc
+            faults["dB / dC from only the first head of a group"] = (
+                "ssd_scan_bwd_chunk", first_head_dbdc, SSD_BWD_OUT, want_b)
+        fault_reads = {name: ssd_reading(call(), want, units, slack, outs, sigma)
+                       for name, (_, call, outs, want) in faults.items()}
+        line = f"  ssd {tag}: err/limit " + ", ".join(
+            f"{k} {r:.3f} (max abs {errs[k]:.3e})" for k, r in reads.items())
+        line += f"; E max {float(slack['y'].max()):.3e}"
+        for name, r in fault_reads.items():
+            line += f"; planted fault '{name}': {r:.1f}"
+        print(line, flush=True)
+        if max(reads.values()) > 1:
+            raise AssertionError(f"ssd {tag}: kernels disagree with the plain versions")
+        missed = [k for k, r in fault_reads.items() if r <= 1]
+        if missed:
+            raise AssertionError(f"ssd {tag}: the limits miss planted faults {missed}")
+        for k in SSD_KERNELS:
+            rows[k].append(dict(shape=tag, reading=reads[k], max_abs_err=errs[k], ms=None,
+                                plain_ms=None, library_ms=None, bound_ms=None,
+                                bound_by=None))
+        del units, slack, sigma, want_f, got_f, want_b, got_b, dhs_ref, got_dhs
+        torch.cuda.empty_cache()
+
+    # times at the training step's shape
+    b, l, h, p, g, n, q = SSD_TIME_SHAPE
+    tag = f"B={b} L={l} H={h} P={p} G={g} N={n} chunk={q}"
+    x, dt, a, bm, cm, dy = ssd_inputs(torch, gen, SSD_TIME_SHAPE)
+    y, h0s = ssd_scan(x, dt, a, bm, cm, chunk=q, save_states=True)
+    dhs = ssd_scan_bwd_state(dt, a, cm, dy, chunk=q)
+    grads = ssd_scan_bwd_chunk(x, dt, a, bm, cm, h0s, dhs, dy, chunk=q)
+    yr, h0r = ssd_scan_fwd_ref(x, dt, a, bm, cm, q)
+    dhr = ssd_scan_bwd_state_ref(dt, a, cm, dy, q)
+    gr = ssd_scan_bwd_chunk_ref(x, dt, a, bm, cm, h0s, dhs, dy, q)
+    errs = {"ssd_scan": max(float((y - yr).abs().max()), float((h0s - h0r).abs().max())),
+            "ssd_scan_bwd_state": float((dhs - dhr).abs().max()),
+            "ssd_scan_bwd_chunk": max(float((u - v).abs().max()) for u, v in zip(grads, gr))}
+    del yr, h0r, dhr, gr
+    cases = {
+        "ssd_scan": (lambda: ssd_scan(x, dt, a, bm, cm, chunk=q, save_states=True),
+                     lambda: ssd_scan_fwd_ref(x, dt, a, bm, cm, q)),
+        "ssd_scan_bwd_state": (lambda: ssd_scan_bwd_state(dt, a, cm, dy, chunk=q),
+                               lambda: ssd_scan_bwd_state_ref(dt, a, cm, dy, q)),
+        "ssd_scan_bwd_chunk": (
+            lambda: ssd_scan_bwd_chunk(x, dt, a, bm, cm, h0s, dhs, dy, chunk=q),
+            lambda: ssd_scan_bwd_chunk_ref(x, dt, a, bm, cm, h0s, dhs, dy, q)),
+    }
+    bounds = ssd_bounds(SSD_TIME_SHAPE)
+    for name, (kern, plain) in cases.items():
+        ms = timer(kern)
+        plain_ms = timer(plain, reps=3)
+        nbytes, flops = bounds[name]
+        bnd, by = bound_ms(nbytes, flops, F32_FLOPS_S)
+        print(f"kernel {name} {tag} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+              f"bound_ms={bnd:.5f} ({by}; {flops:.4e} flops, {nbytes:.4e} bytes) "
+              f"max_abs_err={errs[name]:.3e}", flush=True)
+        rows[name].append(dict(shape=tag, ms=ms, plain_ms=plain_ms, library_ms=None,
+                               bound_ms=bnd, bound_by=by, max_abs_err=errs[name]))
+    del x, dt, a, bm, cm, dy, y, h0s, dhs, grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_train_faults():
+    """Planted faults for the SSM training comparison: the forward kernel
+    with a fault planted, or the backward as ``SSDScan`` calls it
+    (``ops.ssd_scan_bwd``) with one part wrong.  name -> (module,
+    attribute, wrap)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_bwd_chunk, ssd_scan_bwd_state
+
+    def no_dh_carry(f):
+        def g(x, dt, a, b, c, h0s, dy, *, chunk):
+            dhs = ssd_scan_bwd_state(dt, a, c, dy, chunk=chunk, fault=3)
+            return ssd_scan_bwd_chunk(x, dt, a, b, c, h0s, dhs, dy, chunk=chunk)
+        return g
+
+    def first_chunk_da(f):
+        def g(x, dt, a, b, c, h0s, dy, *, chunk):
+            dx, ddt, _, db, dc = f(x, dt, a, b, c, h0s, dy, chunk=chunk)
+            q = min(chunk, x.shape[1])
+            dhs = ssd_scan_bwd_state(dt, a, c, dy, chunk=chunk)
+            sl = lambda t: t[:, :q].contiguous()   # noqa: E731
+            da0 = ssd_scan_bwd_chunk(sl(x), sl(dt), a, sl(b), sl(c), h0s[:, :, :1].contiguous(),
+                                     dhs[:, :, :1].contiguous(), sl(dy), chunk=chunk)[2]
+            return dx, ddt, da0, db, dc
+        return g
+
+    def first_head_dbdc(f):
+        def g(x, dt, a, b, c, h0s, dy, *, chunk):
+            dx, ddt, da, _, _ = f(x, dt, a, b, c, h0s, dy, chunk=chunk)
+            hpg = x.shape[2] // b.shape[2]
+            hs = lambda t: t[:, :, ::hpg].contiguous()   # noqa: E731
+            _, _, _, db, dc = f(hs(x), hs(dt), a[::hpg].contiguous(), b, c,
+                                h0s[:, ::hpg].contiguous(), hs(dy), chunk=chunk)
+            return dx, ddt, da, db, dc
+        return g
+
+    return {
+        "forward state carried without decay": (
+            ssd_ops, "ssd_scan", lambda f: lambda *a, **kw: f(*a, fault=1, **kw)),
+        "forward mask off by one (j < i)": (
+            ssd_ops, "ssd_scan", lambda f: lambda *a, **kw: f(*a, fault=2, **kw)),
+        "backward dh not carried across chunks": (ssd_ops, "ssd_scan_bwd", no_dh_carry),
+        "backward da from only the first chunk": (ssd_ops, "ssd_scan_bwd", first_chunk_da),
+        "backward dB / dC from only the first head": (ssd_ops, "ssd_scan_bwd",
+                                                      first_head_dbdc),
+    }
+
+
 def wrappers(torch):
     """Every kernel wrapper of the port (name -> wrapper with its
     ``launches`` count) and every ops-level plain route (with its
@@ -630,12 +1007,17 @@ def wrappers(torch):
         flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq)
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan, ssd_scan_bwd_chunk,
+                                                       ssd_scan_bwd_state)
     kernels = (ent_matmul_packed_fused, flash_attention_masked, paged_attention_kernel,
                int8_matmul, ent_matmul, ent_matmul_packed, flash_attention,
-               flash_attention_bwd_dkdv, flash_attention_bwd_dq)
+               flash_attention_bwd_dkdv, flash_attention_bwd_dq, ssd_scan,
+               ssd_scan_bwd_state, ssd_scan_bwd_chunk)
     plains = (ent_ops.ent_quantized_matmul_fused, ent_ops.ent_quantized_matmul,
               ent_ops.ent_quantized_matmul_packed, int8_ops.quantized_matmul,
-              attn_ops.masked_attention, paged_ops.paged_attention, attn_ops.attention)
+              attn_ops.masked_attention, paged_ops.paged_attention, attn_ops.attention,
+              ssd_ops.ssd)
     return kernels, plains, paged_attention_kernel
 
 
@@ -665,11 +1047,12 @@ SERVE_CONFIGS = {
     "EN-T w8a8, bf16 KV": (
         dict(quantize=True),
         ("ent_matmul_packed_fused", "flash_attention_masked", "paged_attention_kernel"),
-        ("int8_matmul", "paged_attention_kernel[int8_kv]", *TRAIN_KERNELS)),
+        ("int8_matmul", "paged_attention_kernel[int8_kv]", *TRAIN_KERNELS, *SSD_KERNELS)),
     "w8a8 int8, int8 KV": (
         dict(quant="int8", kv_quant=True),
         ("int8_matmul", "flash_attention_masked", "paged_attention_kernel[int8_kv]"),
-        ("ent_matmul_packed_fused", "paged_attention_kernel", *TRAIN_KERNELS)),
+        ("ent_matmul_packed_fused", "paged_attention_kernel", *TRAIN_KERNELS,
+         *SSD_KERNELS)),
 }
 
 
@@ -952,24 +1335,25 @@ def train_faults():
     }
 
 
-def train_kernels_vs_plain(torch, compute_dtype, bound):
-    """Loss and every gradient leaf of full-width minicpm-2b at 2 layers
+def train_kernels_vs_plain(torch, compute_dtype, bound, arch="minicpm-2b",
+                           faults=None, names=TRAIN_KERNELS):
+    """Loss and every gradient leaf of full-width ``arch`` at 2 layers
     (seq 1024, one row of ``SyntheticSource(seed=1234)``) with the kernels
     and with the plain versions (``use_kernels=False``); the reading is
     the larger of the loss's relative difference and the largest per-leaf
     relative L2 difference of the gradients, and must stay within
-    ``bound``; each planted fault (``train_faults``) must exceed it.
-    Returns the kernel launches of the kernel run."""
+    ``bound``; each planted fault (``faults()``, default ``train_faults``)
+    must exceed it.  ``names``: the kernels of the path.  Returns the
+    kernel launches of the kernel run."""
     from repro_torch.configs import get_config, get_optim
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticSource, TokenStream
     from repro_torch.launch import train as launch
     from repro_torch.models.transformer import Model
 
-    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2,
-                              compute_dtype=compute_dtype)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, compute_dtype=compute_dtype)
     model, params, _, _ = launch.build(cfg, TrainConfig(seq_len=1024, global_batch=1),
-                                       get_optim("minicpm-2b"), seed=2)
+                                       get_optim(arch), seed=2)
     plain_model = Model(cfg, use_kernels=False)
     stream = TokenStream(SyntheticSource(cfg.vocab_size, seed=1234), global_batch=1,
                          seq_len=1024)
@@ -990,13 +1374,15 @@ def train_kernels_vs_plain(torch, compute_dtype, bound):
     sound = reading(grads_k, loss_k, grads_p, loss_p)
     worst = max(range(len(grads_p)), key=lambda i: float(
         (grads_k[i] - grads_p[i]).norm() / grads_p[i].norm()))
-    print(f"minicpm-2b full width, 2 layers, {compute_dtype}, seq 1024: loss kernels "
+    if any(launches[n] < 1 for n in names):
+        raise AssertionError(f"{arch}: a kernel of the path never launched: {launches}")
+    print(f"{arch} full width, 2 layers, {compute_dtype}, seq 1024: loss kernels "
           f"{float(loss_k):.6f} plain {float(loss_p):.6f}; reading (max of loss and "
           f"per-leaf gradient relative L2) {sound:.3e} (limit {bound}; worst leaf "
           f"#{worst} of {len(grads_p)}); kernel launches "
-          f"{ {n: launches[n] for n in TRAIN_KERNELS} }", flush=True)
+          f"{ {n: launches[n] for n in names} }", flush=True)
     missed = []
-    for name, (module, attr, wrap) in train_faults().items():
+    for name, (module, attr, wrap) in (faults or train_faults)().items():
         with planted(module, attr, wrap):
             loss_f, grads_f = loss_and_grads(model, params, batch)
         r = reading(grads_f, loss_f, grads_p, loss_p)
@@ -1054,40 +1440,55 @@ def profile_train_step(torch, step_fn, params, opt, batch, step_wall):
                 top=[(n[:90], sec) for n, sec in top])
 
 
-def train_full_width(torch):
-    """Three training steps of full-width minicpm-2b (40 layers, random
-    float32 master weights from seed 0) at seq 4096, global batch 2,
-    microbatch 1, remat full, on ``SyntheticSource(seed=1234)``, through
-    ``repro_torch.launch.train``'s ``build`` and ``train``.  Counts are
-    set to 0 just before the run and read (and set to 0) after each
-    step; every step must launch kernel 7 twice per layer and
-    microbatch (forward and recomputation) and 7b and 7c once, and
-    nothing else of the port's kernels or plain versions.  Then one more
-    step under the profiler.  Returns the run's record."""
-    import math
+# the full-width training runs: arch -> (TrainConfig keyword arguments,
+# launches of each kernel of the path per layer and microbatch: the
+# forward kernel twice under remat full, forward and recomputation)
+TRAIN_RUNS = {
+    "minicpm-2b": (dict(seq_len=4096, global_batch=2, microbatch=1, remat="full"),
+                   dict(zip(TRAIN_KERNELS, (2, 1, 1)))),
+    "mamba2-370m": (dict(seq_len=4096, global_batch=8, microbatch=4, remat="full"),
+                    dict(zip(SSD_KERNELS, (2, 1, 1)))),
+}
 
+
+def train_full_width(torch, arch):
+    """Three training steps of full-width ``arch`` (all its layers, random
+    float32 master weights from seed 0) in its TRAIN_RUNS configuration
+    on ``SyntheticSource(seed=1234)``, through ``repro_torch.launch.train``'s
+    ``build`` and ``train``.  Counts are set to 0 just before the run and
+    read (and set to 0) after each step; every step must launch each
+    kernel of the path its TRAIN_RUNS count per layer and microbatch, and
+    nothing else of the port's kernels or plain versions; every loss and
+    grad-norm must be finite, and the first loss within 2 of ln(vocab)
+    (random weights: the head's unit-variance logits add ~0.5).  Then one
+    more step under the profiler.  Returns the run's record."""
     from repro_torch.configs import get_config, get_optim
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticSource, TokenStream
     from repro_torch.launch import train as launch
 
-    cfg = get_config("minicpm-2b")
-    tcfg = TrainConfig(seq_len=4096, global_batch=2, microbatch=1, remat="full")
+    tkw, per_layer = TRAIN_RUNS[arch]
+    names = tuple(per_layer)
+    cfg = get_config(arch)
+    tcfg = TrainConfig(**tkw)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, params, opt, step_fn = launch.build(cfg, tcfg, get_optim("minicpm-2b"), seed=0)
+    model, params, opt, step_fn = launch.build(cfg, tcfg, get_optim(arch), seed=0)
     torch.cuda.synchronize()
-    print(f"minicpm-2b full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.3f}B params): "
+    widths = (f"SSD heads {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} x P "
+              f"{cfg.ssm.head_dim}, N {cfg.ssm.state_dim}, groups {cfg.ssm.ngroups}"
+              if cfg.ssm else f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+    print(f"{arch} full width ({cfg.num_layers} layers, d_model {cfg.d_model}, {widths}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.3f}B params): "
           f"init {time.perf_counter() - t0:.2f}s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; seq "
+          f"{tcfg.seq_len}, batch {tcfg.global_batch}, microbatch {tcfg.microbatch}, remat "
+          f"{tcfg.remat}", flush=True)
     stream = TokenStream(SyntheticSource(cfg.vocab_size, seed=1234),
                          global_batch=tcfg.global_batch, seq_len=tcfg.seq_len)
     n_micro = tcfg.global_batch // tcfg.microbatch
-    expected = {"flash_attention": 2 * cfg.num_layers * n_micro,
-                "flash_attention_bwd_dkdv": cfg.num_layers * n_micro,
-                "flash_attention_bwd_dq": cfg.num_layers * n_micro}
+    expected = {n: k * cfg.num_layers * n_micro for n, k in per_layer.items()}
     steps = []
 
     def on_step(rec):
@@ -1099,23 +1500,25 @@ def train_full_width(torch):
         print(f"  step {rec['step']}: loss {rec['loss']:.4f} grad-norm "
               f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e} time {rec['seconds']:.3f}s "
               f"tokens/s {rec['tokens_per_s']:.1f} peak {rec['peak_gib']:.2f} GiB; "
-              f"launches {({n: launches[n] for n in TRAIN_KERNELS})}", flush=True)
+              f"launches {({n: launches[n] for n in names})}", flush=True)
 
     reset_counts(torch)
     params, opt, _ = launch.train(step_fn, params, opt, stream, 3, device=model.device,
                                   log_every=1, on_step=on_step)
     for rec in steps:
-        got = {n: rec["launches"][n] for n in TRAIN_KERNELS}
+        got = {n: rec["launches"][n] for n in names}
         if got != expected:
             raise AssertionError(f"step {rec['step']}: launches {got}, expected {expected}")
-        others = {n: c for n, c in rec["launches"].items() if n not in TRAIN_KERNELS and c}
+        others = {n: c for n, c in rec["launches"].items() if n not in names and c}
         if others or any(rec["plain_runs"].values()):
             raise AssertionError(f"step {rec['step']}: other kernels {others} or plain "
                                  f"versions {rec['plain_runs']} ran")
         if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
             raise AssertionError(f"step {rec['step']}: non-finite loss or grad-norm")
     print(f"first step's loss {steps[0]['loss']:.4f} beside ln(vocab) = "
-          f"{math.log(cfg.vocab_size):.4f} (random weights; not a check)", flush=True)
+          f"{math.log(cfg.vocab_size):.4f} (limit: within 2)", flush=True)
+    if abs(steps[0]["loss"] - math.log(cfg.vocab_size)) > 2:
+        raise AssertionError(f"{arch}: first loss {steps[0]['loss']} is not near ln(vocab)")
     step_wall = statistics.mean(r["seconds"] for r in steps[1:])
     prof = profile_train_step(torch, step_fn, params, opt,
                               launch.to_device(stream.next(), model.device), step_wall)
@@ -1123,7 +1526,8 @@ def train_full_width(torch):
     del model, params, opt, step_fn
     torch.cuda.empty_cache()
     return dict(steps=steps, expected=expected, profile=prof, peak_gib=peak,
-                launches={n: sum(r["launches"][n] for r in steps) for n in TRAIN_KERNELS})
+                launches={n: sum(r["launches"][n] for r in steps) for n in names},
+                tokens=tcfg.global_batch * tcfg.seq_len)
 
 
 def main():
@@ -1132,6 +1536,10 @@ def main():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    # float32 products and convolutions in full float32 on the card (the
+    # matmul default; the port runs no convolution)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t = phase("device")
     card = card_line()
@@ -1144,7 +1552,7 @@ def main():
     built = _build.build_all()
     for name in built:
         for line in _build.build_logs[name].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "entry function")):
                 print(f"  {name}: {line.strip()}")
     print(f"built {built or 'nothing (cached)'}")
     done(t, "build")
@@ -1194,8 +1602,25 @@ def main():
     done(t, "training kernels vs plain, minicpm-2b 2 layers")
 
     t = phase("train minicpm-2b full width")
-    tr = train_full_width(torch)
+    tr = train_full_width(torch, "minicpm-2b")
     done(t, "train minicpm-2b full width")
+
+    t = phase("SSD kernel checks")
+    timer = Timer(torch)
+    k8 = check_ssd(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    done(t, "SSD kernel checks")
+
+    t = phase("SSM training kernels vs plain, mamba2-370m 2 layers")
+    for dt_name, bound in (("bfloat16", SSM_BOUND_BF16), ("float32", SSM_BOUND_F32)):
+        train_kernels_vs_plain(torch, dt_name, bound, arch="mamba2-370m",
+                               faults=ssd_train_faults, names=SSD_KERNELS)
+    done(t, "SSM training kernels vs plain, mamba2-370m 2 layers")
+
+    t = phase("train mamba2-370m full width")
+    tm = train_full_width(torch, "mamba2-370m")
+    done(t, "train mamba2-370m full width")
 
     ent_t, int8 = (serves[c][0] for c in SERVE_CONFIGS)
     at_decode = lambda rows: next(r for r in rows if r["M"] == 8 and r["N"] == 11008)  # noqa: E731
@@ -1249,10 +1674,21 @@ def main():
         kernels.append(entry(name, "src/repro_torch/csrc/flash_attention.cu",
                              f"{flash}:92", k7[name], at_train, tr["launches"][name],
                              **extra))
-    steps = tr["steps"]
-    print(f"train minicpm-2b: step seconds {[round(r['seconds'], 4) for r in steps]}, "
-          f"tokens/s {[round(r['tokens_per_s'], 2) for r in steps]}, peak "
-          f"{tr['peak_gib']:.2f} GiB")
+    ssd = "src/repro/kernels/ssd_scan/ssd_scan.py"
+    for name in SSD_KERNELS:
+        extra = dict(launches_per_step=tm["expected"][name],
+                     launches_from="3 training steps of full-width mamba2-370m")
+        if name != "ssd_scan":
+            extra["note"] = ("backward of ssd_scan (:72); the reference has no backward "
+                             "kernel and differentiates ssd_scan_chunked "
+                             "(src/repro/kernels/ssd_scan/ref.py:56)")
+        kernels.append(entry(name, "src/repro_torch/csrc/ssd_scan.cu", f"{ssd}:72",
+                             k8[name], lambda rows: rows[-1], tm["launches"][name], **extra))
+    for arch, run in (("minicpm-2b", tr), ("mamba2-370m", tm)):
+        steps = run["steps"]
+        print(f"train {arch}: step seconds {[round(r['seconds'], 4) for r in steps]}, "
+              f"tokens/s {[round(r['tokens_per_s'], 2) for r in steps]}, peak "
+              f"{run['peak_gib']:.2f} GiB")
     for config in SERVE_CONFIGS:
         print(f"serve tokens/s [{config}] {serves[config][1]:.3f}")
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,7 @@ points with its argument types bound once, when the library loads.
 
 No ``--use_fast_math``: the packed matmul's bit-exactness against its
 plain version rests on IEEE division and round-half-even, and the
-attention kernels use full-precision ``expf``.
+attention and SSD kernels use full-precision ``expf``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ent_matmul", "int8_matmul", "flash_attention", "paged_attention")
+SOURCES = ("ent_matmul", "int8_matmul", "flash_attention", "paged_attention",
+           "ssd_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +45,10 @@ ENTRY_POINTS = {
         "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 10 + [_F, _P],
         "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P]},
     "paged_attention": {"paged_attention": [_P] * 9 + [_I] * 8 + [_F, _P]},
+    "ssd_scan": {
+        "ssd_scan_fwd": [_P] * 7 + [_I] * 8 + [_P],
+        "ssd_scan_bwd_state": [_P] * 5 + [_I] * 8 + [_P],
+        "ssd_scan_bwd_chunk": [_P] * 13 + [_I] * 7 + [_P]},
 }
 
 _entries: dict = {}      # (source, function) -> bound ctypes function

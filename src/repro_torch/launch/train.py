@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
         --steps 3 --seq 4096 --batch 2 --microbatch 1 --remat full \\
         [--smoke] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
+        --steps 3 --seq 4096 --batch 8 --microbatch 4 --remat full
 
 Wires together: config registry -> model with random float32 master
 weights from a seed, drawn on the device -> train step (microbatch

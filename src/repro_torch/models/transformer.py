@@ -4,14 +4,18 @@
 The reference stacks each group position's params ``[G, ...]`` and
 traverses them with ``jax.lax.scan``; the port keeps one param dict per
 layer under ``params["layers"]`` (layer ``g * len(group) + i`` has spec
-``cfg.group[i]``) and loops over the layers.  The port runs attention +
-dense-FFN layers; ``ssm``/``moe`` layer specs raise
-``NotImplementedError``.  ``Model.apply`` without a cache is the
-full-sequence (training) forward, with the reference's remat policies:
-``remat="full"`` recomputes each layer group in the backward
+``cfg.group[i]``) and loops over the layers.  The port runs attention
+and SSM (Mamba-2) mixers with dense or no FFN; ``moe`` layer specs
+raise ``NotImplementedError``, and so do the serving entry points
+(``init_cache``, ``prefill``, ``decode_step``,
+``apply(write_cache=True)``) of a model with SSM layers.
+``Model.apply`` without a cache is the full-sequence (training)
+forward, with the reference's remat policies: ``remat="full"``
+recomputes each layer group in the backward
 (``torch.utils.checkpoint``), ``remat="dots"`` keeps the outputs of the
-2-D projection matmuls and recomputes the rest (a selective-checkpoint
-policy, the counterpart of ``checkpoint_dots_with_no_batch_dims``).
+2-D projection matmuls and recomputes the rest, the SSD scan included
+(a selective-checkpoint policy, the counterpart of
+``checkpoint_dots_with_no_batch_dims``).
 
 ``Model(..., kv_quant=True)`` serves from an int8 KV cache with bf16
 per-(row, head) scales, as the reference's ``Model(kv_quant=True)``.
@@ -31,16 +35,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers as L
+from repro_torch.models import attention, layers as L, ssm
 from repro_torch.quant.quantize import quantize_params
 
 
 def _check_spec(spec):
     mixer, ffn = spec
-    if mixer != "attn" or ffn not in ("dense", "none"):
+    if mixer not in ("attn", "ssm") or ffn not in ("dense", "none"):
         raise NotImplementedError(
-            f"layer spec {spec} is not ported yet: this slice serves "
-            "attention + dense-FFN layers (SSM and MoE are later slices)")
+            f"layer spec {spec} is not ported yet: the port runs attention "
+            "and SSM mixers with dense or no FFN (MoE: ROADMAP queue 2 item 8)")
 
 
 # remat="dots": the 2-D projection products whose outputs are kept
@@ -65,6 +69,10 @@ class Model:
         self.use_kernels = use_kernels
         self.kv_quant = kv_quant    # int8 KV cache (decode)
 
+    def _check_serving(self):
+        if any(mixer == "ssm" for mixer, _ in self.cfg.group):
+            raise NotImplementedError(ssm.SERVING_UNPORTED)
+
     def _specs(self):
         return [self.cfg.group[i % len(self.cfg.group)]
                 for i in range(self.cfg.num_layers)]
@@ -73,8 +81,9 @@ class Model:
     def init_layer(self, generator, spec):
         cfg = self.cfg
         mixer, ffn = spec
+        mod = ssm if mixer == "ssm" else attention
         p = {"mixer_norm": L.norm_init(cfg, cfg.d_model, generator.device),
-             "mixer": attention.init(generator, cfg)}
+             "mixer": mod.init(generator, cfg)}
         if ffn == "dense":
             p["ffn_norm"] = L.norm_init(cfg, cfg.d_model, generator.device)
             p["ffn"] = L.mlp_init(generator, cfg)
@@ -109,7 +118,8 @@ class Model:
         cfg = self.cfg
         for p, spec in zip(layers, specs):
             h = L.norm_apply(cfg, p["mixer_norm"], x)
-            x = x + attention.apply(cfg, p["mixer"], h, use_kernel=self.use_kernels)
+            mod = ssm if spec[0] == "ssm" else attention
+            x = x + mod.apply(cfg, p["mixer"], h, use_kernel=self.use_kernels)
             if spec[1] == "dense":
                 h = L.norm_apply(cfg, p["ffn_norm"], x)
                 x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels)
@@ -154,6 +164,7 @@ class Model:
         if not write_cache:
             return self._apply_full(params, tokens, labels, remat, fused_loss,
                                     last_only)
+        self._check_serving()
         if cache is None:
             raise ValueError("write_cache=True requires a cache from init_cache")
         cpos = torch.as_tensor(cache["pos"]).cpu()
@@ -195,7 +206,8 @@ class Model:
     def _apply_full(self, params, tokens, labels, remat, fused_loss, last_only):
         cfg = self.cfg
         x = self._forward(params, tokens, remat)
-        # attention + dense layers carry no auxiliary loss (MoE's is unported)
+        # attention, SSM and dense layers carry no auxiliary loss (MoE's is
+        # unported)
         out = {"aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
         if last_only:
             x = x[:, -1:, :]
@@ -221,6 +233,7 @@ class Model:
                    **cache_kw):
         """One KV backend per layer (``"paged"`` or ``"dense"``);
         ``cache_kw`` (page_size, pages, mapped) configures the paged pool."""
+        self._check_serving()
         cfg = self.cfg
         layers = [attention.init_cache(cfg, batch, max_len, L.cdtype(cfg),
                                        quantized=self.kv_quant, kind=kind,
@@ -232,6 +245,7 @@ class Model:
         """One token for the whole batch.  tokens: [B] int.  ``cache["pos"]``
         is an int or a [B] int32 tensor; ``cache.get("start")`` marks
         left-pad slots.  Returns (logits [B, V], cache)."""
+        self._check_serving()
         cfg = self.cfg
         pos = cache["pos"]
         start = cache.get("start")
@@ -259,6 +273,7 @@ class Model:
         """Batched serving prefill: (last-token logits [B, V], cache at
         pos0 + S0).  ``chunk`` (or ``cfg.prefill_chunk``) splits the
         prompt into cache-write-through chunks."""
+        self._check_serving()
         s0 = tokens.shape[1]
         if pos0 and pad_mask is not None:
             raise ValueError("pos0 > 0 resumes an unpadded prompt; pad_mask "

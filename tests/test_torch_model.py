@@ -104,7 +104,9 @@ def test_model_init_quantizes_layer_by_layer():
 
 
 def test_unported_layer_specs_raise():
-    for arch in ("mamba2-370m", "mixtral-8x7b"):
+    # SSM layers are ported (mamba2-370m builds); MoE layers are not
+    Model(port_reduced(port_get_config("mamba2-370m")), device="cpu")
+    for arch in ("mixtral-8x7b", "jamba-1.5-large"):
         with pytest.raises(NotImplementedError):
             Model(port_reduced(port_get_config(arch)), device="cpu")
 
