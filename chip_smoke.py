@@ -7,7 +7,9 @@ Phases (each prints its seconds; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 2. build the five CUDA sources from ``src/repro_torch/csrc`` (one nvcc
-   per source, all at once);
+   per source, all at once), and report the tensor-core kernels' registers,
+   spills and shared memory (``-Xptxas -v``) and HGMMA / HMMA counts
+   (``cuobjdump``, where the toolkit has it);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
    w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
@@ -36,11 +38,13 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
    H=36, S=4096, D=64, causal) and at a GQA + window shape (Hq=16,
-   Hkv=2, D=128, S=1024, window 256), in bf16 and float32, per element
-   within limits derived like TOL_BF16's, with planted faults (a causal
-   mask off by one, lse of the neighbouring row, dK/dV of only the first
-   q head of a group) that must fail; each kernel, its plain version and
-   SDPA (forward; backward through autograd) timed at the training shape;
+   Hkv=2, D=128, S=1024, window 256), in bf16 (7 and 7b on their
+   tensor-core route) and float32 (CUDA-core route), per element within
+   limits derived like TOL_BF16's, with planted faults (a causal mask off
+   by one, lse of the neighbouring row, dK/dV of only the first q head of
+   a group) that must fail in both dtypes; each kernel, its plain version
+   and SDPA (forward; backward through autograd) timed at the training
+   shape;
 7. loss and every gradient leaf of full-width minicpm-2b at 2 layers
    (S=1024) with the kernels and with the plain versions, bf16 and
    float32, with planted faults in the attention wrappers, and with
@@ -48,8 +52,8 @@ Phases (each prints its seconds; any failure exits non-zero):
 8. 3 training steps of full-width minicpm-2b (40 layers, seq 4096,
    global batch 2, microbatch 1, remat full) through
    ``repro_torch.launch.train``'s code, each step's launches of kernels
-   7 / 7b / 7c checked against 160 / 80 / 80, then one more step under
-   ``torch.profiler``;
+   7 / 7b / 7c checked against 160 / 80 / 80, those of 7 and 7b all on
+   the tensor-core route, then one more step under ``torch.profiler``;
 9. the SSD kernels: the scan (kernel 8) against ``ssd_scan_fwd_ref`` (y
    and each chunk's entering state) and its backward (8b the state
    gradients, 8c the chunk's gradients) against ``ssd_scan_bwd_ref``,
@@ -104,7 +108,11 @@ F32_FLOPS_S = 67e12    # float32 outside the tensor cores
 # most 2**-8 of it, so column j's two probabilities differ by at most
 # 2**-7 p_j and the outputs by at most 2**-7 att|v|; the flash kernel's
 # bf16 output store adds at most 2**-8 |out| <= 2**-8 att|v|.  TOL_BF16
-# covers these 3 * 2**-8 and leaves 2**-8 for f32 rounding.  With float32
+# covers these 3 * 2**-8 and leaves 2**-8 for f32 rounding.  The bf16
+# (tensor-core) route of the training forward, kernel 7, rounds its
+# probabilities the same way (relative to the running max after each
+# 128-column tile) against attention_ref's f32 ones: the same 3 * 2**-8
+# (tests/test_torch_flash_tc.py rehearses it on the CPU).  With float32
 # operands nothing is rounded to bf16: the sides differ only in the order
 # of the 128-term f32 dot products, at worst ~2e-4 att|v| (D * 2**-24 *
 # sum_d |q_d k_d| * scale, on both sides); TOL_F32 = 2**-11.  The float32
@@ -282,8 +290,8 @@ def excess(got, want, att_abs_v, tol):
 def attn_check(torch, what, kernel, plain, operands, faults):
     """Hold ``kernel`` against ``plain`` on ``operands`` (q, k, v first)
     in bf16 and float32; then each planted fault (``kernel`` called with
-    a wrong mask argument) must fail the float32 check.  Returns the bf16
-    max abs error."""
+    a wrong mask argument) must fail the check in both dtypes.  Returns
+    the bf16 max abs error."""
     q, k, v, *rest = operands
     # int8 KV pools stay int8 (their scales ride in ``rest``)
     cast = lambda t, dt: t.to(dt) if t.is_floating_point() else t   # noqa: E731
@@ -306,9 +314,10 @@ def attn_check(torch, what, kernel, plain, operands, faults):
     print(line, flush=True)
     if reads[torch.bfloat16][0] > 1 or reads[torch.float32][0] > 1:
         raise AssertionError(f"{what}: kernel disagrees with the plain version")
-    missed = [n for n in faults if reads[(torch.float32, n)] <= 1]
+    missed = [(n, str(dt)) for n in faults for dt in (torch.bfloat16, torch.float32)
+              if reads[(dt, n)] <= 1]
     if missed:
-        raise AssertionError(f"{what}: the float32 check misses planted faults {missed}")
+        raise AssertionError(f"{what}: the check misses planted faults {missed}")
     return reads[torch.bfloat16][1]
 
 
@@ -447,7 +456,10 @@ def bwd_units(torch, q, k, v, o, lse, do, window):
     is a sum of at most Skv + D terms of its unit, each computed in f32
     from the same operands on both sides: their orders differ by at most
     (Skv + D) 2^-24 of the unit (2.5e-4 at Skv = 4096), under TOL_F32;
-    with bf16 outputs both sides round once more, 2^-8 each, under
+    with bf16 outputs both sides round once more, 2^-8 each, and the
+    bf16 (tensor-core) route of 7b rounds P and dS to bf16 before the dV
+    and dK products, which moves dV by at most 2^-8 of its unit and dK,
+    since |dS| <= W, by at most 2^-8 of its unit: 3 x 2^-8 in all, under
     TOL_BF16 (the operands are the same bf16 values on both sides)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -472,8 +484,8 @@ def bwd_check(torch, what, q, k, v, do, window, faults):
     ``flash_attention_bwd_ref`` on the same operands, with o and lse from
     the plain forward, per element in units of ``bwd_units``, in bf16 and
     float32; each planted fault (a function of the same operands giving
-    (dq, dk, dv)) must fail the float32 check.  Returns the bf16 max abs
-    error."""
+    (dq, dk, dv)) must fail the check in both dtypes.  Returns the bf16 max
+    abs error."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                          flash_attention_ref)
@@ -503,9 +515,10 @@ def bwd_check(torch, what, q, k, v, do, window, faults):
     print(line, flush=True)
     if reads[torch.bfloat16][0] > 1 or reads[torch.float32][0] > 1:
         raise AssertionError(f"{what}: kernels disagree with the plain version")
-    missed = [n for n in faults if reads[(torch.float32, n)] <= 1]
+    missed = [(n, str(dt)) for n in faults for dt in (torch.bfloat16, torch.float32)
+              if reads[(dt, n)] <= 1]
     if missed:
-        raise AssertionError(f"{what}: the float32 check misses planted faults {missed}")
+        raise AssertionError(f"{what}: the check misses planted faults {missed}")
     return reads[torch.bfloat16][1]
 
 
@@ -524,7 +537,7 @@ def check_flash_train(torch, timer):
     [row per shape]}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_dkdv,
+        bwd_delta, flash_attention, flash_attention_bwd, flash_attention_bwd_dkdv,
         flash_attention_bwd_dq)
     from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                          flash_attention_bwd_ref,
@@ -608,6 +621,10 @@ def check_flash_train(torch, timer):
                                                     retain_graph=True))
         plain_bwd = timer(lambda: flash_attention_bwd_ref(qb, kb, vb, o, lse, dob, **fw),
                           reps=3)
+        # the D_i glue that 7b's wrapper runs before the tensor-core kernel
+        delta_ms = timer(lambda: bwd_delta(o, dob))
+        print(f"  bwd_delta (D_i = rowsum(dO * O), torch glue inside "
+              f"flash_attention_bwd_dkdv's time) {shape}: {delta_ms:.4f} ms", flush=True)
         e = 2   # bf16 bytes
         io = qb.numel() * e                       # one [B, Hq, S, D] tensor
         kv = kb.numel() * e
@@ -634,6 +651,8 @@ def check_flash_train(torch, timer):
             rows[name].append(dict(S=s, Hq=hq, Hkv=hkv, D=d, window=window, ms=ms,
                                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                                    bound_by=by, max_abs_err=err))
+            if name == "flash_attention_bwd_dkdv":
+                rows[name][-1]["delta_glue_ms"] = delta_ms
         del qb, kb, vb, dob, o, lse, ql, kl, vl, lib_out
         torch.cuda.empty_cache()
     return rows
@@ -1025,6 +1044,8 @@ def reset_counts(torch):
     kernels, plains, paged = wrappers(torch)
     for f in kernels:
         f.launches = 0
+        if hasattr(f, "tc_launches"):
+            f.tc_launches = 0
     paged.int8_kv_launches = 0
     for f in plains:
         f.plain_launches = 0
@@ -1037,6 +1058,12 @@ def read_counts(torch):
     launches["paged_attention_kernel"] = paged.launches - paged.int8_kv_launches
     launches["paged_attention_kernel[int8_kv]"] = paged.int8_kv_launches
     return launches, {f.__name__: f.plain_launches for f in plains}
+
+
+def read_tc_counts(torch):
+    """Tensor-core launches of the kernels with two routes (7 and 7b), by
+    JSON name; the rest of their ``launches`` took the CUDA-core route."""
+    return {f.__name__: f.tc_launches for f in wrappers(torch)[0] if hasattr(f, "tc_launches")}
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
@@ -1432,7 +1459,7 @@ def profile_train_step(torch, step_fn, params, opt, batch, step_wall):
     print(f"profiled train step: loss {loss:.4f}; {wall:.3f} s host-clock under the "
           f"profiler ({step_wall:.3f} s unprofiled); device busy {busy:.3f} s ({idle} "
           f"of the unprofiled step)", flush=True)
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:16]
     for name, sec in top:
         print(f"  {sec * 1e3:10.2f} ms/step ({100 * sec / max(busy, 1e-12):5.1f}%)  "
               f"{name[:90]}", flush=True)
@@ -1440,14 +1467,17 @@ def profile_train_step(torch, step_fn, params, opt, batch, step_wall):
                 top=[(n[:90], sec) for n, sec in top])
 
 
+# kernels with a tensor-core route (bf16 operands) beside the CUDA-core one
+TC_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv")
 # the full-width training runs: arch -> (TrainConfig keyword arguments,
 # launches of each kernel of the path per layer and microbatch: the
-# forward kernel twice under remat full, forward and recomputation)
+# forward kernel twice under remat full, forward and recomputation;
+# kernels whose every launch must take the tensor-core route)
 TRAIN_RUNS = {
     "minicpm-2b": (dict(seq_len=4096, global_batch=2, microbatch=1, remat="full"),
-                   dict(zip(TRAIN_KERNELS, (2, 1, 1)))),
+                   dict(zip(TRAIN_KERNELS, (2, 1, 1))), TC_KERNELS),
     "mamba2-370m": (dict(seq_len=4096, global_batch=8, microbatch=4, remat="full"),
-                    dict(zip(SSD_KERNELS, (2, 1, 1)))),
+                    dict(zip(SSD_KERNELS, (2, 1, 1))), ()),
 }
 
 
@@ -1457,7 +1487,8 @@ def train_full_width(torch, arch):
     on ``SyntheticSource(seed=1234)``, through ``repro_torch.launch.train``'s
     ``build`` and ``train``.  Counts are set to 0 just before the run and
     read (and set to 0) after each step; every step must launch each
-    kernel of the path its TRAIN_RUNS count per layer and microbatch, and
+    kernel of the path its TRAIN_RUNS count per layer and microbatch, all
+    of them on the tensor-core route for the kernels TRAIN_RUNS names, and
     nothing else of the port's kernels or plain versions; every loss and
     grad-norm must be finite, and the first loss within 2 of ln(vocab)
     (random weights: the head's unit-variance logits add ~0.5).  Then one
@@ -1467,7 +1498,7 @@ def train_full_width(torch, arch):
     from repro_torch.data.pipeline import SyntheticSource, TokenStream
     from repro_torch.launch import train as launch
 
-    tkw, per_layer = TRAIN_RUNS[arch]
+    tkw, per_layer, tc_names = TRAIN_RUNS[arch]
     names = tuple(per_layer)
     cfg = get_config(arch)
     tcfg = TrainConfig(**tkw)
@@ -1493,14 +1524,16 @@ def train_full_width(torch, arch):
 
     def on_step(rec):
         launches, plain_runs = read_counts(torch)
+        tc = read_tc_counts(torch)
         reset_counts(torch)
-        rec.update(launches=launches, plain_runs=plain_runs,
+        rec.update(launches=launches, plain_runs=plain_runs, tc_launches=tc,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         steps.append(rec)
         print(f"  step {rec['step']}: loss {rec['loss']:.4f} grad-norm "
               f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e} time {rec['seconds']:.3f}s "
               f"tokens/s {rec['tokens_per_s']:.1f} peak {rec['peak_gib']:.2f} GiB; "
-              f"launches {({n: launches[n] for n in names})}", flush=True)
+              f"launches {({n: launches[n] for n in names})}; tensor-core route "
+              f"{({n: tc[n] for n in tc_names})}", flush=True)
 
     reset_counts(torch)
     params, opt, _ = launch.train(step_fn, params, opt, stream, 3, device=model.device,
@@ -1509,6 +1542,10 @@ def train_full_width(torch, arch):
         got = {n: rec["launches"][n] for n in names}
         if got != expected:
             raise AssertionError(f"step {rec['step']}: launches {got}, expected {expected}")
+        routed = {n: rec["tc_launches"][n] for n in tc_names}
+        if routed != {n: expected[n] for n in tc_names}:
+            raise AssertionError(f"step {rec['step']}: tensor-core launches {routed}, "
+                                 f"expected all of {expected} (none on the CUDA-core route)")
         others = {n: c for n, c in rec["launches"].items() if n not in names and c}
         if others or any(rec["plain_runs"].values()):
             raise AssertionError(f"step {rec['step']}: other kernels {others} or plain "
@@ -1527,7 +1564,64 @@ def train_full_width(torch, arch):
     torch.cuda.empty_cache()
     return dict(steps=steps, expected=expected, profile=prof, peak_gib=peak,
                 launches={n: sum(r["launches"][n] for r in steps) for n in names},
+                tc_launches={n: sum(r["tc_launches"][n] for r in steps) for n in tc_names},
                 tokens=tcfg.global_batch * tcfg.seq_len)
+
+
+def _tc_label(fn):
+    import re
+    m = re.search(r"(flash_fwd_tc|flash_bwd_dkdv_tc)ILi(\d+)E", fn or "")
+    return f"{m.group(1)}<{m.group(2)}>" if m else None
+
+
+def tc_build_report():
+    """Registers, spills and shared memory of the tensor-core kernels (7,
+    7b) from this run's build (``nvcc -Xptxas -v``), and their HGMMA /
+    HMMA instruction counts where the toolkit has ``cuobjdump``.  Returns
+    {kernel: record}."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    report = {f"{k}<{d}>": {} for k in ("flash_fwd_tc", "flash_bwd_dkdv_tc") for d in (64, 128)}
+    smem = _build.entry("flash_attention", "flash_attention_tc_smem")
+    for lab, rec in report.items():
+        rec["smem_bytes"] = smem(int("dkdv" in lab), int(lab.split("<")[1][:-1]))
+    fn = None
+    for line in _build.build_logs.get("flash_attention", "").splitlines():
+        m = re.search(r"(?:entry function '|Function properties for |the function ')([^' ]+)", line)
+        if m:
+            fn = m.group(1)
+        rec = report.get(_tc_label(fn))
+        if rec is None:
+            continue
+        if (m := re.search(r"Used (\d+) registers", line)):
+            rec["registers"] = int(m.group(1))
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            rec["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        if "Performance Loss" in line:
+            rec["ptxas_warning"] = line.split("Potential Performance Loss:")[-1].split(" for ")[0].strip()
+    cuobj = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if os.path.exists(cuobj):
+        sass = subprocess.run([cuobj, "-sass", str(_build.library_path("flash_attention"))],
+                              capture_output=True, text=True, timeout=300).stdout
+        fn = None
+        for line in sass.splitlines():
+            if (m := re.search(r"Function : (\S+)", line)):
+                fn = m.group(1)
+            rec = report.get(_tc_label(fn))
+            if rec is not None:
+                for op in ("HGMMA", "HMMA"):
+                    rec[op] = rec.get(op, 0) + (op in line)
+    for lab, rec in report.items():
+        print(f"  {lab}: {rec.get('registers', 'not reported (library cached)')} registers, "
+              f"spill stores / loads {rec.get('spill_bytes', 'not reported')} bytes, "
+              f"{rec['smem_bytes']} bytes of dynamic shared memory, HGMMA "
+              f"{rec.get('HGMMA', 'not counted (no cuobjdump)')}, HMMA "
+              f"{rec.get('HMMA', 'not counted')}"
+              + (f"; ptxas: {rec['ptxas_warning']}" if "ptxas_warning" in rec else ""),
+              flush=True)
+    return report
 
 
 def main():
@@ -1555,6 +1649,7 @@ def main():
             if any(k in line for k in ("registers", "spill", "entry function")):
                 print(f"  {name}: {line.strip()}")
     print(f"built {built or 'nothing (cached)'}")
+    tc_build = tc_build_report()
     done(t, "build")
 
     t = phase("kernel checks")
@@ -1663,9 +1758,35 @@ def main():
     ]
     flash = "src/repro/kernels/flash_attention/flash_attention.py"
     at_train = lambda rows: rows[0]   # noqa: E731  (B=1, H=36, S=4096, D=64)
+    designs = {   # kernels 7 and 7b: the route each dtype takes, and the tensor-core design
+        "flash_attention": (
+            "bfloat16: tensor-core, one block per (128-row q tile, q head, batch), two "
+            "consumer warpgroups of 64 rows and a TMA producer warpgroup, K/V in a ring "
+            "of 128-row tiles (4 stages at D=64, 3 at D=128), S = Q K^T by wgmma "
+            "m64n128k16 from shared memory, online softmax in registers, O += P V by "
+            "wgmma m64n64k16 with P as the bf16 register operand, TMA store; float32: "
+            "the CUDA-core template (kernel 2's, TRAIN)"),
+        "flash_attention_bwd_dkdv": (
+            "bfloat16: tensor-core, one block per (128-row kv tile, kv head, batch), two "
+            "consumer warpgroups of 64 kv rows and a TMA producer warpgroup, K and V "
+            "resident, Q / dO / lse / D_i tiles (64 rows at D=64, 32 at D=128) in a "
+            "4-stage ring, S^T = K Q^T and dP^T = V dO^T by wgmma from shared memory, "
+            "dV += P^T dO and dK += dS^T Q by wgmma m64n64k16 with P^T, dS^T as bf16 "
+            "register operands and dO, Q MN-major, D_i computed once per call by the "
+            "wrapper; float32: the CUDA-core kernel"),
+    }
     for name in TRAIN_KERNELS:
         extra = dict(launches_per_step=tr["expected"][name],
                      launches_from="3 training steps of full-width minicpm-2b")
+        if name in designs:
+            lab = {"flash_attention": "flash_fwd_tc", "flash_attention_bwd_dkdv":
+                   "flash_bwd_dkdv_tc"}[name]
+            extra.update(design=designs[name], route_launches={
+                "tensor-core": tr["tc_launches"][name],
+                "cuda-core": tr["launches"][name] - tr["tc_launches"][name]},
+                build={d: tc_build[f"{lab}<{d}>"] for d in (64, 128)})
+        else:
+            extra["design"] = "CUDA cores, both dtypes (unchanged)"
         if name != "flash_attention":
             extra["note"] = ("backward of flash_attention (:92); the reference has no "
                              "backward kernel and differentiates attention_ref "

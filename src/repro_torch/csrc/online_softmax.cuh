@@ -6,7 +6,8 @@
 // As in the plain versions (masked_attention_ref, paged_attention_ref),
 // the row sum l adds the f32 probabilities and the value product uses
 // the probabilities rounded to the value dtype T; with ROUND_P = false
-// (the training forward, as attention_ref) it keeps them in f32.
+// (the training forward's float32 route, as attention_ref) it keeps them
+// in f32.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -33,7 +33,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each source's extern "C" entry points and their argument types (all
-# return a cudaError_t as int)
+# return an int: a cudaError_t, or for flash_attention_tc_smem a size)
 ENTRY_POINTS = {
     "ent_matmul": {
         "ent_matmul_packed_fused": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -42,8 +42,9 @@ ENTRY_POINTS = {
     "flash_attention": {
         "flash_attention_masked": [_P] * 5 + [_I] * 10 + [_F, _P],
         "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
-        "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 10 + [_F, _P],
-        "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P]},
+        "flash_attention_bwd_dkdv": [_P] * 9 + [_I] * 10 + [_F, _P],
+        "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],
+        "flash_attention_tc_smem": [_I, _I]},
     "paged_attention": {"paged_attention": [_P] * 9 + [_I] * 8 + [_F, _P]},
     "ssd_scan": {
         "ssd_scan_fwd": [_P] * 7 + [_I] * 8 + [_P],

@@ -13,6 +13,13 @@
 On a CUDA tensor each wrapper launches its kernel or raises; only CPU
 tensors take the plain PyTorch version.  Each kernel wrapper's
 ``.launches`` counts its kernel's launches.
+
+Kernels 7 and 7b take one of two routes by the operands' dtype
+(:func:`route`), with no fallback: bfloat16 (what training runs) the
+tensor-core kernels (``wgmma`` + TMA), float32 the CUDA-core ones.
+``flash_attention.tc_launches`` and ``flash_attention_bwd_dkdv.tc_launches``
+count the tensor-core launches among ``.launches``.  Kernels 2 and 7c
+have the CUDA-core route only.
 """
 
 from __future__ import annotations
@@ -24,6 +31,19 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_ref, flash_attention_ref, masked_attention_ref)
 
 HEAD_DIMS = (64, 128)
+# kernels 7 and 7b: operand dtype -> route
+ROUTES = {torch.bfloat16: "tensor-core", torch.float32: "cuda-core"}
+
+
+def route(dtype, head_dim: int) -> str:
+    """The route kernels 7 and 7b take for ``dtype`` operands of
+    ``head_dim``; raises for what neither route takes."""
+    if dtype not in ROUTES:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not supported by the kernel "
+                         f"(supported: {HEAD_DIMS})")
+    return ROUTES[dtype]
 
 
 def _check_qkv(q, k, v):
@@ -38,14 +58,10 @@ def _check_qkv(q, k, v):
 def _check_cuda(q, *tensors):
     """Dtype, head_dim, device and contiguity checks for a kernel launch;
     ``tensors`` must share q's dtype."""
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    route(q.dtype, q.shape[3])
     for t in tensors:
         if t.dtype != q.dtype:
             raise TypeError(f"operands must share q's dtype {q.dtype}, got {t.dtype}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[3]} not supported by the kernel "
-                         f"(supported: {HEAD_DIMS})")
     for t in (q, *tensors):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("operands must be contiguous and on one device")
@@ -97,7 +113,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     """Training forward.  q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (f32 or
     bf16, one dtype) -> (out [B, Hq, Sq, D] in q's dtype, lse float32
     [B, Hq, Sq]).  Query row t sits at kv position ``q_offset + t``
-    (default ``Skv - Sq``, as the Pallas kernel); probabilities stay f32."""
+    (default ``Skv - Sq``, as the Pallas kernel).  The plain version and
+    the float32 route keep the probabilities in f32; the bfloat16
+    (tensor-core) route rounds them to bf16 for the value product."""
     _check_qkv(q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -116,6 +134,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
             d, off, c, w, sc, _build.stream_of(q))
     _build.check(rc, "flash_attention_fwd")
     flash_attention.launches += 1
+    flash_attention.tc_launches += route(q.dtype, d) == "tensor-core"
     return out, lse
 
 
@@ -129,7 +148,9 @@ def _check_bwd(q, k, v, o, lse, do):
 
 
 def _bwd_launch(fname, outs, q, k, v, o, lse, do, causal, window, scale,
-                q_offset):
+                q_offset, delta=()):
+    """Launch ``fname``; ``delta`` is the dK/dV entry point's extra
+    argument (a tensor, or None for the float32 route)."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     off, c, w, sc = _mask_args(sq, skv, d, causal, window, scale, q_offset)
@@ -142,11 +163,19 @@ def _bwd_launch(fname, outs, q, k, v, o, lse, do, causal, window, scale,
         return False
     fn = _build.entry("flash_attention", fname)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), *(t.data_ptr() for t in outs),
+            lse.data_ptr(), *(None if t is None else t.data_ptr() for t in delta),
+            do.data_ptr(), *(t.data_ptr() for t in outs),
             int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv, d, off, c, w,
             sc, _build.stream_of(q))
     _build.check(rc, fname)
     return True
+
+
+def bwd_delta(o, do):
+    """D_i = rowsum(dO_i * O_i), float32 [B, Hq, Sq]: the row term of the
+    backward, computed once per call for kernel 7b's tensor-core route
+    (and its plain version) rather than per kv tile."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
 
 
 def flash_attention_bwd_dkdv(q, k, v, o, lse, do, *, causal: bool = True,
@@ -155,17 +184,23 @@ def flash_attention_bwd_dkdv(q, k, v, o, lse, do, *, causal: bool = True,
                              q_offset: int | None = None):
     """(dk, dv) [B, Hkv, Skv, D] in k's dtype, summed over each kv head's
     group of q heads, from the forward's output ``o`` and ``lse`` and the
-    output gradient ``do`` (q's shape and dtype)."""
+    output gradient ``do`` (q's shape and dtype).  The bfloat16
+    (tensor-core) route reads :func:`bwd_delta` and rounds P and dS to
+    bf16 for the dV and dK products."""
     _check_bwd(q, k, v, o, lse, do)
     if q.device.type == "cpu":
         _, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                             window=window, scale=scale,
-                                            q_offset=q_offset)
+                                            q_offset=q_offset,
+                                            delta=bwd_delta(o, do))
         return dk, dv
+    tc = route(q.dtype, q.shape[3]) == "tensor-core"
+    delta = bwd_delta(o, do).contiguous() if tc else None
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if _bwd_launch("flash_attention_bwd_dkdv", (dk, dv), q, k, v, o, lse, do,
-                   causal, window, scale, q_offset):
+                   causal, window, scale, q_offset, delta=(delta,)):
         flash_attention_bwd_dkdv.launches += 1
+        flash_attention_bwd_dkdv.tc_launches += tc
     return dk, dv
 
 
@@ -202,5 +237,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 flash_attention_masked.launches = 0
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dkdv.tc_launches = 0
 flash_attention_bwd_dq.launches = 0

@@ -116,13 +116,13 @@ def attention_blockwise(q, k, v, *, causal=True, window=None, scale=None,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
-                            scale=None, q_offset=None):
+                            scale=None, q_offset=None, delta=None):
     """Backward of :func:`flash_attention_ref` from its output ``o`` and
     ``lse``: with S the scaled scores on the band, P = exp(S - lse),
-    D = rowsum(dO * O), dP = dO V^T and dS = P * (dP - D): dQ = scale dS K,
-    dK = scale dS^T Q, dV = P^T dO, dK and dV summed over each kv head's
-    group of q heads in float32.  Returns (dq, dk, dv) in q's / k's / v's
-    dtypes."""
+    D = rowsum(dO * O) (or ``delta``, float32 [B, Hq, Sq], when given),
+    dP = dO V^T and dS = P * (dP - D): dQ = scale dS K, dK = scale dS^T Q,
+    dV = P^T dO, dK and dV summed over each kv head's group of q heads in
+    float32.  Returns (dq, dk, dv) in q's / k's / v's dtypes."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if scale is None:
@@ -136,7 +136,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
     mask = _band(sq, skv, q_offset, causal, window, q.device)
     p = torch.exp(torch.where(mask, s - lse[..., None], -float("inf")))
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    dd = (dof * o.to(f32)).sum(-1, keepdim=True)
+    dd = ((dof * o.to(f32)).sum(-1) if delta is None else delta.to(f32))[..., None]
     ds = p * (dp - dd)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale

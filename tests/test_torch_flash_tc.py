@@ -1,0 +1,204 @@
+"""The tensor-core route of kernels 7 and 7b, rehearsed on the CPU.
+
+The bfloat16 route of the training forward (kernel 7) and of its dK/dV
+backward (kernel 7b) runs ``wgmma`` with bf16 operands: the forward rounds
+the probabilities P to bf16 (relative to the running max after each
+128-column kv tile) before the value product, and the backward rounds P
+and dS to bf16 before the dV and dK products, with D_i = rowsum(dO * O)
+computed once per call (``bwd_delta``).  ``_emulate_fwd`` and
+``_emulate_dkdv`` are plain-torch versions of exactly those rounding
+points.  Held against the f32 plain versions (``flash_attention_ref``,
+``flash_attention_bwd_ref``) with ``chip_smoke.py``'s own limits and units
+(``TOL_BF16`` in att|v| and ``bwd_units`` units, ``TOL_F32`` for lse), they
+read at most 1, and the planted faults of ``chip_smoke.py`` (a causal
+mask off by one, the neighbouring row's lse) read above 1: the limits
+that the card's run applies have room for the new rounding and still
+catch the faults.  Also the pure-Python route choice and the ``delta``
+plumbing of ``flash_attention_bwd_dkdv`` on CPU tensors.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    _band, flash_attention_bwd_ref, flash_attention_ref)
+
+TILE = 128      # the forward kernel's kv tile (FwdTC::BKV)
+S = 200         # ragged against the kernels' 64- and 128-row tiles
+CASES = [  # hq, hkv, d, window
+    (2, 2, 64, None),
+    (2, 2, 128, None),
+    (16, 2, 64, 64),
+    (16, 2, 128, 64),
+]
+IDS = [f"h{c[0]}kv{c[1]}d{c[2]}w{c[3]}" for c in CASES]
+
+
+@pytest.fixture(scope="module")
+def cs():
+    """chip_smoke.py's limits and units, on the CPU."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_limits", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.DEV = "cpu"
+    return mod
+
+
+def _bf16_data(seed, hq, hkv, d, s=S):
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))  # noqa: E731
+    return (f(1, hq, s, d).bfloat16(), f(1, hkv, s, d).bfloat16(),
+            f(1, hkv, s, d).bfloat16(), f(1, hq, s, d).bfloat16())
+
+
+def _emulate_fwd(q, k, v, *, window=None, q_offset=None, tile=TILE):
+    """Kernel 7's bf16 route: online softmax over kv tiles of ``tile``
+    columns; l sums the f32 probabilities, the value product takes them
+    rounded to bf16 relative to the running max after the tile; output
+    O / l in bf16, lse = m + log(l) (+inf on a fully masked row)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    off = skv - sq if q_offset is None else q_offset
+    g = hq // k.shape[1]
+    kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d**-0.5
+    s = torch.where(_band(sq, skv, off, True, window, q.device), s, -1e30)
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    for lo in range(0, skv, tile):
+        st = s[..., lo:lo + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.where(st > -1e30, torch.exp(st - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(),
+                                         vf[:, :, lo:lo + tile])
+        m = m_new
+    out = (acc / torch.clamp_min(l, 1e-30)).bfloat16()
+    lse = torch.where(l > 0, m + torch.log(l), float("inf"))[..., 0]
+    return out, lse
+
+
+def _emulate_dkdv(q, k, v, o, lse, do, *, window=None, q_offset=None):
+    """Kernel 7b's bf16 route: P = exp(S scale - lse) on the band, dS =
+    P (dP - delta) with delta = ``bwd_delta(o, do)``; dV = bf16(P)^T dO and
+    dK = scale bf16(dS)^T Q, summed over each kv head's group, in bf16."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    off = skv - sq if q_offset is None else q_offset
+    g = hq // hkv
+    kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d**-0.5
+    band = _band(sq, skv, off, True, window, q.device)
+    p = torch.where(band, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vf)
+    ds = p * (dp - fa.bwd_delta(o, do)[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.bfloat16().float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.bfloat16().float(), q.float()) * d**-0.5
+    return (dk.reshape(b, hkv, g, skv, d).sum(2).bfloat16(),
+            dv.reshape(b, hkv, g, skv, d).sum(2).bfloat16())
+
+
+def _fwd_reading(cs, q, k, v, got, window):
+    want = flash_attention_ref(q, k, v, window=window)[0].float()
+    att = flash_attention_ref(q.float(), k.float(), v.float().abs(), window=window)[0]
+    return cs.excess(got, want, att, cs.TOL_BF16)
+
+
+def _bwd_reading(cs, q, k, v, o, lse, do, dk, dv, window):
+    """The bwd_check reading of kernels 7b + 7c: dq from the plain version
+    (7c keeps its CUDA-core route), dk and dv as given."""
+    want = [t.float() for t in flash_attention_bwd_ref(q, k, v, o, lse, do, window=window)]
+    units = cs.bwd_units(torch, q, k, v, o, lse, do, window)
+    return max(cs.excess(a, w, u, cs.TOL_BF16)
+               for a, w, u in zip((want[0], dk, dv), want, units))
+
+
+@pytest.mark.parametrize("hq,hkv,d,window", CASES, ids=IDS)
+def test_forward_rounding_within_the_chip_limit(cs, hq, hkv, d, window):
+    q, k, v, _ = _bf16_data(1, hq, hkv, d)
+    out, lse = _emulate_fwd(q, k, v, window=window)
+    reading = _fwd_reading(cs, q, k, v, out, window)
+    assert reading <= 1, reading
+    lse_err = float((lse - flash_attention_ref(q, k, v, window=window)[1]).abs().max())
+    assert lse_err <= cs.TOL_F32, lse_err
+    # and against the JAX package's attention_ref on the same bf16 values
+    want = np.asarray(jax_attention_ref(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+                                        causal=True, window=window))
+    att = flash_attention_ref(q.float(), k.float(), v.float().abs(), window=window)[0]
+    assert cs.excess(out, torch.from_numpy(np.array(want)), att, cs.TOL_BF16) <= 1
+    # the planted faults of the card's check read above the limit in bf16
+    bad, _ = _emulate_fwd(q, k, v, window=window, q_offset=1)
+    assert _fwd_reading(cs, q, k, v, bad, window) > 1
+    if window:
+        bad, _ = _emulate_fwd(q, k, v, window=window + 1)
+        assert _fwd_reading(cs, q, k, v, bad, window) > 1
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_forward_rounding_any_tile_width(cs, tile):
+    """The reading does not rest on the tile width: P rounded relative to
+    a running max is within one bf16 rounding of P for any tiling."""
+    q, k, v, _ = _bf16_data(2, 4, 2, 64)
+    out, _ = _emulate_fwd(q, k, v, tile=tile)
+    assert _fwd_reading(cs, q, k, v, out, None) <= 1
+
+
+@pytest.mark.parametrize("hq,hkv,d,window", CASES, ids=IDS)
+def test_dkdv_rounding_within_the_chip_limit(cs, hq, hkv, d, window):
+    q, k, v, do = _bf16_data(3, hq, hkv, d)
+    o, lse = flash_attention_ref(q, k, v, window=window)
+    dk, dv = _emulate_dkdv(q, k, v, o, lse, do, window=window)
+    assert _bwd_reading(cs, q, k, v, o, lse, do, dk, dv, window) <= 1
+    bad = _emulate_dkdv(q, k, v, o, lse, do, window=window, q_offset=1)
+    assert _bwd_reading(cs, q, k, v, o, lse, do, *bad, window) > 1
+    bad = _emulate_dkdv(q, k, v, o, lse.roll(1, -1), do, window=window)
+    assert _bwd_reading(cs, q, k, v, o, lse, do, *bad, window) > 1
+    if hq > hkv:   # dK / dV of only the first q head of each group
+        sel = lambda t: t[:, ::hq // hkv]   # noqa: E731
+        bad = _emulate_dkdv(sel(q), k, v, sel(o), sel(lse), sel(do), window=window)
+        assert _bwd_reading(cs, q, k, v, o, lse, do, *bad, window) > 1
+
+
+def test_route_choice():
+    assert fa.route(torch.bfloat16, 64) == "tensor-core"
+    assert fa.route(torch.bfloat16, 128) == "tensor-core"
+    assert fa.route(torch.float32, 64) == "cuda-core"
+    assert fa.route(torch.float32, 128) == "cuda-core"
+    with pytest.raises(TypeError):
+        fa.route(torch.float16, 64)
+    with pytest.raises(ValueError):
+        fa.route(torch.bfloat16, 32)
+    with pytest.raises(ValueError):
+        fa.route(torch.float32, 96)
+    # the launch counters exist per route and start at zero on the CPU
+    assert fa.flash_attention.tc_launches == fa.flash_attention_bwd_dkdv.tc_launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dkdv_delta_plumbing_on_cpu(dtype):
+    """flash_attention_bwd_dkdv on CPU tensors passes bwd_delta(o, do) to
+    the plain version: the same dK and dV as flash_attention_bwd_ref
+    computing D itself, and a wrong delta changes them."""
+    q, k, v, do = (t.to(dtype) for t in _bf16_data(4, 4, 2, 64, s=48))
+    o, lse = flash_attention_ref(q, k, v, window=16)
+    delta = fa.bwd_delta(o, do)
+    assert delta.shape == q.shape[:3] and delta.dtype == torch.float32
+    np.testing.assert_allclose(
+        delta.numpy(), (do.double() * o.double()).sum(-1).numpy(), rtol=1e-5, atol=1e-5)
+    _, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, window=16)
+    got = fa.flash_attention_bwd_dkdv(q, k, v, o, lse, do, window=16)
+    assert torch.equal(got[0], dk) and torch.equal(got[1], dv)
+    _, dk_bad, _ = flash_attention_bwd_ref(q, k, v, o, lse, do, window=16, delta=delta + 1)
+    assert not torch.equal(dk_bad, dk)
