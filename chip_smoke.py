@@ -38,13 +38,13 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
    H=36, S=4096, D=64, causal) and at a GQA + window shape (Hq=16,
-   Hkv=2, D=128, S=1024, window 256), in bf16 (7 and 7b on their
+   Hkv=2, D=128, S=1024, window 256), in bf16 (7, 7b and 7c on their
    tensor-core route) and float32 (CUDA-core route), per element within
    limits derived like TOL_BF16's, with planted faults (a causal mask off
    by one, lse of the neighbouring row, dK/dV of only the first q head of
-   a group) that must fail in both dtypes; each kernel, its plain version
-   and SDPA (forward; backward through autograd) timed at the training
-   shape;
+   a group) that must fail in both dtypes; the D_i that 7c writes held
+   against ``bwd_delta``; each kernel, its plain version and SDPA
+   (forward; backward through autograd) timed at the training shape;
 7. loss and every gradient leaf of full-width minicpm-2b at 2 layers
    (S=1024) with the kernels and with the plain versions, bf16 and
    float32, with planted faults in the attention wrappers, and with
@@ -52,8 +52,9 @@ Phases (each prints its seconds; any failure exits non-zero):
 8. 3 training steps of full-width minicpm-2b (40 layers, seq 4096,
    global batch 2, microbatch 1, remat full) through
    ``repro_torch.launch.train``'s code, each step's launches of kernels
-   7 / 7b / 7c checked against 160 / 80 / 80, those of 7 and 7b all on
-   the tensor-core route, then one more step under ``torch.profiler``;
+   7 / 7b / 7c checked against 160 / 80 / 80, all on the tensor-core
+   route, with no plain D_i pass (``bwd_delta``: 7c writes D_i for 7b),
+   then one more step under ``torch.profiler``;
 9. the SSD kernels: the scan (kernel 8) against ``ssd_scan_fwd_ref`` (y
    and each chunk's entering state) and its backward (8b the state
    gradients, 8c the chunk's gradients) against ``ssd_scan_bwd_ref``,
@@ -500,15 +501,19 @@ def bwd_check(torch, what, q, k, v, do, window, faults):
         torch.cuda.synchronize()
         if not all(torch.isfinite(t).all() for t in got):
             raise AssertionError(f"{what} {dt}: non-finite gradient")
-        reads[dt] = (max(excess(a, w, u, tol) for a, w, u in zip(got, want, units)),
-                     max(float((a.float() - w).abs().max()) for a, w in zip(got, want)))
+        per = [excess(a, w, u, tol) for a, w, u in zip(got, want, units)]
+        reads[dt] = (max(per), max(float((a.float() - w).abs().max())
+                                   for a, w in zip(got, want)))
+        reads[(dt, "per gradient")] = per
         for name, bad in faults.items():
             reads[(dt, name)] = max(excess(a, w, u, tol)
                                     for a, w, u in zip(bad(*ops), want, units))
         del units, want, got
+    per = lambda dt: " / ".join(f"{r:.3f}" for r in reads[(dt, "per gradient")])  # noqa: E731
     line = (f"  {what}: err/limit bf16 {reads[torch.bfloat16][0]:.3f} "
-            f"(max abs {reads[torch.bfloat16][1]:.3e}), float32 "
-            f"{reads[torch.float32][0]:.3f} (max abs {reads[torch.float32][1]:.3e})")
+            f"(dq / dk / dv {per(torch.bfloat16)}; max abs {reads[torch.bfloat16][1]:.3e}), "
+            f"float32 {reads[torch.float32][0]:.3f} (dq / dk / dv {per(torch.float32)}; "
+            f"max abs {reads[torch.float32][1]:.3e})")
     for name in faults:
         line += (f"; planted fault '{name}': float32 {reads[(torch.float32, name)]:.1f}"
                  f", bf16 {reads[(torch.bfloat16, name)]:.2f}")
@@ -520,6 +525,34 @@ def bwd_check(torch, what, q, k, v, do, window, faults):
     if missed:
         raise AssertionError(f"{what}: the check misses planted faults {missed}")
     return reads[torch.bfloat16][1]
+
+
+def delta_check(torch, what, q, k, v, do, window):
+    """The D_i = rowsum(dO * O) that kernel 7c writes on its bf16
+    (tensor-core) route, against ``bwd_delta`` on the same operands.  A
+    product of two bf16 values is exact in f32, so the two differ only in
+    the order of D f32 additions, each side by at most (D - 1) 2^-24
+    rowsum(|dO O|): the limit is 2 D 2^-24 rowsum(|dO O|).  D_i of the
+    neighbouring row must read above it.  Returns the reading."""
+    from repro_torch.kernels.flash_attention.flash_attention import (bwd_delta,
+                                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    qd, kd, vd, dod = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    o, lse = flash_attention_ref(qd, kd, vd, window=window)
+    _, got = flash_attention_bwd_dq(qd, kd, vd, o, lse, dod, window=window,
+                                    return_delta=True)
+    want = bwd_delta(o, dod)
+    unit = 2 * q.shape[-1] * 2.0**-24 * (dod.float() * o.float()).abs().sum(-1) + 1e-30
+    read = float(((got - want).abs() / unit).max())
+    fault = float(((got.roll(1, -1) - want).abs() / unit).max())
+    print(f"  {what}: D_i written by 7c vs bwd_delta: err/limit {read:.3f} (max abs "
+          f"{float((got - want).abs().max()):.3e}); planted fault 'D_i of the "
+          f"neighbouring row' {fault:.1f}", flush=True)
+    if not torch.isfinite(got).all() or read > 1:
+        raise AssertionError(f"{what}: kernel 7c's D_i disagrees with bwd_delta")
+    if fault <= 1:
+        raise AssertionError(f"{what}: the D_i check misses a planted fault")
+    return read
 
 
 # the training kernels' check shapes: (B, Hq, Hkv, S, D, window); the first
@@ -602,6 +635,8 @@ def check_flash_train(torch, timer):
             bwd_faults["dK/dV of only the first q head of a group"] = first_head_only
         err_b = bwd_check(torch, f"flash_attention_bwd {shape}", q, k, v, do, window,
                           bwd_faults)
+        delta_read = delta_check(torch, f"flash_attention_bwd_dq {shape}", q, k, v, do,
+                                 window)
 
         # times, bf16 (the training dtype)
         qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
@@ -621,25 +656,32 @@ def check_flash_train(torch, timer):
                                                     retain_graph=True))
         plain_bwd = timer(lambda: flash_attention_bwd_ref(qb, kb, vb, o, lse, dob, **fw),
                           reps=3)
-        # the D_i glue that 7b's wrapper runs before the tensor-core kernel
+        # the plain D_i pass, which a standalone call of 7b (no delta) runs;
+        # on the training path 7c writes D_i in its own pass
         delta_ms = timer(lambda: bwd_delta(o, dob))
-        print(f"  bwd_delta (D_i = rowsum(dO * O), torch glue inside "
-              f"flash_attention_bwd_dkdv's time) {shape}: {delta_ms:.4f} ms", flush=True)
+        delta = flash_attention_bwd_dq(qb, kb, vb, o, lse, dob, return_delta=True, **fw)[1]
+        both_ms = timer(lambda: flash_attention_bwd(qb, kb, vb, o, lse, dob, **fw))
+        print(f"  bwd_delta (D_i = rowsum(dO * O) in torch, off the training path) "
+              f"{shape}: {delta_ms:.4f} ms; flash_attention_bwd (7c, then 7b with 7c's "
+              f"D_i): {both_ms:.4f} ms", flush=True)
         e = 2   # bf16 bytes
         io = qb.numel() * e                       # one [B, Hq, S, D] tensor
         kv = kb.numel() * e
-        lse_b = lse.numel() * 4
+        lse_b = lse.numel() * 4                   # one f32 [B, Hq, S] row term
         cases = {   # name -> (kernel, plain, library, bytes, flops)
             "flash_attention": (lambda: flash_attention(qb, kb, vb, **fw),
                                 lambda: flash_attention_ref(qb, kb, vb, **fw), lib_fwd,
                                 io + 2 * kv + io + lse_b, 4 * pairs * hq * d,
                                 err_f),
+            # q, dO, K, V, lse and D_i read; dK, dV written
             "flash_attention_bwd_dkdv": (
-                lambda: flash_attention_bwd_dkdv(qb, kb, vb, o, lse, dob, **fw), None,
-                lib_bwd, 3 * io + 2 * kv + lse_b + 2 * kv, 8 * pairs * hq * d, err_b),
+                lambda: flash_attention_bwd_dkdv(qb, kb, vb, o, lse, dob, delta=delta,
+                                                 **fw), None,
+                lib_bwd, 2 * io + 2 * kv + 2 * lse_b + 2 * kv, 8 * pairs * hq * d, err_b),
+            # q, O, dO, K, V and lse read; dQ and D_i written
             "flash_attention_bwd_dq": (
                 lambda: flash_attention_bwd_dq(qb, kb, vb, o, lse, dob, **fw), None,
-                lib_bwd, 3 * io + 2 * kv + lse_b + io, 6 * pairs * hq * d, err_b),
+                lib_bwd, 3 * io + 2 * kv + lse_b + io + lse_b, 6 * pairs * hq * d, err_b),
         }
         for name, (kern, plain, lib_ms, nbytes, flops, err) in cases.items():
             ms = timer(kern)
@@ -652,8 +694,11 @@ def check_flash_train(torch, timer):
                                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                                    bound_by=by, max_abs_err=err))
             if name == "flash_attention_bwd_dkdv":
-                rows[name][-1]["delta_glue_ms"] = delta_ms
-        del qb, kb, vb, dob, o, lse, ql, kl, vl, lib_out
+                rows[name][-1]["standalone_delta_ms"] = delta_ms
+            if name == "flash_attention_bwd_dq":
+                rows[name][-1].update(delta_err_over_limit=delta_read,
+                                      bwd_7c_then_7b_ms=both_ms)
+        del qb, kb, vb, dob, o, lse, ql, kl, vl, lib_out, delta
         torch.cuda.empty_cache()
     return rows
 
@@ -1061,7 +1106,7 @@ def read_counts(torch):
 
 
 def read_tc_counts(torch):
-    """Tensor-core launches of the kernels with two routes (7 and 7b), by
+    """Tensor-core launches of the kernels with two routes (7, 7b, 7c), by
     JSON name; the rest of their ``launches`` took the CUDA-core route."""
     return {f.__name__: f.tc_launches for f in wrappers(torch)[0] if hasattr(f, "tc_launches")}
 
@@ -1468,7 +1513,7 @@ def profile_train_step(torch, step_fn, params, opt, batch, step_wall):
 
 
 # kernels with a tensor-core route (bf16 operands) beside the CUDA-core one
-TC_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv")
+TC_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 # the full-width training runs: arch -> (TrainConfig keyword arguments,
 # launches of each kernel of the path per layer and microbatch: the
 # forward kernel twice under remat full, forward and recomputation;
@@ -1489,13 +1534,15 @@ def train_full_width(torch, arch):
     read (and set to 0) after each step; every step must launch each
     kernel of the path its TRAIN_RUNS count per layer and microbatch, all
     of them on the tensor-core route for the kernels TRAIN_RUNS names, and
-    nothing else of the port's kernels or plain versions; every loss and
+    nothing else of the port's kernels or plain versions, nor the plain D_i
+    pass ``bwd_delta`` (kernel 7c writes D_i for 7b); every loss and
     grad-norm must be finite, and the first loss within 2 of ln(vocab)
     (random weights: the head's unit-variance logits add ~0.5).  Then one
     more step under the profiler.  Returns the run's record."""
     from repro_torch.configs import get_config, get_optim
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticSource, TokenStream
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
     from repro_torch.launch import train as launch
 
     tkw, per_layer, tc_names = TRAIN_RUNS[arch]
@@ -1521,23 +1568,34 @@ def train_full_width(torch, arch):
     n_micro = tcfg.global_batch // tcfg.microbatch
     expected = {n: k * cfg.num_layers * n_micro for n, k in per_layer.items()}
     steps = []
+    delta_passes = [0]   # bwd_delta calls since the last step
+
+    def counted(f):
+        def bwd_delta(*a, **kw):
+            delta_passes[0] += 1
+            return f(*a, **kw)
+        return bwd_delta
 
     def on_step(rec):
         launches, plain_runs = read_counts(torch)
         tc = read_tc_counts(torch)
         reset_counts(torch)
         rec.update(launches=launches, plain_runs=plain_runs, tc_launches=tc,
+                   delta_passes=delta_passes[0],
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        delta_passes[0] = 0
         steps.append(rec)
         print(f"  step {rec['step']}: loss {rec['loss']:.4f} grad-norm "
               f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e} time {rec['seconds']:.3f}s "
               f"tokens/s {rec['tokens_per_s']:.1f} peak {rec['peak_gib']:.2f} GiB; "
               f"launches {({n: launches[n] for n in names})}; tensor-core route "
-              f"{({n: tc[n] for n in tc_names})}", flush=True)
+              f"{({n: tc[n] for n in tc_names})}; bwd_delta passes "
+              f"{rec['delta_passes']}", flush=True)
 
     reset_counts(torch)
-    params, opt, _ = launch.train(step_fn, params, opt, stream, 3, device=model.device,
-                                  log_every=1, on_step=on_step)
+    with planted(fa_mod, "bwd_delta", counted):
+        params, opt, _ = launch.train(step_fn, params, opt, stream, 3, device=model.device,
+                                      log_every=1, on_step=on_step)
     for rec in steps:
         got = {n: rec["launches"][n] for n in names}
         if got != expected:
@@ -1550,6 +1608,9 @@ def train_full_width(torch, arch):
         if others or any(rec["plain_runs"].values()):
             raise AssertionError(f"step {rec['step']}: other kernels {others} or plain "
                                  f"versions {rec['plain_runs']} ran")
+        if rec["delta_passes"]:
+            raise AssertionError(f"step {rec['step']}: {rec['delta_passes']} plain D_i "
+                                 f"passes (bwd_delta) ran on the training path")
         if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
             raise AssertionError(f"step {rec['step']}: non-finite loss or grad-norm")
     print(f"first step's loss {steps[0]['loss']:.4f} beside ln(vocab) = "
@@ -1557,8 +1618,11 @@ def train_full_width(torch, arch):
     if abs(steps[0]["loss"] - math.log(cfg.vocab_size)) > 2:
         raise AssertionError(f"{arch}: first loss {steps[0]['loss']} is not near ln(vocab)")
     step_wall = statistics.mean(r["seconds"] for r in steps[1:])
-    prof = profile_train_step(torch, step_fn, params, opt,
-                              launch.to_device(stream.next(), model.device), step_wall)
+    with planted(fa_mod, "bwd_delta", counted):
+        prof = profile_train_step(torch, step_fn, params, opt,
+                                  launch.to_device(stream.next(), model.device), step_wall)
+    if delta_passes[0]:
+        raise AssertionError(f"profiled step: {delta_passes[0]} plain D_i passes ran")
     peak = torch.cuda.max_memory_allocated() / 2**30
     del model, params, opt, step_fn
     torch.cuda.empty_cache()
@@ -1568,24 +1632,32 @@ def train_full_width(torch, arch):
                 tokens=tcfg.global_batch * tcfg.seq_len)
 
 
+# the tensor-core kernels by wrapper name, and their kind index of
+# flash_attention_tc_smem
+TC_SOURCES = {"flash_attention": ("flash_fwd_tc", 0),
+              "flash_attention_bwd_dkdv": ("flash_bwd_dkdv_tc", 1),
+              "flash_attention_bwd_dq": ("flash_bwd_dq_tc", 2)}
+
+
 def _tc_label(fn):
     import re
-    m = re.search(r"(flash_fwd_tc|flash_bwd_dkdv_tc)ILi(\d+)E", fn or "")
+    m = re.search(r"(flash_fwd_tc|flash_bwd_dkdv_tc|flash_bwd_dq_tc)ILi(\d+)E", fn or "")
     return f"{m.group(1)}<{m.group(2)}>" if m else None
 
 
 def tc_build_report():
     """Registers, spills and shared memory of the tensor-core kernels (7,
-    7b) from this run's build (``nvcc -Xptxas -v``), and their HGMMA /
+    7b, 7c) from this run's build (``nvcc -Xptxas -v``), and their HGMMA /
     HMMA instruction counts where the toolkit has ``cuobjdump``.  Returns
     {kernel: record}."""
     import re
     import shutil
     from repro_torch.kernels import _build
-    report = {f"{k}<{d}>": {} for k in ("flash_fwd_tc", "flash_bwd_dkdv_tc") for d in (64, 128)}
+    kinds = dict(TC_SOURCES.values())
+    report = {f"{k}<{d}>": {} for k in kinds for d in (64, 128)}
     smem = _build.entry("flash_attention", "flash_attention_tc_smem")
     for lab, rec in report.items():
-        rec["smem_bytes"] = smem(int("dkdv" in lab), int(lab.split("<")[1][:-1]))
+        rec["smem_bytes"] = smem(kinds[lab.split("<")[0]], int(lab.split("<")[1][:-1]))
     fn = None
     for line in _build.build_logs.get("flash_attention", "").splitlines():
         m = re.search(r"(?:entry function '|Function properties for |the function ')([^' ]+)", line)
@@ -1758,7 +1830,7 @@ def main():
     ]
     flash = "src/repro/kernels/flash_attention/flash_attention.py"
     at_train = lambda rows: rows[0]   # noqa: E731  (B=1, H=36, S=4096, D=64)
-    designs = {   # kernels 7 and 7b: the route each dtype takes, and the tensor-core design
+    designs = {   # kernels 7, 7b, 7c: the route each dtype takes, and the tensor-core design
         "flash_attention": (
             "bfloat16: tensor-core, one block per (128-row q tile, q head, batch), two "
             "consumer warpgroups of 64 rows and a TMA producer warpgroup, K/V in a ring "
@@ -1772,21 +1844,25 @@ def main():
             "resident, Q / dO / lse / D_i tiles (64 rows at D=64, 32 at D=128) in a "
             "4-stage ring, S^T = K Q^T and dP^T = V dO^T by wgmma from shared memory, "
             "dV += P^T dO and dK += dS^T Q by wgmma m64n64k16 with P^T, dS^T as bf16 "
-            "register operands and dO, Q MN-major, D_i computed once per call by the "
-            "wrapper; float32: the CUDA-core kernel"),
+            "register operands and dO, Q MN-major, D_i read as kernel 7c wrote it; "
+            "float32: the CUDA-core kernel"),
+        "flash_attention_bwd_dq": (
+            "bfloat16: tensor-core, one block per (128-row q tile, q head, batch), two "
+            "consumer warpgroups of 64 q rows and a TMA producer warpgroup, Q and dO "
+            "resident, K/V in a ring of 64-row tiles (6 stages at D=64, 4 at D=128), "
+            "D_i = rowsum(dO * O) in f32 before the kv loop and written once for 7b, "
+            "S = Q K^T and dP = dO V^T by wgmma m64n64k16 from shared memory, dQ += dS K "
+            "by wgmma m64n64k16 with dS as the bf16 register operand and K MN-major, "
+            "TMA store, no atomics; float32: the CUDA-core kernel"),
     }
     for name in TRAIN_KERNELS:
         extra = dict(launches_per_step=tr["expected"][name],
                      launches_from="3 training steps of full-width minicpm-2b")
-        if name in designs:
-            lab = {"flash_attention": "flash_fwd_tc", "flash_attention_bwd_dkdv":
-                   "flash_bwd_dkdv_tc"}[name]
-            extra.update(design=designs[name], route_launches={
-                "tensor-core": tr["tc_launches"][name],
-                "cuda-core": tr["launches"][name] - tr["tc_launches"][name]},
-                build={d: tc_build[f"{lab}<{d}>"] for d in (64, 128)})
-        else:
-            extra["design"] = "CUDA cores, both dtypes (unchanged)"
+        lab = TC_SOURCES[name][0]
+        extra.update(design=designs[name], route_launches={
+            "tensor-core": tr["tc_launches"][name],
+            "cuda-core": tr["launches"][name] - tr["tc_launches"][name]},
+            build={d: tc_build[f"{lab}<{d}>"] for d in (64, 128)})
         if name != "flash_attention":
             extra["note"] = ("backward of flash_attention (:92); the reference has no "
                              "backward kernel and differentiates attention_ref "

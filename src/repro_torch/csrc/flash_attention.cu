@@ -48,23 +48,23 @@
 // input's dtype (two kernels rather than atomics on dQ: runs repeat bit
 // for bit).
 //
-// Routes.  Kernels 7 and 7b take one of two routes by the operands'
+// Routes.  Kernels 7, 7b and 7c take one of two routes by the operands'
 // dtype, with no fallback between them:
 // * bfloat16 operands (what training runs), D = 64 or 128: the
-//   tensor-core kernels flash_fwd_tc and flash_bwd_dkdv_tc below (wgmma,
-//   TMA, mbarriers; helpers in sm90.cuh).  They round P (and in 7b dS) to
-//   bf16 as the register operand of the value and gradient products, as a
-//   TPU's MXU takes bf16 operands from the Pallas body's f32 dot_generals
-//   at default precision: one rounding of 2^-8 relative, inside the limits
-//   of chip_smoke.py (TOL_BF16, bwd_units).
+//   tensor-core kernels flash_fwd_tc, flash_bwd_dkdv_tc and
+//   flash_bwd_dq_tc below (wgmma, TMA, mbarriers; helpers in sm90.cuh).
+//   They round P (and in 7b and 7c dS) to bf16 as the register operand of
+//   the value and gradient products, as a TPU's MXU takes bf16 operands
+//   from the Pallas body's f32 dot_generals at default precision: one
+//   rounding of 2^-8 relative, inside the limits of chip_smoke.py
+//   (TOL_BF16, bwd_units).
 // * float32 operands: the CUDA-core kernels flash_fwd_kernel<float, D,
-//   true> and flash_bwd_dkdv_kernel<float, D>, unchanged.  The float32
-//   parity checks (TOL_F32 and the float32 training comparison) need f32
-//   products, which TF32 tensor cores would not give; nothing on the
-//   training path is float32.
-// Kernel 2 (flash_fwd_kernel<T, D, false>, the serving prefill) and
-// kernel 7c (flash_bwd_dq_kernel, both dtypes) keep the CUDA-core route;
-// their turn comes later.
+//   true>, flash_bwd_dkdv_kernel<float, D> and flash_bwd_dq_kernel<float,
+//   D>, unchanged.  The float32 parity checks (TOL_F32 and the float32
+//   training comparison) need f32 products, which TF32 tensor cores would
+//   not give; nothing on the training path is float32.
+// Kernel 2 (flash_fwd_kernel<T, D, false>, the serving prefill) keeps the
+// CUDA-core route; its turn comes later.
 //
 // What bounds them on the H100 at the training shape (B=1, H=36, S=4096,
 // D=64, causal, bf16): kernel 7 does 4 S^2/2 H D = 7.7e10 flops on ~76 MB
@@ -102,8 +102,8 @@
 // D = 64, 32 at D = 128) inside the causal / window band; the producer
 // warp brings each tile's Q and dO by TMA and its lse log2(e) and D_i by
 // plain loads into a 4-stage ring.  D_i = rowsum(dO_i * O_i) arrives
-// precomputed (f32 [B, Hq, Sq], from the wrapper: O and dO are read once
-// per call instead of once per kv tile).  Per q tile: S^T = K Q^T and
+// precomputed (f32 [B, Hq, Sq], written by kernel 7c, which runs first:
+// O and dO are read once per call instead of once per kv tile).  Per q tile: S^T = K Q^T and
 // dP^T = V dO^T by wgmma from shared memory; P^T = 2^(S^T c - lse log2 e)
 // and dS^T = P^T (dP^T - D), the mask selecting 0 only on tiles that cross
 // the band's edges; dV += P^T dO and dK += dS^T Q by wgmma m64n64k16 with
@@ -113,13 +113,33 @@
 // atomics.  Shared memory 101,448 bytes at D = 64 and 133,192 at D =
 // 128 (BwdTC::SMEM); 168 registers at entry, 4 bytes of spill at D = 64.
 //
+// Kernel 7c, tensor-core design (flash_bwd_dq_tc): one block of 384
+// threads per (128-row q tile, q head, batch), heaviest q tiles first
+// under causal masking; two consumer warpgroups own 64 q rows each.  Q and
+// dO stay resident (one TMA load each); K and V of the GQA group's kv head
+// come through a ring of 64-row tiles (6 stages at D = 64, 4 at D = 128)
+// over the causal / window band of the block's rows.  Before the kv loop
+// each consumer thread computes D_i = rowsum(dO_i * O_i) in f32 for its
+// two rows (the row's 4 threads split D; O and dO by 16-byte loads, O is
+// read once and needs no shared memory) and writes it once, f32 [B, Hq,
+// Sq], for kernel 7b.  Per kv tile: S = Q K^T and dP = dO V^T by wgmma
+// m64n64k16 from shared memory (K-major B); P = 2^(S c - lse log2(e))
+// with c = scale log2(e) in one FFMA, branch-free per element (only tiles
+// that cross the band's edges set masked scores to -inf); dS = P (dP -
+// D_i); dQ += dS K by wgmma m64n64k16 with dS rounded to bf16 as the
+// register A operand and K MN-major.  A 64-column kv tile keeps the
+// consumer's live set (dQ, S, dP: 96 floats at D = 64, 128 at D = 128) under
+// ptxas's 168 registers at entry.  Each block owns its q rows and all their
+// kv tiles: dQ scale is written once in bf16 through the consumed Q rows
+// and TMA stores, with no atomics (runs repeat bit for bit).
+//
 // The CUDA-core kernels (simple first): 7 is kernel 2's template with
 // TRAIN = true (probabilities kept in f32); 7b is one block per (32-row kv
 // tile, kv head, batch) whose lanes score kv rows against 16-row q tiles,
-// with P and dS through shared memory, computing D_i itself; 7c is one
-// block per (16-row q tile, q head, batch), looping over the band's kv
-// tiles as kernel 7 does, lane j scoring column j and dS broadcast by
-// shuffles into each lane's D/32 dQ columns.
+// with P and dS through shared memory, computing D_i itself; 7c (float32
+// route) is one block per (16-row q tile, q head, batch), looping over the
+// band's kv tiles as kernel 7 does, lane j scoring column j and dS
+// broadcast by shuffles into each lane's D/32 dQ columns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -315,7 +335,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Kernel 7c: dQ of one 16-row q tile of one q head.
+// Kernel 7c on its float32 route: dQ of one 16-row q tile of one q head.
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -833,6 +853,217 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// Kernel 7c shared memory: Q, dO [NSUB][BQ][64] | K, V [STAGES][NSUB][BKV][64]
+// | mbarriers.
+template <int D>
+struct DqTC {
+  static constexpr int BQ = 128, BKV = 64, NSUB = D / 64, STAGES = D == 64 ? 6 : 4;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BKV * D * 2;
+  static constexpr int DO_OFF = Q_BYTES, K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// Kernel 7c, tensor-core route: one block per (128-row q tile, q head,
+// batch); warpgroup w owns q rows 64 w .. 64 w + 63, computes their D_i and
+// accumulates their dQ over the kv tiles of the band.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dq_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap domap,
+                const __grid_constant__ CUtensorMap dqmap, const __nv_bfloat16* __restrict__ o,
+                const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                float* __restrict__ delta, int Hq, int Hkv, int Sq, int Skv, int q_offset,
+                int causal, int window, float scale) {
+  using L = DqTC<D>;
+  using namespace sm90;
+  constexpr int BQ = L::BQ, BKV = L::BKV, NSUB = L::NSUB, STAGES = L::STAGES;
+  constexpr float LOG2E = 1.44269504088896341f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* qs = smem;
+  uint8_t* dos = smem + L::DO_OFF;
+  uint8_t* ks = smem + L::K_OFF;
+  uint8_t* vs = smem + L::V_OFF;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  // under causal masking the last q tiles see the most kv tiles: start them first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
+  const int hq = blockIdx.y, b = blockIdx.z;
+  const int qplane = b * Hq + hq, kvplane = b * Hkv + hq / (Hq / Hkv);
+  // kv tiles any row of this block attends to
+  const int qpos_lo = q_offset + q0, qpos_hi = q_offset + min(q0 + BQ, Sq) - 1;
+  const int kv_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+  const int kv_hi = causal ? min(Skv - 1, qpos_hi) : Skv - 1;
+  const int j_first = (kv_lo / BKV) * BKV;
+  const int ntiles = kv_hi >= j_first ? (kv_hi - j_first) / BKV + 1 : 0;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], TC_CONSUMERS * WG / 32);   // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= TC_CONSUMERS * WG) {   // producer warpgroup: one thread issues every TMA load
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == TC_CONSUMERS * WG && ntiles > 0) {
+      mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+      for (int s = 0; s < NSUB; ++s) {
+        tma_load(qs + s * BQ * 128, &qmap, q_full, 64 * s, q0, qplane);
+        tma_load(dos + s * BQ * 128, &domap, q_full, 64 * s, q0, qplane);
+      }
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % STAGES, j0 = j_first + i * BKV;
+        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 2 * L::KV_BYTES);
+        for (int s = 0; s < NSUB; ++s) {
+          const int at = st * L::KV_BYTES + s * BKV * 128;
+          tma_load(ks + at, &kmap, &full[st], 64 * s, j0, kvplane);
+          tma_load(vs + at, &vmap, &full[st], 64 * s, j0, kvplane);
+        }
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = q0 + 64 * wg;          // the warpgroup's first q row
+    const int wq = q_offset + r0;         // and its kv position
+    uint8_t* qa = qs + 64 * wg * 128;     // its rows of each Q / dO column tile
+    const uint8_t* doa = dos + 64 * wg * 128;
+    const float c = scale * LOG2E;        // scale log2(e)
+
+    // this thread's rows 16 warp + g + 8 i: lse log2(e) (+inf past Sq, so
+    // P = 0 there) and D_i = rowsum(dO_i * O_i) in f32, the row's 4 threads
+    // (t) each summing D / 4 columns; written once for kernel 7b
+    float lse2[2], di[2];
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int row = r0 + 16 * warp + g + 8 * i2;
+      const bool in = row < Sq;
+      const size_t at = static_cast<size_t>(qplane) * Sq + row;
+      lse2[i2] = in ? lse[at] * LOG2E : INFINITY;
+      float x = 0.0f;
+      if (in) {
+        const uint4* op = reinterpret_cast<const uint4*>(o + at * D) + t * (D / 32);
+        const uint4* dp = reinterpret_cast<const uint4*>(dout + at * D) + t * (D / 32);
+#pragma unroll
+        for (int u = 0; u < D / 32; ++u) {
+          const uint4 ov = __ldg(op + u), dv = __ldg(dp + u);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 fo = __bfloat1622float2(o2[e]), fd = __bfloat1622float2(d2[e]);
+            x = fmaf(fd.x, fo.x, x);
+            x = fmaf(fd.y, fo.y, x);
+          }
+        }
+      }
+      x += __shfl_xor_sync(FULL, x, 1);
+      x += __shfl_xor_sync(FULL, x, 2);
+      di[i2] = x;
+      if (in && t == 0) delta[at] = x;
+    }
+
+    float dq[NSUB][32];
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dq[s][x] = 0.0f;
+
+    if (ntiles > 0) mbar_wait(q_full, 0);
+    for (int i = 0; i < ntiles; ++i) {
+      const int st = i % STAGES, j0 = j_first + i * BKV;
+      const uint8_t* kt = ks + st * L::KV_BYTES;
+      const uint8_t* vt = vs + st * L::KV_BYTES;
+      mbar_wait(&full[st], (i / STAGES) & 1);
+
+      // S = Q K^T and dP = dO V^T: rows 16 warp + g (+ 8), columns 8 j + 2 t (+ 1)
+      float s[BKV / 2], dp[BKV / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a_at = (kk / 4) * BQ * 128 + (kk % 4) * 32;   // column tile, 16-column step
+        const int b_at = (kk / 4) * BKV * 128 + (kk % 4) * 32;
+        wgmma_ss<BKV>(s, desc(qa + a_at), desc(kt + b_at), kk > 0);
+        wgmma_ss<BKV>(dp, desc(doa + a_at), desc(vt + b_at), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P = exp(S scale - lse) = 2^(S c - lse log2(e)) and dS = P (dP - D_i),
+      // branch-free per element: only tiles that cross the causal diagonal,
+      // the window edge or Skv evaluate the mask, which sets a masked score
+      // to -inf (exp gives it an exact 0)
+      const bool whole = j0 + BKV <= Skv && (!causal || j0 + BKV - 1 <= wq) &&
+                         (window <= 0 || j0 > wq + 63 - window);
+      if (!whole) {
+#pragma unroll
+        for (int x = 0; x < BKV / 2; ++x) {
+          const int col = j0 + 8 * (x / 4) + 2 * t + x % 2;
+          const int qpos = wq + 16 * warp + g + 8 * ((x / 2) % 2);
+          s[x] = attends(col, qpos, Skv, causal, window) ? s[x] : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < BKV / 2; ++x) {
+        const int i2 = (x / 2) % 2;
+        s[x] = exp2f(fmaf(s[x], c, -lse2[i2])) * (dp[x] - di[i2]);
+      }
+
+      // dQ += dS K: dS rounded to bf16 as the register A operand, K MN-major
+      uint32_t a[BKV / 16][4];
+#pragma unroll
+      for (int kb = 0; kb < BKV / 16; ++kb) a_frag(s, kb, a[kb]);
+      wgmma_fence();
+#pragma unroll
+      for (int sb = 0; sb < NSUB; ++sb) fence_regs(dq[sb]);
+#pragma unroll
+      for (int kb = 0; kb < BKV / 16; ++kb)
+#pragma unroll
+        for (int sb = 0; sb < NSUB; ++sb)
+          wgmma_rs_n64(dq[sb], a[kb], desc(kt + sb * BKV * 128 + kb * 16 * 128));
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int sb = 0; sb < NSUB; ++sb) fence_regs(dq[sb]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // epilogue: dQ scale in bf16 into this warpgroup's (consumed) Q rows,
+    // then one TMA store per column tile (rows past Sq are not written)
+    named_bar_sync(1 + wg, WG);
+#pragma unroll
+    for (int sb = 0; sb < NSUB; ++sb)
+#pragma unroll
+      for (int x = 0; x < 32; x += 2) {
+        const int row = 16 * warp + g + 8 * ((x / 2) % 2);
+        *reinterpret_cast<uint32_t*>(qa + sb * BQ * 128 + sw128(row, x / 4) + 4 * t) =
+            pack_bf16(dq[sb][x] * scale, dq[sb][x + 1] * scale);
+      }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, WG);
+    if (tid % WG == 0) {
+      for (int sb = 0; sb < NSUB; ++sb)
+        tma_store(&dqmap, qa + sb * BQ * 128, 64 * sb, r0, qplane);
+      tma_store_wait();
+    }
+  }
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -877,6 +1108,28 @@ int launch_dkdv_tc(const void* q, const void* k, const void* v, const float* lse
   const dim3 grid((Skv + L::BKV - 1) / L::BKV, Hkv, B);
   flash_bwd_dkdv_tc<D><<<grid, TC_THREADS, L::SMEM, st>>>(
       qm, km, vm, dom, dkm, dvm, lse, delta, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                 const void* dout, void* dq, float* delta, int B, int Hq, int Hkv, int Sq,
+                 int Skv, int q_offset, int causal, int window, float scale, cudaStream_t st) {
+  using L = DqTC<D>;
+  CUtensorMap qm, km, vm, dom, dqm;
+  int e;
+  if ((e = sm90::bf16_map(&qm, q, B * Hq, Sq, D, L::BQ)) ||
+      (e = sm90::bf16_map(&dom, dout, B * Hq, Sq, D, L::BQ)) ||
+      (e = sm90::bf16_map(&km, k, B * Hkv, Skv, D, L::BKV)) ||
+      (e = sm90::bf16_map(&vm, v, B * Hkv, Skv, D, L::BKV)) ||
+      (e = sm90::bf16_map(&dqm, dq, B * Hq, Sq, D, 64)) ||
+      (e = set_smem(flash_bwd_dq_tc<D>, L::SMEM)))
+    return e;
+  const dim3 grid((Sq + L::BQ - 1) / L::BQ, Hq, B);
+  flash_bwd_dq_tc<D><<<grid, TC_THREADS, L::SMEM, st>>>(
+      qm, km, vm, dom, dqm, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, Hq, Hkv, Sq, Skv, q_offset, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -930,12 +1183,13 @@ int launch_bwd(const T* q, const T* k, const T* v, const T* o, const float* lse,
   }
 }
 
-// The CUDA-core backward kernels: 7b for float32 operands, 7c for both.
-template <typename T, bool DKDV>
-int launch_bwd_d(const void* q, const void* k, const void* v, const void* o,
-                 const float* lse, const void* dout, void* a, void* b_out, int B, int Hq,
-                 int Hkv, int Sq, int Skv, int D, int q_offset, int causal, int window,
-                 float scale, cudaStream_t st) {
+// The CUDA-core backward kernels: the float32 route of 7b and 7c.
+template <bool DKDV>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                   const float* lse, const void* dout, void* a, void* b_out, int B, int Hq,
+                   int Hkv, int Sq, int Skv, int D, int q_offset, int causal, int window,
+                   float scale, cudaStream_t st) {
+  using T = float;
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
@@ -998,8 +1252,8 @@ extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k,
                                         int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return launch_bwd_d<float, true>(q, k, v, o, lse, dout, dk, dv, B, Hq, Hkv, Sq, Skv,
-                                     D, q_offset, causal, window, scale, st);
+    return launch_bwd_f32<true>(q, k, v, o, lse, dout, dk, dv, B, Hq, Hkv, Sq, Skv, D,
+                                 q_offset, causal, window, scale, st);
   if (delta == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64)
     return launch_dkdv_tc<64>(q, k, v, lse, delta, dout, dk, dv, B, Hq, Hkv, Sq, Skv,
@@ -1010,26 +1264,39 @@ extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// delta: D_i = rowsum(dO_i * O_i), f32 [B, Hq, Sq], written by the bf16
+// (tensor-core) route for kernel 7b; the float32 route ignores it.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const float* lse, const void* dout,
-                                      void* dq, int is_bf16, int B, int Hq,
-                                      int Hkv, int Sq, int Skv, int D,
+                                      void* dq, float* delta, int is_bf16, int B,
+                                      int Hq, int Hkv, int Sq, int Skv, int D,
                                       int q_offset, int causal, int window,
                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_bwd_d<__nv_bfloat16, false>(q, k, v, o, lse, dout, dq, nullptr, B, Hq,
-                                              Hkv, Sq, Skv, D, q_offset, causal, window,
-                                              scale, st);
-  return launch_bwd_d<float, false>(q, k, v, o, lse, dout, dq, nullptr, B, Hq, Hkv, Sq,
-                                    Skv, D, q_offset, causal, window, scale, st);
+  if (!is_bf16)
+    return launch_bwd_f32<false>(q, k, v, o, lse, dout, dq, nullptr, B, Hq, Hkv, Sq, Skv,
+                                  D, q_offset, causal, window, scale, st);
+  if (delta == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 64)
+    return launch_dq_tc<64>(q, k, v, o, lse, dout, dq, delta, B, Hq, Hkv, Sq, Skv, q_offset,
+                            causal, window, scale, st);
+  if (D == 128)
+    return launch_dq_tc<128>(q, k, v, o, lse, dout, dq, delta, B, Hq, Hkv, Sq, Skv, q_offset,
+                             causal, window, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of the tensor-core kernels in bytes (kernel 7b if
-// dkdv, else kernel 7), for chip_smoke.py's build report; -1 for another D.
-extern "C" int flash_attention_tc_smem(int dkdv, int D) {
-  if (D == 64) return dkdv ? BwdTC<64>::SMEM : FwdTC<64>::SMEM;
-  if (D == 128) return dkdv ? BwdTC<128>::SMEM : FwdTC<128>::SMEM;
-  return -1;
+// Dynamic shared memory of the tensor-core kernels in bytes (kind 0: kernel
+// 7, 1: 7b, 2: 7c), for chip_smoke.py's build report; -1 for another kind
+// or D.
+extern "C" int flash_attention_tc_smem(int kind, int D) {
+  if (D != 64 && D != 128) return -1;
+  const bool d64 = D == 64;
+  switch (kind) {
+    case 0: return d64 ? FwdTC<64>::SMEM : FwdTC<128>::SMEM;
+    case 1: return d64 ? BwdTC<64>::SMEM : BwdTC<128>::SMEM;
+    case 2: return d64 ? DqTC<64>::SMEM : DqTC<128>::SMEM;
+    default: return -1;
+  }
 }

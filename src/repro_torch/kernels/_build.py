@@ -43,7 +43,7 @@ ENTRY_POINTS = {
         "flash_attention_masked": [_P] * 5 + [_I] * 10 + [_F, _P],
         "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
         "flash_attention_bwd_dkdv": [_P] * 9 + [_I] * 10 + [_F, _P],
-        "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],
+        "flash_attention_bwd_dq": [_P] * 8 + [_I] * 10 + [_F, _P],
         "flash_attention_tc_smem": [_I, _I]},
     "paged_attention": {"paged_attention": [_P] * 9 + [_I] * 8 + [_F, _P]},
     "ssd_scan": {

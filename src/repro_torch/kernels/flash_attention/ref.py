@@ -27,6 +27,9 @@ to the value dtype before the value contraction, as the reference does.
 folded exactly as the reference folds them: K after the q.k dot, V into
 the probabilities after they are summed into the denominator.  Fully
 masked query rows return exact zeros.  Returns [B, Hq, Sq, D] f32.
+A decode read (``valid`` with one query row) first rotates each
+sequence's kv columns so that its first attended column comes first
+(:func:`rotate_to_first`).
 """
 
 from __future__ import annotations
@@ -47,6 +50,30 @@ def _band(sq, skv, q_offset, causal, window, device):
     if window is not None:
         mask = mask & (kv_pos > q_pos - window)
     return mask
+
+
+def rotate_to_first(valid, *cols):
+    """Rotate each sequence's kv columns so that its first attended column
+    comes first.  valid [B, W] bool (one query row per sequence); ``cols``
+    are tensors with the W columns on dim 2 ([B, H, W, ...]), or None.
+    Returns (valid, *cols) rotated.  A permutation of a softmax row's
+    columns changes nothing in exact arithmetic.  In float it does:
+    torch's CPU sums group their terms by column offset, so the same
+    attended keys at columns 4..9 and at 0..5 round differently.  Rotated,
+    a row's attended run starts at column 0 wherever it sits in the cache,
+    and left padding leaves a decode read bit for bit unchanged (a fully
+    masked row stays as it is)."""
+    b, w = valid.shape
+    first = valid.to(torch.int32).argmax(-1)          # the first True, else 0
+    idx = (torch.arange(w, device=valid.device)[None, :] + first[:, None]) % w
+
+    def rot(t):
+        if t is None:
+            return None
+        ix = idx.view(b, 1, w, *([1] * (t.dim() - 3)))
+        return t.gather(2, ix.expand(b, t.shape[1], w, *t.shape[3:]))
+
+    return (valid.gather(1, idx), *map(rot, cols))
 
 
 def _repeat_kv(q, k, v):
@@ -157,6 +184,9 @@ def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,
     chunk = skv if chunk is None else min(chunk, skv)
     if skv % chunk:
         raise ValueError(f"chunk {chunk} does not divide Skv={skv}")
+    if valid is not None and sq == 1:   # a decode read
+        v1, k, v, k_scale, v_scale = rotate_to_first(valid[:, 0], k, v, k_scale, v_scale)
+        valid = v1[:, None, :]
     dev = q.device
     qg = q.reshape(b, hkv, group, sq, d).to(torch.float32)
     q_pos = q_offset + torch.arange(sq, device=dev)[:, None]            # [Sq, 1]

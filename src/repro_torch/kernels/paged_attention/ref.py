@@ -13,12 +13,17 @@ decode.  int8 pools are cast to q's dtype, and their per-row scale pools
 ([P, page, Hkv, 1]) fold exactly where the reference folds them: K
 after the q.k dot, V into the probabilities after they are summed into
 the denominator.  A fully masked slot returns exact zeros.  Returns
-[B, Hq, 1, D] float32.
+[B, Hq, 1, D] float32.  As the dense decode read does, each slot's
+gathered columns are rotated so that its first attended column comes
+first (``rotate_to_first``): left padding then leaves a slot's result
+bit for bit unchanged.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.flash_attention.ref import rotate_to_first
 
 _NEG_INF = -1e30
 
@@ -37,8 +42,8 @@ def _operand(pool, table, dtype):
 
 
 def _scale_cols(pool, table):
-    """[P, page, H, 1] scale pool -> [B, H, 1, 1, C] f32 fold operand."""
-    return _take_pages(pool, table)[..., 0].to(torch.float32)[:, :, None, None, :]
+    """[P, page, H, 1] scale pool -> [B, H, C] f32 fold operand."""
+    return _take_pages(pool, table)[..., 0].to(torch.float32)
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_table, pos, start=None,
@@ -57,22 +62,25 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, pos, start=None,
     if start is None:
         start = torch.zeros((b,), dtype=torch.int32, device=q.device)
     qg = q.reshape(b, hkv, group, sq, d).to(torch.float32)
-    kb = _operand(k_pages, block_table, q.dtype).to(torch.float32)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
-    if k_scales is not None:   # K dequant scale, folded after the dot
-        s = s * _scale_cols(k_scales, block_table)
     cols = torch.arange(w, dtype=torch.int32, device=q.device)[None, :]
     mapped = torch.repeat_interleave(block_table != 0, page_size, dim=-1)
     valid = (cols <= pos[:, None]) & (cols >= start[:, None]) & mapped
+    ks, vs = (None if t is None else _scale_cols(t, block_table)
+              for t in (k_scales, v_scales))
+    valid, kb, vb, ks, vs = rotate_to_first(
+        valid, _operand(k_pages, block_table, q.dtype).to(torch.float32),
+        _operand(v_pages, block_table, q.dtype), ks, vs)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
+    if ks is not None:   # K dequant scale, folded after the dot
+        s = s * ks[:, :, None, None, :]
     mask = valid[:, None, None, None, :]
     s = torch.where(mask, s, _NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(mask, p, 0.0)                     # fully masked rows: 0
     l = p.sum(-1, keepdim=True)
-    if v_scales is not None:   # V dequant scale, folded into the probs
-        p = p * _scale_cols(v_scales, block_table)
-    vb = _operand(v_pages, block_table, q.dtype)
+    if vs is not None:   # V dequant scale, folded into the probs
+        p = p * vs[:, :, None, None, :]
     acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vb.dtype).to(torch.float32),
                        vb.to(torch.float32))
     out = acc / torch.clamp_min(l, 1e-30)

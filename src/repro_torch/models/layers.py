@@ -83,11 +83,25 @@ def dense_init(generator, cfg: ModelConfig, d_in: int, d_out: int, *,
 _QUANT_KEYS = ("planes_packed", "planes", "q")
 
 
-def dense_apply(p, x, compute_dtype, use_kernel: bool = True):
+def row_matmul(x, w):
+    """x [..., K] @ w [K, N] as a batch of one-row products [1, K] x [K, N]:
+    each row's sum then runs in an order that does not depend on how many
+    rows the call has, as torch's CPU matmul's does (one order at M = 1,
+    another above).  The serving plain path uses it so that a token's row
+    is the same in a prompt-wide prefill and in its own decode step."""
+    x2 = x.reshape(-1, 1, x.shape[-1])
+    y = torch.bmm(x2, w.expand(x2.shape[0], *w.shape))
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def dense_apply(p, x, compute_dtype, use_kernel: bool = True, rows: bool = False):
+    """``rows``: float weights multiply row by row (:func:`row_matmul`);
+    quantized records are integer products, the same for any row count."""
     if any(k in p for k in _QUANT_KEYS):
         from repro_torch.quant.quantize import qdense_apply
         return qdense_apply(p, x, out_dtype=compute_dtype, use_kernel=use_kernel)
-    y = x.to(compute_dtype) @ p["kernel"].to(compute_dtype)
+    xc, wc = x.to(compute_dtype), p["kernel"].to(compute_dtype)
+    y = row_matmul(xc, wc) if rows else xc @ wc
     if "bias" in p:
         y = y + p["bias"].to(compute_dtype)
     return y
@@ -111,16 +125,16 @@ def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None):
     }
 
 
-def mlp_apply(cfg: ModelConfig, p, x, use_kernel: bool = True):
+def mlp_apply(cfg: ModelConfig, p, x, use_kernel: bool = True, rows: bool = False):
     dt = cdtype(cfg)
     if cfg.mlp_type == "swiglu":
-        g = dense_apply(p["wi_gate"], x, dt, use_kernel)
-        u = dense_apply(p["wi_up"], x, dt, use_kernel)
+        g = dense_apply(p["wi_gate"], x, dt, use_kernel, rows)
+        u = dense_apply(p["wi_up"], x, dt, use_kernel, rows)
         h = F.silu(g.to(torch.float32)).to(dt) * u
     else:
-        h = dense_apply(p["wi"], x, dt, use_kernel)
+        h = dense_apply(p["wi"], x, dt, use_kernel, rows)
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
-    return dense_apply(p["wo"], h, dt, use_kernel)
+    return dense_apply(p["wo"], h, dt, use_kernel, rows)
 
 
 # --- Embeddings / LM head ----------------------------------------------------
@@ -136,15 +150,16 @@ def embed_apply(cfg: ModelConfig, p, tokens):
     return p["embedding"][tokens].to(cdtype(cfg))
 
 
-def lm_head_apply(cfg: ModelConfig, p_head, p_embed, x):
+def lm_head_apply(cfg: ModelConfig, p_head, p_embed, x, rows: bool = False):
     """f32 logits of compute-dtype operands with f32 accumulation (the
     reference's ``preferred_element_type=f32`` dot): both operands are
-    rounded to the compute dtype, then multiplied in float32."""
+    rounded to the compute dtype, then multiplied in float32 (row by row
+    with ``rows``, as :func:`dense_apply`)."""
     kernel = (p_embed["embedding"].T if cfg.tie_embeddings
               else p_head["kernel"])
     dt = cdtype(cfg)
-    logits = torch.matmul(x.to(dt).to(torch.float32),
-                          kernel.to(dt).to(torch.float32))
+    xf, wf = x.to(dt).to(torch.float32), kernel.to(dt).to(torch.float32)
+    logits = row_matmul(xf, wf) if rows else torch.matmul(xf, wf)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -177,6 +177,7 @@ class Model:
             start = s - pad_mask.to(torch.int32).sum(dim=1)
         if start is not None:
             start = start.to(torch.int32)
+        rows = attention.plain_path(x, self.use_kernels)
         layers = list(cache["layers"])
         for i, spec in enumerate(self._specs()):
             p = params["layers"][i]
@@ -187,7 +188,7 @@ class Model:
             x = x + y
             if spec[1] == "dense":
                 h = L.norm_apply(cfg, p["ffn_norm"], x)
-                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels)
+                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels, rows)
         new_cache = dict(cache)
         new_cache["layers"] = layers
         new_cache["pos"] = cache["pos"] + s
@@ -200,7 +201,7 @@ class Model:
             x = x[:, -1:, :]
         x = L.norm_apply(cfg, params["final_norm"], x)
         out["logits"] = L.lm_head_apply(cfg, params.get("lm_head"),
-                                        params["embed"], x)
+                                        params["embed"], x, rows)
         return out
 
     def _apply_full(self, params, tokens, labels, remat, fused_loss, last_only):
@@ -241,15 +242,25 @@ class Model:
                   for _ in range(cfg.num_layers)]
         return {"layers": layers, "pos": 0}
 
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, token_mask=None):
         """One token for the whole batch.  tokens: [B] int.  ``cache["pos"]``
         is an int or a [B] int32 tensor; ``cache.get("start")`` marks
-        left-pad slots.  Returns (logits [B, V], cache)."""
+        left-pad slots.  ``token_mask`` ([B] bool, as the reference's)
+        marks the current token as a pad (sequential prefill of a ragged
+        batch): attention layers keep it out of every later query through
+        ``start`` alone, so the step is the same with or without it (the
+        reference's SSM layers carry their state through on a pad; SSM
+        serving is not ported).  Returns (logits [B, V], cache)."""
         self._check_serving()
+        if token_mask is not None and (token_mask.shape != tokens.shape[:1]
+                                       or token_mask.dtype != torch.bool):
+            raise ValueError(f"token_mask must be bool [{tokens.shape[0]}], got "
+                             f"{token_mask.dtype} {tuple(token_mask.shape)}")
         cfg = self.cfg
         pos = cache["pos"]
         start = cache.get("start")
         x = L.embed_apply(cfg, params["embed"], tokens[:, None])
+        rows = attention.plain_path(x, self.use_kernels)
         layers = list(cache["layers"])
         for i, spec in enumerate(self._specs()):
             p = params["layers"][i]
@@ -260,9 +271,9 @@ class Model:
             x = x + y
             if spec[1] == "dense":
                 h = L.norm_apply(cfg, p["ffn_norm"], x)
-                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels)
+                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels, rows)
         x = L.norm_apply(cfg, params["final_norm"], x)
-        logits = L.lm_head_apply(cfg, params.get("lm_head"), params["embed"], x)
+        logits = L.lm_head_apply(cfg, params.get("lm_head"), params["embed"], x, rows)
         new_cache = dict(cache)
         new_cache["layers"] = layers
         new_cache["pos"] = pos + 1

@@ -1,20 +1,21 @@
-"""The tensor-core route of kernels 7 and 7b, rehearsed on the CPU.
+"""The tensor-core route of kernels 7, 7b and 7c, rehearsed on the CPU.
 
-The bfloat16 route of the training forward (kernel 7) and of its dK/dV
-backward (kernel 7b) runs ``wgmma`` with bf16 operands: the forward rounds
+The bfloat16 route of the training forward (kernel 7) and of its backward
+(7b dK/dV, 7c dQ) runs ``wgmma`` with bf16 operands: the forward rounds
 the probabilities P to bf16 (relative to the running max after each
-128-column kv tile) before the value product, and the backward rounds P
-and dS to bf16 before the dV and dK products, with D_i = rowsum(dO * O)
-computed once per call (``bwd_delta``).  ``_emulate_fwd`` and
-``_emulate_dkdv`` are plain-torch versions of exactly those rounding
-points.  Held against the f32 plain versions (``flash_attention_ref``,
-``flash_attention_bwd_ref``) with ``chip_smoke.py``'s own limits and units
-(``TOL_BF16`` in att|v| and ``bwd_units`` units, ``TOL_F32`` for lse), they
-read at most 1, and the planted faults of ``chip_smoke.py`` (a causal
-mask off by one, the neighbouring row's lse) read above 1: the limits
-that the card's run applies have room for the new rounding and still
-catch the faults.  Also the pure-Python route choice and the ``delta``
-plumbing of ``flash_attention_bwd_dkdv`` on CPU tensors.
+128-column kv tile) before the value product, 7b rounds P and dS to bf16
+before the dV and dK products, and 7c rounds dS to bf16 before the dQ
+product, computing D_i = rowsum(dO * O) in f32 in the same pass and
+handing it to 7b.  ``_emulate_fwd``, ``_emulate_dkdv`` and ``_emulate_dq``
+are plain-torch versions of exactly those rounding points.  Held against
+the f32 plain versions (``flash_attention_ref``, ``flash_attention_bwd_ref``)
+with ``chip_smoke.py``'s own limits and units (``TOL_BF16`` in att|v| and
+``bwd_units`` units, ``TOL_F32`` for lse), they read at most 1, and the
+planted faults of ``chip_smoke.py`` (a causal mask off by one, the
+neighbouring row's lse) read above 1: the limits that the card's run
+applies have room for the new rounding and still catch the faults.  Also
+the pure-Python route choice and the ``delta`` plumbing of
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv`` on CPU tensors.
 """
 
 import importlib.util
@@ -90,10 +91,11 @@ def _emulate_fwd(q, k, v, *, window=None, q_offset=None, tile=TILE):
     return out, lse
 
 
-def _emulate_dkdv(q, k, v, o, lse, do, *, window=None, q_offset=None):
+def _emulate_dkdv(q, k, v, o, lse, do, *, window=None, q_offset=None, delta=None):
     """Kernel 7b's bf16 route: P = exp(S scale - lse) on the band, dS =
-    P (dP - delta) with delta = ``bwd_delta(o, do)``; dV = bf16(P)^T dO and
-    dK = scale bf16(dS)^T Q, summed over each kv head's group, in bf16."""
+    P (dP - delta) with ``delta`` (default ``bwd_delta(o, do)``); dV =
+    bf16(P)^T dO and dK = scale bf16(dS)^T Q, summed over each kv head's
+    group, in bf16."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     off = skv - sq if q_offset is None else q_offset
@@ -103,11 +105,29 @@ def _emulate_dkdv(q, k, v, o, lse, do, *, window=None, q_offset=None):
     band = _band(sq, skv, off, True, window, q.device)
     p = torch.where(band, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vf)
-    ds = p * (dp - fa.bwd_delta(o, do)[..., None])
+    ds = p * (dp - (fa.bwd_delta(o, do) if delta is None else delta)[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p.bfloat16().float(), do.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.bfloat16().float(), q.float()) * d**-0.5
     return (dk.reshape(b, hkv, g, skv, d).sum(2).bfloat16(),
             dv.reshape(b, hkv, g, skv, d).sum(2).bfloat16())
+
+
+def _emulate_dq(q, k, v, o, lse, do, *, window=None, q_offset=None):
+    """Kernel 7c's bf16 route: D_i = rowsum(dO * O) in f32 from dO and O,
+    P = exp(S scale - lse) on the band, dS = P (dP - D_i); dQ = scale
+    bf16(dS) K in bf16.  Returns (dq, D_i)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    off = skv - sq if q_offset is None else q_offset
+    g = hq // k.shape[1]
+    kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    delta = (do.float() * o.float()).sum(-1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d**-0.5
+    p = torch.where(_band(sq, skv, off, True, window, q.device),
+                    torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do.float(), vf) - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.bfloat16().float(), kf) * d**-0.5
+    return dq.bfloat16(), delta
 
 
 def _fwd_reading(cs, q, k, v, got, window):
@@ -116,13 +136,13 @@ def _fwd_reading(cs, q, k, v, got, window):
     return cs.excess(got, want, att, cs.TOL_BF16)
 
 
-def _bwd_reading(cs, q, k, v, o, lse, do, dk, dv, window):
-    """The bwd_check reading of kernels 7b + 7c: dq from the plain version
-    (7c keeps its CUDA-core route), dk and dv as given."""
+def _bwd_reading(cs, q, k, v, o, lse, do, dk, dv, window, dq=None):
+    """The bwd_check reading of kernels 7b + 7c: dk, dv and dq as given
+    (dq from the plain version when None)."""
     want = [t.float() for t in flash_attention_bwd_ref(q, k, v, o, lse, do, window=window)]
     units = cs.bwd_units(torch, q, k, v, o, lse, do, window)
     return max(cs.excess(a, w, u, cs.TOL_BF16)
-               for a, w, u in zip((want[0], dk, dv), want, units))
+               for a, w, u in zip((want[0] if dq is None else dq, dk, dv), want, units))
 
 
 @pytest.mark.parametrize("hq,hkv,d,window", CASES, ids=IDS)
@@ -202,3 +222,58 @@ def test_dkdv_delta_plumbing_on_cpu(dtype):
     assert torch.equal(got[0], dk) and torch.equal(got[1], dv)
     _, dk_bad, _ = flash_attention_bwd_ref(q, k, v, o, lse, do, window=16, delta=delta + 1)
     assert not torch.equal(dk_bad, dk)
+
+
+@pytest.mark.parametrize("hq,hkv,d,window", CASES, ids=IDS)
+def test_dq_rounding_within_the_chip_limit(cs, hq, hkv, d, window):
+    """7c's rounding alone, and 7c + 7b as the training path runs them (7b
+    reading the D_i that 7c computed), within the card's limits; the
+    planted faults read above them; D_i within delta_check's limit of
+    ``bwd_delta``."""
+    q, k, v, do = _bf16_data(5, hq, hkv, d)
+    o, lse = flash_attention_ref(q, k, v, window=window)
+    _, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, window=window)
+    dq, delta = _emulate_dq(q, k, v, o, lse, do, window=window)
+    assert _bwd_reading(cs, q, k, v, o, lse, do, dk, dv, window, dq=dq) <= 1
+    dk, dv = _emulate_dkdv(q, k, v, o, lse, do, window=window, delta=delta)
+    assert _bwd_reading(cs, q, k, v, o, lse, do, dk, dv, window, dq=dq) <= 1
+    unit = 2 * d * 2.0**-24 * (do.float() * o.float()).abs().sum(-1) + 1e-30
+    assert float(((delta - fa.bwd_delta(o, do)).abs() / unit).max()) <= 1
+    bad, _ = _emulate_dq(q, k, v, o, lse, do, window=window, q_offset=1)
+    assert _bwd_reading(cs, q, k, v, o, lse, do, dk, dv, window, dq=bad) > 1
+    bad, _ = _emulate_dq(q, k, v, o, lse.roll(1, -1), do, window=window)
+    assert _bwd_reading(cs, q, k, v, o, lse, do, dk, dv, window, dq=bad) > 1
+
+
+def test_dq_route_and_counters():
+    """route() governs kernel 7c too; its wrapper counts tensor-core
+    launches beside all launches, both zero on the CPU."""
+    for dtype, want in ((torch.bfloat16, "tensor-core"), (torch.float32, "cuda-core")):
+        assert fa.route(dtype, 64) == want
+    q, k, v, do = _bf16_data(6, 2, 2, 64, s=16)
+    o, lse = flash_attention_ref(q, k, v)
+    fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    assert fa.flash_attention_bwd_dq.launches == fa.flash_attention_bwd_dq.tc_launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_delta_plumbing_on_cpu(dtype):
+    """flash_attention_bwd_dq(return_delta=True) gives the plain dQ and
+    bwd_delta's D_i on CPU tensors; flash_attention_bwd_dkdv with that
+    delta equals the call without it; flash_attention_bwd equals the plain
+    backward; a delta of the wrong shape or dtype raises."""
+    q, k, v, do = (t.to(dtype) for t in _bf16_data(7, 4, 2, 64, s=48))
+    o, lse = flash_attention_ref(q, k, v, window=16)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, window=16)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, window=16,
+                                          return_delta=True)
+    assert torch.equal(dq, want[0]) and torch.equal(delta, fa.bwd_delta(o, do))
+    assert torch.equal(fa.flash_attention_bwd_dq(q, k, v, o, lse, do, window=16), dq)
+    got = fa.flash_attention_bwd_dkdv(q, k, v, o, lse, do, window=16, delta=delta)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, fa.flash_attention_bwd_dkdv(q, k, v, o, lse, do, window=16)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(fa.flash_attention_bwd(q, k, v, o, lse, do, window=16), want))
+    for bad in (delta[..., :-1], delta.double()):
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd_dkdv(q, k, v, o, lse, do, window=16, delta=bad)
