@@ -7,28 +7,36 @@ Phases (each prints its seconds; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 2. build the five CUDA sources from ``src/repro_torch/csrc`` (one nvcc
-   per source, all at once), and report the tensor-core kernels' registers,
-   spills and shared memory (``-Xptxas -v``) and HGMMA / HMMA counts
-   (``cuobjdump``, where the toolkit has it);
+   per source, all at once), and report the registers, spills and shared
+   memory (``-Xptxas -v``) and HGMMA / HMMA (IDP4A) counts (``cuobjdump``,
+   where the toolkit has it) of the tensor-core kernels (7, 7b, 7c and
+   kernel 2's masked instantiations) and of kernel 1's split-K stream;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
    w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
    projection shapes, with the EN-T identity (all four int32
-   accumulators equal); the flash and paged attention kernels, the
-   latter with bf16 pools and with int8 pools + bf16 scales, in bf16 and
-   float32 within limits derived from the data (see TOL_BF16).  Planted
-   faults (a wrong weight or plane code, a wrong mask argument, a wrong
-   scale pool) must fail those checks.  Kernel, plain version and a
-   library yardstick are timed with CUDA events (L2 flushed before every
-   launch);
+   accumulators equal); kernel 1's split-K stream (the decode loop, M <=
+   M_STREAM) bit for bit at M 1..64 on those shapes and a ragged one, in
+   f32, bf16 and int32 outputs, timed beside the tile loop at M = 8..64;
+   the flash kernel (bf16 on its tensor-core route, float32 on CUDA
+   cores; ragged starts, a chunked prefill) and the paged attention
+   kernel, the latter with bf16 pools and with int8 pools + bf16 scales,
+   in bf16 and float32 within limits derived from the data (see
+   TOL_BF16).  Planted faults (a wrong weight or plane code, a wrong mask
+   argument, a wrong scale pool) must fail those checks.  Kernel, plain
+   version and a library yardstick are timed with CUDA events (L2 flushed
+   before every launch);
 4. serve 16 ragged greedy requests (prompts 256..512 tokens, 32 new
    tokens each) on qwen2.5-3b at full width (36 layers, random weights
    from a seed) through ``repro_torch.launch.serve``'s code, in two
    configurations: EN-T w8a8 with a bf16 KV cache, and w8a8 int8
    (``QuantConfig(ent_encode=False)``) with an int8 KV cache.  Each
    asserts that the kernels of its path launched, no other serving
-   kernel and no plain version ran, and profiles full-batch decode
-   ticks;
+   kernel and no plain version ran, that every decode tick and every
+   prefill launched its matmul once per projection and layer (252; EN-T:
+   the decode ticks' all on the split-K stream) and kernel 2 once per
+   layer per prefill (36), all on its tensor-core route, and profiles
+   full-batch decode ticks;
 5. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
@@ -282,6 +290,119 @@ def check_matmuls(torch, timer):
     return rows
 
 
+STREAM_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048), (1000, 300)]
+STREAM_CHECK_M = (1, 3, 8, 16, 32, 64)
+STREAM_TIME_M = (8, 16, 32, 64)
+
+
+def check_stream(torch, timer):
+    """Kernel 1's split-K weight stream (``csrc/int8_stream.cuh``), which
+    the wrapper takes up to M_STREAM rows: at every checked M on the four
+    projection shapes and a ragged one, with bf16 and f32 X, in f32, bf16
+    and int32 outputs, bit for bit against the plain version, the int32
+    accumulator equal to X @ W (``int8_matmul_int32_ref``: the EN-T
+    identity), twice in a row (the split-K workspace is left zeroed), each
+    call one launch on the stream; a plane code off by one must fail the
+    exact check.  Then the stream and the tile loop timed at STREAM_TIME_M
+    on the four shapes beside the bound and ``torch._int_mm``.  Returns
+    the timing rows."""
+    from repro_torch.core.multiplier import ent_packed_planes
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    from repro_torch.kernels.ent_matmul.ops import row_scale
+    from repro_torch.kernels.ent_matmul.ref import ent_packed_matmul_ref, quantize_with_scale
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref
+    fused = em.ent_matmul_packed_fused
+    if max(STREAM_CHECK_M) > em.M_STREAM or max(STREAM_TIME_M) > em.M_STREAM:
+        raise AssertionError(f"M_STREAM {em.M_STREAM}: the checks cover M up to it only")
+    g = torch.Generator(device=DEV).manual_seed(13)
+    rows, n_checked = [], 0
+    for k, n in STREAM_SHAPES:
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
+        packed = ent_packed_planes(w8).contiguous()
+        sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
+        for m in STREAM_CHECK_M:
+            for xdt in (torch.bfloat16, torch.float32):
+                x = torch.randn((m, k), generator=g, device=DEV).to(xdt)
+                sx = row_scale(x)
+                xq = quantize_with_scale(x, sx)
+                acc = int8_matmul_int32_ref(xq, w8)
+                for o in (torch.float32, torch.bfloat16, torch.int32):
+                    want = acc if o == torch.int32 else ent_packed_matmul_ref(
+                        xq, packed, sx, sw, o)
+                    for _ in range(2):
+                        before = fused.launches, fused.stream_launches
+                        got = fused(x, packed, sx, sw, o)
+                        torch.cuda.synchronize()
+                        if (fused.launches - before[0], fused.stream_launches - before[1]) \
+                                != (1, 1):
+                            raise AssertionError(f"stream M={m} K={k} N={n}: not one "
+                                                 f"launch on the stream")
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"stream M={m} K={k} N={n} X {xdt} out {o}: not bit-identical "
+                                f"({int((got != want).sum())} of {m * n} differ)")
+                        n_checked += 1
+            if m == 8:   # planted fault: one plane code off by one
+                bad = packed.clone()
+                flat = bad.view(-1)
+                flat[k * n // 2] += 1 if int(flat[k * n // 2]) < 1 else -1
+                n_bad = int((fused(x, bad, sx, sw, torch.int32) != acc).sum())
+                print(f"  stream K={k} N={n}: planted fault 'one plane code off by one': "
+                      f"{n_bad} of {m * n} outputs differ", flush=True)
+                if not n_bad:
+                    raise AssertionError("stream: the exact check misses a wrong plane code")
+    # the launcher holds the wrapper's plan and workspace to its own constants:
+    # a ticket short, an int of the sums short, or a K slice off its step is refused
+    from repro_torch.kernels import _build
+    k, n, m = 2048, 2048, 8
+    mb, kslice, splits, (strips, _, chunks) = em.stream_plan(
+        m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
+    packed = torch.zeros((2, k, n), dtype=torch.int8, device=DEV)
+    sx, sw = row_scale(x), torch.ones((1, n), device=DEV)
+    out = torch.empty((m, n), device=DEV)
+    ws, tk = em._stream_workspace((x.device, _build.stream_of(x)), m * n, strips * chunks)
+    fn = _build.entry("ent_matmul", "ent_matmul_packed_fused_stream")
+    for what, ws_len, n_tk, ks in (("tickets", m * n, strips * chunks - 1, kslice),
+                                   ("sums", m * n - 1, strips * chunks, kslice),
+                                   ("K slice", m * n, strips * chunks, kslice + 8)):
+        rc = fn(x.data_ptr(), 1, packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                out.data_ptr(), 0, ws.data_ptr(), ws_len, tk.data_ptr(), n_tk, m, n, k, mb,
+                ks, -(-k // ks), _build.stream_of(x))
+        if rc == 0:
+            raise AssertionError(f"stream launcher: took a plan with {what} short or off")
+    print(f"  stream: the launcher refused a ticket short, a sum short and a K slice off "
+          f"its step", flush=True)
+    print(f"  stream: {n_checked} calls at M {STREAM_CHECK_M} x {len(STREAM_SHAPES)} shapes x "
+          f"X bf16 / f32 x out f32 / bf16 / int32 (each twice) bit-identical, the int32 "
+          f"accumulator equal to X @ W (EN-T identity), one launch each", flush=True)
+    for k, n in STREAM_SHAPES[:4]:
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
+        packed = ent_packed_planes(w8).contiguous()
+        sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
+        for m in STREAM_TIME_M:
+            x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
+            sx = row_scale(x)
+            xq = quantize_with_scale(x, sx)
+            t = {lp: timer(lambda: em._launch_fused(x, packed, sx, sw, torch.float32,
+                                                    lp == "stream"))
+                 for lp in ("stream", "tile")}
+            xq_lib = torch.cat([xq, xq.new_zeros((max(0, 32 - m), k))]) if m < 32 else xq
+            library_ms = timer(lambda: torch._int_mm(xq_lib, w8))
+            plain_ms = timer(lambda: ent_packed_matmul_ref(xq, packed, sx, sw), reps=5)
+            nbytes = 2 * m * k + 2 * k * n + 4 * m + 4 * n + 4 * m * n
+            b, by = bound_ms(nbytes, 2 * 2 * m * k * n, INT8_OPS_S)
+            plan = em.stream_plan(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+            print(f"kernel ent_matmul_packed_fused M={m} K={k} N={n}: stream ms={t['stream']:.4f} "
+                  f"tile ms={t['tile']:.4f} bound_ms={b:.4f} ({by}) library_ms="
+                  f"{library_ms:.4f} plain_ms={plain_ms:.4f} plan (mb, kslice, splits, grid) "
+                  f"{plan}", flush=True)
+            rows.append(dict(M=m, K=k, N=n, stream_ms=t["stream"], tile_ms=t["tile"],
+                             bound_ms=b, bound_by=by, library_ms=library_ms,
+                             plain_ms=plain_ms))
+    return rows
+
+
 def excess(got, want, att_abs_v, tol):
     """max |got - want| / (tol * att|v|): <= 1 passes.  A fully masked row
     has att|v| = 0, so anything but exact zeros there reads as huge."""
@@ -322,51 +443,76 @@ def attn_check(torch, what, kernel, plain, operands, faults):
     return reads[torch.bfloat16][1]
 
 
+# kernel 2's checked calls: (B, Sq, Skv, start per sequence, q_offset,
+# window, D); Hq = 16, Hkv = 2 (qwen2.5-3b's heads).  D = 128 as served:
+# ragged B = 3 with one start past a whole q tile, and a chunked prefill
+# (q_offset > 0); and a ragged, windowed D = 64 case for the route's other
+# instantiation.
+FLASH_CASES = [(1, 64, 64, (12,), 0, None, 128), (1, 200, 200, (40,), 0, None, 128),
+               (1, 512, 512, (102,), 0, None, 128), (1, 512, 512, (102,), 0, 128, 128),
+               (3, 300, 300, (0, 150, 290), 0, None, 128),
+               (1, 128, 512, (37,), 384, None, 128), (2, 200, 200, (17, 90), 0, 96, 64)]
+
+
 def check_flash(torch, timer):
+    """Kernel 2 at FLASH_CASES against ``masked_attention_ref``: bf16 (the
+    tensor-core route) and float32 (the CUDA-core route) through
+    ``attn_check``, with the planted faults start + 1 (and window + 1);
+    query rows before their start must be exact zeros; every bf16 call one
+    tensor-core launch.  Timed against the plain version and SDPA.
+    Returns rows."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import masked_attention_ref
+    kern2 = fa.flash_attention_masked
     g = torch.Generator(device=DEV).manual_seed(12)
     rows = []
-    for s, window in [(64, None), (200, None), (512, None), (512, 128)]:
-        hq, hkv, d = 16, 2, 128
-        q = torch.randn((1, hq, s, d), generator=g, device=DEV).to(torch.bfloat16)
-        k = torch.randn((1, hkv, s, d), generator=g, device=DEV).to(torch.bfloat16)
-        v = torch.randn((1, hkv, s, d), generator=g, device=DEV).to(torch.bfloat16)
-        start = torch.tensor([s // 5], dtype=torch.int32, device=DEV)
-        faults = {"start + 1": lambda q, k, v, st: flash_attention_masked(
-            q, k, v, st + 1, window=window)}
+    hq, hkv = 16, 2
+    for b, sq, skv, starts, qo, window, d in FLASH_CASES:
+        q = torch.randn((b, hq, sq, d), generator=g, device=DEV).to(torch.bfloat16)
+        k = torch.randn((b, hkv, skv, d), generator=g, device=DEV).to(torch.bfloat16)
+        v = torch.randn((b, hkv, skv, d), generator=g, device=DEV).to(torch.bfloat16)
+        start = torch.tensor(starts, dtype=torch.int32, device=DEV)
+        kw = dict(q_offset=qo, window=window)
+        faults = {"start + 1": lambda q, k, v, st: kern2(q, k, v, st + 1, **kw)}
         if window:
-            faults["window + 1"] = lambda q, k, v, st: flash_attention_masked(
-                q, k, v, st, window=window + 1)
-        err = attn_check(
-            torch, f"flash_attention_masked S={s} window={window}",
-            lambda q, k, v, st: flash_attention_masked(q, k, v, st, window=window),
-            lambda q, k, v, st: masked_attention_ref(q, k, v, start=st, window=window),
-            (q, k, v, start), faults)
-        got = flash_attention_masked(q, k, v, start, window=window)
-        plain = lambda: masked_attention_ref(q, k, v, start=start, window=window)
-        ms = timer(lambda: flash_attention_masked(q, k, v, start, window=window))
+            faults["window + 1"] = lambda q, k, v, st: kern2(
+                q, k, v, st, q_offset=qo, window=window + 1)
+        what = (f"flash_attention_masked B={b} Sq={sq} Skv={skv} start={list(starts)} "
+                f"q_offset={qo} window={window} D={d}")
+        tc0 = kern2.launches, kern2.tc_launches
+        err = attn_check(torch, what, lambda q, k, v, st: kern2(q, k, v, st, **kw),
+                         lambda q, k, v, st: masked_attention_ref(q, k, v, start=st, **kw),
+                         (q, k, v, start), faults)
+        calls, tc = kern2.launches - tc0[0], kern2.tc_launches - tc0[1]
+        if tc * 2 != calls:   # attn_check: as many bf16 calls as float32 ones
+            raise AssertionError(f"{what}: {tc} of {calls} launches on the tensor-core route")
+        got = kern2(q, k, v, start, **kw)
+        for i, st in enumerate(starts):   # pad queries: no attended column
+            pad = got[i, :, :max(0, min(sq, st - qo))]
+            if pad.numel() and bool((pad != 0).any()):
+                raise AssertionError(f"{what}: a pad query row is not exact zeros")
+        plain = lambda: masked_attention_ref(q, k, v, start=start, **kw)   # noqa: E731
+        ms = timer(lambda: kern2(q, k, v, start, **kw))
         plain_ms = timer(plain, reps=5)
-        qp = torch.arange(s, device=DEV)[:, None]
-        kp = torch.arange(s, device=DEV)[None, :]
-        mask = (kp <= qp) & (kp >= s // 5)
+        qp = torch.arange(sq, device=DEV)[:, None] + qo
+        kp = torch.arange(skv, device=DEV)[None, :]
+        mask = (kp <= qp)[None] & (kp[None] >= start[:, None, None])
         if window:
-            mask &= kp > qp - window
+            mask &= (kp > qp - window)[None]
         library_ms = timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask[None, None], enable_gqa=True))
+            q, k, v, attn_mask=mask[:, None], enable_gqa=True))
         pairs = int(mask.sum())
         # q, k, v and start read once, the output (q's dtype) written once
-        nbytes = (q.numel() + 2 * k.numel()) * q.element_size() + 4 \
+        nbytes = (q.numel() + 2 * k.numel()) * q.element_size() + 4 * b \
             + got.numel() * got.element_size()
-        b, by = bound_ms(nbytes, pairs * hq * d * 4, BF16_FLOPS_S)
-        print(f"kernel flash_attention_masked B=1 Hq={hq} Hkv={hkv} D={d} S={s} "
-              f"start={s // 5} window={window} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={b:.5f} ({by}) "
-              f"max_abs_err={err}", flush=True)
-        rows.append(dict(S=s, window=window, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=b, bound_by=by,
-                         max_abs_err=err))
+        bnd, by = bound_ms(nbytes, pairs * hq * d * 4, BF16_FLOPS_S)
+        print(f"kernel {what} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bnd:.5f} ({by}) max_abs_err={err}",
+              flush=True)
+        rows.append(dict(B=b, S=sq, Skv=skv, start=list(starts), q_offset=qo, window=window,
+                         D=d, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
+                         bound_by=by, max_abs_err=err))
     return rows
 
 
@@ -1089,8 +1235,9 @@ def reset_counts(torch):
     kernels, plains, paged = wrappers(torch)
     for f in kernels:
         f.launches = 0
-        if hasattr(f, "tc_launches"):
-            f.tc_launches = 0
+        for route in ("tc_launches", "stream_launches"):
+            if hasattr(f, route):
+                setattr(f, route, 0)
     paged.int8_kv_launches = 0
     for f in plains:
         f.plain_launches = 0
@@ -1106,9 +1253,16 @@ def read_counts(torch):
 
 
 def read_tc_counts(torch):
-    """Tensor-core launches of the kernels with two routes (7, 7b, 7c), by
-    JSON name; the rest of their ``launches`` took the CUDA-core route."""
+    """Tensor-core launches of the kernels with two routes (2, 7, 7b, 7c),
+    by JSON name; the rest of their ``launches`` took the CUDA-core route."""
     return {f.__name__: f.tc_launches for f in wrappers(torch)[0] if hasattr(f, "tc_launches")}
+
+
+def read_stream_count(torch):
+    """Kernel 1's launches on the split-K stream; the rest of its
+    ``launches`` took the tile loop."""
+    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused
+    return ent_matmul_packed_fused.stream_launches
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
@@ -1162,6 +1316,8 @@ def serve_full_width(torch, config):
     reset_counts(torch)
     results, dt = launch.serve(engine, prompts, max_new_tokens=32)
     launches, plain_runs = read_counts(torch)
+    routes = {"flash_attention_masked[tensor-core]": read_tc_counts(torch)[
+        "flash_attention_masked"], "ent_matmul_packed_fused[stream]": read_stream_count(torch)}
     engine.check_leaks()
     if sorted(results) != list(range(16)) or any(len(v) != 32 for v in results.values()):
         raise AssertionError(f"serve: {len(results)} results, lengths "
@@ -1178,33 +1334,70 @@ def serve_full_width(torch, config):
     bf16_pool = sum(2 * c.k.numel() * 2 for c in layers)   # the same pools in bf16
     ticks = max(launches[n] for n in ("paged_attention_kernel",
                                       "paged_attention_kernel[int8_kv]")) // cfg.num_layers
+    check_serve_routes(cfg, config, launches, routes, ticks)
     print(f"serve [{config}]: 16 requests (prompts {min(map(len, prompts))}.."
           f"{max(map(len, prompts))} tokens) x 32 new tokens on 8 slots: {toks} tokens in "
           f"{dt:.3f}s = {toks / dt:.2f} tok/s; decode ticks {ticks}, prefills "
           f"{launches['flash_attention_masked'] // cfg.num_layers}; launches {launches}; "
+          f"routes {routes}; "
           f"plain versions run {plain_runs}; KV pools {pool} bytes ({pool / 2**20:.1f} MiB, "
           f"{pool / bf16_pool:.4f} of the {bf16_pool} bytes of bf16 pools); peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    profile_decode_ticks(torch, engine, prompts[:8])
+    profile_decode_ticks(torch, engine, prompts[:8], cfg, config)
     del engine, params, model
     torch.cuda.empty_cache()
-    return launches, toks / dt
+    return launches, toks / dt, routes
 
 
-def profile_decode_ticks(torch, engine, prompts, ticks=3):
+PROJECTIONS = 7   # quantized projections a layer: q, k, v, o, gate, up, down
+
+
+def check_serve_routes(cfg, config, launches, routes, ticks):
+    """Per decode tick and per prefill, each layer launches its path's
+    matmul once per projection (kernel 1 on the split-K stream at decode,
+    on the tile loop at prefill sizes of M) and kernel 2 once per prefill,
+    all of it on the tensor-core route."""
+    per = PROJECTIONS * cfg.num_layers
+    n2 = launches["flash_attention_masked"]
+    prefills = n2 // cfg.num_layers
+    if n2 != prefills * cfg.num_layers or routes["flash_attention_masked[tensor-core]"] != n2:
+        raise AssertionError(f"{config}: kernel 2 launched {n2} times, "
+                             f"{routes['flash_attention_masked[tensor-core]']} tensor-core; "
+                             f"expected {cfg.num_layers} a prefill, all tensor-core")
+    mm = "ent_matmul_packed_fused" if launches["ent_matmul_packed_fused"] else "int8_matmul"
+    if launches[mm] != per * (ticks + prefills):
+        raise AssertionError(f"{config}: {mm} launched {launches[mm]} times, expected {per} "
+                             f"a tick and a prefill ({ticks} ticks, {prefills} prefills)")
+    stream = routes["ent_matmul_packed_fused[stream]"]
+    if mm == "ent_matmul_packed_fused" and stream != per * ticks:
+        raise AssertionError(f"{config}: {stream} kernel 1 launches on the stream, expected "
+                             f"{per} a decode tick ({ticks} ticks), the prefills' on the tile loop")
+    print(f"  {config}: {mm} {per} launches a tick and a prefill"
+          + (", every decode tick's on the split-K stream" if stream else "")
+          + f"; kernel 2 {cfg.num_layers} a prefill, all tensor-core", flush=True)
+
+
+def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
     """Where a full-batch decode tick's time goes: fill the 8 slots, then
     profile ``ticks`` pure decode ticks (host clock around synchronised
-    ticks; device time per kernel from torch.profiler)."""
+    ticks; device time per kernel from torch.profiler).  The unprofiled
+    ticks must launch their path's matmul once per projection and layer,
+    kernel 1 all on the split-K stream, and no prefill."""
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         engine.submit(p, max_new_tokens=2 * ticks + 2)
     engine.step()                      # admits all 8 (prefills) + 1 tick
     torch.cuda.synchronize()
+    reset_counts(torch)
     t0 = time.perf_counter()
     for _ in range(ticks):
         engine.step()
     torch.cuda.synchronize()
     plain_wall = (time.perf_counter() - t0) * 1e3 / ticks
+    launches, _ = read_counts(torch)
+    check_serve_routes(cfg, config, launches, {
+        "flash_attention_masked[tensor-core]": 0,
+        "ent_matmul_packed_fused[stream]": read_stream_count(torch)}, ticks)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
@@ -1634,36 +1827,36 @@ def train_full_width(torch, arch):
 
 # the tensor-core kernels by wrapper name, and their kind index of
 # flash_attention_tc_smem
-TC_SOURCES = {"flash_attention": ("flash_fwd_tc", 0),
+TC_SOURCES = {"flash_attention_masked": ("flash_fwd_masked_tc", 3),
+              "flash_attention": ("flash_fwd_tc", 0),
               "flash_attention_bwd_dkdv": ("flash_bwd_dkdv_tc", 1),
               "flash_attention_bwd_dq": ("flash_bwd_dq_tc", 2)}
 
 
-def _tc_label(fn):
+def _build_label(fn):
+    """Report label of a kernel's mangled name, or None."""
     import re
-    m = re.search(r"(flash_fwd_tc|flash_bwd_dkdv_tc|flash_bwd_dq_tc)ILi(\d+)E", fn or "")
-    return f"{m.group(1)}<{m.group(2)}>" if m else None
+    fn = fn or ""
+    if (m := re.search(r"(flash_fwd_masked_tc|flash_fwd_tc|flash_bwd_dkdv_tc|flash_bwd_dq_tc)"
+                       r"ILi(\d+)E", fn)):
+        return f"{m.group(1)}<{m.group(2)}>"
+    if (m := re.search(r"stream_kernelI13__nv_bfloat16Li2ELi4ELi(\d+)EfE", fn)):
+        return f"stream_kernel<bf16,2,4,{m.group(1)},float>"
+    return None
 
 
-def tc_build_report():
-    """Registers, spills and shared memory of the tensor-core kernels (7,
-    7b, 7c) from this run's build (``nvcc -Xptxas -v``), and their HGMMA /
-    HMMA instruction counts where the toolkit has ``cuobjdump``.  Returns
-    {kernel: record}."""
+def _scan_build(report, source, ops):
+    """Fill ``report`` from ``source``'s ptxas log (registers, spills) and,
+    where the toolkit has ``cuobjdump``, its SASS (counts of ``ops``)."""
     import re
     import shutil
     from repro_torch.kernels import _build
-    kinds = dict(TC_SOURCES.values())
-    report = {f"{k}<{d}>": {} for k in kinds for d in (64, 128)}
-    smem = _build.entry("flash_attention", "flash_attention_tc_smem")
-    for lab, rec in report.items():
-        rec["smem_bytes"] = smem(kinds[lab.split("<")[0]], int(lab.split("<")[1][:-1]))
     fn = None
-    for line in _build.build_logs.get("flash_attention", "").splitlines():
+    for line in _build.build_logs.get(source, "").splitlines():
         m = re.search(r"(?:entry function '|Function properties for |the function ')([^' ]+)", line)
         if m:
             fn = m.group(1)
-        rec = report.get(_tc_label(fn))
+        rec = report.get(_build_label(fn))
         if rec is None:
             continue
         if (m := re.search(r"Used (\d+) registers", line)):
@@ -1675,22 +1868,53 @@ def tc_build_report():
     cuobj = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if os.path.exists(cuobj):
-        sass = subprocess.run([cuobj, "-sass", str(_build.library_path("flash_attention"))],
+        sass = subprocess.run([cuobj, "-sass", str(_build.library_path(source))],
                               capture_output=True, text=True, timeout=300).stdout
         fn = None
         for line in sass.splitlines():
             if (m := re.search(r"Function : (\S+)", line)):
                 fn = m.group(1)
-            rec = report.get(_tc_label(fn))
+            rec = report.get(_build_label(fn))
             if rec is not None:
-                for op in ("HGMMA", "HMMA"):
+                for op in ops:
                     rec[op] = rec.get(op, 0) + (op in line)
+
+
+def tc_build_report():
+    """Registers and spills of the tensor-core kernels (2, 7, 7b, 7c) and
+    of kernel 1's split-K stream from this run's build (``nvcc -Xptxas
+    -v``), their HGMMA / HMMA (the stream: IDP4A) instruction counts where
+    the toolkit has ``cuobjdump``, and their dynamic shared memory as the
+    built libraries size it.  Returns {kernel: record}."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    kinds = dict(TC_SOURCES.values())
+    report = {f"{k}<{d}>": {} for k in kinds for d in (64, 128)}
+    smem = _build.entry("flash_attention", "flash_attention_tc_smem")
+    for lab, rec in report.items():
+        name, d = lab[:-1].split("<")
+        rec["smem_bytes"] = smem(kinds[name], int(d))
+    _scan_build(report, "flash_attention", ("HGMMA", "HMMA"))
+    # kernel 1's stream as served (bf16 X, f32 out), one instantiation per
+    # rows a block; its shared memory grows with the K slice: the largest
+    # of the four projection shapes' plans at the block's rows
+    stream = {f"stream_kernel<bf16,2,4,{mb},float>": {} for mb in em.STREAM_MB}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream_smem = _build.entry("ent_matmul", "ent_matmul_stream_smem")
+    for lab, rec in stream.items():
+        mb = int(lab.split(",")[3])
+        rec["smem_bytes"] = max(stream_smem(mb, em.stream_plan(mb, n, k, sms)[1])
+                                for k, n in STREAM_SHAPES[:4])
+    _scan_build(stream, "ent_matmul", ("HGMMA", "HMMA", "IDP"))
+    report.update(stream)
     for lab, rec in report.items():
         print(f"  {lab}: {rec.get('registers', 'not reported (library cached)')} registers, "
               f"spill stores / loads {rec.get('spill_bytes', 'not reported')} bytes, "
               f"{rec['smem_bytes']} bytes of dynamic shared memory, HGMMA "
               f"{rec.get('HGMMA', 'not counted (no cuobjdump)')}, HMMA "
               f"{rec.get('HMMA', 'not counted')}"
+              + (f", IDP4A {rec['IDP']}" if "IDP" in rec else "")
               + (f"; ptxas: {rec['ptxas_warning']}" if "ptxas_warning" in rec else ""),
               flush=True)
     return report
@@ -1727,6 +1951,7 @@ def main():
     t = phase("kernel checks")
     timer = Timer(torch)
     mm = check_matmuls(torch, timer)
+    k1s = check_stream(torch, timer)
     k2 = check_flash(torch, timer)
     k3 = check_paged(torch, timer)
     k3i = check_paged(torch, timer, int8_kv=True)
@@ -1803,15 +2028,35 @@ def main():
 
     ent = "src/repro/kernels/ent_matmul/ent_matmul.py"
     paged = "src/repro/kernels/paged_attention/paged_attention.py"
+    from repro_torch.kernels.ent_matmul.ent_matmul import M_STREAM
+    ent_routes = serves[next(iter(SERVE_CONFIGS))][2]   # EN-T
     kernels = [
         entry("ent_matmul_packed_fused", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:227",
-              mm["ent_matmul_packed_fused"], at_decode, ent_t["ent_matmul_packed_fused"]),
+              mm["ent_matmul_packed_fused"], at_decode, ent_t["ent_matmul_packed_fused"],
+              design=(f"M <= {M_STREAM} (decode): the split-K weight stream of "
+                      "csrc/int8_stream.cuh (64-column strips x K slices, 16-byte cp.async "
+                      "ring, __byte_perm transpose to dp4a words, atomics + ticket, one "
+                      "launch); larger M: the tile loop of csrc/int8_tile.cuh"),
+              route_launches={
+                  "stream": ent_routes["ent_matmul_packed_fused[stream]"],
+                  "tile": ent_t["ent_matmul_packed_fused"]
+                  - ent_routes["ent_matmul_packed_fused[stream]"]},
+              stream_vs_tile=k1s,
+              build={lab: rec for lab, rec in tc_build.items() if lab.startswith("stream")}),
         entry("flash_attention_masked", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/flash_attention.py:145", k2,
               lambda rows: next(r for r in rows if r["S"] == 512 and r["window"] is None),
               ent_t["flash_attention_masked"],
               launches_by_path={c: serves[c][0]["flash_attention_masked"]
-                                for c in SERVE_CONFIGS}),
+                                for c in SERVE_CONFIGS},
+              route_launches={c: {"tensor-core": serves[c][2][
+                  "flash_attention_masked[tensor-core]"], "cuda-core": serves[c][0][
+                  "flash_attention_masked"] - serves[c][2]["flash_attention_masked[tensor-core]"]}
+                  for c in SERVE_CONFIGS},
+              design=("bfloat16: tensor-core flash_fwd_masked_tc (kernel 7's body with the "
+                      "start mask, 64-row q tiles, 64-column kv tiles, no lse); "
+                      "float32: the CUDA-core kernel"),
+              build={lab: rec for lab, rec in tc_build.items() if "masked" in lab}),
         entry("paged_attention_kernel", "src/repro_torch/csrc/paged_attention.cu",
               f"{paged}:109", k3, lambda rows: rows[0], ent_t["paged_attention_kernel"]),
         entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",

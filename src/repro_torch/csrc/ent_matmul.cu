@@ -13,8 +13,11 @@
 //
 // and out = (float(acc) * sx) * sw, for per-row sx [M, 1] and per-channel
 // sw [1, N].  The tile loop, its bit-exactness and its bounds are
-// described in int8_tile.cuh.
+// described in int8_tile.cuh; kernel 1 at the decode shape (M <= M_STREAM,
+// the wrapper's cut) takes the split-K weight stream of int8_stream.cuh
+// instead (ent_matmul_packed_fused_stream).
 
+#include "int8_stream.cuh"
 #include "int8_tile.cuh"
 
 extern "C" int ent_matmul_packed_fused(const void* x, int x_is_bf16,
@@ -27,6 +30,31 @@ extern "C" int ent_matmul_packed_fused(const void* x, int x_is_bf16,
         static_cast<const __nv_bfloat16*>(x), planes, sx, sw, out, out_kind, M, N, K, st);
   return ent_mm::launch<float, 2, 4>(static_cast<const float*>(x), planes, sx, sw,
                                      out, out_kind, M, N, K, st);
+}
+
+// Kernel 1 through the split-K weight stream, with the wrapper's plan (mb,
+// kslice, splits) and, for splits > 1, its zeroed workspace (ws_len ints)
+// and tickets (n_tickets ints), which the launcher checks against the plan.
+extern "C" int ent_matmul_packed_fused_stream(const void* x, int x_is_bf16,
+                                              const int8_t* planes, const float* sx,
+                                              const float* sw, void* out, int out_kind,
+                                              int* ws, long long ws_len, int* tickets,
+                                              int n_tickets, int M, int N, int K, int mb,
+                                              int kslice, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    return ent_stream::launch<__nv_bfloat16, 2, 4>(
+        static_cast<const __nv_bfloat16*>(x), planes, sx, sw, out, out_kind, ws, ws_len,
+        tickets, n_tickets, M, N, K, mb, kslice, splits, st);
+  return ent_stream::launch<float, 2, 4>(static_cast<const float*>(x), planes, sx, sw, out,
+                                         out_kind, ws, ws_len, tickets, n_tickets, M, N, K, mb,
+                                         kslice, splits, st);
+}
+
+// Dynamic shared memory in bytes of the stream's launch at (mb, kslice), as
+// its launcher sizes it, for chip_smoke.py's build report.
+extern "C" int ent_matmul_stream_smem(int mb, int kslice) {
+  return ent_stream::smem_bytes<2>(mb, kslice);
 }
 
 // int8 X; nplanes 2 (packed, shift 4) or 4 (digit planes, shift 2)

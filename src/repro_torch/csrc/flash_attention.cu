@@ -16,9 +16,11 @@
 // What bounds it on the H100: at prefill lengths 256..512 with D = 128,
 // 16 q heads and 2 kv heads, the ~4*S^2*D/2 flops per q head and the
 // bytes of q, K/V and the output (each once) give bounds of about the
-// same size (~1.1 and ~1.4 us at S = 512): neither dominates, and the
-// simple kernel below is far from both.  Design (simple first):
-// the TPU's sequential kv grid axis becomes a loop inside the block; one
+// same size (~1.1 and ~1.4 us at S = 512): neither dominates.  Kernel 2
+// has two routes by dtype, like kernel 7 (see Routes below): bf16, what
+// serving runs, takes kernel 7's tensor-core body (flash_fwd_masked_tc,
+// below); float32 the CUDA-core kernel, whose design (simple first): the
+// TPU's sequential kv grid axis becomes a loop inside the block; one
 // block per (q tile of 16 rows, q head, batch), 4 warps, 4 query rows
 // per warp.  Per 32-column kv tile the block stages K and V in shared
 // memory as f32; lane j scores column j for each of its warp's rows
@@ -27,7 +29,7 @@
 // D/32 output columns of the accumulator.  Tiles wholly outside the
 // causal / window / start band are skipped (exact: a fully masked tile
 // leaves m, l and acc unchanged), and ragged q and kv edges are masked
-// in-kernel.  Tensor-core scores for kernel 2 are later work.
+// in-kernel.
 //
 // Kernel 7 (flash_attention_fwd) replaces the Pallas TPU kernel
 // flash_attention (flash_attention.py:92, the same body _kernel :32 with
@@ -48,7 +50,7 @@
 // input's dtype (two kernels rather than atomics on dQ: runs repeat bit
 // for bit).
 //
-// Routes.  Kernels 7, 7b and 7c take one of two routes by the operands'
+// Routes.  Kernels 2, 7, 7b and 7c take one of two routes by the operands'
 // dtype, with no fallback between them:
 // * bfloat16 operands (what training runs), D = 64 or 128: the
 //   tensor-core kernels flash_fwd_tc, flash_bwd_dkdv_tc and
@@ -58,13 +60,13 @@
 //   from the Pallas body's f32 dot_generals at default precision: one
 //   rounding of 2^-8 relative, inside the limits of chip_smoke.py
 //   (TOL_BF16, bwd_units).
+//   Kernel 2 (flash_fwd_masked_tc) rounds P the same way, before P V.
 // * float32 operands: the CUDA-core kernels flash_fwd_kernel<float, D,
-//   true>, flash_bwd_dkdv_kernel<float, D> and flash_bwd_dq_kernel<float,
-//   D>, unchanged.  The float32 parity checks (TOL_F32 and the float32
-//   training comparison) need f32 products, which TF32 tensor cores would
-//   not give; nothing on the training path is float32.
-// Kernel 2 (flash_fwd_kernel<T, D, false>, the serving prefill) keeps the
-// CUDA-core route; its turn comes later.
+//   TRAIN> (kernel 2: TRAIN = false; 7: true), flash_bwd_dkdv_kernel<float,
+//   D> and flash_bwd_dq_kernel<float, D>, unchanged.  The float32 parity
+//   checks (TOL_F32 and the float32 training comparison) need f32
+//   products, which TF32 tensor cores would not give; nothing on the
+//   serving or training path is float32.
 //
 // What bounds them on the H100 at the training shape (B=1, H=36, S=4096,
 // D=64, causal, bf16): kernel 7 does 4 S^2/2 H D = 7.7e10 flops on ~76 MB
@@ -94,6 +96,21 @@
 // 230,456 at D = 128 (FwdTC::SMEM); -Xptxas -v reports 168 registers at
 // entry (384 threads) with no spill at D = 64 (chip_smoke.py prints the
 // build's figures).
+//
+// Kernel 2, tensor-core design (flash_fwd_masked_tc): kernel 7's body
+// (fwd_tc_body) with MASKED set.  Each block reads start[b] and begins its
+// kv loop at the tile holding max(start, the window edge); an edge tile
+// (one that crosses the diagonal, the window edge, start or Skv) sets the
+// masked scores to -inf in the same branch-free select, whole tiles skip
+// it; no lse is written.  A row with no attended column keeps l = 0 and
+// stores 0, and a block with no kv tile at all (every row a pad query)
+// stores zeros through the same TMA store, without loading Q.  Its own
+// tiles: 64-column kv tiles, so a consumer's live set (O: 64 floats at
+// D = 128, S: 32) fits ptxas's 168 registers without spill, in a 4-stage
+// ring; q tiles of 64 rows (one consumer warpgroup, 256 threads, no
+// setmaxnreg: 128 blocks at S = 512, Hq = 16, B = 1, against 64 with
+// 128-row tiles, which timed slower on the card; PERF.md).  q_offset > 0
+// (a chunked prefill) is kernel 7's band logic unchanged.
 //
 // Kernel 7b, tensor-core design (flash_bwd_dkdv_tc): one block of 384
 // threads per (128-row kv tile, kv head, batch); two consumer warpgroups
@@ -438,33 +455,44 @@ constexpr int TC_THREADS = (TC_CONSUMERS + 1) * WG;   // + the producer warpgrou
 // = 64512)
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
-// Kernel 7 shared memory: Q [NSUB][BQ][64] | K, V [STAGES][NSUB][BKV][64]
-// | mbarriers; NSUB = D / 64 column tiles, each 128-byte swizzled.
-template <int D>
-struct FwdTC {
-  static constexpr int BQ = 128, BKV = 128, NSUB = D / 64, STAGES = D == 64 ? 4 : 3;
+// Kernels 7 and 2 (tensor-core route) shared memory: Q [NSUB][BQ][64] |
+// K, V [STAGES][NSUB][BKV][64] | mbarriers; NSUB = D / 64 column tiles,
+// each 128-byte swizzled; one consumer warpgroup per 64 q rows.
+template <int D, int BQ_, int BKV_, int STAGES_>
+struct FwdTile {
+  static constexpr int BQ = BQ_, BKV = BKV_, NSUB = D / 64, STAGES = STAGES_;
+  static constexpr int CONSUMERS = BQ / 64, THREADS = (CONSUMERS + 1) * 128;
   static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BKV * D * 2;
   static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;   // + alignment slack
 };
+// kernel 7: 128-row q and kv tiles
+template <int D>
+using FwdTC = FwdTile<D, 128, 128, D == 64 ? 4 : 3>;
+// kernel 2: 64-column kv tiles (a consumer's live set without spill at
+// D = 128), 64-row q tiles (one consumer warpgroup)
+template <int D>
+using MaskedTC = FwdTile<D, 64, 64, 4>;
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
 
-// Kernel 7, tensor-core route: one block per (128-row q tile, q head,
-// batch); warpgroup w owns q rows 64 w .. 64 w + 63 of the tile.
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS, 1)
-flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-             const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
-             float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int q_offset,
-             int causal, int window, float scale) {
-  using L = FwdTC<D>;
+// The tensor-core forward of kernels 7 (MASKED = false: lse written, every
+// column from 0 attends) and 2 (MASKED: columns before start[b] masked, no
+// lse): one block per (L::BQ-row q tile, q head, batch); warpgroup w owns
+// q rows 64 w .. 64 w + 63 of the tile.
+template <typename L, bool MASKED>
+__device__ __forceinline__ void fwd_tc_body(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                            const CUtensorMap* vmap, const CUtensorMap* omap,
+                                            float* __restrict__ lse,
+                                            const int* __restrict__ start, int Hq, int Hkv,
+                                            int Sq, int Skv, int q_offset, int causal,
+                                            int window, float scale) {
   using namespace sm90;
   constexpr int BQ = L::BQ, BKV = L::BKV, NSUB = L::NSUB, STAGES = L::STAGES;
-  static_assert(BQ == BKV, "Q and K column tiles share their offsets");
+  constexpr int CONS = L::CONSUMERS, D = 64 * NSUB;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* qs = smem;
@@ -479,9 +507,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
   const int hq = blockIdx.y, b = blockIdx.z;
   const int qplane = b * Hq + hq, kvplane = b * Hkv + hq / (Hq / Hkv);
+  const int st = MASKED ? start[b] : 0;   // kernel 2: columns before it never attend
   // kv tiles any row of this block attends to
   const int qpos_lo = q_offset + q0, qpos_hi = q_offset + min(q0 + BQ, Sq) - 1;
-  const int kv_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+  int kv_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+  if (MASKED) kv_lo = max(kv_lo, st);
   const int kv_hi = causal ? min(Skv - 1, qpos_hi) : Skv - 1;
   const int j_first = (kv_lo / BKV) * BKV;
   const int ntiles = kv_hi >= j_first ? (kv_hi - j_first) / BKV + 1 : 0;
@@ -490,30 +520,30 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], TC_CONSUMERS * WG / 32);   // one arrival per consumer warp
+      mbar_init(&empty[s], CONS * WG / 32);   // one arrival per consumer warp
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= TC_CONSUMERS * WG) {   // producer warpgroup: one thread issues every TMA load
-    reg_dealloc<PRODUCER_REGS>();
-    if (tid == TC_CONSUMERS * WG && ntiles > 0) {
+  if (tid >= CONS * WG) {   // producer warpgroup: one thread issues every TMA load
+    if constexpr (CONS == TC_CONSUMERS) reg_dealloc<PRODUCER_REGS>();
+    if (tid == CONS * WG && ntiles > 0) {
       mbar_arrive_expect_tx(q_full, L::Q_BYTES);
-      for (int s = 0; s < NSUB; ++s) tma_load(qs + s * BQ * 128, &qmap, q_full, 64 * s, q0, qplane);
+      for (int s = 0; s < NSUB; ++s) tma_load(qs + s * BQ * 128, qmap, q_full, 64 * s, q0, qplane);
       for (int i = 0; i < ntiles; ++i) {
-        const int st = i % STAGES, j0 = j_first + i * BKV;
-        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[st], 2 * L::KV_BYTES);
+        const int stg = i % STAGES, j0 = j_first + i * BKV;
+        mbar_wait(&empty[stg], ((i / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[stg], 2 * L::KV_BYTES);
         for (int s = 0; s < NSUB; ++s) {
-          const int at = st * L::KV_BYTES + s * BKV * 128;
-          tma_load(ks + at, &kmap, &full[st], 64 * s, j0, kvplane);
-          tma_load(vs + at, &vmap, &full[st], 64 * s, j0, kvplane);
+          const int at = stg * L::KV_BYTES + s * BKV * 128;
+          tma_load(ks + at, kmap, &full[stg], 64 * s, j0, kvplane);
+          tma_load(vs + at, vmap, &full[stg], 64 * s, j0, kvplane);
         }
       }
     }
   } else {
-    reg_alloc<CONSUMER_REGS>();
+    if constexpr (CONS == TC_CONSUMERS) reg_alloc<CONSUMER_REGS>();
     const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     const int wq = q_offset + q0 + 64 * wg;   // position of the warpgroup's first row
@@ -529,17 +559,18 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 
     if (ntiles > 0) mbar_wait(q_full, 0);
     for (int i = 0; i < ntiles; ++i) {
-      const int st = i % STAGES, j0 = j_first + i * BKV;
-      const uint8_t* kt = ks + st * L::KV_BYTES;
-      const uint8_t* vt = vs + st * L::KV_BYTES;
-      mbar_wait(&full[st], (i / STAGES) & 1);
+      const int stg = i % STAGES, j0 = j_first + i * BKV;
+      const uint8_t* kt = ks + stg * L::KV_BYTES;
+      const uint8_t* vt = vs + stg * L::KV_BYTES;
+      mbar_wait(&full[stg], (i / STAGES) & 1);
 
       float s[BKV / 2];   // S = Q K^T, rows 16 warp + g (+ 8), columns 8 j + 2 t (+ 1)
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int at = (kk / 4) * BKV * 128 + (kk % 4) * 32;   // column tile, 16-column step
-        wgmma_ss<BKV>(s, desc(qa + at), desc(kt + at), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {   // column tile kk / 4, 16-column step kk % 4
+        const int at = (kk % 4) * 32;
+        wgmma_ss<BKV>(s, desc(qa + (kk / 4) * BQ * 128 + at),
+                      desc(kt + (kk / 4) * BKV * 128 + at), kk > 0);
       }
       wgmma_commit();
       wgmma_wait();
@@ -547,17 +578,19 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 
       // online softmax in f32 over the raw scores (scale > 0 commutes with
       // the max), branch-free per element: only tiles that cross the causal
-      // diagonal, the window edge or Skv evaluate the mask, which sets a
-      // masked score to -inf; p = 2^(s c - m c) with c = scale log2(e) folded
-      // into one FFMA (a row with no column yet exponentiates against 0)
+      // diagonal, the window edge, start (kernel 2) or Skv evaluate the mask,
+      // which sets a masked score to -inf; p = 2^(s c - m c) with c = scale
+      // log2(e) folded into one FFMA (a row with no column yet exponentiates
+      // against 0, so a fully masked row keeps p = 0, l = 0 and O = 0)
       const bool whole = j0 + BKV <= Skv && (!causal || j0 + BKV - 1 <= wq) &&
-                         (window <= 0 || j0 > wq + 63 - window);
+                         (window <= 0 || j0 > wq + 63 - window) && (!MASKED || j0 >= st);
       if (!whole) {
 #pragma unroll
         for (int x = 0; x < BKV / 2; ++x) {
           const int col = j0 + 8 * (x / 4) + 2 * t + x % 2;
           const int qpos = wq + 16 * warp + g + 8 * ((x / 2) % 2);
-          s[x] = attends(col, qpos, Skv, causal, window) ? s[x] : -INFINITY;
+          s[x] = attends(col, qpos, Skv, causal, window) && (!MASKED || col >= st) ? s[x]
+                                                                                   : -INFINITY;
         }
       }
       float mx[2] = {m[0], m[1]};
@@ -601,11 +634,13 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 #pragma unroll
       for (int sb = 0; sb < NSUB; ++sb) fence_regs(o[sb]);
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[st]);
+      if (lane == 0) mbar_arrive(&empty[stg]);
     }
 
     // epilogue: O / l in bf16 into this warpgroup's (consumed) Q rows, then
-    // one TMA store per column tile (rows past Sq are not written)
+    // one TMA store per column tile (rows past Sq are not written); a row
+    // with l = 0 stores 0 * (1 / 1e-30) = 0, and a block with no kv tile
+    // stores zeros without having loaded Q
 #pragma unroll
     for (int i2 = 0; i2 < 2; ++i2) {
       l[i2] += __shfl_xor_sync(FULL, l[i2], 1);
@@ -625,10 +660,10 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     named_bar_sync(1 + wg, WG);
     if (tid % WG == 0) {
       for (int sb = 0; sb < NSUB; ++sb)
-        tma_store(&omap, qa + sb * BQ * 128, 64 * sb, q0 + 64 * wg, qplane);
+        tma_store(omap, qa + sb * BQ * 128, 64 * sb, q0 + 64 * wg, qplane);
       tma_store_wait();
     }
-    if (t == 0) {
+    if (!MASKED && t == 0) {
 #pragma unroll
       for (int i2 = 0; i2 < 2; ++i2) {
         const int row = q0 + 64 * wg + 16 * warp + g + 8 * i2;
@@ -638,6 +673,30 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       }
     }
   }
+}
+
+// Kernel 7, tensor-core route.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+             float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int q_offset,
+             int causal, int window, float scale) {
+  fwd_tc_body<FwdTC<D>, false>(&qmap, &kmap, &vmap, &omap, lse, nullptr, Hq, Hkv, Sq, Skv,
+                               q_offset, causal, window, scale);
+}
+
+// Kernel 2, tensor-core route (bf16 operands).
+template <int D>
+__global__ void __launch_bounds__(MaskedTC<D>::THREADS, 1)
+flash_fwd_masked_tc(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap, const int* __restrict__ start,
+                    int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal, int window,
+                    float scale) {
+  fwd_tc_body<MaskedTC<D>, true>(&qmap, &kmap, &vmap, &omap, nullptr, start, Hq, Hkv, Sq, Skv,
+                                 q_offset, causal, window, scale);
 }
 
 // Kernel 7b shared memory: K, V [NSUB][BKV][64] | Q, dO [STAGES][NSUB][BQ][64]
@@ -1090,6 +1149,25 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, float*
 }
 
 template <int D>
+int launch_masked_tc(const void* q, const void* k, const void* v, const int* start, void* out,
+                     int B, int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal,
+                     int window, float scale, cudaStream_t st) {
+  using L = MaskedTC<D>;
+  CUtensorMap qm, km, vm, om;
+  int e;
+  if ((e = sm90::bf16_map(&qm, q, B * Hq, Sq, D, L::BQ)) ||
+      (e = sm90::bf16_map(&km, k, B * Hkv, Skv, D, L::BKV)) ||
+      (e = sm90::bf16_map(&vm, v, B * Hkv, Skv, D, L::BKV)) ||
+      (e = sm90::bf16_map(&om, out, B * Hq, Sq, D, 64)) ||
+      (e = set_smem(flash_fwd_masked_tc<D>, L::SMEM)))
+    return e;
+  const dim3 grid((Sq + L::BQ - 1) / L::BQ, Hq, B);
+  flash_fwd_masked_tc<D><<<grid, L::THREADS, L::SMEM, st>>>(
+      qm, km, vm, om, start, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
 int launch_dkdv_tc(const void* q, const void* k, const void* v, const float* lse,
                    const float* delta, const void* dout, void* dk, void* dv, int B, int Hq,
                    int Hkv, int Sq, int Skv, int q_offset, int causal, int window, float scale,
@@ -1215,12 +1293,16 @@ extern "C" int flash_attention_masked(const void* q, const void* k,
                                       int q_offset, int causal, int window,
                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_fwd<__nv_bfloat16, false>(q, k, v, start, out, nullptr, B, Hq, Hkv,
-                                            Sq, Skv, D, q_offset, causal, window,
-                                            scale, st);
-  return launch_fwd<float, false>(q, k, v, start, out, nullptr, B, Hq, Hkv, Sq, Skv,
-                                  D, q_offset, causal, window, scale, st);
+  if (!is_bf16)
+    return launch_fwd<float, false>(q, k, v, start, out, nullptr, B, Hq, Hkv, Sq, Skv, D,
+                                    q_offset, causal, window, scale, st);
+  if (D == 64)
+    return launch_masked_tc<64>(q, k, v, start, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
+                                window, scale, st);
+  if (D == 128)
+    return launch_masked_tc<128>(q, k, v, start, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
+                                 window, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -1288,8 +1370,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
 }
 
 // Dynamic shared memory of the tensor-core kernels in bytes (kind 0: kernel
-// 7, 1: 7b, 2: 7c), for chip_smoke.py's build report; -1 for another kind
-// or D.
+// 7, 1: 7b, 2: 7c, 3: kernel 2), for chip_smoke.py's build report; -1 for
+// another kind or D.
 extern "C" int flash_attention_tc_smem(int kind, int D) {
   if (D != 64 && D != 128) return -1;
   const bool d64 = D == 64;
@@ -1297,6 +1379,7 @@ extern "C" int flash_attention_tc_smem(int kind, int D) {
     case 0: return d64 ? FwdTC<64>::SMEM : FwdTC<128>::SMEM;
     case 1: return d64 ? BwdTC<64>::SMEM : BwdTC<128>::SMEM;
     case 2: return d64 ? DqTC<64>::SMEM : DqTC<128>::SMEM;
+    case 3: return d64 ? MaskedTC<64>::SMEM : MaskedTC<128>::SMEM;
     default: return -1;
   }
 }

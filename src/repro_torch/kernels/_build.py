@@ -33,10 +33,13 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each source's extern "C" entry points and their argument types (all
-# return an int: a cudaError_t, or for flash_attention_tc_smem a size)
+# return an int: a cudaError_t, or for the *_smem functions a size)
 ENTRY_POINTS = {
     "ent_matmul": {
         "ent_matmul_packed_fused": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ent_matmul_packed_fused_stream": [_P, _I, _P, _P, _P, _P, _I, _P, ctypes.c_longlong,
+                                           _P] + [_I] * 7 + [_P],
+        "ent_matmul_stream_smem": [_I, _I],
         "ent_matmul_planes": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]},
     "int8_matmul": {"int8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
     "flash_attention": {

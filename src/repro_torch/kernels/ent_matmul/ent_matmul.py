@@ -9,7 +9,11 @@ digit-plane matmuls (replacing the Pallas kernels of
 
 On a CUDA tensor a wrapper launches its kernel or raises; only CPU
 tensors take the plain PyTorch version.  Each wrapper's ``launches``
-counts its kernel launches.  ``out_dtype`` is float32 (the default, as
+counts its kernel launches.  ``ent_matmul_packed_fused`` has two loops:
+up to ``M_STREAM`` rows (the decode shape) the split-K weight stream of
+``csrc/int8_stream.cuh``, counted in ``.stream_launches`` among its
+``.launches``; above, the tile loop of ``csrc/int8_tile.cuh``, which the
+other two wrappers always take.  ``out_dtype`` is float32 (the default, as
 in the reference), bfloat16, or int32 for the int32 accumulator itself
 (no epilogue: the quantity the ``*_int32_ref`` oracles return).
 """
@@ -28,6 +32,54 @@ from repro_torch.kernels.ent_matmul.ref import (ent_matmul_int32_ref, ent_matmul
 NUM_PLANES = 4
 # the kernels' output kinds (csrc/int8_tile.cuh, OutKind)
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+# Kernel 1 takes the split-K weight stream up to M_STREAM rows, the tile
+# loop above: the stream was faster at every M timed, 8 to 64, on all four
+# qwen2.5-3b projection shapes (PERF.md)
+M_STREAM = 64
+# the stream's strip width, K-slice step and cap, and rows a block
+# (csrc/int8_stream.cuh: BN, KSTEP; the instantiated MB): the plan is made
+# here, and the launcher refuses one that does not fit its own constants
+STREAM_BN = 64
+STREAM_KSTEP = 16
+STREAM_KSLICE_MAX = 2048
+STREAM_MB = (4, 8, 16)
+
+
+def stream_plan(m: int, n: int, k: int, sms: int):
+    """The stream's launch plan for X [m, k] x planes [., k, n] on a card
+    of ``sms`` SMs: (mb rows a block, kslice rows a K slice, splits, grid
+    (strips, splits, M chunks)).  K slices are multiples of STREAM_KSTEP
+    rows, and as many as it takes for at least 2 blocks per SM where K
+    allows it; the last slice may be shorter."""
+    mb = next(b for b in STREAM_MB if b >= min(m, STREAM_MB[-1]))
+    chunks = -(-m // mb)
+    strips = -(-n // STREAM_BN)
+    splits = max(1, -(-2 * sms // (strips * chunks)))
+    kslice = k // splits // STREAM_KSTEP * STREAM_KSTEP
+    kslice = max(STREAM_KSTEP, min(STREAM_KSLICE_MAX, kslice,
+                                   -(-k // STREAM_KSTEP) * STREAM_KSTEP))
+    splits = -(-k // kslice)
+    return mb, kslice, splits, (strips, splits, chunks)
+
+
+_sms: dict = {}           # device -> SM count
+_workspaces: dict = {}    # (device, CUDA stream) -> (int32 sums, int32 tickets)
+
+
+def _stream_workspace(key, sums: int, tickets: int):
+    """The stream's split-K workspace for ``key`` = (device, CUDA stream):
+    int32 sums and ticket counters, allocated zeroed and grown when a call
+    needs more.  Every call leaves them zero for the next one; calls on one
+    CUDA stream run in turn, and each CUDA stream has its own."""
+    ws, tk = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < sums or tk.numel() < tickets:
+        sums = max(sums, 0 if ws is None else ws.numel())
+        tickets = max(tickets, 0 if tk is None else tk.numel())
+        ws = torch.zeros(sums, dtype=torch.int32, device=key[0])
+        tk = torch.zeros(tickets, dtype=torch.int32, device=key[0])
+        _workspaces[key] = ws, tk
+    return ws, tk
 
 
 def check_operands(x, w, scale_x, scale_w, out_dtype, *, x_dtypes, planes,
@@ -77,15 +129,38 @@ def ent_matmul_packed_fused(x, packed, scale_x, scale_w, out_dtype=torch.float32
         if out_dtype == torch.int32:
             return ent_packed_matmul_int32_ref(xq, packed)
         return ent_packed_matmul_ref(xq, packed, scale_x, scale_w, out_dtype)
+    return _launch_fused(x, packed, scale_x, scale_w, out_dtype, m <= M_STREAM)
+
+
+def _launch_fused(x, packed, scale_x, scale_w, out_dtype, stream: bool):
+    """Launch kernel 1 on checked card operands through the split-K stream
+    (``stream``) or the tile loop; the wrapper chooses by M, chip_smoke.py
+    calls this to time the two loops at one M."""
+    m, k = x.shape
+    n = packed.shape[-1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    fn = _build.entry("ent_matmul", "ent_matmul_packed_fused")
-    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
-            scale_x.data_ptr(), scale_w.data_ptr(), out.data_ptr(),
-            OUT_KINDS[out_dtype], m, n, k, _build.stream_of(x))
+    args = (x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
+            scale_x.data_ptr(), scale_w.data_ptr(), out.data_ptr(), OUT_KINDS[out_dtype])
+    if stream:
+        dev, cuda_stream = x.device, _build.stream_of(x)
+        if dev not in _sms:
+            _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        mb, kslice, splits, (strips, _, chunks) = stream_plan(m, n, k, _sms[dev])
+        ws = tk = None
+        if splits > 1:
+            ws, tk = _stream_workspace((dev, cuda_stream), m * n, strips * chunks)
+        fn = _build.entry("ent_matmul", "ent_matmul_packed_fused_stream")
+        rc = fn(*args, None if ws is None else ws.data_ptr(), 0 if ws is None else ws.numel(),
+                None if tk is None else tk.data_ptr(), 0 if tk is None else tk.numel(),
+                m, n, k, mb, kslice, splits, cuda_stream)
+    else:
+        fn = _build.entry("ent_matmul", "ent_matmul_packed_fused")
+        rc = fn(*args, m, n, k, _build.stream_of(x))
     _build.check(rc, "ent_matmul_packed_fused")
     ent_matmul_packed_fused.launches += 1
+    ent_matmul_packed_fused.stream_launches += stream
     return out
 
 
@@ -127,5 +202,6 @@ def ent_matmul(x, planes, scale_x, scale_w, out_dtype=torch.float32):
 
 
 ent_matmul_packed_fused.launches = 0
+ent_matmul_packed_fused.stream_launches = 0
 ent_matmul_packed.launches = 0
 ent_matmul.launches = 0

@@ -14,14 +14,13 @@ On a CUDA tensor each wrapper launches its kernel or raises; only CPU
 tensors take the plain PyTorch version.  Each kernel wrapper's
 ``.launches`` counts its kernel's launches.
 
-Kernels 7, 7b and 7c take one of two routes by the operands' dtype
-(:func:`route`), with no fallback: bfloat16 (what training runs) the
-tensor-core kernels (``wgmma`` + TMA), float32 the CUDA-core ones.
-``flash_attention.tc_launches``, ``flash_attention_bwd_dkdv.tc_launches``
-and ``flash_attention_bwd_dq.tc_launches`` count the tensor-core launches
-among ``.launches``.  Kernel 2 has the CUDA-core route only.  On the
-tensor-core route kernel 7c also writes D_i = rowsum(dO * O), which
-``flash_attention_bwd`` hands to 7b (``delta=``).
+Kernels 2, 7, 7b and 7c take one of two routes by the operands' dtype
+(:func:`route`), with no fallback: bfloat16 (what serving and training
+run) the tensor-core kernels (``wgmma`` + TMA), float32 the CUDA-core
+ones.  Each wrapper's ``.tc_launches`` counts the tensor-core launches
+among its ``.launches``.  On the tensor-core route kernel 7c also writes
+D_i = rowsum(dO * O), which ``flash_attention_bwd`` hands to 7b
+(``delta=``).
 """
 
 from __future__ import annotations
@@ -33,12 +32,12 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_ref, flash_attention_ref, masked_attention_ref)
 
 HEAD_DIMS = (64, 128)
-# kernels 7, 7b and 7c: operand dtype -> route
+# kernels 2, 7, 7b and 7c: operand dtype -> route
 ROUTES = {torch.bfloat16: "tensor-core", torch.float32: "cuda-core"}
 
 
 def route(dtype, head_dim: int) -> str:
-    """The route kernels 7, 7b and 7c take for ``dtype`` operands of
+    """The route kernels 2, 7, 7b and 7c take for ``dtype`` operands of
     ``head_dim``; raises for what neither route takes."""
     if dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
@@ -84,7 +83,9 @@ def flash_attention_masked(q, k, v, start, *, q_offset: int = 0,
                            scale: float | None = None):
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (f32 or bf16, one dtype),
     start int32 [B] -> [B, Hq, Sq, D] in q's dtype (as the Pallas kernel;
-    softmax and accumulation in f32)."""
+    softmax and accumulation in f32).  The bfloat16 (tensor-core) route
+    rounds P to bf16 relative to the running max after each 64-column kv
+    tile (64-row q tiles)."""
     _check_qkv(q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -110,6 +111,7 @@ def flash_attention_masked(q, k, v, start, *, q_offset: int = 0,
             _build.stream_of(q))
     _build.check(rc, "flash_attention_masked")
     flash_attention_masked.launches += 1
+    flash_attention_masked.tc_launches += route(q.dtype, d) == "tensor-core"
     return out
 
 
@@ -261,6 +263,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 flash_attention_masked.launches = 0
+flash_attention_masked.tc_launches = 0
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention_bwd_dkdv.launches = 0

@@ -1,4 +1,4 @@
-"""The tensor-core route of kernels 7, 7b and 7c, rehearsed on the CPU.
+"""The tensor-core route of kernels 2, 7, 7b and 7c, rehearsed on the CPU.
 
 The bfloat16 route of the training forward (kernel 7) and of its backward
 (7b dK/dV, 7c dQ) runs ``wgmma`` with bf16 operands: the forward rounds
@@ -16,6 +16,15 @@ neighbouring row's lse) read above 1: the limits that the card's run
 applies have room for the new rounding and still catch the faults.  Also
 the pure-Python route choice and the ``delta`` plumbing of
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv`` on CPU tensors.
+
+Kernel 2 (the masked serving prefill) takes the training forward's
+tensor-core body with a start mask and 64-column kv tiles:
+``_emulate_masked`` rounds P to bf16 relative to the running max after
+each such tile, and is held against ``masked_attention_ref`` (and the JAX
+package's) with the same ``TOL_BF16`` in att|v| units, on a ragged batch
+(one start past a whole q tile) and a chunked prefill (``q_offset > 0``);
+pad-query rows come out as exact zeros, and the planted faults of
+``chip_smoke.py``'s ``check_flash`` (start + 1, window + 1) read above 1.
 """
 
 import importlib.util
@@ -29,9 +38,11 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref  # noqa: E402
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    masked_attention_ref as jax_masked_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    _band, flash_attention_bwd_ref, flash_attention_ref)
+    _band, flash_attention_bwd_ref, flash_attention_ref, masked_attention_ref)
 
 TILE = 128      # the forward kernel's kv tile (FwdTC::BKV)
 S = 200         # ragged against the kernels' 64- and 128-row tiles
@@ -277,3 +288,92 @@ def test_dq_delta_plumbing_on_cpu(dtype):
     for bad in (delta[..., :-1], delta.double()):
         with pytest.raises(ValueError):
             fa.flash_attention_bwd_dkdv(q, k, v, o, lse, do, window=16, delta=bad)
+
+
+MASKED_TILE = 64   # kernel 2's kv tile on the tensor-core route (MaskedTC::BKV)
+MASKED_CASES = [  # b, sq, skv, starts, q_offset, d, window
+    (3, 200, 200, (0, 70, 150), 0, 64, None),     # ragged; 150 is past a whole q tile
+    (3, 200, 200, (0, 70, 150), 0, 128, 64),
+    (1, 48, 200, (30,), 152, 128, None),          # chunked prefill: q_offset > 0
+    (2, 64, 256, (100, 0), 192, 64, 96),
+]
+MASKED_IDS = [f"b{c[0]}q{c[1]}kv{c[2]}off{c[4]}d{c[5]}w{c[6]}" for c in MASKED_CASES]
+
+
+def _emulate_masked(q, k, v, start, *, q_offset=0, window=None, tile=MASKED_TILE):
+    """Kernel 2's bf16 route: online softmax over kv tiles of ``tile``
+    columns with the causal / window / start mask; l sums the f32
+    probabilities, the value product takes them rounded to bf16 relative
+    to the running max after the tile; output O / l in bf16 (a row with
+    no attended column: exact zeros)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    g = hq // k.shape[1]
+    kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d**-0.5
+    band = _band(sq, skv, q_offset, True, window, q.device)[None] & (
+        torch.arange(skv)[None, None, :] >= start[:, None, None])
+    s = torch.where(band[:, None], s, -float("inf"))
+    m = torch.full((b, hq, sq, 1), -float("inf"))
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    for lo in range(0, skv, tile):
+        st = s[..., lo:lo + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        base = torch.where(m_new == -float("inf"), 0.0, m_new)
+        p, alpha = torch.exp(st - base), torch.exp(m - base)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(),
+                                         vf[:, :, lo:lo + tile])
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).bfloat16()
+
+
+def _masked_data(seed, b, sq, skv, d, hq=4, hkv=2):
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))  # noqa: E731
+    return f(b, hq, sq, d).bfloat16(), f(b, hkv, skv, d).bfloat16(), f(b, hkv, skv, d).bfloat16()
+
+
+@pytest.mark.parametrize("b,sq,skv,starts,q_offset,d,window", MASKED_CASES, ids=MASKED_IDS)
+def test_masked_rounding_within_the_chip_limit(cs, b, sq, skv, starts, q_offset, d, window):
+    q, k, v = _masked_data(8, b, sq, skv, d)
+    start = torch.tensor(starts, dtype=torch.int32)
+    kw = dict(q_offset=q_offset, window=window)
+    want = masked_attention_ref(q, k, v, start=start, **kw)
+    att = masked_attention_ref(q.float(), k.float(), v.float().abs(), start=start, **kw)
+    out = _emulate_masked(q, k, v, start, **kw)
+    assert cs.excess(out, want, att, cs.TOL_BF16) <= 1
+    # and against the JAX package's masked_attention_ref on the same bf16 values
+    jax_want = np.asarray(jax_masked_attention_ref(
+        *(jnp.asarray(t.numpy()) for t in (q.float(), k.float(), v.float())),
+        start=jnp.asarray(start.numpy()), **kw))
+    assert cs.excess(out, torch.from_numpy(np.array(jax_want)), att, cs.TOL_BF16) <= 1
+    # pad queries (no attended column) are exact zeros, as in the plain version
+    for i, st in enumerate(starts):
+        pad = out[i, :, :max(0, st - q_offset)]
+        assert torch.equal(pad, torch.zeros_like(pad))
+        assert torch.equal(want[i, :, :max(0, st - q_offset)], pad.float())
+    # the planted faults of the card's check read above the limit
+    bad = _emulate_masked(q, k, v, start + 1, **kw)
+    assert cs.excess(bad, want, att, cs.TOL_BF16) > 1
+    if window:
+        bad = _emulate_masked(q, k, v, start, q_offset=q_offset, window=window + 1)
+        assert cs.excess(bad, want, att, cs.TOL_BF16) > 1
+
+
+def test_masked_route_and_counters():
+    """route() governs kernel 2 too; on CPU tensors its wrapper runs the
+    plain version in q's dtype and counts no launch on either route."""
+    for dtype, want in ((torch.bfloat16, "tensor-core"), (torch.float32, "cuda-core")):
+        assert fa.route(dtype, 128) == want
+    q, k, v = _masked_data(9, 2, 40, 40, 128)
+    start = torch.tensor([0, 25], dtype=torch.int32)
+    before = fa.flash_attention_masked.launches, fa.flash_attention_masked.tc_launches
+    got = fa.flash_attention_masked(q, k, v, start)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, masked_attention_ref(q, k, v, start=start).bfloat16())
+    assert (fa.flash_attention_masked.launches,
+            fa.flash_attention_masked.tc_launches) == before
+    with pytest.raises(TypeError):
+        fa.route(torch.float16, 128)
