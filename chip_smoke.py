@@ -8,16 +8,21 @@ Phases (each prints its seconds; any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 2. build the five CUDA sources from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once), and report the registers, spills and shared
-   memory (``-Xptxas -v``) and HGMMA / HMMA (IDP4A) counts (``cuobjdump``,
-   where the toolkit has it) of the tensor-core kernels (7, 7b, 7c and
-   kernel 2's masked instantiations) and of kernel 1's split-K stream;
+   memory (``-Xptxas -v``) and HGMMA / IGMMA / HMMA (IDP4A) counts
+   (``cuobjdump``, where the toolkit has it) of the tensor-core kernels (7,
+   7b, 7c, kernel 2's masked instantiations and the int8 loop of kernels 1
+   and 6) and of the split-K stream of kernels 1 and 6;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
    w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
    projection shapes, with the EN-T identity (all four int32
-   accumulators equal); kernel 1's split-K stream (the decode loop, M <=
-   M_STREAM) bit for bit at M 1..64 on those shapes and a ragged one, in
-   f32, bf16 and int32 outputs, timed beside the tile loop at M = 8..64;
+   accumulators equal); kernels 1 and 6 on each of their routes, the
+   split-K stream (M 1..32) and the int8 tensor-core loop (M 1..512; X
+   near rounding ties and rows whose 1 / sx overflows for kernel 1), bit
+   for bit on those shapes and a ragged one, in f32, bf16 and int32
+   outputs, timed beside the old CUDA-core tile loop, and the two routes
+   timed against each other at M 8..128 (the table each wrapper's cut
+   M_STREAM comes from);
    the flash kernel (bf16 on its tensor-core route, float32 on CUDA
    cores; ragged starts, a chunked prefill) and the paged attention
    kernel, the latter with bf16 pools and with int8 pools + bf16 scales,
@@ -25,7 +30,7 @@ Phases (each prints its seconds; any failure exits non-zero):
    TOL_BF16).  Planted faults (a wrong weight or plane code, a wrong mask
    argument, a wrong scale pool) must fail those checks.  Kernel, plain
    version and a library yardstick are timed with CUDA events (L2 flushed
-   before every launch);
+   by a read before every launch);
 4. serve 16 ragged greedy requests (prompts 256..512 tokens, 32 new
    tokens each) on qwen2.5-3b at full width (36 layers, random weights
    from a seed) through ``repro_torch.launch.serve``'s code, in two
@@ -33,10 +38,11 @@ Phases (each prints its seconds; any failure exits non-zero):
    (``QuantConfig(ent_encode=False)``) with an int8 KV cache.  Each
    asserts that the kernels of its path launched, no other serving
    kernel and no plain version ran, that every decode tick and every
-   prefill launched its matmul once per projection and layer (252; EN-T:
-   the decode ticks' all on the split-K stream) and kernel 2 once per
-   layer per prefill (36), all on its tensor-core route, and profiles
-   full-batch decode ticks;
+   prefill launched its matmul once per projection and layer (252; the
+   decode ticks' all on the split-K stream, the prefills' all on the
+   tensor-core loop) and kernel 2 once per layer per prefill (36), all on
+   its tensor-core route, and profiles full-batch decode ticks (with the
+   matmul on each route, in one process) and one admission prefill;
 5. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
@@ -162,12 +168,17 @@ def card_line():
 
 class Timer:
     """Median kernel time in ms over ``reps`` launches, each timed with
-    CUDA events and preceded by a 256 MB write that evicts the 50 MB L2
-    (weights and KV pages reach the main path's kernels cold)."""
+    CUDA events and preceded by a 256 MB read that evicts the 50 MB L2
+    (weights and KV pages reach the main path's kernels cold).  A read,
+    not a write: a write leaves the L2 full of dirty lines, which the
+    timed kernel then writes back, and that slowed the split-K stream's
+    weight reads (17% at M = 8, 2048->11008) more than the tensor-core
+    loop's (4%), an ordering the decode tick does not show (PERF.md)."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEV)
+        self.flush = torch.ones(64 * 2**20, dtype=torch.float32, device=DEV)
+        self.sink = torch.empty((), dtype=torch.float32, device=DEV)
 
     def __call__(self, fn, reps=15):
         torch = self.torch
@@ -175,7 +186,7 @@ class Timer:
         torch.cuda.synchronize()
         evs = []
         for _ in range(reps):
-            self.flush.zero_()
+            torch.sum(self.flush, dim=0, out=self.sink)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -193,20 +204,25 @@ def bound_ms(nbytes, ops, peak_ops):
 
 def check_matmuls(torch, timer):
     """The four serving matmuls at the full-width projection shapes:
-    kernel 1 (``ent_matmul_packed_fused``) and kernels A (``int8_matmul``),
-    C (``ent_matmul``, 4-plane) and D (``ent_matmul_packed``).  Each is
-    held bit for bit against its plain version; the four int32
-    accumulators at the same Xq (kernel 1 quantizes X with the same sx)
-    must all be equal, the EN-T identity; one planted fault per kernel
-    (one weight or plane code off by one) must fail the exact check; and
-    all four, their plain versions and ``torch._int_mm`` are timed.
-    Returns {kernel name: [row per shape]}."""
+    kernel 1 (``ent_matmul_packed_fused``) and kernels 6 / A
+    (``int8_matmul``), 5 / C (``ent_matmul``, 4-plane) and 4 / D
+    (``ent_matmul_packed``), at M = 8 (kernels 1 and 6 on the split-K
+    stream) and M = 512 (on the tensor-core loop).  Each is held bit for
+    bit against its plain version; the four int32 accumulators at the same
+    Xq (kernel 1 quantizes X with the same sx) must all be equal, the EN-T
+    identity; one planted fault per kernel (one weight or plane code off
+    by one) must fail the exact check at both M; and all four, their plain
+    versions and ``torch._int_mm`` are timed, kernels 1 and 6 also on the
+    CUDA-core tile loop that served them before.  Returns {kernel name:
+    [row per shape]}."""
     from repro_torch.core.multiplier import ent_packed_planes
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.ent_matmul.ent_matmul import (ent_matmul, ent_matmul_packed,
                                                            ent_matmul_packed_fused)
     from repro_torch.kernels.ent_matmul.ops import encode_weights, row_scale
     from repro_torch.kernels.ent_matmul.ref import (ent_matmul_ref, ent_packed_matmul_ref,
                                                     quantize_with_scale)
+    from repro_torch.kernels.int8_matmul import int8_matmul as im
     from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref, int8_matmul_ref
     g = torch.Generator(device=DEV).manual_seed(11)
@@ -264,142 +280,325 @@ def check_matmuls(torch, timer):
                         int8_matmul_ref(xq, w8, sx, sw, torch.bfloat16)):
                     raise AssertionError(f"int8_matmul M={m} K={k} N={n}: bf16 output "
                                          f"not bit-identical")
-                if m == 8 and n == k:   # planted fault: one weight/plane code off by one
+                if n == k:   # planted fault: one weight/plane code off by one
                     bad = w.clone()
                     flat = bad.view(-1)
                     flat[0] += 1 if int(flat[0]) < 1 else -1
                     n_bad = int((kern(bad) != want).sum())
-                    print(f"  {name}: planted fault 'one code off by one': {n_bad} of "
+                    print(f"  {name} M={m}: planted fault 'one code off by one': {n_bad} of "
                           f"{m * n} outputs differ", flush=True)
                     if not n_bad:
-                        raise AssertionError(f"{name}: the exact check misses a wrong code")
+                        raise AssertionError(f"{name} M={m}: the exact check misses a wrong "
+                                             f"code")
                 ms = timer(lambda: kern(w))
                 plain_ms = timer(plain, reps=5)
                 nbytes = m * k * x_bytes + nplanes * k * n + 4 * m + 4 * n + 4 * m * n
                 b, by = bound_ms(nbytes, nplanes * 2 * m * k * n, INT8_OPS_S)
+                extra = {}
+                if name in MATMULS:
+                    tile = (lambda: em._launch_fused(x, packed, sx, sw, torch.float32, "tile")) \
+                        if name == "ent_matmul_packed_fused" else \
+                        (lambda: im._launch(xq, w8, sx, sw, torch.float32, "tile"))
+                    extra = dict(route=matmul_route(name, m), tile_ms=timer(tile))
                 print(f"kernel {name} M={m} K={k} N={n} ms={ms:.4f} "
                       f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
-                      f"bound_ms={b:.4f} ({by}) max_abs_err={err} bit_exact=True",
-                      flush=True)
+                      f"bound_ms={b:.4f} ({by}) max_abs_err={err} bit_exact=True"
+                      + "".join(f" {a}={v:.4f}" if isinstance(v, float) else f" {a}={v}"
+                                for a, v in extra.items()), flush=True)
                 rows[name].append(dict(M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
                                        library_ms=library_ms, bound_ms=b, bound_by=by,
-                                       max_abs_err=err))
+                                       max_abs_err=err, **extra))
     print("  EN-T identity: int8_matmul, ent_matmul (4-plane), ent_matmul_packed and "
           "ent_matmul_packed_fused gave the same int32 accumulator at all 8 shapes",
           flush=True)
     return rows
 
 
+# the four projection shapes and a ragged one
 STREAM_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048), (1000, 300)]
-STREAM_CHECK_M = (1, 3, 8, 16, 32, 64)
-STREAM_TIME_M = (8, 16, 32, 64)
+# kernels 1 and 6 on the stream: M up to the cut (decode: 8), and one M
+# past it at which check_cut times the stream (in chunks of 8 rows); on
+# the tensor-core loop at these M as well (check_cut and the decode ticks'
+# route comparison run it there)
+STREAM_CHECK_M = (1, 3, 8, 16, 32)
+# kernels 1 and 6 on the tensor-core loop: one tile, the M just past it,
+# and the serving prefills' range (260..505 prompt tokens) and cap
+TC_CHECK_M = (128, 129, 260, 505, 512)
+CUT_M = (8, 16, 32, 64, 96, 128)   # where check_cut times the two routes
+MATMULS = ("ent_matmul_packed_fused", "int8_matmul")   # kernels 1 and 6
 
 
-def check_stream(torch, timer):
-    """Kernel 1's split-K weight stream (``csrc/int8_stream.cuh``), which
-    the wrapper takes up to M_STREAM rows: at every checked M on the four
-    projection shapes and a ragged one, with bf16 and f32 X, in f32, bf16
-    and int32 outputs, bit for bit against the plain version, the int32
-    accumulator equal to X @ W (``int8_matmul_int32_ref``: the EN-T
-    identity), twice in a row (the split-K workspace is left zeroed), each
-    call one launch on the stream; a plane code off by one must fail the
-    exact check.  Then the stream and the tile loop timed at STREAM_TIME_M
-    on the four shapes beside the bound and ``torch._int_mm``.  Returns
-    the timing rows."""
+def matmul_cuts():
+    """{kernel 1 or 6: the wrapper module holding its cut ``M_STREAM``}."""
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    from repro_torch.kernels.int8_matmul import int8_matmul as im
+    return {"ent_matmul_packed_fused": em, "int8_matmul": im}
+
+
+def matmul_route(name, m):
+    """The route the wrapper of kernel 1 or 6 takes at ``m`` rows."""
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    return em.route_of(m, matmul_cuts()[name].M_STREAM)
+
+
+def _routed(torch, g, k, n):
+    """Operands of kernels 1 and 6 at one projection shape, and a call of
+    each by route: {kernel: call(x, route or None, out dtype)}; route None
+    is the public wrapper, whose choice by M is counted."""
     from repro_torch.core.multiplier import ent_packed_planes
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    from repro_torch.kernels.int8_matmul import int8_matmul as im
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
+    packed = ent_packed_planes(w8).contiguous()
+    sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
+
+    def k1(x, sx, xq, route, o, planes=packed):
+        if route is None:
+            return em.ent_matmul_packed_fused(x, planes, sx, sw, o)
+        return em._launch_fused(x, planes, sx, sw, o, route)
+
+    def k6(x, sx, xq, route, o, w=w8):
+        if route is None:
+            return im.int8_matmul(xq, w, sx, sw, o)
+        return im._launch(xq, w, sx, sw, o, route)
+    return w8, packed, sw, {"ent_matmul_packed_fused": (k1, em.ent_matmul_packed_fused),
+                            "int8_matmul": (k6, im.int8_matmul)}
+
+
+def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
+    """Kernels 1 and 6 on ``route`` at every M of ``ms`` ({kernel name:
+    M values}; a kernel not named is skipped) on STREAM_SHAPES: kernel 1
+    with each X dtype of ``x_dtypes``, both in f32, bf16 and int32
+    outputs, bit for bit against the plain version, the int32 accumulator
+    equal to X @ W (``int8_matmul_int32_ref``: the EN-T identity), twice in
+    a row (a split-K workspace is left zeroed), each call one launch on the
+    route; through the wrapper where it takes ``route`` at that M.  A
+    weight or plane code off by one must fail the exact check at each
+    kernel's largest M.  Returns the number of calls checked."""
     from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.ent_matmul.ops import row_scale
     from repro_torch.kernels.ent_matmul.ref import ent_packed_matmul_ref, quantize_with_scale
-    from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref
-    fused = em.ent_matmul_packed_fused
-    if max(STREAM_CHECK_M) > em.M_STREAM or max(STREAM_TIME_M) > em.M_STREAM:
-        raise AssertionError(f"M_STREAM {em.M_STREAM}: the checks cover M up to it only")
-    g = torch.Generator(device=DEV).manual_seed(13)
-    rows, n_checked = [], 0
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref, int8_matmul_ref
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    counter = f"{route}_launches"
+    n_checked = 0
     for k, n in STREAM_SHAPES:
-        w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
-        packed = ent_packed_planes(w8).contiguous()
-        sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
-        for m in STREAM_CHECK_M:
-            for xdt in (torch.bfloat16, torch.float32):
+        w8, packed, sw, kernels = _routed(torch, g, k, n)
+        for m in sorted({m for v in ms.values() for m in v}):
+            for xdt in x_dtypes:
                 x = torch.randn((m, k), generator=g, device=DEV).to(xdt)
                 sx = row_scale(x)
                 xq = quantize_with_scale(x, sx)
                 acc = int8_matmul_int32_ref(xq, w8)
-                for o in (torch.float32, torch.bfloat16, torch.int32):
-                    want = acc if o == torch.int32 else ent_packed_matmul_ref(
-                        xq, packed, sx, sw, o)
-                    for _ in range(2):
-                        before = fused.launches, fused.stream_launches
-                        got = fused(x, packed, sx, sw, o)
-                        torch.cuda.synchronize()
-                        if (fused.launches - before[0], fused.stream_launches - before[1]) \
-                                != (1, 1):
-                            raise AssertionError(f"stream M={m} K={k} N={n}: not one "
-                                                 f"launch on the stream")
-                        if not torch.equal(got, want):
-                            raise AssertionError(
-                                f"stream M={m} K={k} N={n} X {xdt} out {o}: not bit-identical "
-                                f"({int((got != want).sum())} of {m * n} differ)")
-                        n_checked += 1
-            if m == 8:   # planted fault: one plane code off by one
-                bad = packed.clone()
-                flat = bad.view(-1)
-                flat[k * n // 2] += 1 if int(flat[k * n // 2]) < 1 else -1
-                n_bad = int((fused(x, bad, sx, sw, torch.int32) != acc).sum())
-                print(f"  stream K={k} N={n}: planted fault 'one plane code off by one': "
-                      f"{n_bad} of {m * n} outputs differ", flush=True)
-                if not n_bad:
-                    raise AssertionError("stream: the exact check misses a wrong plane code")
-    # the launcher holds the wrapper's plan and workspace to its own constants:
-    # a ticket short, an int of the sums short, or a K slice off its step is refused
+                for name, (call, wrapper) in kernels.items():
+                    if m not in ms.get(name, ()):
+                        continue
+                    if name == "int8_matmul" and xdt != x_dtypes[0]:
+                        continue   # int8 X: one quantization is enough
+                    via = None if matmul_route(name, m) == route else route
+                    for o in (torch.float32, torch.bfloat16, torch.int32):
+                        if o == torch.int32:
+                            want = acc
+                        elif name == "int8_matmul":
+                            want = int8_matmul_ref(xq, w8, sx, sw, o)
+                        else:
+                            want = ent_packed_matmul_ref(xq, packed, sx, sw, o)
+                        for _ in range(2):
+                            before = wrapper.launches, getattr(wrapper, counter)
+                            got = call(x, sx, xq, via, o)
+                            torch.cuda.synchronize()
+                            if (wrapper.launches - before[0],
+                                    getattr(wrapper, counter) - before[1]) != (1, 1):
+                                raise AssertionError(f"{what} {name} M={m} K={k} N={n}: not "
+                                                     f"one launch on the {route} route")
+                            if not torch.equal(got, want):
+                                raise AssertionError(
+                                    f"{what} {name} M={m} K={k} N={n} X {xdt} out {o}: not "
+                                    f"bit-identical ({int((got != want).sum())} of {m * n} "
+                                    f"differ)")
+                            n_checked += 1
+                    if m == max(ms[name]) and xdt == x_dtypes[0]:   # planted fault
+                        bad = (packed if name == "ent_matmul_packed_fused" else w8).clone()
+                        flat = bad.view(-1)
+                        flat[k * n // 2] += 1 if int(flat[k * n // 2]) < 1 else -1
+                        n_bad = int((call(x, sx, xq, route, torch.int32, bad) != acc).sum())
+                        print(f"  {what} {name} M={m} K={k} N={n}: planted fault 'one code "
+                              f"off by one': {n_bad} of {m * n} outputs differ", flush=True)
+                        if not n_bad:
+                            raise AssertionError(f"{what} {name}: the exact check misses a "
+                                                 f"wrong code")
+    print(f"  {what}: {n_checked} calls ("
+          + ", ".join(f"{name} at M {v}" for name, v in ms.items())
+          + f") x {len(STREAM_SHAPES)} shapes x out f32 / bf16 / int32 (kernel 1: X "
+          f"{[str(d)[6:] for d in x_dtypes]}; each twice) bit-identical, the int32 "
+          f"accumulator equal to X @ W (EN-T identity), one launch each on the {route} route",
+          flush=True)
+    return n_checked
+
+
+def check_launchers_refuse(torch):
+    """The stream's and the tensor-core loop's launchers hold the
+    wrapper's plan and workspace to their own constants: a ticket short,
+    an int of the sums short, or a K slice off its step is refused, for
+    kernel 1 and kernel 6 alike."""
     from repro_torch.kernels import _build
-    k, n, m = 2048, 2048, 8
-    mb, kslice, splits, (strips, _, chunks) = em.stream_plan(
-        m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
-    x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
-    packed = torch.zeros((2, k, n), dtype=torch.int8, device=DEV)
-    sx, sw = row_scale(x), torch.ones((1, n), device=DEV)
-    out = torch.empty((m, n), device=DEV)
-    ws, tk = em._stream_workspace((x.device, _build.stream_of(x)), m * n, strips * chunks)
-    fn = _build.entry("ent_matmul", "ent_matmul_packed_fused_stream")
-    for what, ws_len, n_tk, ks in (("tickets", m * n, strips * chunks - 1, kslice),
-                                   ("sums", m * n - 1, strips * chunks, kslice),
-                                   ("K slice", m * n, strips * chunks, kslice + 8)):
-        rc = fn(x.data_ptr(), 1, packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                out.data_ptr(), 0, ws.data_ptr(), ws_len, tk.data_ptr(), n_tk, m, n, k, mb,
-                ks, -(-k // ks), _build.stream_of(x))
-        if rc == 0:
-            raise AssertionError(f"stream launcher: took a plan with {what} short or off")
-    print(f"  stream: the launcher refused a ticket short, a sum short and a K slice off "
-          f"its step", flush=True)
-    print(f"  stream: {n_checked} calls at M {STREAM_CHECK_M} x {len(STREAM_SHAPES)} shapes x "
-          f"X bf16 / f32 x out f32 / bf16 / int32 (each twice) bit-identical, the int32 "
-          f"accumulator equal to X @ W (EN-T identity), one launch each", flush=True)
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    from repro_torch.kernels.ent_matmul.ops import row_scale
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k, n = 2048, 2048
+    for m, route in ((8, "stream"), (512, "tc")):
+        x = torch.randn((m, k), device=DEV).to(torch.bfloat16)
+        x8 = torch.zeros((m, k), dtype=torch.int8, device=DEV)
+        packed = torch.zeros((2, k, n), dtype=torch.int8, device=DEV)
+        sx, sw = row_scale(x), torch.ones((1, n), device=DEV)
+        out = torch.empty((m, n), device=DEV)
+        if route == "stream":
+            mb, kslice, splits, (strips, _, chunks) = em.stream_plan(m, n, k, sms)
+            plan, tickets, step = (mb,), strips * chunks, em.STREAM_KSTEP
+        else:
+            kslice, splits, (mt, nt, _) = em.tc_plan(m, n, k, sms)
+            plan, tickets, step = (), mt * nt, em.TC_BK
+        assert splits > 1, (route, splits)
+        ws, tk = em._stream_workspace((x.device, _build.stream_of(x)), m * n, tickets)
+        fused = _build.entry("ent_matmul", f"ent_matmul_packed_fused_{route}")
+        for what, ws_len, n_tk, ks in (("tickets", m * n, tickets - 1, kslice),
+                                       ("sums", m * n - 1, tickets, kslice),
+                                       ("K slice", m * n, tickets, kslice + step // 2)):
+            tail = (ws.data_ptr(), ws_len, tk.data_ptr(), n_tk, m, n, k, *plan, ks, -(-k // ks),
+                    _build.stream_of(x))
+            rcs = (fused(x.data_ptr(), 1, packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                         out.data_ptr(), 0, *tail),
+                   _build.entry("int8_matmul", f"int8_matmul_{route}")(
+                       x8.data_ptr(), packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                       out.data_ptr(), 0, *tail))
+            if 0 in rcs:
+                raise AssertionError(f"{route} launcher: took a plan with {what} short or off "
+                                     f"({rcs})")
+    print("  stream and tensor-core launchers (kernels 1 and 6): a ticket short, a sum short "
+          "and a K slice off its step refused", flush=True)
+
+
+def time_routes(torch, timer, ms, routes, seed, names=MATMULS):
+    """Kernels ``names`` of 1 and 6 (X bf16, f32 out) on each of ``routes``
+    at every M of ``ms`` on the four projection shapes, beside the bound
+    and ``torch._int_mm`` (one plane, M padded to 32 rows).  Returns rows."""
+    from repro_torch.kernels.ent_matmul.ops import row_scale
+    from repro_torch.kernels.ent_matmul.ref import quantize_with_scale
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rows = []
     for k, n in STREAM_SHAPES[:4]:
-        w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
-        packed = ent_packed_planes(w8).contiguous()
-        sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
-        for m in STREAM_TIME_M:
+        w8, _, _, kernels = _routed(torch, g, k, n)
+        for m in ms:
             x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
             sx = row_scale(x)
             xq = quantize_with_scale(x, sx)
-            t = {lp: timer(lambda: em._launch_fused(x, packed, sx, sw, torch.float32,
-                                                    lp == "stream"))
-                 for lp in ("stream", "tile")}
             xq_lib = torch.cat([xq, xq.new_zeros((max(0, 32 - m), k))]) if m < 32 else xq
             library_ms = timer(lambda: torch._int_mm(xq_lib, w8))
-            plain_ms = timer(lambda: ent_packed_matmul_ref(xq, packed, sx, sw), reps=5)
-            nbytes = 2 * m * k + 2 * k * n + 4 * m + 4 * n + 4 * m * n
-            b, by = bound_ms(nbytes, 2 * 2 * m * k * n, INT8_OPS_S)
-            plan = em.stream_plan(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
-            print(f"kernel ent_matmul_packed_fused M={m} K={k} N={n}: stream ms={t['stream']:.4f} "
-                  f"tile ms={t['tile']:.4f} bound_ms={b:.4f} ({by}) library_ms="
-                  f"{library_ms:.4f} plain_ms={plain_ms:.4f} plan (mb, kslice, splits, grid) "
-                  f"{plan}", flush=True)
-            rows.append(dict(M=m, K=k, N=n, stream_ms=t["stream"], tile_ms=t["tile"],
-                             bound_ms=b, bound_by=by, library_ms=library_ms,
-                             plain_ms=plain_ms))
+            for name in names:
+                call = kernels[name][0]
+                t = {r: timer(lambda: call(x, sx, xq, r, torch.float32)) for r in routes}
+                nplanes, x_bytes = (2, 2) if name == "ent_matmul_packed_fused" else (1, 1)
+                nbytes = m * k * x_bytes + nplanes * k * n + 4 * m + 4 * n + 4 * m * n
+                b, by = bound_ms(nbytes, nplanes * 2 * m * k * n, INT8_OPS_S)
+                print(f"kernel {name} M={m} K={k} N={n}: "
+                      + " ".join(f"{r} ms={v:.4f}" for r, v in t.items())
+                      + f" bound_ms={b:.4f} ({by}) library_ms={library_ms:.4f}", flush=True)
+                rows.append(dict(kernel=name, M=m, K=k, N=n, bound_ms=b, bound_by=by,
+                                 library_ms=library_ms, **{f"{r}_ms": v for r, v in t.items()}))
+    return rows
+
+
+def check_stream(torch):
+    """The split-K weight stream (``csrc/int8_stream.cuh``) of kernels 1
+    and 6, which their wrappers take up to their cuts: bit for bit at
+    STREAM_CHECK_M (``check_routes_exact``), then the launchers'
+    refusals.  Returns the number of calls checked."""
+    n = check_routes_exact(torch, "stream", dict.fromkeys(MATMULS, STREAM_CHECK_M), "stream",
+                           (torch.bfloat16, torch.float32), 13)
+    check_launchers_refuse(torch)
+    return n
+
+
+def check_tc(torch):
+    """The int8 tensor-core loop (``csrc/int8_tc.cuh``) of kernels 1 and 6,
+    which their wrappers take above their cuts: bit for bit at STREAM_CHECK_M,
+    the M just past each cut and TC_CHECK_M (``check_routes_exact``); then
+    kernel 1, on both its routes, with X on rounding ties of X / sx (k + 1/2 exactly, and one
+    float32 ulp to either side) and with rows whose 1 / sx overflows (0 <
+    sx < 1 / FLT_MAX, X zero or small), where the loop's reciprocal
+    quantizer must defer to the IEEE division.  Returns the number of
+    calls checked."""
+    from repro_torch.core.multiplier import ent_packed_planes
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    from repro_torch.kernels.ent_matmul.ops import row_scale
+    ms = {name: tuple(sorted({*STREAM_CHECK_M, mod.M_STREAM + 1, *TC_CHECK_M}))
+          for name, mod in matmul_cuts().items()}
+    n = check_routes_exact(torch, "tensor-core", ms, "tc", (torch.bfloat16, torch.float32), 15)
+    g = torch.Generator(device=DEV).manual_seed(17)
+    m, c = 300, 2.0**-5   # sx = 127 c / 127 = c exactly: X / sx = X / c
+    for k, cols in ((2048, 2048), (1000, 300)):
+        w8 = torch.randint(-127, 128, (k, cols), generator=g, device=DEV, dtype=torch.int8)
+        packed = ent_packed_planes(w8).contiguous()
+        ties = (torch.randint(-127, 127, (m, k), generator=g, device=DEV).float() + 0.5) * c
+        for side in (0.0, 1e9, -1e9):
+            x = ties if not side else torch.nextafter(ties, torch.full_like(ties, side))
+            x[:, 0] = 127 * c
+            for xdt in (torch.float32, torch.bfloat16):
+                xx = x.to(xdt)
+                n += _quantizer_case(torch, em, xx, row_scale(xx), packed, w8,
+                                     f"X near ties ({side})")
+        # rows whose 1 / sx is not finite (1e-39, 2.5e-39, the least
+        # subnormal), beside one where it is just finite (3e-39) and a normal
+        # one; X ~ 1e-38 (some subnormal), every third element zero
+        x = torch.randn((m, k), generator=g, device=DEV) * 1e-38
+        x[:, ::3] = 0
+        sx = torch.tensor([1e-39, 2.5e-39, 1e-45, 3e-39, 0.05], device=DEV).repeat(m // 5)[:, None]
+        for xdt in (torch.float32, torch.bfloat16):
+            n += _quantizer_case(torch, em, x.to(xdt), sx.contiguous(), packed, w8, "tiny sx")
+    print("  tensor-core / stream: X on and one ulp beside rounding ties of X / sx, and rows "
+          "whose 1 / sx overflows, bit-identical (f32 and bf16 X)", flush=True)
+    return n
+
+
+def _quantizer_case(torch, em, x, sx, packed, w8, what):
+    """Kernel 1's int32 accumulator at X, sx on the tensor-core loop (all
+    rows) and the stream (the first 8) against X @ W with X quantized by
+    the plain version.  Returns the number of calls checked."""
+    from repro_torch.kernels.ent_matmul.ref import quantize_with_scale
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref
+    want = int8_matmul_int32_ref(quantize_with_scale(x, sx), w8)
+    sw = torch.ones((1, w8.shape[1]), device=DEV)
+    for route, rows in (("tc", x.shape[0]), ("stream", 8)):
+        got = em._launch_fused(x[:rows].contiguous(), packed, sx[:rows].contiguous(), sw,
+                               torch.int32, route)
+        if not torch.equal(got, want[:rows]):
+            raise AssertionError(f"{route} K={x.shape[1]} N={w8.shape[1]}: {what}, X {x.dtype}: "
+                                 f"not bit-identical ({int((got != want[:rows]).sum())} differ)")
+    return 2
+
+
+# projections a layer by shape (K, N): q and o, k and v, gate and up, down
+LAYER_SHAPES = {(2048, 2048): 2, (2048, 256): 2, (2048, 11008): 2, (11008, 2048): 1}
+
+
+def check_cut(torch, timer):
+    """The stream against the tensor-core loop at CUT_M, both kernels, on
+    the four projection shapes: the table each wrapper's M_STREAM is set
+    from.  Prints, for each kernel and M, the two routes' time over a
+    layer's seven projections, and the largest timed M up to which the
+    stream's is the smaller.  Returns the rows."""
+    rows = time_routes(torch, timer, CUT_M, ("stream", "tc"), 16)
+    for name, mod in matmul_cuts().items():
+        layer = {m: {r: sum(LAYER_SHAPES[(x["K"], x["N"])] * x[f"{r}_ms"] for x in rows
+                            if x["kernel"] == name and x["M"] == m) for r in ("stream", "tc")}
+                 for m in CUT_M}
+        last = max((m for m in CUT_M
+                    if all(layer[w]["stream"] <= layer[w]["tc"] for w in CUT_M if w <= m)),
+                   default=None)
+        print(f"  cut [{name}]: a layer's seven projections, stream / tensor-core ms: "
+              + ", ".join(f"M={m} {v['stream']:.4f} / {v['tc']:.4f}" for m, v in layer.items())
+              + f"; the stream is the faster up to M = {last}; its M_STREAM = {mod.M_STREAM}",
+              flush=True)
     return rows
 
 
@@ -1258,11 +1457,13 @@ def read_tc_counts(torch):
     return {f.__name__: f.tc_launches for f in wrappers(torch)[0] if hasattr(f, "tc_launches")}
 
 
-def read_stream_count(torch):
-    """Kernel 1's launches on the split-K stream; the rest of its
-    ``launches`` took the tile loop."""
+def read_matmul_routes(torch):
+    """Launches of kernels 1 and 6 by route: {"<name>[stream]": n,
+    "<name>[tc]": n}; the rest of their ``launches`` took the tile loop."""
     from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused
-    return ent_matmul_packed_fused.stream_launches
+    from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
+    return {f"{f.__name__}[{r}]": getattr(f, f"{r}_launches")
+            for f in (ent_matmul_packed_fused, int8_matmul) for r in ("stream", "tc")}
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
@@ -1293,7 +1494,9 @@ def serve_full_width(torch, config):
     """Serve 16 ragged greedy requests on full-width qwen2.5-3b in one of
     SERVE_CONFIGS; every kernel of its path must launch (counts set to 0
     just before the run and read just after), no other serving kernel
-    and no plain version may.  Returns (launches, tokens/s)."""
+    and no plain version may; then profile decode ticks and one admission
+    prefill.  Returns (launches, tokens/s, launches by route, the prefill's
+    profile, the decode tick's matmul ms by route)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch
@@ -1309,7 +1512,7 @@ def serve_full_width(torch, config):
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}), {config}: init + quantize {time.perf_counter() - t0:.2f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
-    engine = ServeEngine(model, params, slots=8, max_len=576, page_size=16,
+    engine = ServeEngine(model, params, slots=SLOTS, max_len=576, page_size=16,
                          prefix_cache=False, seed=0)
     rng = np.random.default_rng(0)
     prompts = launch.ragged_prompts(rng, 16, 256, 512, cfg.vocab_size)
@@ -1317,7 +1520,7 @@ def serve_full_width(torch, config):
     results, dt = launch.serve(engine, prompts, max_new_tokens=32)
     launches, plain_runs = read_counts(torch)
     routes = {"flash_attention_masked[tensor-core]": read_tc_counts(torch)[
-        "flash_attention_masked"], "ent_matmul_packed_fused[stream]": read_stream_count(torch)}
+        "flash_attention_masked"], **read_matmul_routes(torch)}
     engine.check_leaks()
     if sorted(results) != list(range(16)) or any(len(v) != 32 for v in results.values()):
         raise AssertionError(f"serve: {len(results)} results, lengths "
@@ -1343,20 +1546,23 @@ def serve_full_width(torch, config):
           f"plain versions run {plain_runs}; KV pools {pool} bytes ({pool / 2**20:.1f} MiB, "
           f"{pool / bf16_pool:.4f} of the {bf16_pool} bytes of bf16 pools); peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    profile_decode_ticks(torch, engine, prompts[:8], cfg, config)
+    tick_routes = profile_decode_ticks(torch, engine, prompts[:SLOTS], cfg, config)
+    prefill = profile_prefill(torch, engine, max(prompts, key=len), cfg, config)
     del engine, params, model
     torch.cuda.empty_cache()
-    return launches, toks / dt, routes
+    return launches, toks / dt, routes, prefill, tick_routes
 
 
 PROJECTIONS = 7   # quantized projections a layer: q, k, v, o, gate, up, down
+SLOTS = 8         # the serving engine's slots: a full decode tick's M
 
 
 def check_serve_routes(cfg, config, launches, routes, ticks):
     """Per decode tick and per prefill, each layer launches its path's
-    matmul once per projection (kernel 1 on the split-K stream at decode,
-    on the tile loop at prefill sizes of M) and kernel 2 once per prefill,
-    all of it on the tensor-core route."""
+    matmul (kernel 1 or 6) once per projection, on the route its wrapper's
+    cut gives the tick's 8 rows (the split-K stream) and on the tensor-core
+    loop at prefill sizes of M, and kernel 2 once per prefill, all of it
+    on the tensor-core route."""
     per = PROJECTIONS * cfg.num_layers
     n2 = launches["flash_attention_masked"]
     prefills = n2 // cfg.num_layers
@@ -1368,13 +1574,65 @@ def check_serve_routes(cfg, config, launches, routes, ticks):
     if launches[mm] != per * (ticks + prefills):
         raise AssertionError(f"{config}: {mm} launched {launches[mm]} times, expected {per} "
                              f"a tick and a prefill ({ticks} ticks, {prefills} prefills)")
-    stream = routes["ent_matmul_packed_fused[stream]"]
-    if mm == "ent_matmul_packed_fused" and stream != per * ticks:
-        raise AssertionError(f"{config}: {stream} kernel 1 launches on the stream, expected "
-                             f"{per} a decode tick ({ticks} ticks), the prefills' on the tile loop")
-    print(f"  {config}: {mm} {per} launches a tick and a prefill"
-          + (", every decode tick's on the split-K stream" if stream else "")
-          + f"; kernel 2 {cfg.num_layers} a prefill, all tensor-core", flush=True)
+    stream, tc = routes[f"{mm}[stream]"], routes[f"{mm}[tc]"]
+    decode = matmul_route(mm, SLOTS)
+    want = (per * ticks, per * prefills) if decode == "stream" else (0, per * (ticks + prefills))
+    if (stream, tc) != want:
+        raise AssertionError(f"{config}: {mm} launched {stream} times on the stream and {tc} on "
+                             f"the tensor-core loop ({ticks} ticks, {prefills} prefills; "
+                             f"expected {want})")
+    print(f"  {config}: {mm} {per} launches a tick and a prefill, every decode tick's on the "
+          + ("split-K stream" if decode == "stream" else "tensor-core loop")
+          + f", every prefill's on the tensor-core loop; kernel 2 {cfg.num_layers} a prefill, "
+          "all tensor-core", flush=True)
+
+
+def device_ms_by_kernel(prof, per=1):
+    """Device time in ms by kernel name from a torch.profiler run, over ``per``."""
+    dev = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us and getattr(ev, "device_type", None) is not None and \
+                str(ev.device_type).endswith("CUDA"):
+            dev[ev.key] = us / 1e3 / per
+    return dev
+
+
+def profile_prefill(torch, engine, prompt, cfg, config):
+    """Where one admission prefill's time goes: admit one ``prompt`` into
+    the idle engine (``_admit``: the prefill alone, no decode tick), once
+    unprofiled (host clock, its launches: the path's matmul once per
+    projection and layer, all on the tensor-core loop) and once under
+    torch.profiler (device time by kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    runs = {}
+    for profiled in (False, True):
+        engine.submit(prompt, max_new_tokens=2)
+        torch.cuda.synchronize()
+        reset_counts(torch)
+        ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled \
+            else contextlib.nullcontext()
+        with ctx as prof:
+            t0 = time.perf_counter()
+            engine._admit()
+            torch.cuda.synchronize()
+            runs[profiled] = (time.perf_counter() - t0) * 1e3
+        if not profiled:
+            launches, _ = read_counts(torch)
+            check_serve_routes(cfg, config, launches, {
+                "flash_attention_masked[tensor-core]": launches["flash_attention_masked"],
+                **read_matmul_routes(torch)}, 0)
+        engine.run()
+    dev = device_ms_by_kernel(prof)
+    busy = sum(dev.values())
+    print(f"admission prefill ({len(prompt)} tokens, full width): {runs[False]:.3f} ms "
+          f"host-clock ({runs[True]:.3f} ms under the profiler); device busy {busy:.3f} ms "
+          f"({100 * (1 - busy / runs[False]):.1f}% idle)" if busy else "device time not measured")
+    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.3f} ms/prefill  {name[:90]}")
+    engine.check_leaks()
+    return dict(host_ms=runs[False], busy_ms=busy,
+                by_kernel=dict(sorted(dev.items(), key=lambda kv: -kv[1])[:10]))
 
 
 def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
@@ -1382,10 +1640,24 @@ def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
     profile ``ticks`` pure decode ticks (host clock around synchronised
     ticks; device time per kernel from torch.profiler).  The unprofiled
     ticks must launch their path's matmul once per projection and layer,
-    kernel 1 all on the split-K stream, and no prefill."""
+    all on the split-K stream, and no prefill.  Then the matmul's two
+    routes in the same process, the wrapper's and the other (its cut set
+    to 0 or to the tick's M for the run), in the order A B B A, ``ticks``
+    profiled ticks each: its device ms a tick on each route, the decode
+    tick's measure of the cut.  Returns {route: [ms a tick, ms a tick]}."""
     from torch.profiler import ProfilerActivity, profile
+
+    def profiled():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                engine.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / ticks
+        return wall, device_ms_by_kernel(prof, ticks)
+
     for p in prompts:
-        engine.submit(p, max_new_tokens=2 * ticks + 2)
+        engine.submit(p, max_new_tokens=6 * ticks + 4)
     engine.step()                      # admits all 8 (prefills) + 1 tick
     torch.cuda.synchronize()
     reset_counts(torch)
@@ -1396,20 +1668,8 @@ def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
     plain_wall = (time.perf_counter() - t0) * 1e3 / ticks
     launches, _ = read_counts(torch)
     check_serve_routes(cfg, config, launches, {
-        "flash_attention_masked[tensor-core]": 0,
-        "ent_matmul_packed_fused[stream]": read_stream_count(torch)}, ticks)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            engine.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / ticks
-    dev = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if us and getattr(ev, "device_type", None) is not None and \
-                str(ev.device_type).endswith("CUDA"):
-            dev[ev.key] = us / 1e3 / ticks
+        "flash_attention_masked[tensor-core]": 0, **read_matmul_routes(torch)}, ticks)
+    wall, dev = profiled()
     busy = sum(dev.values())
     idle = "not measured" if not busy else f"{100 * (1 - busy / plain_wall):.1f}% idle"
     print(f"decode tick (8 slots, full width): {plain_wall:.3f} ms host-clock "
@@ -1417,8 +1677,27 @@ def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
           f"({idle})")
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} ms/tick  {name[:90]}")
+    mm = "ent_matmul_packed_fused" if "EN-T" in config else "int8_matmul"
+    mod = matmul_cuts()[mm]
+    cut, own = mod.M_STREAM, matmul_route(mm, SLOTS)
+    other = "tc" if own == "stream" else "stream"
+    by_route = {own: [], other: []}
+    try:
+        for route in (own, other, other, own):
+            mod.M_STREAM = SLOTS if route == "stream" else 0
+            _, dev = profiled()
+            by_route[route].append(sum(v for k, v in dev.items()
+                                       if "ent_stream::stream_kernel" in k
+                                       or "ent_tc::tc_kernel" in k))
+    finally:
+        mod.M_STREAM = cut
+    print(f"  decode tick, {mm} by route (A B B A, {ticks} ticks each): "
+          + "; ".join(f"{r} {' / '.join(f'{v:.3f}' for v in vs)} ms/tick"
+                      for r, vs in by_route.items())
+          + f"; the wrapper takes {own} at M = {SLOTS}", flush=True)
     engine.run()
     engine.check_leaks()
+    return by_route
 
 
 def e2e_faults(torch, kv_quant):
@@ -1842,6 +2121,13 @@ def _build_label(fn):
         return f"{m.group(1)}<{m.group(2)}>"
     if (m := re.search(r"stream_kernelI13__nv_bfloat16Li2ELi4ELi(\d+)EfE", fn)):
         return f"stream_kernel<bf16,2,4,{m.group(1)},float>"
+    if (m := re.search(r"stream_kernelIaLi1ELi0ELi(\d+)EfE", fn)):
+        return f"stream_kernel<int8,1,0,{m.group(1)},float>"
+    types = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "float", "a": "int8", "i": "int"}
+    if (m := re.search(r"tc_kernelI(13__nv_bfloat16|f|a)Li(\d)ELi(\d)E(13__nv_bfloat16|S1_|f|i)E",
+                       fn)):
+        x = {"float": "f32"}.get(types[m.group(1)], types[m.group(1)])
+        return f"tc_kernel<{x},{m.group(2)},{m.group(3)},{types[m.group(4)]}>"
     return None
 
 
@@ -1881,10 +2167,11 @@ def _scan_build(report, source, ops):
 
 
 def tc_build_report():
-    """Registers and spills of the tensor-core kernels (2, 7, 7b, 7c) and
-    of kernel 1's split-K stream from this run's build (``nvcc -Xptxas
-    -v``), their HGMMA / HMMA (the stream: IDP4A) instruction counts where
-    the toolkit has ``cuobjdump``, and their dynamic shared memory as the
+    """Registers and spills of the tensor-core kernels (2, 7, 7b, 7c; the
+    int8 loop of kernels 1 and 6) and of the split-K stream of kernels 1
+    and 6 from this run's build (``nvcc -Xptxas -v``), their HGMMA / IGMMA
+    (int8 wgmma) / HMMA (the stream: IDP4A) instruction counts where the
+    toolkit has ``cuobjdump``, and their dynamic shared memory as the
     built libraries size it.  Returns {kernel: record}."""
     import torch
     from repro_torch.kernels import _build
@@ -1896,24 +2183,33 @@ def tc_build_report():
         name, d = lab[:-1].split("<")
         rec["smem_bytes"] = smem(kinds[name], int(d))
     _scan_build(report, "flash_attention", ("HGMMA", "HMMA"))
-    # kernel 1's stream as served (bf16 X, f32 out), one instantiation per
-    # rows a block; its shared memory grows with the K slice: the largest
-    # of the four projection shapes' plans at the block's rows
-    stream = {f"stream_kernel<bf16,2,4,{mb},float>": {} for mb in em.STREAM_MB}
+    # kernels 1 and 6: the stream as served (bf16 / int8 X, f32 out), one
+    # instantiation per rows a block, its shared memory at the largest of
+    # the four projection shapes' plans; and every instantiation of the
+    # int8 tensor-core loop
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    stream_smem = _build.entry("ent_matmul", "ent_matmul_stream_smem")
-    for lab, rec in stream.items():
-        mb = int(lab.split(",")[3])
-        rec["smem_bytes"] = max(stream_smem(mb, em.stream_plan(mb, n, k, sms)[1])
-                                for k, n in STREAM_SHAPES[:4])
-    _scan_build(stream, "ent_matmul", ("HGMMA", "HMMA", "IDP"))
-    report.update(stream)
+    for source, stream_lab, np_, xs in (
+            ("ent_matmul", "stream_kernel<bf16,2,4,{},float>", 2, ("bf16", "f32")),
+            ("int8_matmul", "stream_kernel<int8,1,0,{},float>", 1, ("int8",))):
+        recs = {stream_lab.format(mb): {} for mb in em.STREAM_MB}
+        stream_smem = _build.entry(source, f"{source}_stream_smem")
+        for mb, rec in zip(em.STREAM_MB, recs.values()):
+            rec["smem_bytes"] = max(stream_smem(mb, em.stream_plan(mb, n, k, sms)[1])
+                                    for k, n in STREAM_SHAPES[:4])
+        tc_smem = _build.entry(source, f"{source}_tc_smem")
+        for x in xs:
+            for o in ("float", "bf16", "int"):
+                recs[f"tc_kernel<{x},{np_},{4 if np_ == 2 else 0},{o}>"] = {
+                    "smem_bytes": tc_smem(int(x == "bf16")) if np_ == 2 else tc_smem()}
+        _scan_build(recs, source, ("HGMMA", "IGMMA", "HMMA", "IDP"))
+        report.update(recs)
     for lab, rec in report.items():
         print(f"  {lab}: {rec.get('registers', 'not reported (library cached)')} registers, "
               f"spill stores / loads {rec.get('spill_bytes', 'not reported')} bytes, "
               f"{rec['smem_bytes']} bytes of dynamic shared memory, HGMMA "
               f"{rec.get('HGMMA', 'not counted (no cuobjdump)')}, HMMA "
               f"{rec.get('HMMA', 'not counted')}"
+              + (f", IGMMA (s8 wgmma) {rec['IGMMA']}" if "IGMMA" in rec else "")
               + (f", IDP4A {rec['IDP']}" if "IDP" in rec else "")
               + (f"; ptxas: {rec['ptxas_warning']}" if "ptxas_warning" in rec else ""),
               flush=True)
@@ -1951,7 +2247,9 @@ def main():
     t = phase("kernel checks")
     timer = Timer(torch)
     mm = check_matmuls(torch, timer)
-    k1s = check_stream(torch, timer)
+    n_stream = check_stream(torch)
+    n_tc = check_tc(torch)
+    cut = check_cut(torch, timer)
     k2 = check_flash(torch, timer)
     k3 = check_paged(torch, timer)
     k3i = check_paged(torch, timer, int8_kv=True)
@@ -2028,21 +2326,38 @@ def main():
 
     ent = "src/repro/kernels/ent_matmul/ent_matmul.py"
     paged = "src/repro/kernels/paged_attention/paged_attention.py"
-    from repro_torch.kernels.ent_matmul.ent_matmul import M_STREAM
-    ent_routes = serves[next(iter(SERVE_CONFIGS))][2]   # EN-T
+    config_of = dict(zip(MATMULS, SERVE_CONFIGS))   # kernel 1: EN-T, kernel 6: int8
+
+    def routed(name):
+        """Kernels 1 and 6: launches by route in their serve run, the cut
+        table and the decode tick's route comparison, the prefill profile,
+        the build."""
+        launches, _, routes, prefill, tick_routes = serves[config_of[name]]
+        return dict(
+            design=(f"M <= {matmul_cuts()[name].M_STREAM} (decode): the split-K weight "
+                    "stream of csrc/int8_stream.cuh (64-column strips x K slices, 16-byte "
+                    "cp.async ring, __byte_perm transpose to dp4a words, atomics + ticket, "
+                    "one launch); larger M (prefill): the int8 tensor-core loop of "
+                    "csrc/int8_tc.cuh (128 x 128 tiles, two warpgroups of wgmma "
+                    "m64n128k32 s8.s8 -> s32 from shared memory, plane tiles transposed "
+                    "to K-major through registers, one accumulator set a plane, "
+                    + ("X quantized into the A tile, " if name != "int8_matmul" else "")
+                    + "split-K by tc_plan)"),
+            route_launches={"stream": routes[f"{name}[stream]"], "tc": routes[f"{name}[tc]"],
+                            "tile": launches[name] - routes[f"{name}[stream]"]
+                            - routes[f"{name}[tc]"]},
+            at_prefill=next(r for r in mm[name] if r["M"] == 512 and r["N"] == 11008),
+            stream_vs_tc=[r for r in cut if r["kernel"] == name],
+            decode_tick_ms_by_route=tick_routes,
+            prefill_profile=prefill, calls_checked={"stream": n_stream, "tc": n_tc},
+            build={lab: rec for lab, rec in tc_build.items()
+                   if lab.startswith(("stream", "tc_kernel"))
+                   and ("int8" in lab) == (name == "int8_matmul")})
+
     kernels = [
         entry("ent_matmul_packed_fused", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:227",
               mm["ent_matmul_packed_fused"], at_decode, ent_t["ent_matmul_packed_fused"],
-              design=(f"M <= {M_STREAM} (decode): the split-K weight stream of "
-                      "csrc/int8_stream.cuh (64-column strips x K slices, 16-byte cp.async "
-                      "ring, __byte_perm transpose to dp4a words, atomics + ticket, one "
-                      "launch); larger M: the tile loop of csrc/int8_tile.cuh"),
-              route_launches={
-                  "stream": ent_routes["ent_matmul_packed_fused[stream]"],
-                  "tile": ent_t["ent_matmul_packed_fused"]
-                  - ent_routes["ent_matmul_packed_fused[stream]"]},
-              stream_vs_tile=k1s,
-              build={lab: rec for lab, rec in tc_build.items() if lab.startswith("stream")}),
+              **routed("ent_matmul_packed_fused")),
         entry("flash_attention_masked", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/flash_attention.py:145", k2,
               lambda rows: next(r for r in rows if r["S"] == 512 and r["window"] is None),
@@ -2061,7 +2376,7 @@ def main():
               f"{paged}:109", k3, lambda rows: rows[0], ent_t["paged_attention_kernel"]),
         entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
               "src/repro/kernels/int8_matmul/int8_matmul.py:47", mm["int8_matmul"],
-              at_decode, int8["int8_matmul"]),
+              at_decode, int8["int8_matmul"], **routed("int8_matmul")),
         entry("paged_attention_kernel[int8_kv]", "src/repro_torch/csrc/paged_attention.cu",
               f"{paged}:109", k3i, lambda rows: rows[0],
               int8["paged_attention_kernel[int8_kv]"],

@@ -12,12 +12,18 @@
 //     int8 Xq, digit planes P [4, K, N] in {-2..2}: acc = sum_i (Xq @ P_i) * 4^i
 //
 // and out = (float(acc) * sx) * sw, for per-row sx [M, 1] and per-channel
-// sw [1, N].  The tile loop, its bit-exactness and its bounds are
-// described in int8_tile.cuh; kernel 1 at the decode shape (M <= M_STREAM,
-// the wrapper's cut) takes the split-K weight stream of int8_stream.cuh
-// instead (ent_matmul_packed_fused_stream).
+// sw [1, N].  Kernel 1 has three loops, each bit-identical to the plain
+// version: the split-K weight stream of int8_stream.cuh at the decode
+// shape (M <= M_STREAM, the wrapper's cut; ent_matmul_packed_fused_stream),
+// the int8 tensor-core loop of int8_tc.cuh above it
+// (ent_matmul_packed_fused_tc), and the CUDA-core tile loop of
+// int8_tile.cuh (ent_matmul_packed_fused), kept for chip_smoke.py to time
+// beside them.  Kernels 4 and 5 (ent_matmul_planes) take the tile loop:
+// no serving or training path launches them.  Each header describes its
+// loop's bit-exactness and bounds.
 
 #include "int8_stream.cuh"
+#include "int8_tc.cuh"
 #include "int8_tile.cuh"
 
 extern "C" int ent_matmul_packed_fused(const void* x, int x_is_bf16,
@@ -51,10 +57,31 @@ extern "C" int ent_matmul_packed_fused_stream(const void* x, int x_is_bf16,
                                          kslice, splits, st);
 }
 
-// Dynamic shared memory in bytes of the stream's launch at (mb, kslice), as
-// its launcher sizes it, for chip_smoke.py's build report.
+// Kernel 1 through the int8 tensor-core loop, with the wrapper's plan
+// (kslice, splits) and, for splits > 1, the stream's workspace and tickets.
+extern "C" int ent_matmul_packed_fused_tc(const void* x, int x_is_bf16, const int8_t* planes,
+                                          const float* sx, const float* sw, void* out,
+                                          int out_kind, int* ws, long long ws_len,
+                                          int* tickets, int n_tickets, int M, int N, int K,
+                                          int kslice, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    return ent_tc::launch<__nv_bfloat16, 2, 4>(
+        static_cast<const __nv_bfloat16*>(x), planes, sx, sw, out, out_kind, ws, ws_len,
+        tickets, n_tickets, M, N, K, kslice, splits, st);
+  return ent_tc::launch<float, 2, 4>(static_cast<const float*>(x), planes, sx, sw, out,
+                                     out_kind, ws, ws_len, tickets, n_tickets, M, N, K, kslice,
+                                     splits, st);
+}
+
+// Dynamic shared memory in bytes of the stream's launch at (mb, kslice) and
+// of the tensor-core loop's (bf16 or f32 X), as their launchers size them,
+// for chip_smoke.py's build report.
 extern "C" int ent_matmul_stream_smem(int mb, int kslice) {
   return ent_stream::smem_bytes<2>(mb, kslice);
+}
+extern "C" int ent_matmul_tc_smem(int x_is_bf16) {
+  return x_is_bf16 ? ent_tc::smem_bytes<__nv_bfloat16, 2>() : ent_tc::smem_bytes<float, 2>();
 }
 
 // int8 X; nplanes 2 (packed, shift 4) or 4 (digit planes, shift 2)

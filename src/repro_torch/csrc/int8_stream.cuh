@@ -1,7 +1,9 @@
-// The split-K weight stream: kernel 1 (ent_matmul_packed_fused) at the
-// decode shape, M <= M_STREAM rows (the wrapper's cut; larger M takes the
-// tile loop of int8_tile.cuh, unchanged).  It computes what the tile loop
-// computes, parameterised the same way (X prologue, plane count, shift):
+// The split-K weight stream: kernels 1 (ent_matmul_packed_fused, two
+// planes, f32 / bf16 X) and 6 (int8_matmul, one plane, int8 X) at the
+// decode shape, M <= M_STREAM rows (each wrapper's cut; larger M takes the
+// tensor-core loop of int8_tc.cuh).  It computes what the tile loop of
+// int8_tile.cuh computes, parameterised the same way (X prologue, plane
+// count, shift):
 //
 //   Xq  = X (int8), or clip(rint(X / sx), -127, 127) from f32/bf16 X
 //   acc = sum_i (Xq @ P_i) * 2^(SHIFT * i)       (int32, exact)
@@ -10,18 +12,19 @@
 // with the tile loop's quantize / store helpers, so each result is
 // bit-identical to the plain version (ref.py) and to the tile loop.
 //
-// What bounds it on the H100: at M = 8 the planes (NP K N bytes, 45 MB at
-// K = 2048, N = 11008) are read once against 2 NP M K N int8 operations,
-// far below the card's ops / byte balance: memory bandwidth, ~13.5 us at
-// 3.35 TB/s.  The tile loop pads M = 8 to 64 rows, reads the planes a
-// byte at a time with a stride of N and launches N / 64 blocks (4 for
-// N = 256), so it streams far below that rate.  Design:
+// What bounds it on the H100: at M = 8 the planes (NP K N bytes at K =
+// 2048, N = 11008: 45 MB for kernel 1, 22.5 MB for kernel 6) are read once
+// against 2 NP M K N int8 operations, far below the card's ops / byte
+// balance: memory bandwidth, ~13.5 / ~6.7 us at 3.35 TB/s.  The tile loop
+// pads M = 8 to 64 rows, reads the planes a byte at a time with a stride of
+// N and launches N / 64 blocks (4 for N = 256), so it streams far below
+// that rate.  Design:
 //
 // * Grid: column strips of BN = 64 x K slices x M chunks of MB rows.  The
 //   wrapper's stream_plan sizes the K slices (multiples of KSTEP = 16 rows)
 //   so that every serving shape gives at least 2 blocks per SM.
 // * Weight stream: the planes stay in the record's layout, [NP, K, N] int8
-//   row-major.  Each block streams its slice through a ring of STAGES
+//   row-major.  Each block streams its slice through a ring of 8 / NP
 //   stages of BK = 64 rows x 64 columns per plane with 16-byte cp.async
 //   loads along N (a plain byte path where N is not a multiple of 16 or
 //   at a ragged edge, zero outside the slice).  Rows are padded to 80
@@ -32,8 +35,8 @@
 //   acc += dp4a(Xq, P0) + dp4a(Xq, P1) * 16 for each of its MB rows (one
 //   int32 sum per row and column: both planes in the same pass).
 // * X: each block quantizes its own K slice of its rows into shared memory
-//   (the oracle's __fdiv_rn and rintf), while its first stages load; Xq
-//   never goes to HBM.
+//   (the oracle's __fdiv_rn and rintf; int8 X is copied as it is), while
+//   its first stages load; Xq never goes to HBM.
 // * Split-K: the 16 k lanes of a column are summed by a shuffle and through
 //   shared memory; with one slice the block applies the epilogue itself.
 //   Otherwise it adds its int32 sums into a workspace [M, N] with atomics
@@ -56,7 +59,10 @@ constexpr int THREADS = 256;
 constexpr int BN = 64;          // columns of a strip
 constexpr int BK = 64;          // k rows of a stage
 constexpr int ROW = BN + 16;    // padded shared row, bytes
-constexpr int STAGES = 4;
+// stages of the ring: 4 at two planes, 8 at one, so that a ring holds the
+// same 40 KB in flight at both
+template <int NP>
+constexpr int STAGES = 8 / NP;
 constexpr int KSTEP = 16;       // the K slices are multiples of KSTEP rows
 constexpr int CG = BN / 4;      // column groups of 4 (threads per k word)
 static_assert(THREADS == CG * (BK / 4), "one k word and one column group per thread");
@@ -89,7 +95,7 @@ __device__ __forceinline__ void transpose4(unsigned r0, unsigned r1, unsigned r2
 
 template <int NP>
 __host__ __device__ constexpr int ring_bytes() {
-  return STAGES * NP * BK * ROW;
+  return STAGES<NP> * NP * BK * ROW;
 }
 
 template <typename XT, int NP, int SHIFT, int MB, typename OT>
@@ -101,7 +107,7 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ planes,
   static_assert(8 * MB * BN * 4 <= ring_bytes<NP>(), "the k-lane sums fit in the ring");
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int last;
-  uint8_t* ring = smem;                                        // [STAGES][NP][BK][ROW]
+  uint8_t* ring = smem;                                        // [STAGES<NP>][NP][BK][ROW]
   int* xs = reinterpret_cast<int*>(smem + ring_bytes<NP>());   // [MB][XW]
   const int XW = (kslice + BK - 1) / BK * (BK / 4);            // whole stages of k words
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -112,7 +118,7 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ planes,
   const size_t pstride = static_cast<size_t>(K) * N;
 
   auto load_stage = [&](int i) {
-    uint8_t* buf = ring + (i % STAGES) * NP * BK * ROW;
+    uint8_t* buf = ring + (i % STAGES<NP>) * NP * BK * ROW;
 #pragma unroll
     for (int j = 0; j < NP; ++j) {
       const int q = tid + j * THREADS;                // chunk: plane, row, 16 columns
@@ -134,7 +140,7 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ planes,
   };
 
 #pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
+  for (int i = 0; i < STAGES<NP> - 1; ++i) {
     if (i < nst) load_stage(i);
     cp_commit();
   }
@@ -161,11 +167,11 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ planes,
     for (int c = 0; c < 4; ++c) acc[mm][c] = 0;
 
   for (int i = 0; i < nst; ++i) {
-    cp_wait<STAGES - 2>();
+    cp_wait<STAGES<NP> - 2>();
     __syncthreads();   // stage i landed (and xs written); stage i - 1 consumed
-    if (i + STAGES - 1 < nst) load_stage(i + STAGES - 1);
+    if (i + STAGES<NP> - 1 < nst) load_stage(i + STAGES<NP> - 1);
     cp_commit();
-    const uint8_t* buf = ring + (i % STAGES) * NP * BK * ROW + 4 * kw * ROW + 4 * cg;
+    const uint8_t* buf = ring + (i % STAGES<NP>) * NP * BK * ROW + 4 * kw * ROW + 4 * cg;
     unsigned col[NP][4];
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
@@ -297,9 +303,6 @@ int launch(const XT* x, const int8_t* planes, const float* sx, const float* sw, 
     case 8:
       return launch_mb<XT, NP, SHIFT, 8>(x, planes, sx, sw, out, out_kind, ws, tickets, M, N,
                                          K, kslice, splits, vec, st);
-    case 16:
-      return launch_mb<XT, NP, SHIFT, 16>(x, planes, sx, sw, out, out_kind, ws, tickets, M, N,
-                                          K, kslice, splits, vec, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

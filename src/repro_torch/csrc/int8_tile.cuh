@@ -1,15 +1,18 @@
-// The int8 tile loop shared by the port's four serving matmuls
-// (ent_matmul.cu, int8_matmul.cu), parameterised by the X prologue, the
+// The CUDA-core int8 tile loop, parameterised by the X prologue, the
 // number of weight planes and the shift that combines them:
 //
 //   Xq  = X (int8), or clip(rint(X / sx), -127, 127) from f32/bf16 X
 //   acc = sum_i (Xq @ P_i) * 2^(SHIFT * i)       (int32, exact)
 //   out = (float(acc) * sx) * sw  in f32 or bf16, or acc itself (int32)
 //
-//   int8_matmul              1 plane  (the int8 weight), shift 0
-//   ent_matmul (4-plane)     4 planes in {-2..2},        shift 2
-//   ent_matmul_packed        2 packed planes in [-10, 10], shift 4
-//   ent_matmul_packed_fused  the same, quantizing X in the prologue
+// It serves kernels 4 (ent_matmul_packed: 2 packed planes in [-10, 10],
+// shift 4, int8 X) and 5 (ent_matmul, the legacy 4 digit planes in
+// {-2..2}, shift 2), which no serving or training path launches.
+// Kernels 1 (ent_matmul_packed_fused) and 6 (int8_matmul) take the
+// split-K stream (int8_stream.cuh) at decode and the int8 tensor-core
+// loop (int8_tc.cuh) above it; they keep an entry into this loop only
+// for chip_smoke.py to time it beside them.  The quantize / x_byte /
+// store helpers and the output kinds here are shared by all three loops.
 //
 // Quantization divides (IEEE __fdiv_rn) and rounds half to even (rintf),
 // exactly like the plain version quantize_rows (ref.py); integer
@@ -20,17 +23,14 @@
 //
 // What bounds it on the H100: at decode (M = 8 slots) the planes are read
 // once per call, NP*K*N bytes against ~2*NP*M*K*N int8 ops, far below
-// the card's ops/byte balance, so memory bandwidth bounds it.  At
-// admission prefill (M = 256..512) the int8 operations dominate.
-// Design (simple first): 64x64 output tiles, 256 threads, each thread
-// owns 4x4 outputs for every plane; per 64-deep k step the block loads
-// (and, fused, quantizes) its X tile and packs 4 consecutive k of X and
-// of each plane column into 32-bit words in shared memory, then __dp4a
-// accumulates 4 int8 products per instruction into int32.  Ragged M, N
-// and K edges are masked (zero-filled) in the loads.  The planes stream
-// from HBM once per row tile.  A faster loop (int8 mma/wgmma, TMA
-// pipelining, split-K for the narrow N=256 and the K=11008 projections)
-// is later work.
+// the card's ops/byte balance, so memory bandwidth bounds it; at M = 512
+// the int8 operations do.  Design (simple first): 64x64 output tiles,
+// 256 threads, each thread owns 4x4 outputs for every plane; per 64-deep
+// k step the block loads (and, fused, quantizes) its X tile and packs 4
+// consecutive k of X and of each plane column into 32-bit words in
+// shared memory, then __dp4a accumulates 4 int8 products per instruction
+// into int32.  Ragged M, N and K edges are masked (zero-filled) in the
+// loads.  The planes stream from HBM once per row tile.
 #pragma once
 
 #include <cuda_bf16.h>

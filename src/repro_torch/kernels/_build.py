@@ -39,9 +39,17 @@ ENTRY_POINTS = {
         "ent_matmul_packed_fused": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "ent_matmul_packed_fused_stream": [_P, _I, _P, _P, _P, _P, _I, _P, ctypes.c_longlong,
                                            _P] + [_I] * 7 + [_P],
+        "ent_matmul_packed_fused_tc": [_P, _I, _P, _P, _P, _P, _I, _P, ctypes.c_longlong,
+                                       _P] + [_I] * 6 + [_P],
         "ent_matmul_stream_smem": [_I, _I],
+        "ent_matmul_tc_smem": [_I],
         "ent_matmul_planes": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]},
-    "int8_matmul": {"int8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
+    "int8_matmul": {
+        "int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+        "int8_matmul_stream": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 7 + [_P],
+        "int8_matmul_tc": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 6 + [_P],
+        "int8_matmul_stream_smem": [_I, _I],
+        "int8_matmul_tc_smem": []},
     "flash_attention": {
         "flash_attention_masked": [_P] * 5 + [_I] * 10 + [_F, _P],
         "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],

@@ -9,13 +9,18 @@ digit-plane matmuls (replacing the Pallas kernels of
 
 On a CUDA tensor a wrapper launches its kernel or raises; only CPU
 tensors take the plain PyTorch version.  Each wrapper's ``launches``
-counts its kernel launches.  ``ent_matmul_packed_fused`` has two loops:
-up to ``M_STREAM`` rows (the decode shape) the split-K weight stream of
-``csrc/int8_stream.cuh``, counted in ``.stream_launches`` among its
-``.launches``; above, the tile loop of ``csrc/int8_tile.cuh``, which the
-other two wrappers always take.  ``out_dtype`` is float32 (the default, as
-in the reference), bfloat16, or int32 for the int32 accumulator itself
-(no epilogue: the quantity the ``*_int32_ref`` oracles return).
+counts its kernel launches.  ``ent_matmul_packed_fused`` (kernel 1), like
+``int8_matmul`` (kernel 6), routes by M: up to ``M_STREAM`` rows (the
+decode shape; each wrapper has its own cut) the split-K weight stream of
+``csrc/int8_stream.cuh``, counted in ``.stream_launches``; above, the int8
+tensor-core loop of ``csrc/int8_tc.cuh``, counted in ``.tc_launches``,
+both among its ``.launches``.  The CUDA-core tile loop of
+``csrc/int8_tile.cuh`` serves the other two wrappers (kernels 4 and 5,
+which no serving or training path launches); ``chip_smoke.py`` times it
+beside the two routes.
+``out_dtype`` is float32 (the default, as in the reference), bfloat16, or
+int32 for the int32 accumulator itself (no epilogue: the quantity the
+``*_int32_ref`` oracles return).
 """
 
 from __future__ import annotations
@@ -33,17 +38,26 @@ NUM_PLANES = 4
 # the kernels' output kinds (csrc/int8_tile.cuh, OutKind)
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
-# Kernel 1 takes the split-K weight stream up to M_STREAM rows, the tile
-# loop above: the stream was faster at every M timed, 8 to 64, on all four
-# qwen2.5-3b projection shapes (PERF.md)
-M_STREAM = 64
+# Kernel 1 takes the split-K weight stream up to M_STREAM rows, the
+# tensor-core loop above: the largest M of chip_smoke.py's check_cut table
+# for kernel 1 (M = 8, 16, 32, 64, 96, 128) up to which the stream takes
+# less time than the tensor-core loop over a layer's seven qwen2.5-3b
+# projections (PERF.md).  Kernel 6 has its own cut (int8_matmul.py).
+M_STREAM = 16
 # the stream's strip width, K-slice step and cap, and rows a block
-# (csrc/int8_stream.cuh: BN, KSTEP; the instantiated MB): the plan is made
-# here, and the launcher refuses one that does not fit its own constants
+# (csrc/int8_stream.cuh: BN, KSTEP; the instantiated MB: larger M runs in
+# chunks of 8 rows): the plan is made here, and the launcher refuses one
+# that does not fit its own constants
 STREAM_BN = 64
 STREAM_KSTEP = 16
 STREAM_KSLICE_MAX = 2048
-STREAM_MB = (4, 8, 16)
+STREAM_MB = (4, 8)
+# the tensor-core loop's output tile and k step (csrc/int8_tc.cuh: BM, BN,
+# BK), and the fewest k steps a K slice of it takes
+TC_BM = 128
+TC_BN = 128
+TC_BK = 128
+TC_MIN_STEPS = 2
 
 
 def stream_plan(m: int, n: int, k: int, sms: int):
@@ -63,12 +77,31 @@ def stream_plan(m: int, n: int, k: int, sms: int):
     return mb, kslice, splits, (strips, splits, chunks)
 
 
+def tc_plan(m: int, n: int, k: int, sms: int):
+    """The tensor-core loop's launch plan for X [m, k] x planes [., k, n]
+    on a card of ``sms`` SMs (one block an SM): (kslice rows a K slice,
+    splits, grid (M tiles, N tiles, splits)).  Where the output tiles fill
+    more than half the SMs, K is not split; otherwise it is cut into as
+    many slices of whole TC_BK steps (TC_MIN_STEPS at least) as fit in one
+    wave, since a split that spills into a second wave takes longer than
+    none.  The last slice may be shorter."""
+    tiles = -(-m // TC_BM) * -(-n // TC_BN)
+    steps = max(1, -(-k // TC_BK))
+    splits = 1
+    if 2 * tiles <= sms:
+        splits = max(1, min(sms // tiles, steps // TC_MIN_STEPS))
+    kslice = -(-steps // splits) * TC_BK
+    splits = max(1, -(-k // kslice))
+    return kslice, splits, (-(-m // TC_BM), -(-n // TC_BN), splits)
+
+
 _sms: dict = {}           # device -> SM count
 _workspaces: dict = {}    # (device, CUDA stream) -> (int32 sums, int32 tickets)
 
 
 def _stream_workspace(key, sums: int, tickets: int):
-    """The stream's split-K workspace for ``key`` = (device, CUDA stream):
+    """The split-K workspace of the stream and the tensor-core loop (of
+    kernels 1 and 6) for ``key`` = (device, CUDA stream):
     int32 sums and ticket counters, allocated zeroed and grown when a call
     needs more.  Every call leaves them zero for the next one; calls on one
     CUDA stream run in turn, and each CUDA stream has its own."""
@@ -129,39 +162,69 @@ def ent_matmul_packed_fused(x, packed, scale_x, scale_w, out_dtype=torch.float32
         if out_dtype == torch.int32:
             return ent_packed_matmul_int32_ref(xq, packed)
         return ent_packed_matmul_ref(xq, packed, scale_x, scale_w, out_dtype)
-    return _launch_fused(x, packed, scale_x, scale_w, out_dtype, m <= M_STREAM)
+    return _launch_fused(x, packed, scale_x, scale_w, out_dtype, route_of(m))
 
 
-def _launch_fused(x, packed, scale_x, scale_w, out_dtype, stream: bool):
-    """Launch kernel 1 on checked card operands through the split-K stream
-    (``stream``) or the tile loop; the wrapper chooses by M, chip_smoke.py
-    calls this to time the two loops at one M."""
+def route_of(m: int, cut: int | None = None) -> str:
+    """The route kernel 1 takes at ``m`` rows, or kernel 6 with its own
+    ``cut``: the stream up to the cut, the tensor-core loop above."""
+    return "stream" if m <= (M_STREAM if cut is None else cut) else "tc"
+
+
+_FUSED_ENTRIES = {"stream": "ent_matmul_packed_fused_stream",
+                  "tc": "ent_matmul_packed_fused_tc", "tile": "ent_matmul_packed_fused"}
+
+
+def _launch_fused(x, packed, scale_x, scale_w, out_dtype, route: str):
+    """Launch kernel 1 on checked card operands through ``route``
+    ("stream", "tc" or "tile"); the wrapper chooses by M, chip_smoke.py
+    calls this to time the three loops at one M."""
     m, k = x.shape
     n = packed.shape[-1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    args = (x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
+    lead = (x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
             scale_x.data_ptr(), scale_w.data_ptr(), out.data_ptr(), OUT_KINDS[out_dtype])
-    if stream:
-        dev, cuda_stream = x.device, _build.stream_of(x)
-        if dev not in _sms:
-            _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-        mb, kslice, splits, (strips, _, chunks) = stream_plan(m, n, k, _sms[dev])
-        ws = tk = None
-        if splits > 1:
-            ws, tk = _stream_workspace((dev, cuda_stream), m * n, strips * chunks)
-        fn = _build.entry("ent_matmul", "ent_matmul_packed_fused_stream")
-        rc = fn(*args, None if ws is None else ws.data_ptr(), 0 if ws is None else ws.numel(),
-                None if tk is None else tk.data_ptr(), 0 if tk is None else tk.numel(),
-                m, n, k, mb, kslice, splits, cuda_stream)
-    else:
-        fn = _build.entry("ent_matmul", "ent_matmul_packed_fused")
-        rc = fn(*args, m, n, k, _build.stream_of(x))
+    rc = launch_route("ent_matmul", _FUSED_ENTRIES, lead, x, m, n, k, route)
     _build.check(rc, "ent_matmul_packed_fused")
-    ent_matmul_packed_fused.launches += 1
-    ent_matmul_packed_fused.stream_launches += stream
+    count_launch(ent_matmul_packed_fused, route)
     return out
+
+
+def launch_route(source, entries, lead, x, m, n, k, route: str) -> int:
+    """Call ``route``'s C entry point of ``csrc/<source>.cu`` (``entries``:
+    route -> name) with the operand arguments ``lead``, then, for the
+    stream and the tensor-core loop, the split-K workspace and tickets
+    (None, 0 when K is not split), the shape and the route's plan; returns
+    the entry point's error code."""
+    if route not in entries:
+        raise ValueError(f"route must be one of {tuple(entries)}, got {route!r}")
+    cuda_stream = _build.stream_of(x)
+    fn = _build.entry(source, entries[route])
+    if route == "tile":
+        return fn(*lead, m, n, k, cuda_stream)
+    dev = x.device
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    if route == "stream":
+        mb, kslice, splits, (strips, _, chunks) = stream_plan(m, n, k, _sms[dev])
+        plan, tickets = (mb, kslice, splits), strips * chunks
+    else:
+        kslice, splits, (mt, nt, _) = tc_plan(m, n, k, _sms[dev])
+        plan, tickets = (kslice, splits), mt * nt
+    ws = tk = None
+    if splits > 1:
+        ws, tk = _stream_workspace((dev, cuda_stream), m * n, tickets)
+    return fn(*lead, None if ws is None else ws.data_ptr(), 0 if ws is None else ws.numel(),
+              None if tk is None else tk.data_ptr(), 0 if tk is None else tk.numel(),
+              m, n, k, *plan, cuda_stream)
+
+
+def count_launch(wrapper, route: str) -> None:
+    wrapper.launches += 1
+    wrapper.stream_launches += route == "stream"
+    wrapper.tc_launches += route == "tc"
 
 
 def _planes_call(wrapper, x, planes, scale_x, scale_w, out_dtype, nplanes,
@@ -203,5 +266,6 @@ def ent_matmul(x, planes, scale_x, scale_w, out_dtype=torch.float32):
 
 ent_matmul_packed_fused.launches = 0
 ent_matmul_packed_fused.stream_launches = 0
+ent_matmul_packed_fused.tc_launches = 0
 ent_matmul_packed.launches = 0
 ent_matmul.launches = 0

@@ -1,8 +1,9 @@
-"""Kernel 1's split-K weight stream (``csrc/int8_stream.cuh``), the parts
-that run on the CPU: its launch plan (``stream_plan``), the wrapper's
-choice of loop by M, the plain version that CPU tensors take, and the
-operand checks.  The kernel itself runs only on the card, where
-``chip_smoke.py`` holds it bit for bit against the plain version.
+"""Kernel 1's two routes, the split-K weight stream (``csrc/int8_stream.cuh``)
+and the int8 tensor-core loop (``csrc/int8_tc.cuh``), the parts that run on
+the CPU: their launch plans (``stream_plan``, ``tc_plan``), the wrapper's
+choice of route by M, the plain version that CPU tensors take, and the
+operand checks.  The kernels themselves run only on the card, where
+``chip_smoke.py`` holds them bit for bit against the plain version.
 
 The route test drives the wrapper with ``meta`` tensors (not CPU, so the
 wrapper takes its kernel branch) and a recorder in place of the built
@@ -73,7 +74,7 @@ def recorder(monkeypatch):
     monkeypatch.setattr(em._build, "stream_of", lambda t: 0)
     monkeypatch.setitem(em._sms, meta, SMS)
     monkeypatch.setattr(em, "_workspaces", {})
-    for name in ("launches", "stream_launches"):
+    for name in ("launches", "stream_launches", "tc_launches"):
         monkeypatch.setattr(em.ent_matmul_packed_fused, name, 0)
     return rec
 
@@ -91,43 +92,91 @@ def test_wrapper_routes_decode_rows_to_the_stream(recorder, m):
     f = em.ent_matmul_packed_fused
     for k, n in QWEN + [(1000, 300)]:
         recorder.calls.clear()
-        before = f.launches, f.stream_launches
+        before = f.launches, f.stream_launches, f.tc_launches
         out = f(*_meta_operands(m, k, n), torch.bfloat16)
         assert out.shape == (m, n) and out.dtype == torch.bfloat16
         (fname, args), = recorder.calls
         assert f.launches == before[0] + 1
+        assert args[6] == em.OUT_KINDS[torch.bfloat16]
         if m <= em.M_STREAM:
             assert fname == "ent_matmul_packed_fused_stream"
-            assert f.stream_launches == before[1] + 1
+            assert (f.stream_launches, f.tc_launches) == (before[1] + 1, before[2])
             mb, kslice, splits, (strips, _, chunks) = em.stream_plan(m, n, k, SMS)
             assert args[11:17] == (m, n, k, mb, kslice, splits)
-            assert args[6] == em.OUT_KINDS[torch.bfloat16]
-            # a workspace exactly when K is split: int32 [M, N] sums, one ticket a
-            # strip, handed over with their lengths for the launcher's check
-            if splits > 1:
-                ws, tk = em._workspaces[(torch.device("meta"), 0)]
-                assert ws.numel() >= m * n and tk.numel() >= strips * chunks
-                assert ws.dtype == tk.dtype == torch.int32
-                assert (args[8], args[10]) == (ws.numel(), tk.numel())
-            else:
-                assert args[7:11] == (None, 0, None, 0)
+            tickets = strips * chunks
+        else:   # prefill sizes of M: the tensor-core loop
+            assert fname == "ent_matmul_packed_fused_tc"
+            assert (f.stream_launches, f.tc_launches) == (before[1], before[2] + 1)
+            kslice, splits, (mt, nt, _) = em.tc_plan(m, n, k, SMS)
+            assert args[11:16] == (m, n, k, kslice, splits) and len(args) == 17
+            tickets = mt * nt
+        # a workspace exactly when K is split: int32 [M, N] sums, one ticket a
+        # strip or tile, handed over with their lengths for the launcher's check
+        if splits > 1:
+            ws, tk = em._workspaces[(torch.device("meta"), 0)]
+            assert ws.numel() >= m * n and tk.numel() >= tickets
+            assert ws.dtype == tk.dtype == torch.int32
+            assert (args[8], args[10]) == (ws.numel(), tk.numel())
         else:
-            assert fname == "ent_matmul_packed_fused" and f.stream_launches == before[1]
-            assert args[7:10] == (m, n, k)
+            assert args[7:11] == (None, 0, None, 0)
 
 
 def test_wrapper_loop_override(recorder):
-    """The launch helper chip_smoke.py times the two loops with takes the
+    """The launch helper chip_smoke.py times the three loops with takes the
     loop it is given, whatever M, and counts it as the wrapper does; the
     public wrapper has no override."""
-    em._launch_fused(*_meta_operands(64, 2048, 256), torch.float32, True)
-    em._launch_fused(*_meta_operands(8, 2048, 256), torch.float32, False)
+    em._launch_fused(*_meta_operands(64, 2048, 256), torch.float32, "stream")
+    em._launch_fused(*_meta_operands(8, 2048, 256), torch.float32, "tile")
+    em._launch_fused(*_meta_operands(8, 2048, 256), torch.float32, "tc")
     assert [c[0] for c in recorder.calls] == ["ent_matmul_packed_fused_stream",
-                                              "ent_matmul_packed_fused"]
-    assert em.ent_matmul_packed_fused.launches == 2
-    assert em.ent_matmul_packed_fused.stream_launches == 1
+                                              "ent_matmul_packed_fused",
+                                              "ent_matmul_packed_fused_tc"]
+    assert recorder.calls[1][1][7:10] == (8, 256, 2048)
+    f = em.ent_matmul_packed_fused
+    assert (f.launches, f.stream_launches, f.tc_launches) == (3, 1, 1)
+    with pytest.raises(ValueError):
+        em._launch_fused(*_meta_operands(8, 2048, 256), torch.float32, "dp4a")
     with pytest.raises(TypeError):
         em.ent_matmul_packed_fused(*_meta_operands(8, 64, 64), loop="tile")
+
+
+TC_SHAPES = QWEN + [(1000, 300), (16, 7), (5, 64), (20000, 64), (300, 4096)]
+
+
+@pytest.mark.parametrize("k,n", TC_SHAPES, ids=[f"{k}x{n}" for k, n in TC_SHAPES])
+def test_tc_plan_covers_every_tile_and_k_once(k, n):
+    """Every output element lies in exactly one (M tile, N tile) of the
+    grid, and every k in exactly one K slice of whole TC_BK steps (the last
+    may be shorter), at every M the tensor-core route takes, the small M
+    that chip_smoke.py also runs on it (the cut table, the decode tick's
+    route comparison) and more."""
+    for m in (1, 3, 8, em.M_STREAM + 1, 96, 128, 129, 260, 505, 512, 4096):
+        kslice, splits, (mt, nt, gsplits) = em.tc_plan(m, n, k, SMS)
+        assert gsplits == splits >= 1
+        assert mt * em.TC_BM >= m > (mt - 1) * em.TC_BM
+        assert nt * em.TC_BN >= n > (nt - 1) * em.TC_BN
+        assert kslice % em.TC_BK == 0 and kslice > 0
+        if splits > 1:
+            assert kslice >= em.TC_MIN_STEPS * em.TC_BK
+        seen = np.zeros(k, dtype=np.int64)
+        for lo, hi in _slices(k, kslice, splits):
+            assert lo < hi
+            seen[lo:hi] += 1
+        assert (seen == 1).all(), m
+
+
+@pytest.mark.parametrize("k,n", QWEN, ids=[f"{k}x{n}" for k, n in QWEN])
+def test_tc_plan_fills_the_card_in_one_wave(k, n):
+    """At the prefill sizes of M, the grid fills at least half the SMs
+    wherever the tiles and K allow it (a split needs TC_MIN_STEPS steps),
+    and a split never spills into a second wave."""
+    for m in (em.M_STREAM + 1, 128, 260, 384, 505, 512):
+        kslice, splits, grid = em.tc_plan(m, n, k, SMS)
+        tiles, blocks = grid[0] * grid[1], int(np.prod(grid))
+        steps = -(-k // em.TC_BK)
+        if splits > 1:
+            assert blocks <= SMS, (m, grid)
+        assert 2 * blocks > SMS or blocks == tiles * max(1, steps // em.TC_MIN_STEPS), (m, grid)
 
 
 def test_workspace_grows_and_is_reused(recorder):
