@@ -10,8 +10,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    per source, all at once), and report the registers, spills and shared
    memory (``-Xptxas -v``) and HGMMA / IGMMA / HMMA (IDP4A) counts
    (``cuobjdump``, where the toolkit has it) of the tensor-core kernels (7,
-   7b, 7c, kernel 2's masked instantiations and the int8 loop of kernels 1
-   and 6) and of the split-K stream of kernels 1 and 6;
+   7b, 7c, kernel 2's masked instantiations, the int8 loop of kernels 1
+   and 6, kernel 8's three launches and kernel 8c) and of the split-K
+   stream of kernels 1 and 6;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
    w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
@@ -69,24 +70,29 @@ Phases (each prints its seconds; any failure exits non-zero):
    7 / 7b / 7c checked against 160 / 80 / 80, all on the tensor-core
    route, with no plain D_i pass (``bwd_delta``: 7c writes D_i for 7b),
    then one more step under ``torch.profiler``;
-9. the SSD kernels: the scan (kernel 8) against ``ssd_scan_fwd_ref`` (y
-   and each chunk's entering state) and its backward (8b the state
-   gradients, 8c the chunk's gradients) against ``ssd_scan_bwd_ref``,
-   all five gradients, float32, at SSD_SHAPES (mamba2-370m's training
-   call, jamba's 8 groups, one short chunk), per element within limits
-   derived in ``ssd_units``, with planted faults (the carried state not
-   decayed, the mask off by one, dh not carried, dB / dC of one head of
-   a group, da of the first chunk) that must fail; bfloat16 and L %
-   chunk != 0 must raise on the card; each kernel and its plain version
-   timed at the training step's call (B=4, L=4096, H=32);
+9. the SSD kernels: the scan (kernel 8: each chunk's own state, the
+   carry from chunk to chunk, the outputs; split-bf16 three-pass products
+   on the tensor cores) against ``ssd_scan_fwd_ref`` (y and each chunk's
+   entering state) and its backward (8b the state gradients on CUDA
+   cores, 8c the chunk's gradients on the tensor cores) against
+   ``ssd_scan_bwd_ref``, all five gradients, float32, at SSD_SHAPES
+   (mamba2-370m's training call, jamba's 8 groups, one short chunk), per
+   element within limits derived in ``ssd_units``, with planted faults
+   (the carried state not decayed, the mask off by one, dh not carried,
+   dB / dC of one head of a group, da of the first chunk) that must fail;
+   bfloat16 and L % chunk != 0 must raise on the card; each kernel and its
+   plain version timed at the training step's call (B=4, L=4096, H=32)
+   beside its bytes bound, its three-pass tensor-core bound and its f32
+   CUDA-core bound;
 10. loss and every gradient leaf of full-width mamba2-370m at 2 layers
    (S=1024) with the kernels and with the plain versions, bf16 and
    float32, with planted faults in the SSD wrappers, and remat full and
    dots against no remat;
 11. 3 training steps of full-width mamba2-370m (48 layers, seq 4096,
    global batch 8, microbatch 4, remat full), each step's launches of
-   kernels 8 / 8b / 8c checked against 192 / 96 / 96, then one more
-   step under ``torch.profiler``;
+   kernels 8 / 8b / 8c checked against 192 / 96 / 96, and of each of
+   kernel 8's three launches (states, carry, outputs) against 192, then
+   one more step under ``torch.profiler``;
 12. a ``kernels`` JSON line, the card line, and the final result line.
 
 Without a CUDA card it prints nothing but an error and exits 2.
@@ -1056,6 +1062,7 @@ SSD_SHAPES = [(1, 4096, 32, 64, 1, 128, 128), (2, 1024, 64, 64, 8, 128, 128),
               (1, 64, 32, 64, 1, 128, 128)]
 SSD_TIME_SHAPE = (4, 4096, 32, 64, 1, 128, 128)
 SSD_KERNELS = ("ssd_scan", "ssd_scan_bwd_state", "ssd_scan_bwd_chunk")
+SSD_FWD_PARTS = ("states", "carry", "out")   # kernel 8's three launches
 
 
 def ssd_inputs(torch, gen, shape):
@@ -1195,6 +1202,11 @@ def ssd_bounds(shape):
     }
 
 
+# kernels 8 and 8c take their chunk products as three bf16 tensor-core
+# passes (split-bf16); 8b stays on the f32 CUDA cores
+SSD_TC = ("ssd_scan", "ssd_scan_bwd_chunk")
+
+
 def check_ssd(torch, timer):
     """Kernels 8, 8b and 8c at SSD_SHAPES, float32: the forward's y and
     h0s against ``ssd_scan_fwd_ref`` (``ssd_scan_chunked`` with its
@@ -1202,9 +1214,13 @@ def check_ssd(torch, timer):
     gradients of 8b + 8c against ``ssd_scan_bwd_ref``, per element
     within (TOL_F32 + E) units (``ssd_units``); planted faults must read
     above 1.  What the wrappers do not take must raise on the card.  Then
-    all three, their plain versions and their bounds at SSD_TIME_SHAPE.
-    No single PyTorch call computes the SSD scan: library_ms is None.
-    Returns {kernel: [row per shape]}."""
+    all three, their plain versions and their bounds at SSD_TIME_SHAPE:
+    bytes at the HBM rate against operations at the f32 CUDA-core peak
+    (``f32_bound_ms``) and, for SSD_TC, against three bf16 passes at the
+    tensor-core peak (``bound_ms``); and one profiled run of the three
+    for their device time by CUDA kernel (kernel 8 is three).  No single
+    PyTorch call computes the SSD scan: library_ms is None.  Returns
+    {kernel: [row per shape]}."""
     from repro_torch.kernels.ssd_scan.ref import (ssd_scan_bwd_chunk_ref,
                                                   ssd_scan_bwd_state_ref, ssd_scan_fwd_ref)
     from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan, ssd_scan_bwd,
@@ -1343,12 +1359,37 @@ def check_ssd(torch, timer):
         ms = timer(kern)
         plain_ms = timer(plain, reps=3)
         nbytes, flops = bounds[name]
-        bnd, by = bound_ms(nbytes, flops, F32_FLOPS_S)
+        f32_bnd, f32_by = bound_ms(nbytes, flops, F32_FLOPS_S)
+        bnd, by = (bound_ms(nbytes, 3 * flops, BF16_FLOPS_S) if name in SSD_TC
+                   else (f32_bnd, f32_by))
         print(f"kernel {name} {tag} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
-              f"bound_ms={bnd:.5f} ({by}; {flops:.4e} flops, {nbytes:.4e} bytes) "
-              f"max_abs_err={errs[name]:.3e}", flush=True)
+              f"bound_ms={bnd:.5f} ({by}; {flops:.4e} flops"
+              + (", x3 bf16 passes" if name in SSD_TC else "")
+              + f", {nbytes:.4e} bytes; bytes alone {nbytes / HBM_BYTES_S * 1e3:.5f}) "
+              f"f32_bound_ms={f32_bnd:.5f} ({f32_by}) max_abs_err={errs[name]:.3e}",
+              flush=True)
         rows[name].append(dict(shape=tag, ms=ms, plain_ms=plain_ms, library_ms=None,
-                               bound_ms=bnd, bound_by=by, max_abs_err=errs[name]))
+                               bound_ms=bnd, bound_by=by, f32_bound_ms=f32_bnd,
+                               max_abs_err=errs[name]))
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            for kern, _ in cases.values():
+                kern()
+        torch.cuda.synchronize()
+    launches = {}   # kernel name -> (device ms, launches) over the traced launches
+    for ev in prof.events():
+        us = getattr(ev, "device_time_total", 0)
+        if us and "ssd" in ev.name and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            name = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
+            ms, k = launches.get(name, (0.0, 0))
+            launches[name] = (ms + us / 1e3, k + 1)
+    by_kernel = {name: ms / k for name, (ms, k) in launches.items()}
+    print(f"  SSD device ms a launch by CUDA kernel ({tag}; launches traced): "
+          + ", ".join(f"{k} {v:.4f} ({launches[k][1]})" for k, v in sorted(by_kernel.items())),
+          flush=True)
+    rows["ssd_scan"][-1]["device_ms_by_kernel"] = by_kernel
     del x, dt, a, bm, cm, dy, y, h0s, dhs, grads
     torch.cuda.empty_cache()
     return rows
@@ -1434,7 +1475,8 @@ def reset_counts(torch):
     kernels, plains, paged = wrappers(torch)
     for f in kernels:
         f.launches = 0
-        for route in ("tc_launches", "stream_launches"):
+        for route in ("tc_launches", "stream_launches",
+                      *(f"{part}_launches" for part in SSD_FWD_PARTS)):
             if hasattr(f, route):
                 setattr(f, route, 0)
     paged.int8_kv_launches = 0
@@ -1443,11 +1485,15 @@ def reset_counts(torch):
 
 
 def read_counts(torch):
-    """(kernel launches by JSON name, plain versions run by op name)."""
+    """(kernel launches by JSON name, and by ``ssd_scan[<part>]`` each of
+    kernel 8's three launches; plain versions run by op name)."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     kernels, plains, paged = wrappers(torch)
     launches = {f.__name__: f.launches for f in kernels}
     launches["paged_attention_kernel"] = paged.launches - paged.int8_kv_launches
     launches["paged_attention_kernel[int8_kv]"] = paged.int8_kv_launches
+    for part in SSD_FWD_PARTS:
+        launches[f"ssd_scan[{part}]"] = getattr(ssd_scan, f"{part}_launches")
     return launches, {f.__name__: f.plain_launches for f in plains}
 
 
@@ -1994,7 +2040,8 @@ TRAIN_RUNS = {
     "minicpm-2b": (dict(seq_len=4096, global_batch=2, microbatch=1, remat="full"),
                    dict(zip(TRAIN_KERNELS, (2, 1, 1))), TC_KERNELS),
     "mamba2-370m": (dict(seq_len=4096, global_batch=8, microbatch=4, remat="full"),
-                    dict(zip(SSD_KERNELS, (2, 1, 1))), ()),
+                    {**dict(zip(SSD_KERNELS, (2, 1, 1))),
+                     **{f"ssd_scan[{part}]": 2 for part in SSD_FWD_PARTS}}, ()),
 }
 
 
@@ -2119,6 +2166,9 @@ def _build_label(fn):
     if (m := re.search(r"(flash_fwd_masked_tc|flash_fwd_tc|flash_bwd_dkdv_tc|flash_bwd_dq_tc)"
                        r"ILi(\d+)E", fn)):
         return f"{m.group(1)}<{m.group(2)}>"
+    if (m := re.search(r"(ssd_fwd_states_kernel|ssd_fwd_carry_kernel|ssd_fwd_out_kernel|"
+                       r"ssd_bwd_chunk_kernel)", fn)):
+        return m.group(1)
     if (m := re.search(r"stream_kernelI13__nv_bfloat16Li2ELi4ELi(\d+)EfE", fn)):
         return f"stream_kernel<bf16,2,4,{m.group(1)},float>"
     if (m := re.search(r"stream_kernelIaLi1ELi0ELi(\d+)EfE", fn)):
@@ -2168,8 +2218,8 @@ def _scan_build(report, source, ops):
 
 def tc_build_report():
     """Registers and spills of the tensor-core kernels (2, 7, 7b, 7c; the
-    int8 loop of kernels 1 and 6) and of the split-K stream of kernels 1
-    and 6 from this run's build (``nvcc -Xptxas -v``), their HGMMA / IGMMA
+    int8 loop of kernels 1 and 6; kernel 8's three launches and 8c) and
+    of the split-K stream of kernels 1 and 6 from this run's build (``nvcc -Xptxas -v``), their HGMMA / IGMMA
     (int8 wgmma) / HMMA (the stream: IDP4A) instruction counts where the
     toolkit has ``cuobjdump``, and their dynamic shared memory as the
     built libraries size it.  Returns {kernel: record}."""
@@ -2203,6 +2253,15 @@ def tc_build_report():
                     "smem_bytes": tc_smem(int(x == "bf16")) if np_ == 2 else tc_smem()}
         _scan_build(recs, source, ("HGMMA", "IGMMA", "HMMA", "IDP"))
         report.update(recs)
+    # kernel 8's three launches and kernel 8c (split-bf16 wgmma; the carry
+    # kernel has no product and no dynamic shared memory)
+    ssd_smem = _build.entry("ssd_scan", "ssd_scan_smem")
+    recs = {"ssd_fwd_states_kernel": {"smem_bytes": ssd_smem(0)},
+            "ssd_fwd_carry_kernel": {"smem_bytes": 0},
+            "ssd_fwd_out_kernel": {"smem_bytes": ssd_smem(1)},
+            "ssd_bwd_chunk_kernel": {"smem_bytes": ssd_smem(2)}}
+    _scan_build(recs, "ssd_scan", ("HGMMA", "HMMA"))
+    report.update(recs)
     for lab, rec in report.items():
         print(f"  {lab}: {rec.get('registers', 'not reported (library cached)')} registers, "
               f"spill stores / loads {rec.get('spill_bytes', 'not reported')} bytes, "
@@ -2432,9 +2491,33 @@ def main():
                              f"{flash}:92", k7[name], at_train, tr["launches"][name],
                              **extra))
     ssd = "src/repro/kernels/ssd_scan/ssd_scan.py"
+    ssd_designs = {
+        "ssd_scan": (
+            "three launches: each chunk's own state (x w)^T B (one block per chunk, "
+            "head, batch; wgmma m64n64k16, both operands MN-major), the carry h <- h "
+            "exp(cum_Q) + s_c in place (bytes only), the outputs exp(cum_i) C h0^T + "
+            "(C B^T L dt) X (one block per chunk, head, batch, two warpgroups of 64 rows; "
+            "the masked scores as split register A operands); every product split-bf16 "
+            "three-pass (hi hi + hi lo + lo hi, f32 accumulate)"),
+        "ssd_scan_bwd_state": "f32 CUDA cores, one block per (head, batch) walking the chunks",
+        "ssd_scan_bwd_chunk": (
+            "one block per (chunk, head, batch), two warpgroups of 64 rows; G = dy x^T "
+            "and W = G L into a causal [Q, Q] tile, then per half of N: S += C B^T, dC = "
+            "exp(cum) dy h0 + (W dt) B (register A), dB = dt (tail x dh + W^T C), dx += "
+            "B dh^T; then M = S L dt into the tile, dx += M^T dy, and a one-warp tail "
+            "(warp scans); every product split-bf16 three-pass"),
+    }
     for name in SSD_KERNELS:
         extra = dict(launches_per_step=tm["expected"][name],
-                     launches_from="3 training steps of full-width mamba2-370m")
+                     launches_from="3 training steps of full-width mamba2-370m",
+                     f32_bound_ms=k8[name][-1]["f32_bound_ms"], design=ssd_designs[name])
+        if name == "ssd_scan":
+            extra["launches_by_part"] = {part: tm["launches"][f"ssd_scan[{part}]"]
+                                         for part in SSD_FWD_PARTS}
+            extra["build"] = {lab: tc_build[lab] for lab in (
+                "ssd_fwd_states_kernel", "ssd_fwd_carry_kernel", "ssd_fwd_out_kernel")}
+        if name == "ssd_scan_bwd_chunk":
+            extra["build"] = {"ssd_bwd_chunk_kernel": tc_build["ssd_bwd_chunk_kernel"]}
         if name != "ssd_scan":
             extra["note"] = ("backward of ssd_scan (:72); the reference has no backward "
                              "kernel and differentiates ssd_scan_chunked "

@@ -58,9 +58,12 @@ ENTRY_POINTS = {
         "flash_attention_tc_smem": [_I, _I]},
     "paged_attention": {"paged_attention": [_P] * 9 + [_I] * 8 + [_F, _P]},
     "ssd_scan": {
-        "ssd_scan_fwd": [_P] * 7 + [_I] * 8 + [_P],
+        "ssd_fwd_states": [_P] * 6 + [_I] * 7 + [_P],
+        "ssd_fwd_carry": [_P] * 2 + [_I] * 5 + [_P],
+        "ssd_fwd_out": [_P] * 7 + [_I] * 8 + [_P],
         "ssd_scan_bwd_state": [_P] * 5 + [_I] * 8 + [_P],
-        "ssd_scan_bwd_chunk": [_P] * 13 + [_I] * 7 + [_P]},
+        "ssd_scan_bwd_chunk": [_P] * 13 + [_I] * 7 + [_P],
+        "ssd_scan_smem": [_I]},
 }
 
 _entries: dict = {}      # (source, function) -> bound ctypes function

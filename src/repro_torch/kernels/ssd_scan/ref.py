@@ -41,6 +41,13 @@ group; y [B, L, H, P].  Per head the recurrence over a [P, N] state is
   ddt_j += a dda_j and da += sum_j dt_j dda_j.  dB and dC are summed
   over the heads of each group, da over batch rows and chunks.
 
+``einsum`` (default ``torch.einsum``) takes every chunk product of
+``ssd_scan_fwd_ref`` and ``ssd_scan_bwd_chunk_ref``: ``split_bf16_einsum``
+emulates the tensor-core kernels' split-bf16 three-pass products (each
+operand a = hi + lo, hi = bf16(a), lo = bf16(a - hi); a b taken as hi hi
++ hi lo + lo hi, accumulated in f32), ``bf16_einsum`` one bf16 pass.  No
+path of the port uses them: they are for the tests.
+
 Everything is computed in float32 (float64 for float64 inputs, which
 the gradient checks use); ``ssd_scan_ref`` and ``ssd_scan_chunked``
 return x's dtype, as the reference.
@@ -107,6 +114,25 @@ def ssd_decode_step_ref(h_state, xt, dtt, a, bt, ct):
     return h_state, torch.einsum("bhpn,bhn->bhp", h_state, ct)
 
 
+def _split_bf16(t):
+    """(hi, lo) of float32 ``t`` as float32 tensors holding bf16 values."""
+    hi = t.to(torch.bfloat16).to(t.dtype)
+    return hi, (t - hi).to(torch.bfloat16).to(t.dtype)
+
+
+def split_bf16_einsum(eq, a, b):
+    """``torch.einsum(eq, a, b)`` as the SSD kernels' tensor cores take it:
+    hi hi + hi lo + lo hi of the split operands, each product exact and
+    summed in float32."""
+    (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
+    return torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+
+
+def bf16_einsum(eq, a, b):
+    """One bf16 pass: both operands rounded to bf16, summed in float32."""
+    return torch.einsum(eq, _split_bf16(a)[0], _split_bf16(b)[0])
+
+
 def _chunk_operands(x, dt, a, b, c, chunk):
     """f32 operands split into chunks: x [B, nc, Q, H, P], dt [B, nc, Q, H],
     b / c per head [B, nc, Q, H, N], cum (inclusive in-chunk cumsum of
@@ -126,17 +152,17 @@ def _chunk_operands(x, dt, a, b, c, chunk):
     return xf, dtf, bf, cf, cum, torch.exp(ldecay)
 
 
-def ssd_scan_fwd_ref(x, dt, a, b, c, chunk: int = 128):
+def ssd_scan_fwd_ref(x, dt, a, b, c, chunk: int = 128, einsum=torch.einsum):
     """The chunk algorithm: (y f32 [B, L, H, P], h0s f32 [B, H, nc, P, N],
     each chunk's entering state; the first is zeros).  Differentiable."""
     xf, dtf, bf, cf, cum, decay = _chunk_operands(x, dt, a, b, c, chunk)
     bsz, nc, q, h, p = xf.shape
-    scores = (torch.einsum("bcihn,bcjhn->bchij", cf, bf) * decay
+    scores = (einsum("bcihn,bcjhn->bchij", cf, bf) * decay
               * dtf.transpose(2, 3)[..., None, :])
-    y = torch.einsum("bchij,bcjhp->bcihp", scores, xf)
+    y = einsum("bchij,bcjhp->bcihp", scores, xf)
     # each chunk's own state contribution, then the chunk-to-chunk carry
     wj = torch.exp(cum[:, :, -1:, :] - cum) * dtf                # [B, nc, Q, H]
-    own = torch.einsum("bcjhp,bcjhn->bchpn", xf * wj[..., None], bf)
+    own = einsum("bcjhp,bcjhn->bchpn", xf * wj[..., None], bf)
     carry = torch.exp(cum[:, :, -1])                             # [B, nc, H]
     state = torch.zeros_like(own[:, 0])
     h0s = []
@@ -144,7 +170,7 @@ def ssd_scan_fwd_ref(x, dt, a, b, c, chunk: int = 128):
         h0s.append(state)
         state = state * carry[:, ci, :, None, None] + own[:, ci]
     h0s = torch.stack(h0s, dim=2)                                # [B, H, nc, P, N]
-    y = y + (torch.einsum("bcihn,bhcpn->bcihp", cf, h0s)
+    y = y + (einsum("bcihn,bhcpn->bcihp", cf, h0s)
              * torch.exp(cum)[..., None])
     return y.reshape(bsz, nc * q, h, p), h0s
 
@@ -173,7 +199,8 @@ def ssd_scan_bwd_state_ref(dt, a, c, dy, chunk: int = 128):
     return torch.stack(dhs[::-1], dim=2)
 
 
-def ssd_scan_bwd_chunk_ref(x, dt, a, b, c, h0s, dhs, dy, chunk: int = 128):
+def ssd_scan_bwd_chunk_ref(x, dt, a, b, c, h0s, dhs, dy, chunk: int = 128,
+                           einsum=torch.einsum):
     """(dx [B, L, H, P], ddt [B, L, H], da [H], db, dc [B, L, G, N]), all
     f32, from each chunk's entering state h0s and leaving-state gradient
     dhs (see the module docstring for the formulas)."""
@@ -185,27 +212,27 @@ def ssd_scan_bwd_chunk_ref(x, dt, a, b, c, h0s, dhs, dy, chunk: int = 128):
     dh = _wide(dhs).transpose(1, 2)
     dt_j = dtf.transpose(2, 3)[..., None, :]                     # [B, nc, H, 1, Q]
 
-    s = torch.einsum("bcihn,bcjhn->bchij", cf, bf)
-    w = torch.einsum("bcihp,bcjhp->bchij", dyf, xf) * decay
+    s = einsum("bcihn,bcjhn->bchij", cf, bf)
+    w = einsum("bcihp,bcjhp->bchij", dyf, xf) * decay
     ws = w * s
     ddt = ws.sum(-2).transpose(2, 3)                             # [B, nc, Q, H]
     t = ws * dt_j
     dcum = (t.sum(-1) - t.sum(-2)).transpose(2, 3)               # [B, nc, Q, H]
-    dx = torch.einsum("bchij,bcihp->bcjhp", s * decay * dt_j, dyf)
+    dx = einsum("bchij,bcihp->bcjhp", s * decay * dt_j, dyf)
     wd = w * dt_j
-    dc = torch.einsum("bchij,bcjhn->bcihn", wd, bf)
-    db = torch.einsum("bchij,bcihn->bcjhn", wd, cf)
+    dc = einsum("bchij,bcjhn->bcihn", wd, bf)
+    db = einsum("bchij,bcihn->bcjhn", wd, cf)
 
     # the entering state h0 and the leaving-state gradient dh
     tail = torch.exp(cum[:, :, -1:, :] - cum)                    # [B, nc, Q, H]
-    dc_state = torch.einsum("bchpn,bcihp->bcihn", h0, dyf) * torch.exp(cum)[..., None]
+    dc_state = einsum("bchpn,bcihp->bcihn", h0, dyf) * torch.exp(cum)[..., None]
     dc = dc + dc_state
     dcum = dcum + (cf * dc_state).sum(-1)
-    v = torch.einsum("bchpn,bcjhp->bcjhn", dh, xf) * tail[..., None]
+    v = einsum("bchpn,bcjhp->bcjhn", dh, xf) * tail[..., None]
     db = db + v * dtf[..., None]
     ddt_state = (bf * v).sum(-1)
     ddt = ddt + ddt_state
-    dx = dx + torch.einsum("bchpn,bcjhn->bcjhp", dh, bf) * (tail * dtf)[..., None]
+    dx = dx + einsum("bchpn,bcjhn->bcjhp", dh, bf) * (tail * dtf)[..., None]
     u = dtf * ddt_state
     dcum = dcum - u
     last = torch.exp(cum[:, :, -1]) * (h0 * dh).sum((-2, -1)) + u.sum(2)

@@ -2,17 +2,23 @@
 
 * ``ssd_scan``: the chunked SSD scan (kernel 8, replaces the Pallas
   ``ssd_scan``, ``repro/kernels/ssd_scan/ssd_scan.py:72``), which with
-  ``save_states`` also returns each chunk's entering state;
+  ``save_states`` also returns each chunk's entering state.  One call is
+  three launches: each chunk's own state (``states``), the carry from
+  chunk to chunk (``carry``) and the outputs (``out``);
 * ``ssd_scan_bwd_state`` and ``ssd_scan_bwd_chunk``: its backward
   (kernels 8b and 8c; the reference has no backward kernel), run
   together by ``ssd_scan_bwd``.
 
-On a CUDA tensor each wrapper launches its kernel or raises; only CPU
+On a CUDA tensor each wrapper launches its kernels or raises; only CPU
 tensors take the plain PyTorch version.  The kernels take float32
-operands, P = 64, N = 128 and chunks of at most 128 steps.  Each kernel
-wrapper's ``.launches`` counts its kernel's launches.  ``fault`` (0 on
-every path of the port) plants a kernel fault for ``chip_smoke.py``'s
-checks (see ``csrc/ssd_scan.cu``); it has no plain version.
+operands, P = 64, N = 128 and chunks of at most 128 steps; kernels 8 and
+8c run their chunk products on the tensor cores in split-bf16 three-pass
+form (``csrc/ssd_scan.cu`` has the error budget; ``ref.split_bf16_einsum``
+emulates it).  Each kernel wrapper's ``.launches`` counts its calls, and
+``ssd_scan.<part>_launches`` each of kernel 8's three launches.
+``fault`` (0 on every path of the port) plants a kernel fault for
+``chip_smoke.py``'s checks (see ``csrc/ssd_scan.cu``); it has no plain
+version.
 """
 
 from __future__ import annotations
@@ -64,13 +70,23 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, save_states: bool = False,
         return (y, h0s) if save_states else y
     _check_cuda(x, dt, a, b, c, p=p, n=n, chunk=q)
     y = torch.empty_like(x)
-    h0s = (torch.empty((bsz, h, nc, p, n), dtype=torch.float32, device=x.device)
-           if save_states else None)
-    rc = _build.entry("ssd_scan", "ssd_scan_fwd")(
+    h0s = torch.empty((bsz, h, nc, p, n), dtype=torch.float32, device=x.device)
+    cumq = torch.empty((bsz, h, nc), dtype=torch.float32, device=x.device)
+    stream = _build.stream_of(x)
+    rc = _build.entry("ssd_scan", "ssd_fwd_states")(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), h0s.data_ptr(),
+        cumq.data_ptr(), bsz, l, h, g, p, n, q, stream)
+    _build.check(rc, "ssd_fwd_states")
+    ssd_scan.states_launches += 1
+    rc = _build.entry("ssd_scan", "ssd_fwd_carry")(
+        cumq.data_ptr(), h0s.data_ptr(), bsz, l, h, q, fault, stream)
+    _build.check(rc, "ssd_fwd_carry")
+    ssd_scan.carry_launches += 1
+    rc = _build.entry("ssd_scan", "ssd_fwd_out")(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        y.data_ptr(), None if h0s is None else h0s.data_ptr(), bsz, l, h, g, p, n, q,
-        fault, _build.stream_of(x))
-    _build.check(rc, "ssd_scan_fwd")
+        h0s.data_ptr(), y.data_ptr(), bsz, l, h, g, p, n, q, fault, stream)
+    _build.check(rc, "ssd_fwd_out")
+    ssd_scan.out_launches += 1
     ssd_scan.launches += 1
     return (y, h0s) if save_states else y
 
@@ -132,5 +148,6 @@ def ssd_scan_bwd(x, dt, a, b, c, h0s, dy, *, chunk: int = 128):
 
 
 ssd_scan.launches = 0
+ssd_scan.states_launches = ssd_scan.carry_launches = ssd_scan.out_launches = 0
 ssd_scan_bwd_state.launches = 0
 ssd_scan_bwd_chunk.launches = 0
