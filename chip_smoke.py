@@ -11,8 +11,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    memory (``-Xptxas -v``) and HGMMA / IGMMA / HMMA (IDP4A) counts
    (``cuobjdump``, where the toolkit has it) of the tensor-core kernels (7,
    7b, 7c, kernel 2's masked instantiations, the int8 loop of kernels 1
-   and 6, kernel 8's three launches and kernel 8c) and of the split-K
-   stream of kernels 1 and 6;
+   and 6, kernel 8's three launches and kernel 8c), of the split-K
+   stream of kernels 1 and 6 and of the paged decode (3 and 3b);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
    w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
@@ -26,10 +26,14 @@ Phases (each prints its seconds; any failure exits non-zero):
    M_STREAM comes from);
    the flash kernel (bf16 on its tensor-core route, float32 on CUDA
    cores; ragged starts, a chunked prefill) and the paged attention
-   kernel, the latter with bf16 pools and with int8 pools + bf16 scales,
-   in bf16 and float32 within limits derived from the data (see
-   TOL_BF16).  Planted faults (a wrong weight or plane code, a wrong mask
-   argument, a wrong scale pool) must fail those checks.  Kernel, plain
+   kernel (split-KV, one launch), the latter with bf16 pools and with
+   int8 pools + bf16 scales, at the serving tick's shape, at G = 12 and
+   D = 64 with pos on split boundaries, and at long context (8 x 4096
+   tokens, timed beside its bytes bound), in bf16 and float32 within
+   limits derived from the data (see TOL_BF16), two calls bit-identical.
+   Planted faults (a wrong weight or plane code, a wrong mask argument, a
+   wrong scale pool, a combine that drops the last live split) must fail
+   those checks.  Kernel, plain
    version and a library yardstick are timed with CUDA events (L2 flushed
    by a read before every launch);
 4. serve 16 ragged greedy requests (prompts 256..512 tokens, 32 new
@@ -38,7 +42,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    configurations: EN-T w8a8 with a bf16 KV cache, and w8a8 int8
    (``QuantConfig(ent_encode=False)``) with an int8 KV cache.  Each
    asserts that the kernels of its path launched, no other serving
-   kernel and no plain version ran, that every decode tick and every
+   kernel and no plain version ran, that every decode tick launched the
+   paged decode once per layer (36) and no prefill did, that every
+   decode tick and every
    prefill launched its matmul once per projection and layer (252; the
    decode ticks' all on the split-K stream, the prefills' all on the
    tensor-core loop) and kernel 2 once per layer per prefill (36), all on
@@ -465,7 +471,7 @@ def check_launchers_refuse(torch):
             kslice, splits, (mt, nt, _) = em.tc_plan(m, n, k, sms)
             plan, tickets, step = (), mt * nt, em.TC_BK
         assert splits > 1, (route, splits)
-        ws, tk = em._stream_workspace((x.device, _build.stream_of(x)), m * n, tickets)
+        ws, tk = _build.stream_workspace((x.device, _build.stream_of(x)), m * n, tickets)
         fused = _build.entry("ent_matmul", f"ent_matmul_packed_fused_{route}")
         for what, ws_len, n_tk, ks in (("tickets", m * n, tickets - 1, kslice),
                                        ("sums", m * n - 1, tickets, kslice),
@@ -721,19 +727,39 @@ def check_flash(torch, timer):
     return rows
 
 
-def check_paged(torch, timer, int8_kv=False):
-    """The paged decode kernel at 8 slots against its plain version, with
-    bf16 pools or (``int8_kv``) int8 pools and bf16 scale pools as
-    ``quantize_kv`` writes them.  The int8 branch's limits are the same
-    att|v| multiples (TOL_BF16, TOL_F32), with att|v| the plain version
-    applied to |codes| and the same scales: the kernel and the plain
-    version both fold the V scale into the f32 probability before its
-    bf16 rounding, so the rounding argument above holds per column."""
-    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_kernel
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+# The paged decode's checked calls (kernels 3 and 3b): name -> (B, Hq, Hkv,
+# D, page, pps, pos, start, null table entries (slot, page), last slot
+# idle).  "tick": the serving tick's shape (qwen2.5-3b's heads, 8 slots of
+# <= 576 tokens), ragged pos and start, null entries inside live ranges.
+# "G12": Hq 24 over Hkv 2 at D 64 with 32-token pages, one page a split
+# on the H100 (split_plan): slot 0's pos the first column of a split (its
+# last live split holds one column), slot 1's the last column of one, a
+# null page inside slot 1's range, slot 2 a few columns in one split.
+# PAGED_LONG (8 slots x 4096 tokens, the long-context timing) and
+# PAGED_WIDE are checked without planted faults, which move a long row's
+# output by less than the limit.  PAGED_WIDE: 33 slots x 8 kv heads (B Hkv
+# >= 2 SMs: the plan alone fills the card, one split a row but for
+# split_plan's cap of MAX_RUN_PAGES) of up to 54,400 tokens in 32-token
+# pages, D 64 and G 1 to keep the plain version's gathers small; ragged pos
+# and start, null entries inside live ranges.
+PAGED_CASES = {
+    "tick": (8, 16, 2, 128, 16, 36, (300, 511, 270, 543, 289, 400, 17, 0),
+             (0, 200, 14, 31, 0, 399, 3, 0), ((1, 3), (3, 10)), True),
+    "G12": (4, 24, 2, 64, 32, 16, (320, 255, 40, 0), (0, 64, 37, 0), ((1, 4),), True),
+}
+PAGED_LONG = (8, 16, 2, 128, 16, 256, (4095,) * 8, (0,) * 8, (), False)
+PAGED_WIDE = (33, 8, 8, 64, 32, 1700, tuple(54399 - 1013 * i for i in range(33)),
+              tuple(7 * i for i in range(33)), ((0, 5), (17, 600)), False)
+
+
+def paged_case(torch, spec, int8_kv, seed=13):
+    """One paged decode call's operands on the card: q, the pools (bf16,
+    or int8 with bf16 scale pools as ``quantize_kv`` writes them), the
+    block table (each live slot's pages [0, pos / page] on distinct pool
+    pages, then the null entries), pos and start."""
     from repro_torch.models.kv_cache import quantize_kv
-    g = torch.Generator(device=DEV).manual_seed(13)
-    b, hq, hkv, d, page, pps = 8, 16, 2, 128, 16, 36
+    b, hq, hkv, d, page, pps, pos, start, nulls, idle = spec
+    g = torch.Generator(device=DEV).manual_seed(seed)
     npool = b * pps + 1
     q = torch.randn((b, hq, 1, d), generator=g, device=DEV).to(torch.bfloat16)
     kp = torch.randn((npool, page, hkv, d), generator=g, device=DEV).to(torch.bfloat16)
@@ -742,52 +768,112 @@ def check_paged(torch, timer, int8_kv=False):
     if int8_kv:
         (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
         scales = (ks, vs)
-    pos = torch.tensor([300, 511, 270, 543, 289, 400, 17, 0], dtype=torch.int32)
-    start = torch.tensor([0, 200, 14, 31, 0, 399, 3, 0], dtype=torch.int32)
+    pos = torch.tensor(pos, dtype=torch.int32)
+    start = torch.tensor(start, dtype=torch.int32)
     table = torch.zeros((b, pps), dtype=torch.int32)
     perm = torch.randperm(npool - 1, generator=torch.Generator().manual_seed(0)) + 1
-    for i in range(b - 1):          # slot 7 idle: all-null row
-        live = int(pos[i]) // page + 1
+    for i in range(b - idle):
+        live = min(pps, int(pos[i]) // page + 1)
         table[i, :live] = perm[i * pps:i * pps + live].to(torch.int32)
-    table[1, 3] = 0                 # null entries inside live ranges
-    table[3, 10] = 0
-    table, pos, start = table.to(DEV), pos.to(DEV), start.to(DEV)
+    for i, j in nulls:
+        table[i, j] = 0
+    return q, kp, vp, table.to(DEV), pos.to(DEV), start.to(DEV), scales
 
-    def kernel(q, kp, vp, pos, ks=None, vs=None):
-        return paged_attention_kernel(q, kp, vp, table, pos, start, ks, vs,
-                                      page_size=page)
 
-    def plain_fn(q, kp, vp, pos, ks=None, vs=None):
-        return paged_attention_ref(q, kp, vp, table, pos, start, page_size=page,
-                                   k_scales=ks, v_scales=vs)
-
-    faults = {"pos - 1": lambda q, kp, vp, pos, *sc: kernel(q, kp, vp, pos - 1, *sc)}
-    if int8_kv:
-        faults["V scale not folded"] = lambda q, kp, vp, pos, ks, vs: kernel(
-            q, kp, vp, pos, ks, torch.ones_like(vs))
-        faults["K scale of the neighbouring page"] = lambda q, kp, vp, pos, ks, vs: kernel(
-            q, kp, vp, pos, ks.roll(1, 0), vs)
-    name = "paged_attention_kernel[int8_kv]" if int8_kv else "paged_attention_kernel"
-    err = attn_check(torch, name, kernel, plain_fn, (q, kp, vp, pos, *scales), faults)
-    got = kernel(q, kp, vp, pos, *scales)
-    plain = lambda: plain_fn(q, kp, vp, pos, *scales)   # noqa: E731
-    ms = timer(lambda: kernel(q, kp, vp, pos, *scales))
-    plain_ms = timer(plain, reps=5)
-    # what this run's data needs: live (non-null, in-band) pages, valid columns
+def paged_bound(torch, q, table, pos, start, page, hkv, int8_kv):
+    """(bound ms, bound_by, live pages) of one call: q, the K and V rows of
+    the valid columns (mapped, start <= j <= pos) with their bf16 row
+    scales when int8, the table, pos and start read once, the f32 output
+    written once; the score and value products of the valid columns at the
+    bf16 peak.  Live pages (non-null, meeting [start, pos]) are counted
+    for the report."""
+    b, hq, _, d = q.shape
+    pps = table.shape[1]
     cols = torch.arange(pps * page, device=DEV)[None, :]
     mapped = torch.repeat_interleave(table != 0, page, dim=1)
     valid = mapped & (cols <= pos[:, None]) & (cols >= start[:, None])
     live_pages = int(valid.reshape(b, pps, page).any(-1).sum())
-    # K and V pages (with their bf16 row scales when int8) read once
     row_bytes = (d + 2) if int8_kv else 2 * d
-    nbytes = (q.numel() * 2 + live_pages * page * hkv * row_bytes * 2
-              + table.numel() * 4 + 8 * b + got.numel() * 4)
-    bnd, by = bound_ms(nbytes, int(valid.sum()) * hq * d * 4, BF16_FLOPS_S)
-    print(f"kernel {name} B={b} Hq={hq} Hkv={hkv} D={d} page={page} "
-          f"pps={pps} live_pages={live_pages} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms=None bound_ms={bnd:.5f} ({by}) max_abs_err={err}", flush=True)
-    return [dict(B=b, live_pages=live_pages, ms=ms, plain_ms=plain_ms,
-                 library_ms=None, bound_ms=bnd, bound_by=by, max_abs_err=err)]
+    cols_valid = int(valid.sum())
+    nbytes = (q.numel() * 2 + cols_valid * hkv * row_bytes * 2
+              + table.numel() * 4 + 8 * b + q.numel() * 4)
+    bnd, by = bound_ms(nbytes, cols_valid * hq * d * 4, BF16_FLOPS_S)
+    return bnd, by, live_pages
+
+
+def check_paged(torch, timer, int8_kv=False):
+    """Kernel 3 (bf16 pools) or 3b (``int8_kv``: int8 pools and bf16 scale
+    pools as ``quantize_kv`` writes them) against its plain version at
+    PAGED_CASES, PAGED_LONG and PAGED_WIDE through ``attn_check``, bf16 (the
+    tensor-core route) and float32 (the CUDA-core route).  The int8
+    branch's limits are the same att|v| multiples (TOL_BF16, TOL_F32),
+    with att|v| the plain version applied to |codes| and the same scales:
+    the kernel and the plain version both fold the V scale into the f32
+    probability before its bf16 rounding, so the rounding argument above
+    holds per column, and the split's own running max moves a rounding
+    by no more (``csrc/paged_attention.cu``).  Planted faults: pos - 1,
+    the combine dropping the last live split, and with int8 pools the V
+    scale not folded and the K scale of the neighbouring page.  Two calls
+    on the same inputs must be equal bit for bit; each case is timed
+    against the plain version.  Returns rows, the tick's first."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.paged_attention.paged_attention import (MAX_RUN_PAGES,
+                                                                     paged_attention_kernel,
+                                                                     split_plan)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    name = "paged_attention_kernel[int8_kv]" if int8_kv else "paged_attention_kernel"
+    rows = []
+    for case, spec in (*PAGED_CASES.items(), ("long", PAGED_LONG), ("wide", PAGED_WIDE)):
+        b, hq, hkv, d, page, pps = spec[:6]
+        q, kp, vp, table, pos, start, scales = paged_case(torch, spec, int8_kv)
+        pages, splits = split_plan(b, hkv, pps, sm_count(q.device))
+        if case == "G12" and (int(pos[0]) % (pages * page) or (int(pos[1]) + 1) % (pages * page)):
+            raise AssertionError(f"{name} [G12]: pos {pos.tolist()} is not on split boundaries "
+                                 f"of {pages} pages")
+        if case == "wide" and pages != MAX_RUN_PAGES:
+            raise AssertionError(f"{name} [wide]: the plan is {pages} pages a split, not "
+                                 f"split_plan's cap of {MAX_RUN_PAGES}")
+
+        def kernel(q, kp, vp, pos, ks=None, vs=None, fault=0, table=table, start=start,
+                   page=page):
+            return paged_attention_kernel(q, kp, vp, table, pos, start, ks, vs,
+                                          page_size=page, fault=fault)
+
+        def plain_fn(q, kp, vp, pos, ks=None, vs=None, table=table, start=start, page=page):
+            return paged_attention_ref(q, kp, vp, table, pos, start, page_size=page,
+                                       k_scales=ks, v_scales=vs)
+
+        faults = {}
+        if case in PAGED_CASES:
+            faults = {"pos - 1": lambda q, kp, vp, pos, *sc, k=kernel: k(q, kp, vp, pos - 1, *sc),
+                      "combine drops the last live split":
+                          lambda q, kp, vp, pos, *sc, k=kernel: k(q, kp, vp, pos, *sc, fault=1)}
+            if int8_kv:
+                faults["V scale not folded"] = lambda q, kp, vp, pos, ks, vs, k=kernel: k(
+                    q, kp, vp, pos, ks, torch.ones_like(vs))
+                faults["K scale of the neighbouring page"] = \
+                    lambda q, kp, vp, pos, ks, vs, k=kernel: k(q, kp, vp, pos, ks.roll(1, 0), vs)
+        what = f"{name} [{case}: B={b} Hq={hq} Hkv={hkv} D={d} page={page} pps={pps}]"
+        err = attn_check(torch, what, kernel, plain_fn, (q, kp, vp, pos, *scales), faults)
+        for dt in (torch.bfloat16, torch.float32):   # the same inputs, the same bits
+            ops = [t.to(dt) if t.is_floating_point() else t for t in (q, kp, vp)]
+            first = kernel(*ops, pos, *scales)
+            if not torch.equal(first, kernel(*ops, pos, *scales)):
+                raise AssertionError(f"{what} {dt}: two calls on the same inputs differ")
+        args = (q, kp, vp, pos, *scales)
+        ms = timer(lambda: kernel(*args))
+        plain_ms = timer(lambda: plain_fn(*args), reps=5)
+        bnd, by, live_pages = paged_bound(torch, q, table, pos, start, page, hkv, int8_kv)
+        print(f"kernel {name} [{case}] B={b} Hq={hq} Hkv={hkv} D={d} page={page} pps={pps} "
+              f"split {pages} pages x {splits} ({b * hkv * splits} blocks) "
+              f"live_pages={live_pages} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+              f"bound_ms={bnd:.5f} ({by}) max_abs_err={err}; two calls bit-identical",
+              flush=True)
+        rows.append(dict(case=case, B=b, Hq=hq, Hkv=hkv, D=d, page=page, pps=pps,
+                         pages_a_split=pages, splits=splits, live_pages=live_pages, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by,
+                         max_abs_err=err))
+    return rows
 
 
 def band_mask(torch, sq, skv, q_offset, causal, window):
@@ -1610,6 +1696,10 @@ def check_serve_routes(cfg, config, launches, routes, ticks):
     loop at prefill sizes of M, and kernel 2 once per prefill, all of it
     on the tensor-core route."""
     per = PROJECTIONS * cfg.num_layers
+    paged = launches["paged_attention_kernel"] + launches["paged_attention_kernel[int8_kv]"]
+    if paged != cfg.num_layers * ticks:
+        raise AssertionError(f"{config}: the paged decode launched {paged} times; expected "
+                             f"{cfg.num_layers} a tick ({ticks} ticks) and none a prefill")
     n2 = launches["flash_attention_masked"]
     prefills = n2 // cfg.num_layers
     if n2 != prefills * cfg.num_layers or routes["flash_attention_masked[tensor-core]"] != n2:
@@ -1627,7 +1717,8 @@ def check_serve_routes(cfg, config, launches, routes, ticks):
         raise AssertionError(f"{config}: {mm} launched {stream} times on the stream and {tc} on "
                              f"the tensor-core loop ({ticks} ticks, {prefills} prefills; "
                              f"expected {want})")
-    print(f"  {config}: {mm} {per} launches a tick and a prefill, every decode tick's on the "
+    print(f"  {config}: the paged decode {cfg.num_layers} launches a tick; "
+          f"{mm} {per} launches a tick and a prefill, every decode tick's on the "
           + ("split-K stream" if decode == "stream" else "tensor-core loop")
           + f", every prefill's on the tensor-core loop; kernel 2 {cfg.num_layers} a prefill, "
           "all tensor-core", flush=True)
@@ -2174,6 +2265,9 @@ def _build_label(fn):
     if (m := re.search(r"stream_kernelIaLi1ELi0ELi(\d+)EfE", fn)):
         return f"stream_kernel<int8,1,0,{m.group(1)},float>"
     types = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "float", "a": "int8", "i": "int"}
+    if (m := re.search(r"(paged_decode_tc|paged_decode_f32)I(13__nv_bfloat16|f|a)Lb[01]ELi(\d+)E",
+                       fn)):
+        return f"{m.group(1)}<{types[m.group(2)]},{m.group(3)}>"
     if (m := re.search(r"tc_kernelI(13__nv_bfloat16|f|a)Li(\d)ELi(\d)E(13__nv_bfloat16|S1_|f|i)E",
                        fn)):
         x = {"float": "f32"}.get(types[m.group(1)], types[m.group(1)])
@@ -2197,6 +2291,8 @@ def _scan_build(report, source, ops):
             continue
         if (m := re.search(r"Used (\d+) registers", line)):
             rec["registers"] = int(m.group(1))
+        if (m := re.search(r"(\d+) bytes smem", line)):
+            rec["static_smem_bytes"] = int(m.group(1))
         if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             rec["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
         if "Performance Loss" in line:
@@ -2218,11 +2314,13 @@ def _scan_build(report, source, ops):
 
 def tc_build_report():
     """Registers and spills of the tensor-core kernels (2, 7, 7b, 7c; the
-    int8 loop of kernels 1 and 6; kernel 8's three launches and 8c) and
-    of the split-K stream of kernels 1 and 6 from this run's build (``nvcc -Xptxas -v``), their HGMMA / IGMMA
-    (int8 wgmma) / HMMA (the stream: IDP4A) instruction counts where the
-    toolkit has ``cuobjdump``, and their dynamic shared memory as the
-    built libraries size it.  Returns {kernel: record}."""
+    int8 loop of kernels 1 and 6; kernel 8's three launches and 8c), of
+    the split-K stream of kernels 1 and 6 and of the paged decode (3 and
+    3b, both routes) from this run's build (``nvcc -Xptxas -v``), their
+    HGMMA / IGMMA (int8 wgmma) / HMMA (mma.sync; the stream: IDP4A)
+    instruction counts where the toolkit has ``cuobjdump``, and their
+    dynamic shared memory as the built libraries size it.  Returns
+    {kernel: record}."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.ent_matmul import ent_matmul as em
@@ -2262,10 +2360,27 @@ def tc_build_report():
             "ssd_bwd_chunk_kernel": {"smem_bytes": ssd_smem(2)}}
     _scan_build(recs, "ssd_scan", ("HGMMA", "HMMA"))
     report.update(recs)
+    # kernels 3 and 3b: the tensor-core kernel (bf16 q) and the CUDA-core one
+    # (float32 q), each pool type, D 128 and 64; dynamic shared memory at the
+    # plans of PAGED_CASES' tick (D 128) and G12 (D 64) calls
+    from repro_torch.kernels.paged_attention.paged_attention import split_plan
+    paged_smem = _build.entry("paged_attention", "paged_attention_smem")
+    recs = {}
+    for case in PAGED_CASES.values():
+        b, hq, hkv, d, page, pps = case[:6]
+        pp, splits = split_plan(b, hkv, pps, sms)
+        for kern, is_bf16 in (("paged_decode_tc", 1), ("paged_decode_f32", 0)):
+            for kv, int8 in (("int8", 1), ("bf16" if is_bf16 else "float", 0)):
+                recs[f"{kern}<{kv},{d}>"] = {"smem_bytes": paged_smem(
+                    is_bf16, int8, d, pp, page, hq // hkv, splits)}
+    _scan_build(recs, "paged_attention", ("HMMA",))
+    report.update(recs)
     for lab, rec in report.items():
         print(f"  {lab}: {rec.get('registers', 'not reported (library cached)')} registers, "
               f"spill stores / loads {rec.get('spill_bytes', 'not reported')} bytes, "
-              f"{rec['smem_bytes']} bytes of dynamic shared memory, HGMMA "
+              f"{rec['smem_bytes']} bytes of dynamic shared memory"
+              + (f" ({rec['static_smem_bytes']} static)" if rec.get("static_smem_bytes") else "")
+              + ", HGMMA "
               f"{rec.get('HGMMA', 'not counted (no cuobjdump)')}, HMMA "
               f"{rec.get('HMMA', 'not counted')}"
               + (f", IGMMA (s8 wgmma) {rec['IGMMA']}" if "IGMMA" in rec else "")
@@ -2385,6 +2500,25 @@ def main():
 
     ent = "src/repro/kernels/ent_matmul/ent_matmul.py"
     paged = "src/repro/kernels/paged_attention/paged_attention.py"
+
+    def paged_extra(rows, int8_kv):
+        """Kernels 3 and 3b: the design, each checked case's numbers
+        (the long-context one beside the tick's), launches in the other
+        serve configuration (0), the build."""
+        return dict(
+            design=("split-KV flash-decode in one launch: one block per (run of pages, kv "
+                    "head, slot) from split_plan, 16-byte cp.async of the run's K/V rows "
+                    "into a 3-stage ring of 32 rows; bf16 q on the tensor cores, each warp "
+                    "8 columns of a stage (S by mma.sync m16n8k16, P V by m16n8k8 over all "
+                    "of D, G q rows padded to 16), the warps merged in shared memory; "
+                    "float32 q on CUDA cores; the last block of each (slot, kv head) "
+                    "combines the runs' partials in split order (ticket, no second launch)"),
+            at_long_context=next(r for r in rows if r["case"] == "long"),
+            launches_by_path={c: serves[c][0]["paged_attention_kernel[int8_kv]" if int8_kv
+                                              else "paged_attention_kernel"]
+                              for c in SERVE_CONFIGS},
+            build={lab: rec for lab, rec in tc_build.items()
+                   if lab.startswith("paged_decode") and ("<int8," in lab) == int8_kv})
     config_of = dict(zip(MATMULS, SERVE_CONFIGS))   # kernel 1: EN-T, kernel 6: int8
 
     def routed(name):
@@ -2432,14 +2566,15 @@ def main():
                       "float32: the CUDA-core kernel"),
               build={lab: rec for lab, rec in tc_build.items() if "masked" in lab}),
         entry("paged_attention_kernel", "src/repro_torch/csrc/paged_attention.cu",
-              f"{paged}:109", k3, lambda rows: rows[0], ent_t["paged_attention_kernel"]),
+              f"{paged}:109", k3, lambda rows: rows[0], ent_t["paged_attention_kernel"],
+              **paged_extra(k3, False)),
         entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
               "src/repro/kernels/int8_matmul/int8_matmul.py:47", mm["int8_matmul"],
               at_decode, int8["int8_matmul"], **routed("int8_matmul")),
         entry("paged_attention_kernel[int8_kv]", "src/repro_torch/csrc/paged_attention.cu",
               f"{paged}:109", k3i, lambda rows: rows[0],
               int8["paged_attention_kernel[int8_kv]"],
-              branch=f"int8-KV, {paged}:49-56, :77-78, :92-94"),
+              branch=f"int8-KV, {paged}:49-56, :77-78, :92-94", **paged_extra(k3i, True)),
         entry("ent_matmul", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:75",
               mm["ent_matmul"], at_decode, legacy["ent_matmul"],
               launches_from="2-layer run with legacy 4-plane records"),

@@ -56,7 +56,9 @@ ENTRY_POINTS = {
         "flash_attention_bwd_dkdv": [_P] * 9 + [_I] * 10 + [_F, _P],
         "flash_attention_bwd_dq": [_P] * 8 + [_I] * 10 + [_F, _P],
         "flash_attention_tc_smem": [_I, _I]},
-    "paged_attention": {"paged_attention": [_P] * 9 + [_I] * 8 + [_F, _P]},
+    "paged_attention": {
+        "paged_attention": [_P] * 10 + [ctypes.c_longlong, _P] + [_I] * 11 + [_F, _I, _P],
+        "paged_attention_smem": [_I] * 7},
     "ssd_scan": {
         "ssd_fwd_states": [_P] * 6 + [_I] * 7 + [_P],
         "ssd_fwd_carry": [_P] * 2 + [_I] * 5 + [_P],
@@ -140,6 +142,38 @@ def stream_of(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as an int handle."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_sms: dict = {}           # device -> SM count
+_workspaces: dict = {}    # (device, CUDA stream[, kind]) -> (int32 words, int32 tickets)
+
+
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev`` (read once)."""
+    if dev not in _sms:
+        import torch
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
+
+
+def stream_workspace(key, words: int, tickets: int):
+    """A split kernel's workspace for ``key`` = (device, CUDA stream[,
+    kind]): int32 words for the blocks' partials and int32 ticket
+    counters, allocated zeroed and grown when a call needs more.  Every
+    call leaves the tickets zero for the next one; calls on one CUDA stream
+    run in turn, and each CUDA stream has its own.  Kernels 1 and 6 share
+    the (device, CUDA stream) one, whose split-K sums every call also leaves
+    zero; the paged decode (kernels 3 and 3b) keeps its own under kind
+    "paged", with its f32 partials in the words, which need no zeroing."""
+    import torch
+    ws, tk = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < words or tk.numel() < tickets:
+        words = max(words, 0 if ws is None else ws.numel())
+        tickets = max(tickets, 0 if tk is None else tk.numel())
+        ws = torch.zeros(words, dtype=torch.int32, device=key[0])
+        tk = torch.zeros(tickets, dtype=torch.int32, device=key[0])
+        _workspaces[key] = ws, tk
+    return ws, tk
 
 
 def check(rc: int, what: str) -> None:

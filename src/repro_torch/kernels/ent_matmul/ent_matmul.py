@@ -95,26 +95,6 @@ def tc_plan(m: int, n: int, k: int, sms: int):
     return kslice, splits, (-(-m // TC_BM), -(-n // TC_BN), splits)
 
 
-_sms: dict = {}           # device -> SM count
-_workspaces: dict = {}    # (device, CUDA stream) -> (int32 sums, int32 tickets)
-
-
-def _stream_workspace(key, sums: int, tickets: int):
-    """The split-K workspace of the stream and the tensor-core loop (of
-    kernels 1 and 6) for ``key`` = (device, CUDA stream):
-    int32 sums and ticket counters, allocated zeroed and grown when a call
-    needs more.  Every call leaves them zero for the next one; calls on one
-    CUDA stream run in turn, and each CUDA stream has its own."""
-    ws, tk = _workspaces.get(key, (None, None))
-    if ws is None or ws.numel() < sums or tk.numel() < tickets:
-        sums = max(sums, 0 if ws is None else ws.numel())
-        tickets = max(tickets, 0 if tk is None else tk.numel())
-        ws = torch.zeros(sums, dtype=torch.int32, device=key[0])
-        tk = torch.zeros(tickets, dtype=torch.int32, device=key[0])
-        _workspaces[key] = ws, tk
-    return ws, tk
-
-
 def check_operands(x, w, scale_x, scale_w, out_dtype, *, x_dtypes, planes,
                    max_k):
     """Validate ``x [M, K]``, weight planes ``w [planes, K, N]`` (or
@@ -205,17 +185,15 @@ def launch_route(source, entries, lead, x, m, n, k, route: str) -> int:
     if route == "tile":
         return fn(*lead, m, n, k, cuda_stream)
     dev = x.device
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     if route == "stream":
-        mb, kslice, splits, (strips, _, chunks) = stream_plan(m, n, k, _sms[dev])
+        mb, kslice, splits, (strips, _, chunks) = stream_plan(m, n, k, _build.sm_count(dev))
         plan, tickets = (mb, kslice, splits), strips * chunks
     else:
-        kslice, splits, (mt, nt, _) = tc_plan(m, n, k, _sms[dev])
+        kslice, splits, (mt, nt, _) = tc_plan(m, n, k, _build.sm_count(dev))
         plan, tickets = (kslice, splits), mt * nt
     ws = tk = None
     if splits > 1:
-        ws, tk = _stream_workspace((dev, cuda_stream), m * n, tickets)
+        ws, tk = _build.stream_workspace((dev, cuda_stream), m * n, tickets)
     return fn(*lead, None if ws is None else ws.data_ptr(), 0 if ws is None else ws.numel(),
               None if tk is None else tk.data_ptr(), 0 if tk is None else tk.numel(),
               m, n, k, *plan, cuda_stream)

@@ -17,6 +17,11 @@ the denominator.  A fully masked slot returns exact zeros.  Returns
 gathered columns are rotated so that its first attended column comes
 first (``rotate_to_first``): left padding then leaves a slot's result
 bit for bit unchanged.
+
+``paged_attention_split_ref`` emulates the CUDA kernel's split-KV form
+(``csrc/paged_attention.cu``) for the CPU tests: each run of pages forms
+its own partial, its probabilities rounded to q's dtype against its own
+max, and the partials combine in split order.
 """
 
 from __future__ import annotations
@@ -85,3 +90,64 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, pos, start=None,
                        vb.to(torch.float32))
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(b, hq, sq, d)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_table, pos, start, *,
+                              page_size: int, pages_per_split: int, k_scales=None,
+                              v_scales=None, scale=None, fault: int = 0):
+    """The kernel's split-KV flash-decode in plain PyTorch: split ``s``
+    covers table pages ``[s * pages_per_split, (s + 1) * pages_per_split)``
+    and forms ``m_s`` (its max score), ``l_s`` (the sum of its f32
+    probabilities ``e^(s - m_s)``) and ``acc_s`` (their V-scaled values
+    rounded to q's dtype, times V); the partials with ``l_s > 0`` then
+    combine in split order, ``sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M)
+    l_s``.  ``fault = 1`` drops each row's last live split, as the kernel's
+    planted fault does.  Returns [B, Hq, 1, D] float32."""
+    b, hq, _, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    if page != page_size:
+        raise ValueError(f"pool page {page} != page_size {page_size}")
+    group = hq // hkv
+    pps = block_table.shape[-1]
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, hkv, group, d).to(torch.float32)
+    cols = torch.arange(pps * page, dtype=torch.int32)[None, :]
+    mapped = torch.repeat_interleave(block_table != 0, page, dim=-1)
+    valid = ((cols <= pos[:, None]) & (cols >= start[:, None]) & mapped)[:, None, None, :]
+    kb = _operand(k_pages, block_table, q.dtype).to(torch.float32)
+    vb = _operand(v_pages, block_table, q.dtype).to(torch.float32)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, kb) * scale
+    vs = None
+    if k_scales is not None:
+        s = s * _scale_cols(k_scales, block_table)[:, :, None, :]
+        vs = _scale_cols(v_scales, block_table)[:, :, None, :]
+    s = torch.where(valid, s, _NEG_INF)
+    parts = []
+    width = pages_per_split * page
+    for lo in range(0, pps * page, width):
+        sl, ok = s[..., lo:lo + width], valid[..., lo:lo + width]
+        m = sl.amax(-1, keepdim=True)
+        p = torch.where(ok, torch.exp(sl - m), 0.0)
+        l = p.sum(-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[..., lo:lo + width]
+        p = p.to(q.dtype).to(torch.float32)
+        parts.append((m, l, torch.einsum("bhgk,bhkd->bhgd", p, vb[:, :, lo:lo + width])))
+    m = torch.stack([t[0] for t in parts])            # [S, B, Hkv, G, 1]
+    l = torch.stack([t[1] for t in parts])
+    live = l > 0
+    big = torch.where(live, m, _NEG_INF).amax(0)
+    if fault == 1:   # each row's last live split
+        order = torch.arange(len(parts)).reshape(-1, 1, 1, 1, 1)
+        last = torch.where(live, order, -1).amax(0)
+        live = live & (order != last)
+    elif fault:
+        raise ValueError(f"fault must be 0 or 1, got {fault}")
+    acc = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for i, (ms, ls, a) in enumerate(parts):          # split order
+        w = torch.where(live[i], torch.exp(ms - big), 0.0)
+        den = den + w * ls
+        acc = acc + w * a
+    return (acc / torch.clamp_min(den, 1e-30)).reshape(b, hq, 1, d)

@@ -72,8 +72,8 @@ def recorder(monkeypatch):
     meta = torch.device("meta")
     monkeypatch.setattr(em._build, "entry", rec.entry)
     monkeypatch.setattr(em._build, "stream_of", lambda t: 0)
-    monkeypatch.setitem(em._sms, meta, SMS)
-    monkeypatch.setattr(em, "_workspaces", {})
+    monkeypatch.setitem(em._build._sms, meta, SMS)
+    monkeypatch.setattr(em._build, "_workspaces", {})
     for name in ("launches", "stream_launches", "tc_launches"):
         monkeypatch.setattr(em.ent_matmul_packed_fused, name, 0)
     return rec
@@ -113,7 +113,7 @@ def test_wrapper_routes_decode_rows_to_the_stream(recorder, m):
         # a workspace exactly when K is split: int32 [M, N] sums, one ticket a
         # strip or tile, handed over with their lengths for the launcher's check
         if splits > 1:
-            ws, tk = em._workspaces[(torch.device("meta"), 0)]
+            ws, tk = em._build._workspaces[(torch.device("meta"), 0)]
             assert ws.numel() >= m * n and tk.numel() >= tickets
             assert ws.dtype == tk.dtype == torch.int32
             assert (args[8], args[10]) == (ws.numel(), tk.numel())
@@ -181,14 +181,14 @@ def test_tc_plan_fills_the_card_in_one_wave(k, n):
 
 def test_workspace_grows_and_is_reused(recorder):
     key = (torch.device("meta"), 0)
-    a = em._stream_workspace(key, 100, 4)
-    assert em._stream_workspace(key, 50, 2) == a     # big enough: the same tensors
-    b = em._stream_workspace(key, 200, 3)
+    a = em._build.stream_workspace(key, 100, 4)
+    assert em._build.stream_workspace(key, 50, 2) == a     # big enough: the same tensors
+    b = em._build.stream_workspace(key, 200, 3)
     assert b[0].numel() == 200 and b[1].numel() == 4  # grown, never shrunk
     # another CUDA stream on the same device gets its own workspace
-    c = em._stream_workspace((torch.device("meta"), 1), 50, 2)
+    c = em._build.stream_workspace((torch.device("meta"), 1), 50, 2)
     assert c[0] is not b[0] and c[1] is not b[1]
-    assert em._stream_workspace(key, 50, 2) == b
+    assert em._build.stream_workspace(key, 50, 2) == b
 
 
 @pytest.mark.parametrize("m", [1, 3, 8, 16])

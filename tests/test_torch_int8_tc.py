@@ -44,8 +44,8 @@ def recorder(monkeypatch):
     rec = _Recorder()
     monkeypatch.setattr(em._build, "entry", rec.entry)
     monkeypatch.setattr(em._build, "stream_of", lambda t: 0)
-    monkeypatch.setitem(em._sms, META, SMS)
-    monkeypatch.setattr(em, "_workspaces", {})
+    monkeypatch.setitem(em._build._sms, META, SMS)
+    monkeypatch.setattr(em._build, "_workspaces", {})
     for f in (im.int8_matmul, em.ent_matmul_packed_fused):
         for name in ("launches", "stream_launches", "tc_launches"):
             monkeypatch.setattr(f, name, 0)
@@ -87,7 +87,7 @@ def test_wrapper_routes_by_m(recorder, m):
             assert args[10:15] == (m, n, k, kslice, splits) and len(args) == 16
             tickets = mt * nt
         if splits > 1:
-            ws, tk = em._workspaces[(META, 0)]
+            ws, tk = em._build._workspaces[(META, 0)]
             assert ws.numel() >= m * n and tk.numel() >= tickets
             assert (args[7], args[9]) == (ws.numel(), tk.numel())
         else:
@@ -113,12 +113,12 @@ def test_kernels_1_and_6_share_one_workspace(recorder):
     stream) from one cache, grown to the larger call."""
     x8, w, sx, sw = _meta_operands(8, 2048, 2048)
     im.int8_matmul(x8, w, sx, sw)
-    ws, tk = em._workspaces[(META, 0)]
+    ws, tk = em._build._workspaces[(META, 0)]
     xf = torch.empty((512, 2048), dtype=torch.bfloat16, device=META)
     packed = torch.empty((2, 2048, 2048), dtype=torch.int8, device=META)
     em.ent_matmul_packed_fused(xf, packed, torch.empty((512, 1), device=META), sw)
-    assert list(em._workspaces) == [(META, 0)]
-    grown = em._workspaces[(META, 0)]
+    assert list(em._build._workspaces) == [(META, 0)]
+    grown = em._build._workspaces[(META, 0)]
     assert grown[0].numel() >= max(ws.numel(), 512 * 2048)
     assert [c[1] for c in recorder.calls] == ["int8_matmul_stream", "ent_matmul_packed_fused_tc"]
 

@@ -221,7 +221,23 @@ def test_int8_serving_streams_equal_reference():
     configuration (``ent_encode=False`` records, ``kv_quant=True``)
     equal the reference ServeEngine's (``prefix_cache=False``) token for
     token."""
-    cfg = reduced_config(get_config("qwen2.5-3b"))
+    eng, f32 = _int8_streams_equal_reference("qwen2.5-3b")
+    # int8 pools + bf16 scales: (hd + 2) bytes per row and head against
+    # 4 * hd for the float32 pools of the reduced config
+    hd = eng.model.cfg.head_dim
+    assert eng.pool_bytes * 4 * hd == f32.pool_bytes * (hd + 2)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "minicpm-2b", "llava-next-34b"])
+def test_int8_serving_streams_equal_reference_on_arch(arch):
+    """The same on reduced qwen2-72b, minicpm-2b (one q head per kv head)
+    and llava-next-34b (fed tokens): their decode reads the int8 pools
+    through the paged decode op as qwen2.5-3b's does."""
+    _int8_streams_equal_reference(arch)
+
+
+def _int8_streams_equal_reference(arch):
+    cfg = reduced_config(get_config(arch))
     params = ref_quantize(ref_build(cfg).init(jax.random.PRNGKey(1)),
                           QuantConfig(enabled=True, ent_encode=False))
     rng = np.random.default_rng(7)
@@ -232,7 +248,7 @@ def test_int8_serving_streams_equal_reference():
     for p in prompts:
         ref.submit(p, max_new_tokens=NEW)
     want = ref.run()
-    model = Model(port_reduced(port_get_config("qwen2.5-3b")), device="cpu", kv_quant=True)
+    model = Model(port_reduced(port_get_config(arch)), device="cpu", kv_quant=True)
     eng = ServeEngine(model, bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu"),
                       slots=SLOTS, max_len=MAX_LEN, prefix_cache=False)
     assert eng.cache["layers"][0].k.dtype == torch.int8
@@ -242,9 +258,6 @@ def test_int8_serving_streams_equal_reference():
     assert got == want
     assert all(len(v) == NEW for v in got.values())
     eng.check_leaks()
-    # int8 pools + bf16 scales: (hd + 2) bytes per row and head against
-    # 4 * hd for the float32 pools of the reduced config
     f32 = ServeEngine(Model(model.cfg, device="cpu"), eng.params, slots=SLOTS,
                       max_len=MAX_LEN, prefix_cache=False)
-    hd = cfg.head_dim
-    assert eng.pool_bytes * 4 * hd == f32.pool_bytes * (hd + 2)
+    return eng, f32

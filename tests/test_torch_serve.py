@@ -1,7 +1,12 @@
 """The port's ServeEngine against the reference's on the qwen2.5-3b smoke
 config: plain paged admission (``prefix_cache=False``), greedy streams
-equal token for token, float and EN-T quantized; sampling's truncation
-equal to the reference's; temperature > 0 streams replay identically."""
+equal token for token, float and EN-T quantized, also on the reduced
+qwen2-72b, minicpm-2b (MHA: one q head per kv head) and llava-next-34b
+(fed tokens) configs, whose decode reads the paged pool through the same
+paged decode op; sampling's truncation equal to the reference's;
+temperature > 0 streams replay identically."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -27,9 +32,16 @@ from repro_torch.runtime.serve_loop import ServeEngine  # noqa: E402
 SLOTS, MAX_LEN, NEW = 3, 48, 6
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg = reduced_config(get_config("qwen2.5-3b"))
+# (arch, quantized) of the greedy-stream test; qwen2.5-3b's cases keep
+# their ids
+STREAM_CASES = [(arch, quantized) for arch in ("qwen2.5-3b", "qwen2-72b", "minicpm-2b",
+                                               "llava-next-34b") for quantized in (False, True)]
+STREAM_IDS = [str(q) if a == "qwen2.5-3b" else f"{a}-{q}" for a, q in STREAM_CASES]
+
+
+@functools.lru_cache(maxsize=None)
+def _arch_setup(arch):
+    cfg = reduced_config(get_config(arch))
     params = ref_build(cfg).init(jax.random.PRNGKey(1))
     rng = np.random.default_rng(7)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
@@ -37,8 +49,13 @@ def setup():
     return cfg, params, prompts
 
 
-def _port_engine(params, **kw):
-    model = Model(port_reduced(port_get_config("qwen2.5-3b")), device="cpu")
+@pytest.fixture(scope="module")
+def setup():
+    return _arch_setup("qwen2.5-3b")
+
+
+def _port_engine(params, arch="qwen2.5-3b", **kw):
+    model = Model(port_reduced(port_get_config(arch)), device="cpu")
     return ServeEngine(model, params, slots=SLOTS, max_len=MAX_LEN,
                        prefix_cache=False, **kw)
 
@@ -49,15 +66,16 @@ def _submit_all(engine, prompts, **kw):
     return engine.run()
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-def test_greedy_streams_equal_reference(setup, quantized):
-    cfg, params, prompts = setup
+@pytest.mark.parametrize("arch,quantized", STREAM_CASES, ids=STREAM_IDS)
+def test_greedy_streams_equal_reference(arch, quantized):
+    cfg, params, prompts = _arch_setup(arch)
     if quantized:
         params = ref_quantize(params, QuantConfig(enabled=True))
     ref = RefEngine(ref_build(cfg), params, slots=SLOTS, max_len=MAX_LEN,
                     prefix_cache=False)
     want = _submit_all(ref, prompts)
-    eng = _port_engine(bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu"))
+    eng = _port_engine(bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu"),
+                       arch)
     streamed = []
     eng.on_token = lambda uid, tok, done: streamed.append((uid, tok, done))
     got = _submit_all(eng, prompts)
