@@ -10,20 +10,20 @@ Phases (each prints its seconds; any failure exits non-zero):
    per source, all at once), and report the registers, spills and shared
    memory (``-Xptxas -v``) and HGMMA / IGMMA / HMMA (IDP4A) counts
    (``cuobjdump``, where the toolkit has it) of the tensor-core kernels (7,
-   7b, 7c, kernel 2's masked instantiations, the int8 loop of kernels 1
-   and 6, kernel 8's three launches and kernel 8c), of the split-K
-   stream of kernels 1 and 6 and of the paged decode (3 and 3b);
+   7b, 7c, kernel 2's masked instantiations, the int8 loop of kernels 1,
+   6 and 5, kernel 8's three launches, 8b's two and kernel 8c), of the
+   split-K stream of kernels 1, 6 and 5 and of the paged decode (3 and 3b);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
    w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
    projection shapes, with the EN-T identity (all four int32
-   accumulators equal); kernels 1 and 6 on each of their routes, the
+   accumulators equal); kernels 1, 6 and 5 on each of their routes, the
    split-K stream (M 1..32) and the int8 tensor-core loop (M 1..512; X
    near rounding ties and rows whose 1 / sx overflows for kernel 1), bit
    for bit on those shapes and a ragged one, in f32, bf16 and int32
    outputs, timed beside the old CUDA-core tile loop, and the two routes
    timed against each other at M 8..128 (the table each wrapper's cut
-   M_STREAM comes from);
+   comes from);
    the flash kernel (bf16 on its tensor-core route, float32 on CUDA
    cores; ragged starts, a chunked prefill) and the paged attention
    kernel (split-KV, one launch), the latter with bf16 pools and with
@@ -53,8 +53,10 @@ Phases (each prints its seconds; any failure exits non-zero):
 5. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
-   int8 KV, bf16 with legacy 4-plane records), and with planted mask and
-   scale faults that the limits must reject;
+   int8 KV, bf16 with legacy 4-plane records, whose 70 kernel 5 launches
+   must split between the split-K stream (the ticks) and the tensor-core
+   loop (the prefill) as its cut says), and with planted mask and scale
+   faults that the limits must reject;
 6. the training kernels: the flash forward (kernel 7) against
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
@@ -79,13 +81,15 @@ Phases (each prints its seconds; any failure exits non-zero):
 9. the SSD kernels: the scan (kernel 8: each chunk's own state, the
    carry from chunk to chunk, the outputs; split-bf16 three-pass products
    on the tensor cores) against ``ssd_scan_fwd_ref`` (y and each chunk's
-   entering state) and its backward (8b the state gradients on CUDA
-   cores, 8c the chunk's gradients on the tensor cores) against
+   entering state) and its backward (8b the state gradients: each chunk's
+   own term on the tensor cores, then the carry in reverse; 8c the
+   chunk's gradients on the tensor cores) against
    ``ssd_scan_bwd_ref``, all five gradients, float32, at SSD_SHAPES
    (mamba2-370m's training call, jamba's 8 groups, one short chunk), per
    element within limits derived in ``ssd_units``, with planted faults
    (the carried state not decayed, the mask off by one, dh not carried,
-   dB / dC of one head of a group, da of the first chunk) that must fail;
+   8b's rows weighted by exp(cum_{i+1}), dB / dC of one head of a group,
+   da of the first chunk) that must fail;
    bfloat16 and L % chunk != 0 must raise on the card; each kernel and its
    plain version timed at the training step's call (B=4, L=4096, H=32)
    beside its bytes bound, its three-pass tensor-core bound and its f32
@@ -96,8 +100,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    dots against no remat;
 11. 3 training steps of full-width mamba2-370m (48 layers, seq 4096,
    global batch 8, microbatch 4, remat full), each step's launches of
-   kernels 8 / 8b / 8c checked against 192 / 96 / 96, and of each of
-   kernel 8's three launches (states, carry, outputs) against 192, then
+   kernels 8 / 8b / 8c checked against 192 / 96 / 96, of each of kernel
+   8's three launches (states, carry, outputs) against 192 and of each of
+   8b's two (own, carry) against 96, then
    one more step under ``torch.profiler``;
 12. a ``kernels`` JSON line, the card line, and the final result line.
 
@@ -218,14 +223,14 @@ def check_matmuls(torch, timer):
     """The four serving matmuls at the full-width projection shapes:
     kernel 1 (``ent_matmul_packed_fused``) and kernels 6 / A
     (``int8_matmul``), 5 / C (``ent_matmul``, 4-plane) and 4 / D
-    (``ent_matmul_packed``), at M = 8 (kernels 1 and 6 on the split-K
+    (``ent_matmul_packed``), at M = 8 (kernels 1, 6 and 5 on the split-K
     stream) and M = 512 (on the tensor-core loop).  Each is held bit for
     bit against its plain version; the four int32 accumulators at the same
     Xq (kernel 1 quantizes X with the same sx) must all be equal, the EN-T
     identity; one planted fault per kernel (one weight or plane code off
     by one) must fail the exact check at both M; and all four, their plain
-    versions and ``torch._int_mm`` are timed, kernels 1 and 6 also on the
-    CUDA-core tile loop that served them before.  Returns {kernel name:
+    versions and ``torch._int_mm`` are timed, kernels 1, 6 and 5 also on
+    the CUDA-core tile loop that served them before.  Returns {kernel name:
     [row per shape]}."""
     from repro_torch.core.multiplier import ent_packed_planes
     from repro_torch.kernels.ent_matmul import ent_matmul as em
@@ -254,20 +259,20 @@ def check_matmuls(torch, timer):
             cases = {
                 "ent_matmul_packed_fused": (
                     lambda w, o=torch.float32: ent_matmul_packed_fused(x, w, sx, sw, o),
-                    packed, lambda: ent_packed_matmul_ref(xq, packed, sx, sw), 2, 2),
+                    packed, lambda: ent_packed_matmul_ref(xq, packed, sx, sw)),
                 "int8_matmul": (
                     lambda w, o=torch.float32: int8_matmul(xq, w, sx, sw, o),
-                    w8, lambda: int8_matmul_ref(xq, w8, sx, sw, torch.float32), 1, 1),
+                    w8, lambda: int8_matmul_ref(xq, w8, sx, sw, torch.float32)),
                 "ent_matmul": (
                     lambda w, o=torch.float32: ent_matmul(xq, w, sx, sw, o),
-                    planes, lambda: ent_matmul_ref(xq, planes, sx, sw), 4, 1),
+                    planes, lambda: ent_matmul_ref(xq, planes, sx, sw)),
                 "ent_matmul_packed": (
                     lambda w, o=torch.float32: ent_matmul_packed(xq, w, sx, sw, o),
-                    packed, lambda: ent_packed_matmul_ref(xq, packed, sx, sw), 2, 1),
+                    packed, lambda: ent_packed_matmul_ref(xq, packed, sx, sw)),
             }
             # the EN-T identity: one int32 accumulator for all four
             acc = int8_matmul_int32_ref(xq, w8)
-            for name, (kern, w, _, _, _) in cases.items():
+            for name, (kern, w, _) in cases.items():
                 got = kern(w, torch.int32)
                 torch.cuda.synchronize()
                 if not torch.equal(got, acc):
@@ -280,7 +285,7 @@ def check_matmuls(torch, timer):
             except RuntimeError as e:
                 print(f"  torch._int_mm unavailable: {e}")
                 library_ms = None
-            for name, (kern, w, plain, nplanes, x_bytes) in cases.items():
+            for name, (kern, w, plain) in cases.items():
                 got, want = kern(w), plain()
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
@@ -304,13 +309,17 @@ def check_matmuls(torch, timer):
                                              f"code")
                 ms = timer(lambda: kern(w))
                 plain_ms = timer(plain, reps=5)
+                nplanes, x_bytes = PLANES_X_BYTES[name]
                 nbytes = m * k * x_bytes + nplanes * k * n + 4 * m + 4 * n + 4 * m * n
                 b, by = bound_ms(nbytes, nplanes * 2 * m * k * n, INT8_OPS_S)
                 extra = {}
                 if name in MATMULS:
-                    tile = (lambda: em._launch_fused(x, packed, sx, sw, torch.float32, "tile")) \
-                        if name == "ent_matmul_packed_fused" else \
-                        (lambda: im._launch(xq, w8, sx, sw, torch.float32, "tile"))
+                    tile = {"ent_matmul_packed_fused": lambda: em._launch_fused(
+                                x, packed, sx, sw, torch.float32, "tile"),
+                            "int8_matmul": lambda: im._launch(xq, w8, sx, sw, torch.float32,
+                                                              "tile"),
+                            "ent_matmul": lambda: em._launch_planes(xq, planes, sx, sw,
+                                                                    torch.float32, "tile")}[name]
                     extra = dict(route=matmul_route(name, m), tile_ms=timer(tile))
                 print(f"kernel {name} M={m} K={k} N={n} ms={ms:.4f} "
                       f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
@@ -337,31 +346,45 @@ STREAM_CHECK_M = (1, 3, 8, 16, 32)
 # and the serving prefills' range (260..505 prompt tokens) and cap
 TC_CHECK_M = (128, 129, 260, 505, 512)
 CUT_M = (8, 16, 32, 64, 96, 128)   # where check_cut times the two routes
-MATMULS = ("ent_matmul_packed_fused", "int8_matmul")   # kernels 1 and 6
+# kernels 1, 6 and 5: the matmuls routed by M
+MATMULS = ("ent_matmul_packed_fused", "int8_matmul", "ent_matmul")
+# each matmul's weight planes and bytes an X element (kernel 1 reads bf16 X)
+PLANES_X_BYTES = {"ent_matmul_packed_fused": (2, 2), "int8_matmul": (1, 1),
+                  "ent_matmul": (4, 1), "ent_matmul_packed": (2, 1)}
 
 
 def matmul_cuts():
-    """{kernel 1 or 6: the wrapper module holding its cut ``M_STREAM``}."""
+    """{kernel 1, 6 or 5: (the wrapper module, the name of its cut)}."""
     from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.int8_matmul import int8_matmul as im
-    return {"ent_matmul_packed_fused": em, "int8_matmul": im}
+    return {"ent_matmul_packed_fused": (em, "M_STREAM"), "int8_matmul": (im, "M_STREAM"),
+            "ent_matmul": (em, "M_STREAM_PLANES")}
+
+
+def matmul_cut(name):
+    """The cut of kernel 1, 6 or 5, read at call time."""
+    mod, attr = matmul_cuts()[name]
+    return getattr(mod, attr)
 
 
 def matmul_route(name, m):
-    """The route the wrapper of kernel 1 or 6 takes at ``m`` rows."""
+    """The route the wrapper of kernel 1, 6 or 5 takes at ``m`` rows."""
     from repro_torch.kernels.ent_matmul import ent_matmul as em
-    return em.route_of(m, matmul_cuts()[name].M_STREAM)
+    return em.route_of(m, matmul_cut(name))
 
 
 def _routed(torch, g, k, n):
-    """Operands of kernels 1 and 6 at one projection shape, and a call of
-    each by route: {kernel: call(x, route or None, out dtype)}; route None
-    is the public wrapper, whose choice by M is counted."""
+    """Operands of kernels 1, 6 and 5 at one projection shape (weights,
+    packed planes, 4-plane digits, sw), and a call of each by route:
+    {kernel: (call(x, sx, xq, route or None, out dtype), wrapper)}; route
+    None is the public wrapper, whose choice by M is counted."""
     from repro_torch.core.multiplier import ent_packed_planes
     from repro_torch.kernels.ent_matmul import ent_matmul as em
+    from repro_torch.kernels.ent_matmul.ops import encode_weights
     from repro_torch.kernels.int8_matmul import int8_matmul as im
     w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
     packed = ent_packed_planes(w8).contiguous()
+    digits = encode_weights(w8).contiguous()
     sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
 
     def k1(x, sx, xq, route, o, planes=packed):
@@ -373,14 +396,20 @@ def _routed(torch, g, k, n):
         if route is None:
             return im.int8_matmul(xq, w, sx, sw, o)
         return im._launch(xq, w, sx, sw, o, route)
-    return w8, packed, sw, {"ent_matmul_packed_fused": (k1, em.ent_matmul_packed_fused),
-                            "int8_matmul": (k6, im.int8_matmul)}
+
+    def k5(x, sx, xq, route, o, planes=digits):
+        if route is None:
+            return em.ent_matmul(xq, planes, sx, sw, o)
+        return em._launch_planes(xq, planes, sx, sw, o, route)
+    return w8, (packed, digits), sw, {"ent_matmul_packed_fused": (k1, em.ent_matmul_packed_fused),
+                                      "int8_matmul": (k6, im.int8_matmul),
+                                      "ent_matmul": (k5, em.ent_matmul)}
 
 
 def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
-    """Kernels 1 and 6 on ``route`` at every M of ``ms`` ({kernel name:
+    """Kernels 1, 6 and 5 on ``route`` at every M of ``ms`` ({kernel name:
     M values}; a kernel not named is skipped) on STREAM_SHAPES: kernel 1
-    with each X dtype of ``x_dtypes``, both in f32, bf16 and int32
+    with each X dtype of ``x_dtypes``, all in f32, bf16 and int32
     outputs, bit for bit against the plain version, the int32 accumulator
     equal to X @ W (``int8_matmul_int32_ref``: the EN-T identity), twice in
     a row (a split-K workspace is left zeroed), each call one launch on the
@@ -389,13 +418,14 @@ def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
     kernel's largest M.  Returns the number of calls checked."""
     from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.ent_matmul.ops import row_scale
-    from repro_torch.kernels.ent_matmul.ref import ent_packed_matmul_ref, quantize_with_scale
+    from repro_torch.kernels.ent_matmul.ref import (ent_matmul_ref, ent_packed_matmul_ref,
+                                                    quantize_with_scale)
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref, int8_matmul_ref
     g = torch.Generator(device=DEV).manual_seed(seed)
     counter = f"{route}_launches"
     n_checked = 0
     for k, n in STREAM_SHAPES:
-        w8, packed, sw, kernels = _routed(torch, g, k, n)
+        w8, (packed, digits), sw, kernels = _routed(torch, g, k, n)
         for m in sorted({m for v in ms.values() for m in v}):
             for xdt in x_dtypes:
                 x = torch.randn((m, k), generator=g, device=DEV).to(xdt)
@@ -405,7 +435,7 @@ def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
                 for name, (call, wrapper) in kernels.items():
                     if m not in ms.get(name, ()):
                         continue
-                    if name == "int8_matmul" and xdt != x_dtypes[0]:
+                    if name != "ent_matmul_packed_fused" and xdt != x_dtypes[0]:
                         continue   # int8 X: one quantization is enough
                     via = None if matmul_route(name, m) == route else route
                     for o in (torch.float32, torch.bfloat16, torch.int32):
@@ -413,6 +443,8 @@ def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
                             want = acc
                         elif name == "int8_matmul":
                             want = int8_matmul_ref(xq, w8, sx, sw, o)
+                        elif name == "ent_matmul":
+                            want = ent_matmul_ref(xq, digits, sx, sw, o)
                         else:
                             want = ent_packed_matmul_ref(xq, packed, sx, sw, o)
                         for _ in range(2):
@@ -430,7 +462,8 @@ def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
                                     f"differ)")
                             n_checked += 1
                     if m == max(ms[name]) and xdt == x_dtypes[0]:   # planted fault
-                        bad = (packed if name == "ent_matmul_packed_fused" else w8).clone()
+                        bad = {"ent_matmul_packed_fused": packed, "int8_matmul": w8,
+                               "ent_matmul": digits}[name].clone()
                         flat = bad.view(-1)
                         flat[k * n // 2] += 1 if int(flat[k * n // 2]) < 1 else -1
                         n_bad = int((call(x, sx, xq, route, torch.int32, bad) != acc).sum())
@@ -441,7 +474,7 @@ def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
                                                  f"wrong code")
     print(f"  {what}: {n_checked} calls ("
           + ", ".join(f"{name} at M {v}" for name, v in ms.items())
-          + f") x {len(STREAM_SHAPES)} shapes x out f32 / bf16 / int32 (kernel 1: X "
+          + f") x {len(STREAM_SHAPES)} shapes x out f32 / bf16 / int32 (ent_matmul_packed_fused: X "
           f"{[str(d)[6:] for d in x_dtypes]}; each twice) bit-identical, the int32 "
           f"accumulator equal to X @ W (EN-T identity), one launch each on the {route} route",
           flush=True)
@@ -452,46 +485,55 @@ def check_launchers_refuse(torch):
     """The stream's and the tensor-core loop's launchers hold the
     wrapper's plan and workspace to their own constants: a ticket short,
     an int of the sums short, or a K slice off its step is refused, for
-    kernel 1 and kernel 6 alike."""
+    kernels 1, 6 and 5 alike."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.ent_matmul.ops import row_scale
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     k, n = 2048, 2048
-    for m, route in ((8, "stream"), (512, "tc")):
+    for m, route in ((8, "stream"), (256, "tc")):
         x = torch.randn((m, k), device=DEV).to(torch.bfloat16)
         x8 = torch.zeros((m, k), dtype=torch.int8, device=DEV)
-        packed = torch.zeros((2, k, n), dtype=torch.int8, device=DEV)
+        planes = torch.zeros((4, k, n), dtype=torch.int8, device=DEV)
         sx, sw = row_scale(x), torch.ones((1, n), device=DEV)
         out = torch.empty((m, n), device=DEV)
-        if route == "stream":
-            mb, kslice, splits, (strips, _, chunks) = em.stream_plan(m, n, k, sms)
-            plan, tickets, step = (mb,), strips * chunks, em.STREAM_KSTEP
-        else:
-            kslice, splits, (mt, nt, _) = em.tc_plan(m, n, k, sms)
-            plan, tickets, step = (), mt * nt, em.TC_BK
-        assert splits > 1, (route, splits)
-        ws, tk = _build.stream_workspace((x.device, _build.stream_of(x)), m * n, tickets)
-        fused = _build.entry("ent_matmul", f"ent_matmul_packed_fused_{route}")
-        for what, ws_len, n_tk, ks in (("tickets", m * n, tickets - 1, kslice),
-                                       ("sums", m * n - 1, tickets, kslice),
-                                       ("K slice", m * n, tickets, kslice + step // 2)):
-            tail = (ws.data_ptr(), ws_len, tk.data_ptr(), n_tk, m, n, k, *plan, ks, -(-k // ks),
-                    _build.stream_of(x))
-            rcs = (fused(x.data_ptr(), 1, packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                         out.data_ptr(), 0, *tail),
-                   _build.entry("int8_matmul", f"int8_matmul_{route}")(
-                       x8.data_ptr(), packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                       out.data_ptr(), 0, *tail))
-            if 0 in rcs:
-                raise AssertionError(f"{route} launcher: took a plan with {what} short or off "
-                                     f"({rcs})")
-    print("  stream and tensor-core launchers (kernels 1 and 6): a ticket short, a sum short "
-          "and a K slice off its step refused", flush=True)
+        # kernel -> (C entry point, its operand arguments, rows a tensor-core block)
+        launchers = {
+            "ent_matmul_packed_fused": (
+                _build.entry("ent_matmul", f"ent_matmul_packed_fused_{route}"),
+                (x.data_ptr(), 1, planes.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                 out.data_ptr(), 0), em.TC_BM),
+            "int8_matmul": (
+                _build.entry("int8_matmul", f"int8_matmul_{route}"),
+                (x8.data_ptr(), planes.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                 out.data_ptr(), 0), em.TC_BM),
+            "ent_matmul": (
+                _build.entry("ent_matmul", f"ent_matmul_planes_{route}"),
+                (x8.data_ptr(), planes.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                 out.data_ptr(), 0), em.TC_BM_PLANES)}
+        for name, (fn, lead, bm) in launchers.items():
+            if route == "stream":
+                mb, kslice, splits, (strips, _, chunks) = em.stream_plan(m, n, k, sms)
+                plan, tickets, step = (mb,), strips * chunks, em.STREAM_KSTEP
+            else:
+                kslice, splits, (mt, nt, _) = em.tc_plan(m, n, k, sms, bm)
+                plan, tickets, step = (), mt * nt, em.TC_BK
+            assert splits > 1, (name, route, splits)
+            ws, tk = _build.stream_workspace((x.device, _build.stream_of(x)), m * n, tickets)
+            for what, ws_len, n_tk, ks in (("tickets", m * n, tickets - 1, kslice),
+                                           ("sums", m * n - 1, tickets, kslice),
+                                           ("K slice", m * n, tickets, kslice + step // 2)):
+                rc = fn(*lead, ws.data_ptr(), ws_len, tk.data_ptr(), n_tk, m, n, k, *plan, ks,
+                        -(-k // ks), _build.stream_of(x))
+                if rc == 0:
+                    raise AssertionError(f"{name} {route} launcher: took a plan with {what} "
+                                         f"short or off")
+    print("  stream and tensor-core launchers (kernels 1, 6 and 5): a ticket short, a sum "
+          "short and a K slice off its step refused", flush=True)
 
 
 def time_routes(torch, timer, ms, routes, seed, names=MATMULS):
-    """Kernels ``names`` of 1 and 6 (X bf16, f32 out) on each of ``routes``
+    """Kernels ``names`` of 1, 6 and 5 (X bf16, f32 out) on each of ``routes``
     at every M of ``ms`` on the four projection shapes, beside the bound
     and ``torch._int_mm`` (one plane, M padded to 32 rows).  Returns rows."""
     from repro_torch.kernels.ent_matmul.ops import row_scale
@@ -509,7 +551,7 @@ def time_routes(torch, timer, ms, routes, seed, names=MATMULS):
             for name in names:
                 call = kernels[name][0]
                 t = {r: timer(lambda: call(x, sx, xq, r, torch.float32)) for r in routes}
-                nplanes, x_bytes = (2, 2) if name == "ent_matmul_packed_fused" else (1, 1)
+                nplanes, x_bytes = PLANES_X_BYTES[name]
                 nbytes = m * k * x_bytes + nplanes * k * n + 4 * m + 4 * n + 4 * m * n
                 b, by = bound_ms(nbytes, nplanes * 2 * m * k * n, INT8_OPS_S)
                 print(f"kernel {name} M={m} K={k} N={n}: "
@@ -521,8 +563,8 @@ def time_routes(torch, timer, ms, routes, seed, names=MATMULS):
 
 
 def check_stream(torch):
-    """The split-K weight stream (``csrc/int8_stream.cuh``) of kernels 1
-    and 6, which their wrappers take up to their cuts: bit for bit at
+    """The split-K weight stream (``csrc/int8_stream.cuh``) of kernels 1,
+    6 and 5, which their wrappers take up to their cuts: bit for bit at
     STREAM_CHECK_M (``check_routes_exact``), then the launchers'
     refusals.  Returns the number of calls checked."""
     n = check_routes_exact(torch, "stream", dict.fromkeys(MATMULS, STREAM_CHECK_M), "stream",
@@ -532,8 +574,8 @@ def check_stream(torch):
 
 
 def check_tc(torch):
-    """The int8 tensor-core loop (``csrc/int8_tc.cuh``) of kernels 1 and 6,
-    which their wrappers take above their cuts: bit for bit at STREAM_CHECK_M,
+    """The int8 tensor-core loop (``csrc/int8_tc.cuh``) of kernels 1, 6 and
+    5, which their wrappers take above their cuts: bit for bit at STREAM_CHECK_M,
     the M just past each cut and TC_CHECK_M (``check_routes_exact``); then
     kernel 1, on both its routes, with X on rounding ties of X / sx (k + 1/2 exactly, and one
     float32 ulp to either side) and with rows whose 1 / sx overflows (0 <
@@ -543,8 +585,8 @@ def check_tc(torch):
     from repro_torch.core.multiplier import ent_packed_planes
     from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.ent_matmul.ops import row_scale
-    ms = {name: tuple(sorted({*STREAM_CHECK_M, mod.M_STREAM + 1, *TC_CHECK_M}))
-          for name, mod in matmul_cuts().items()}
+    ms = {name: tuple(sorted({*STREAM_CHECK_M, matmul_cut(name) + 1, *TC_CHECK_M}))
+          for name in MATMULS}
     n = check_routes_exact(torch, "tensor-core", ms, "tc", (torch.bfloat16, torch.float32), 15)
     g = torch.Generator(device=DEV).manual_seed(17)
     m, c = 300, 2.0**-5   # sx = 127 c / 127 = c exactly: X / sx = X / c
@@ -594,13 +636,13 @@ LAYER_SHAPES = {(2048, 2048): 2, (2048, 256): 2, (2048, 11008): 2, (11008, 2048)
 
 
 def check_cut(torch, timer):
-    """The stream against the tensor-core loop at CUT_M, both kernels, on
-    the four projection shapes: the table each wrapper's M_STREAM is set
+    """The stream against the tensor-core loop at CUT_M, kernels 1, 6 and
+    5, on the four projection shapes: the table each wrapper's cut is set
     from.  Prints, for each kernel and M, the two routes' time over a
     layer's seven projections, and the largest timed M up to which the
     stream's is the smaller.  Returns the rows."""
     rows = time_routes(torch, timer, CUT_M, ("stream", "tc"), 16)
-    for name, mod in matmul_cuts().items():
+    for name in MATMULS:
         layer = {m: {r: sum(LAYER_SHAPES[(x["K"], x["N"])] * x[f"{r}_ms"] for x in rows
                             if x["kernel"] == name and x["M"] == m) for r in ("stream", "tc")}
                  for m in CUT_M}
@@ -609,7 +651,7 @@ def check_cut(torch, timer):
                    default=None)
         print(f"  cut [{name}]: a layer's seven projections, stream / tensor-core ms: "
               + ", ".join(f"M={m} {v['stream']:.4f} / {v['tc']:.4f}" for m, v in layer.items())
-              + f"; the stream is the faster up to M = {last}; its M_STREAM = {mod.M_STREAM}",
+              + f"; the stream is the faster up to M = {last}; its cut = {matmul_cut(name)}",
               flush=True)
     return rows
 
@@ -1149,6 +1191,7 @@ SSD_SHAPES = [(1, 4096, 32, 64, 1, 128, 128), (2, 1024, 64, 64, 8, 128, 128),
 SSD_TIME_SHAPE = (4, 4096, 32, 64, 1, 128, 128)
 SSD_KERNELS = ("ssd_scan", "ssd_scan_bwd_state", "ssd_scan_bwd_chunk")
 SSD_FWD_PARTS = ("states", "carry", "out")   # kernel 8's three launches
+SSD_BWD_STATE_PARTS = ("own", "carry")        # kernel 8b's two
 
 
 def ssd_inputs(torch, gen, shape):
@@ -1288,11 +1331,6 @@ def ssd_bounds(shape):
     }
 
 
-# kernels 8 and 8c take their chunk products as three bf16 tensor-core
-# passes (split-bf16); 8b stays on the f32 CUDA cores
-SSD_TC = ("ssd_scan", "ssd_scan_bwd_chunk")
-
-
 def check_ssd(torch, timer):
     """Kernels 8, 8b and 8c at SSD_SHAPES, float32: the forward's y and
     h0s against ``ssd_scan_fwd_ref`` (``ssd_scan_chunked`` with its
@@ -1302,9 +1340,12 @@ def check_ssd(torch, timer):
     above 1.  What the wrappers do not take must raise on the card.  Then
     all three, their plain versions and their bounds at SSD_TIME_SHAPE:
     bytes at the HBM rate against operations at the f32 CUDA-core peak
-    (``f32_bound_ms``) and, for SSD_TC, against three bf16 passes at the
-    tensor-core peak (``bound_ms``); and one profiled run of the three
-    for their device time by CUDA kernel (kernel 8 is three).  No single
+    (``f32_bound_ms``) and, as all three take their chunk products as
+    three split-bf16 tensor-core passes, against three bf16 passes at the
+    tensor-core peak (``bound_ms``), with the card's name and power limit;
+    and one profiled run of
+    the three for their device time by CUDA kernel (kernel 8 is three, 8b
+    two).  No single
     PyTorch call computes the SSD scan: library_ms is None.  Returns
     {kernel: [row per shape]}."""
     from repro_torch.kernels.ssd_scan.ref import (ssd_scan_bwd_chunk_ref,
@@ -1371,11 +1412,15 @@ def check_ssd(torch, timer):
             faults["carried state not decayed"] = (
                 "ssd_scan", lambda: ssd_scan(x, dt, a, bm, cm, chunk=q, save_states=True,
                                              fault=1), SSD_FWD_OUT, want_f)
-            faults["dh not carried across chunks (8b)"] = (
+            faults["dh not carried across chunks (8b's carry)"] = (
                 "ssd_scan_bwd_chunk", lambda: ssd_scan_bwd_chunk(
                     x, dt, a, bm, cm, got_f[1],
                     ssd_scan_bwd_state(dt, a, cm, dy, chunk=q, fault=3), dy, chunk=q),
                 SSD_BWD_OUT, want_b)
+            faults["row i weighted by exp(cum_{i+1}) (8b's own)"] = (
+                "ssd_scan_bwd_state", lambda: (ssd_scan_bwd_state(dt, a, cm, dy, chunk=q,
+                                                                  fault=4),),
+                ("dhs",), (dhs_ref,))
 
             def first_chunk_da():
                 dx, ddt, _, db, dc = got_b
@@ -1441,19 +1486,18 @@ def check_ssd(torch, timer):
             lambda: ssd_scan_bwd_chunk_ref(x, dt, a, bm, cm, h0s, dhs, dy, q)),
     }
     bounds = ssd_bounds(SSD_TIME_SHAPE)
+    card = card_line()
     for name, (kern, plain) in cases.items():
         ms = timer(kern)
         plain_ms = timer(plain, reps=3)
         nbytes, flops = bounds[name]
         f32_bnd, f32_by = bound_ms(nbytes, flops, F32_FLOPS_S)
-        bnd, by = (bound_ms(nbytes, 3 * flops, BF16_FLOPS_S) if name in SSD_TC
-                   else (f32_bnd, f32_by))
+        bnd, by = bound_ms(nbytes, 3 * flops, BF16_FLOPS_S)
         print(f"kernel {name} {tag} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
-              f"bound_ms={bnd:.5f} ({by}; {flops:.4e} flops"
-              + (", x3 bf16 passes" if name in SSD_TC else "")
-              + f", {nbytes:.4e} bytes; bytes alone {nbytes / HBM_BYTES_S * 1e3:.5f}) "
-              f"f32_bound_ms={f32_bnd:.5f} ({f32_by}) max_abs_err={errs[name]:.3e}",
-              flush=True)
+              f"bound_ms={bnd:.5f} ({by}; {flops:.4e} flops, x3 bf16 passes, {nbytes:.4e} "
+              f"bytes; bytes alone {nbytes / HBM_BYTES_S * 1e3:.5f}, three passes alone "
+              f"{3 * flops / BF16_FLOPS_S * 1e3:.5f}) f32_bound_ms={f32_bnd:.5f} ({f32_by}) "
+              f"max_abs_err={errs[name]:.3e} [{card}]", flush=True)
         rows[name].append(dict(shape=tag, ms=ms, plain_ms=plain_ms, library_ms=None,
                                bound_ms=bnd, bound_by=by, f32_bound_ms=f32_bnd,
                                max_abs_err=errs[name]))
@@ -1562,7 +1606,7 @@ def reset_counts(torch):
     for f in kernels:
         f.launches = 0
         for route in ("tc_launches", "stream_launches",
-                      *(f"{part}_launches" for part in SSD_FWD_PARTS)):
+                      *(f"{part}_launches" for part in SSD_FWD_PARTS + SSD_BWD_STATE_PARTS)):
             if hasattr(f, route):
                 setattr(f, route, 0)
     paged.int8_kv_launches = 0
@@ -1571,15 +1615,18 @@ def reset_counts(torch):
 
 
 def read_counts(torch):
-    """(kernel launches by JSON name, and by ``ssd_scan[<part>]`` each of
-    kernel 8's three launches; plain versions run by op name)."""
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    """(kernel launches by JSON name, by ``ssd_scan[<part>]`` each of
+    kernel 8's three launches and by ``ssd_scan_bwd_state[<part>]`` each of
+    8b's two; plain versions run by op name)."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd_state
     kernels, plains, paged = wrappers(torch)
     launches = {f.__name__: f.launches for f in kernels}
     launches["paged_attention_kernel"] = paged.launches - paged.int8_kv_launches
     launches["paged_attention_kernel[int8_kv]"] = paged.int8_kv_launches
     for part in SSD_FWD_PARTS:
         launches[f"ssd_scan[{part}]"] = getattr(ssd_scan, f"{part}_launches")
+    for part in SSD_BWD_STATE_PARTS:
+        launches[f"ssd_scan_bwd_state[{part}]"] = getattr(ssd_scan_bwd_state, f"{part}_launches")
     return launches, {f.__name__: f.plain_launches for f in plains}
 
 
@@ -1590,12 +1637,12 @@ def read_tc_counts(torch):
 
 
 def read_matmul_routes(torch):
-    """Launches of kernels 1 and 6 by route: {"<name>[stream]": n,
+    """Launches of kernels 1, 6 and 5 by route: {"<name>[stream]": n,
     "<name>[tc]": n}; the rest of their ``launches`` took the tile loop."""
-    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused
+    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul, ent_matmul_packed_fused
     from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
     return {f"{f.__name__}[{r}]": getattr(f, f"{r}_launches")
-            for f in (ent_matmul_packed_fused, int8_matmul) for r in ("stream", "tc")}
+            for f in (ent_matmul_packed_fused, int8_matmul, ent_matmul) for r in ("stream", "tc")}
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
@@ -1815,19 +1862,19 @@ def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} ms/tick  {name[:90]}")
     mm = "ent_matmul_packed_fused" if "EN-T" in config else "int8_matmul"
-    mod = matmul_cuts()[mm]
-    cut, own = mod.M_STREAM, matmul_route(mm, SLOTS)
+    mod, attr = matmul_cuts()[mm]
+    cut, own = matmul_cut(mm), matmul_route(mm, SLOTS)
     other = "tc" if own == "stream" else "stream"
     by_route = {own: [], other: []}
     try:
         for route in (own, other, other, own):
-            mod.M_STREAM = SLOTS if route == "stream" else 0
+            setattr(mod, attr, SLOTS if route == "stream" else 0)
             _, dev = profiled()
             by_route[route].append(sum(v for k, v in dev.items()
                                        if "ent_stream::stream_kernel" in k
                                        or "ent_tc::tc_kernel" in k))
     finally:
-        mod.M_STREAM = cut
+        setattr(mod, attr, cut)
     print(f"  decode tick, {mm} by route (A B B A, {ticks} ticks each): "
           + "; ".join(f"{r} {' / '.join(f'{v:.3f}' for v in vs)} ms/tick"
                       for r, vs in by_route.items())
@@ -1955,6 +2002,7 @@ def kernels_vs_plain_end_to_end(torch, compute_dtype, weights, bound, kv_quant=F
     reset_counts(torch)
     a = run(model)
     launches, plain_runs = read_counts(torch)
+    launches.update(read_matmul_routes(torch))
     if any(plain_runs.values()):
         raise AssertionError(f"{label}: the kernel run ran plain versions {plain_runs}")
     b = run(plain_model)
@@ -2117,8 +2165,16 @@ def profile_train_step(torch, step_fn, params, opt, batch, step_wall):
     for name, sec in top:
         print(f"  {sec * 1e3:10.2f} ms/step ({100 * sec / max(busy, 1e-12):5.1f}%)  "
               f"{name[:90]}", flush=True)
+    # the port's own kernels by name, in and beyond the top
+    ours = {}
+    for name, sec in dev.items():
+        short = name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+        if short.startswith(("ssd_", "flash_")):
+            ours[short] = ours.get(short, 0.0) + sec * 1e3
+    print("  the port's kernels, ms/step: "
+          + ", ".join(f"{n} {ms:.2f}" for n, ms in sorted(ours.items())), flush=True)
     return dict(busy_s=busy, wall_s=wall, step_s=step_wall,
-                top=[(n[:90], sec) for n, sec in top])
+                top=[(n[:90], sec) for n, sec in top], kernels_ms=ours)
 
 
 # kernels with a tensor-core route (bf16 operands) beside the CUDA-core one
@@ -2132,7 +2188,8 @@ TRAIN_RUNS = {
                    dict(zip(TRAIN_KERNELS, (2, 1, 1))), TC_KERNELS),
     "mamba2-370m": (dict(seq_len=4096, global_batch=8, microbatch=4, remat="full"),
                     {**dict(zip(SSD_KERNELS, (2, 1, 1))),
-                     **{f"ssd_scan[{part}]": 2 for part in SSD_FWD_PARTS}}, ()),
+                     **{f"ssd_scan[{part}]": 2 for part in SSD_FWD_PARTS},
+                     **{f"ssd_scan_bwd_state[{part}]": 1 for part in SSD_BWD_STATE_PARTS}}, ()),
 }
 
 
@@ -2257,14 +2314,13 @@ def _build_label(fn):
     if (m := re.search(r"(flash_fwd_masked_tc|flash_fwd_tc|flash_bwd_dkdv_tc|flash_bwd_dq_tc)"
                        r"ILi(\d+)E", fn)):
         return f"{m.group(1)}<{m.group(2)}>"
-    if (m := re.search(r"(ssd_fwd_states_kernel|ssd_fwd_carry_kernel|ssd_fwd_out_kernel|"
-                       r"ssd_bwd_chunk_kernel)", fn)):
+    if (m := re.search(r"ssd_states_kernelILb([01])E", fn)):
+        return f"ssd_states_kernel<{('false', 'true')[int(m.group(1))]}>"
+    if (m := re.search(r"(ssd_carry_kernel|ssd_fwd_out_kernel|ssd_bwd_chunk_kernel)", fn)):
         return m.group(1)
-    if (m := re.search(r"stream_kernelI13__nv_bfloat16Li2ELi4ELi(\d+)EfE", fn)):
-        return f"stream_kernel<bf16,2,4,{m.group(1)},float>"
-    if (m := re.search(r"stream_kernelIaLi1ELi0ELi(\d+)EfE", fn)):
-        return f"stream_kernel<int8,1,0,{m.group(1)},float>"
     types = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "float", "a": "int8", "i": "int"}
+    if (m := re.search(r"stream_kernelI(13__nv_bfloat16|a)Li(\d)ELi(\d)ELi(\d+)EfE", fn)):
+        return f"stream_kernel<{types[m.group(1)]},{m.group(2)},{m.group(3)},{m.group(4)},float>"
     if (m := re.search(r"(paged_decode_tc|paged_decode_f32)I(13__nv_bfloat16|f|a)Lb[01]ELi(\d+)E",
                        fn)):
         return f"{m.group(1)}<{types[m.group(2)]},{m.group(3)}>"
@@ -2314,8 +2370,9 @@ def _scan_build(report, source, ops):
 
 def tc_build_report():
     """Registers and spills of the tensor-core kernels (2, 7, 7b, 7c; the
-    int8 loop of kernels 1 and 6; kernel 8's three launches and 8c), of
-    the split-K stream of kernels 1 and 6 and of the paged decode (3 and
+    int8 loop of kernels 1, 6 and 5; kernel 8's three launches, 8b's two
+    and 8c), of the split-K stream of kernels 1, 6 and 5 and of the paged
+    decode (3 and
     3b, both routes) from this run's build (``nvcc -Xptxas -v``), their
     HGMMA / IGMMA (int8 wgmma) / HMMA (mma.sync; the stream: IDP4A)
     instruction counts where the toolkit has ``cuobjdump``, and their
@@ -2331,31 +2388,34 @@ def tc_build_report():
         name, d = lab[:-1].split("<")
         rec["smem_bytes"] = smem(kinds[name], int(d))
     _scan_build(report, "flash_attention", ("HGMMA", "HMMA"))
-    # kernels 1 and 6: the stream as served (bf16 / int8 X, f32 out), one
-    # instantiation per rows a block, its shared memory at the largest of
-    # the four projection shapes' plans; and every instantiation of the
+    # kernels 1, 6 and 5: the stream as served (bf16 / int8 X, f32 out),
+    # one instantiation per rows a block, its shared memory at the largest
+    # of the four projection shapes' plans; and every instantiation of the
     # int8 tensor-core loop
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for source, stream_lab, np_, xs in (
-            ("ent_matmul", "stream_kernel<bf16,2,4,{},float>", 2, ("bf16", "f32")),
-            ("int8_matmul", "stream_kernel<int8,1,0,{},float>", 1, ("int8",))):
-        recs = {stream_lab.format(mb): {} for mb in em.STREAM_MB}
-        stream_smem = _build.entry(source, f"{source}_stream_smem")
+    for source, smem_of, x0, np_, shift, xs in (
+            ("ent_matmul", "ent_matmul", "bf16", 2, 4, ("bf16", "f32")),
+            ("int8_matmul", "int8_matmul", "int8", 1, 0, ("int8",)),
+            ("ent_matmul", "ent_matmul_planes", "int8", 4, 2, ("int8",))):
+        recs = {f"stream_kernel<{x0},{np_},{shift},{mb},float>": {} for mb in em.STREAM_MB}
+        stream_smem = _build.entry(source, f"{smem_of}_stream_smem")
         for mb, rec in zip(em.STREAM_MB, recs.values()):
             rec["smem_bytes"] = max(stream_smem(mb, em.stream_plan(mb, n, k, sms)[1])
                                     for k, n in STREAM_SHAPES[:4])
-        tc_smem = _build.entry(source, f"{source}_tc_smem")
+        tc_smem = _build.entry(source, f"{smem_of}_tc_smem")
         for x in xs:
             for o in ("float", "bf16", "int"):
-                recs[f"tc_kernel<{x},{np_},{4 if np_ == 2 else 0},{o}>"] = {
+                recs[f"tc_kernel<{x},{np_},{shift},{o}>"] = {
                     "smem_bytes": tc_smem(int(x == "bf16")) if np_ == 2 else tc_smem()}
         _scan_build(recs, source, ("HGMMA", "IGMMA", "HMMA", "IDP"))
         report.update(recs)
-    # kernel 8's three launches and kernel 8c (split-bf16 wgmma; the carry
-    # kernel has no product and no dynamic shared memory)
+    # kernel 8's three launches, 8b's two and kernel 8c (split-bf16 wgmma;
+    # the carry kernel, shared by 8 and 8b, has no product and no dynamic
+    # shared memory)
     ssd_smem = _build.entry("ssd_scan", "ssd_scan_smem")
-    recs = {"ssd_fwd_states_kernel": {"smem_bytes": ssd_smem(0)},
-            "ssd_fwd_carry_kernel": {"smem_bytes": 0},
+    recs = {"ssd_states_kernel<false>": {"smem_bytes": ssd_smem(0)},
+            "ssd_states_kernel<true>": {"smem_bytes": ssd_smem(0)},
+            "ssd_carry_kernel": {"smem_bytes": 0},
             "ssd_fwd_out_kernel": {"smem_bytes": ssd_smem(1)},
             "ssd_bwd_chunk_kernel": {"smem_bytes": ssd_smem(2)}}
     _scan_build(recs, "ssd_scan", ("HGMMA", "HMMA"))
@@ -2449,8 +2509,17 @@ def main():
     kernels_vs_plain_end_to_end(torch, "float32", "float", 1e-4)   # no int8 cascade
     kernels_vs_plain_end_to_end(torch, "bfloat16", "int8", 0.07, kv_quant=True)  # as served
     legacy = kernels_vs_plain_end_to_end(torch, "bfloat16", "4-plane", 0.07)
-    if legacy["ent_matmul"] < 1:
-        raise AssertionError(f"legacy 4-plane records did not reach ent_matmul: {legacy}")
+    # kernel 5 once per projection and layer in the prefill (2 x 256 rows)
+    # and in each of the 4 decode ticks (2 rows), on the routes its cut gives
+    per = PROJECTIONS * 2
+    want = {"ent_matmul": 5 * per, "ent_matmul[stream]": 0, "ent_matmul[tc]": 0}
+    for m, calls in ((512, per), (2, 4 * per)):
+        want[f"ent_matmul[{matmul_route('ent_matmul', m)}]"] += calls
+    got = {k: legacy[k] for k in want}
+    if got != want:
+        raise AssertionError(f"legacy 4-plane records: ent_matmul launches {got}, expected "
+                             f"{want}")
+    print(f"  legacy 4-plane records: ent_matmul launches {got}", flush=True)
     done(t, "kernels vs plain, 2 layers")
 
     t = phase("training kernel checks")
@@ -2519,38 +2588,47 @@ def main():
                               for c in SERVE_CONFIGS},
             build={lab: rec for lab, rec in tc_build.items()
                    if lab.startswith("paged_decode") and ("<int8," in lab) == int8_kv})
-    config_of = dict(zip(MATMULS, SERVE_CONFIGS))   # kernel 1: EN-T, kernel 6: int8
+    config_of = dict(zip(MATMULS[:2], SERVE_CONFIGS))   # kernel 1: EN-T, kernel 6: int8
+    signature = {"ent_matmul_packed_fused": ",2,4,", "int8_matmul": "<int8,1,0,",
+                 "ent_matmul": "<int8,4,2,"}   # each matmul's instantiations
 
-    def routed(name):
-        """Kernels 1 and 6: launches by route in their serve run, the cut
-        table and the decode tick's route comparison, the prefill profile,
-        the build."""
-        launches, _, routes, prefill, tick_routes = serves[config_of[name]]
+    def routed(name, launches, routes, **extra):
+        """Kernels 1, 6 and 5: launches by route on their path, the cut
+        table, the build, and ``extra``."""
         return dict(
-            design=(f"M <= {matmul_cuts()[name].M_STREAM} (decode): the split-K weight "
+            design=(f"M <= {matmul_cut(name)} (decode): the split-K weight "
                     "stream of csrc/int8_stream.cuh (64-column strips x K slices, 16-byte "
                     "cp.async ring, __byte_perm transpose to dp4a words, atomics + ticket, "
                     "one launch); larger M (prefill): the int8 tensor-core loop of "
-                    "csrc/int8_tc.cuh (128 x 128 tiles, two warpgroups of wgmma "
-                    "m64n128k32 s8.s8 -> s32 from shared memory, plane tiles transposed "
-                    "to K-major through registers, one accumulator set a plane, "
-                    + ("X quantized into the A tile, " if name != "int8_matmul" else "")
+                    "csrc/int8_tc.cuh (" + ("64 x 128 tiles, each warpgroup two of the four "
+                                            "planes" if name == "ent_matmul" else
+                                            "128 x 128 tiles, two warpgroups of 64 rows")
+                    + ", wgmma m64n128k32 s8.s8 -> s32 from shared memory, plane tiles "
+                    "transposed to K-major through registers, one accumulator set a plane, "
+                    + ("X quantized into the A tile, " if name == "ent_matmul_packed_fused"
+                       else "")
                     + "split-K by tc_plan)"),
             route_launches={"stream": routes[f"{name}[stream]"], "tc": routes[f"{name}[tc]"],
                             "tile": launches[name] - routes[f"{name}[stream]"]
                             - routes[f"{name}[tc]"]},
             at_prefill=next(r for r in mm[name] if r["M"] == 512 and r["N"] == 11008),
             stream_vs_tc=[r for r in cut if r["kernel"] == name],
-            decode_tick_ms_by_route=tick_routes,
-            prefill_profile=prefill, calls_checked={"stream": n_stream, "tc": n_tc},
+            calls_checked={"stream": n_stream, "tc": n_tc},
             build={lab: rec for lab, rec in tc_build.items()
-                   if lab.startswith(("stream", "tc_kernel"))
-                   and ("int8" in lab) == (name == "int8_matmul")})
+                   if lab.startswith(("stream", "tc_kernel")) and signature[name] in lab},
+            **extra)
+
+    def served(name):
+        """Kernels 1 and 6: ``routed`` from their serve run, with the decode
+        tick's route comparison and the prefill profile."""
+        launches, _, routes, prefill, tick_routes = serves[config_of[name]]
+        return routed(name, launches, routes, decode_tick_ms_by_route=tick_routes,
+                      prefill_profile=prefill)
 
     kernels = [
         entry("ent_matmul_packed_fused", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:227",
               mm["ent_matmul_packed_fused"], at_decode, ent_t["ent_matmul_packed_fused"],
-              **routed("ent_matmul_packed_fused")),
+              **served("ent_matmul_packed_fused")),
         entry("flash_attention_masked", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/flash_attention.py:145", k2,
               lambda rows: next(r for r in rows if r["S"] == 512 and r["window"] is None),
@@ -2570,14 +2648,15 @@ def main():
               **paged_extra(k3, False)),
         entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
               "src/repro/kernels/int8_matmul/int8_matmul.py:47", mm["int8_matmul"],
-              at_decode, int8["int8_matmul"], **routed("int8_matmul")),
+              at_decode, int8["int8_matmul"], **served("int8_matmul")),
         entry("paged_attention_kernel[int8_kv]", "src/repro_torch/csrc/paged_attention.cu",
               f"{paged}:109", k3i, lambda rows: rows[0],
               int8["paged_attention_kernel[int8_kv]"],
               branch=f"int8-KV, {paged}:49-56, :77-78, :92-94", **paged_extra(k3i, True)),
         entry("ent_matmul", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:75",
               mm["ent_matmul"], at_decode, legacy["ent_matmul"],
-              launches_from="2-layer run with legacy 4-plane records"),
+              launches_from="2-layer run with legacy 4-plane records",
+              **routed("ent_matmul", legacy, legacy)),
         entry("ent_matmul_packed", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:205",
               mm["ent_matmul_packed"], at_decode, int8["ent_matmul_packed"],
               launches_from="no serving path; run by the kernel checks only"),
@@ -2634,7 +2713,12 @@ def main():
             "(C B^T L dt) X (one block per chunk, head, batch, two warpgroups of 64 rows; "
             "the masked scores as split register A operands); every product split-bf16 "
             "three-pass (hi hi + hi lo + lo hi, f32 accumulate)"),
-        "ssd_scan_bwd_state": "f32 CUDA cores, one block per (head, batch) walking the chunks",
+        "ssd_scan_bwd_state": (
+            "two launches in kernel 8's form: each chunk's own term (dy e)^T C, e_i = "
+            "exp(cum_i) (kernel 8's states kernel with dy for x, C for B and exp(cum_i) for "
+            "its row weight; one block per chunk >= 1, head, batch; wgmma m64n64k16, split-bf16 "
+            "three-pass), written one slot down, then kernel 8's carry in reverse, dh <- dh "
+            "exp(cum_Q) + own in place (bytes only)"),
         "ssd_scan_bwd_chunk": (
             "one block per (chunk, head, batch), two warpgroups of 64 rows; G = dy x^T "
             "and W = G L into a causal [Q, Q] tile, then per half of N: S += C B^T, dC = "
@@ -2650,7 +2734,12 @@ def main():
             extra["launches_by_part"] = {part: tm["launches"][f"ssd_scan[{part}]"]
                                          for part in SSD_FWD_PARTS}
             extra["build"] = {lab: tc_build[lab] for lab in (
-                "ssd_fwd_states_kernel", "ssd_fwd_carry_kernel", "ssd_fwd_out_kernel")}
+                "ssd_states_kernel<false>", "ssd_carry_kernel", "ssd_fwd_out_kernel")}
+        if name == "ssd_scan_bwd_state":
+            extra["launches_by_part"] = {part: tm["launches"][f"ssd_scan_bwd_state[{part}]"]
+                                         for part in SSD_BWD_STATE_PARTS}
+            extra["build"] = {lab: tc_build[lab] for lab in (
+                "ssd_states_kernel<true>", "ssd_carry_kernel")}
         if name == "ssd_scan_bwd_chunk":
             extra["build"] = {"ssd_bwd_chunk_kernel": tc_build["ssd_bwd_chunk_kernel"]}
         if name != "ssd_scan":

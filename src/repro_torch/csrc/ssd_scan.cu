@@ -14,7 +14,7 @@
 // masked upper triangle is never exponentiated (exp(+400) * 0 is NaN).
 // Each decay factor exp(cum_i - cum_j) is computed once per (i, j) and
 // block.  cum is a warp scan (chunk_cum), the same code in every kernel
-// here but 8b, so kernels 8 and 8c see the same bits.
+// here, so kernels 8, 8b and 8c see the same bits.
 //
 // The chunk products run on the tensor cores (wgmma m64nNk16, bf16 in,
 // f32 accumulate) in split-bf16 three-pass form: every operand a is split
@@ -45,16 +45,17 @@
 // grid (batch, head, chunk) carries the [P, N] state across chunks in
 // VMEM.  Here the chunk algorithm of ssd_scan_fwd_ref, chunk-parallel, in
 // three launches:
-//   8a ssd_fwd_states_kernel, one block per (chunk, head, batch) (chunks
-//      0 .. nc - 2): the chunk's own state s_c = (x w)^T B, w_j =
+//   states, ssd_states_kernel<false>, one block per (chunk, head, batch)
+//      (chunks 0 .. nc - 2): the chunk's own state s_c = (x w)^T B, w_j =
 //      exp(cum_Q - cum_j) dt_j ([P, Q] . [Q, N], both operands MN-major,
 //      one warpgroup per half of N), written into h0s[c + 1], and cum_Q
 //      into a [B, H, nc] scratch.  96 KB of shared memory, 2 blocks an SM.
-//   8b' ssd_fwd_carry_kernel, one block per (1024 floats of the state,
-//      head, batch): walks the chunks in order, h <- h exp(cum_Q) + s_c
-//      (multiply then add, as the plain version), in place in h0s, which
-//      then holds each chunk's entering state (h0s[0] = 0).  Bytes only.
-//   8c' ssd_fwd_out_kernel, one block per (chunk, head, batch), one
+//   carry, ssd_carry_kernel forward, one block per (1024 floats of the
+//      state, head, batch): walks the chunks in order, h <- h exp(cum_Q) +
+//      s_c (multiply then add, as the plain version), in place in h0s,
+//      which then holds each chunk's entering state (h0s[0] = 0).  Bytes
+//      only.
+//   out, ssd_fwd_out_kernel, one block per (chunk, head, batch), one
 //      warpgroup per 64 rows i: Y = C h0^T ([Q, N] . [N, P]) scaled by
 //      exp(cum_i), S = C B^T ([Q, N] . [N, Q], only the causal columns),
 //      the masked decayed scores S L dt_j split into register A operands,
@@ -70,13 +71,20 @@
 // its jnp chunk algorithm (ssd_scan_chunked, ref.py:56).  They stand in
 // for that autograd backward with the explicit formulas of
 // ssd_scan_bwd_ref (repro_torch/kernels/ssd_scan/ref.py).
-//   8b (ssd_scan_bwd_state): one block per (head, batch) walks the
-//   chunks in reverse, carrying dh, the gradient of the state leaving a
-//   chunk, in registers (32 floats a thread), f32 on the CUDA cores:
-//   dh_{c-1} = exp(cum_Q) dh_c + sum_i exp(cum_i) dy_i C_i^T, written at
-//   each chunk boundary as dhs [B, H, nc, P, N] (zeros for the last).
-//   Bound at the training shape: ~8.3e9 flops, ~0.28 GB; ~0.12 ms.
-//   100.4 KB of dynamic shared memory.
+//   8b (ssd_scan_bwd_state): dhs [B, H, nc, P, N], dh_{c-1} = exp(cum_Q^c)
+//   dh_c + own_c with own_c = sum_i exp(cum_i) dy_i C_i^T and dh_{nc-1} =
+//   0, in kernel 8's form, two launches:
+//     own, ssd_states_kernel<true>: one block per (chunk c >= 1, head,
+//       batch), own_c = (dy e)^T C with e_i = exp(cum_i): the states
+//       kernel's product with dy for x, C for B and exp(cum_i) for its row
+//       weight, written into dhs[c - 1], and cum_Q^c into the scratch;
+//     carry, ssd_carry_kernel in reverse: dhs[c] <- dhs[c + 1]
+//       exp(cum_Q^{c+1}) + dhs[c] from c = nc - 2 down to 0 (multiply
+//       then add, as the plain version), and dhs[nc - 1] = 0.
+//   Bound at the training shape: ~0.28 GB (dy and dhs 134 MB each)
+//   against ~8.3e9 flops, 2.5e10 as three bf16 passes: bytes, 0.083 ms
+//   (0.025 ms of tensor-core time).  The two launches move ~0.55 GB: dhs
+//   is written twice and read once.
 //   8c (ssd_scan_bwd_chunk): one block per (chunk, head, batch), two
 //   warpgroups, each owning 64 rows (of i where a product's rows are i,
 //   of j where they are j).  With W = (dy x^T) L, S = C B^T, L_ij =
@@ -115,8 +123,9 @@
 //
 // `fault` is a check hook, 0 on every path of the port: chip_smoke.py
 // plants 1 (8, the carry kernel: the state not decayed), 2 (8, the output
-// kernel: the intra-chunk mask off by one, j < i) and 3 (8b: dh not
-// carried across chunks) to show that its limits reject them.
+// kernel: the intra-chunk mask off by one, j < i), 3 (8b, the carry
+// kernel: dh not carried across chunks) and 4 (8b, the own kernel: row i
+// weighted by exp(cum_{i+1})) to show that its limits reject them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,8 +142,6 @@ constexpr int P = 64;
 constexpr int N = 128;
 constexpr int QM = 128;        // largest chunk; every tile has QM rows
 constexpr int NT = 256;        // threads per block: two warpgroups
-constexpr int PS = P + 1;      // padded row strides of kernel 8b
-constexpr int NS = N + 1;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int T128 = QM * 128;   // bytes of a [128 x 64] bf16 tile
 constexpr int T64 = 64 * 128;    // bytes of a [64 x 64] bf16 tile
@@ -320,71 +327,92 @@ __device__ __forceinline__ void chunk_cum(float* dts, float* cum, const float* _
 
 constexpr int STATES_SMEM = 6 * T128 + 3 * QM * 4 + 1024;
 
-// 8a: the chunk's own state into h0s[c + 1], cum_Q into cumq.
+// A chunk's own state, one block per (chunk, head, batch):
+//   s[p, n] = sum_j w_j v[j, p] k[j, n]
+// forward (REV false; kernel 8's states): chunk c = blockIdx.x of 0 ..
+// nc - 2, v x, k B, w_j = exp(cum_Q - cum_j) dt_j, into h0s[c + 1];
+// backward (REV true; 8b's own): chunk c = blockIdx.x + 1 of 1 .. nc - 1,
+// v dy, k C, w_i = exp(cum_i) (fault 4: exp(cum_{i+1})), into dhs[c - 1].
+// cum_Q of chunk c into cumq[c].
+template <bool REV>
 __global__ void __launch_bounds__(NT, 2)
-ssd_fwd_states_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                      const float* __restrict__ a, const float* __restrict__ bm,
-                      float* __restrict__ h0s, float* __restrict__ cumq, int L, int H, int G,
-                      int Q) {
+ssd_states_kernel(const float* __restrict__ v, const float* __restrict__ dt,
+                  const float* __restrict__ a, const float* __restrict__ km,
+                  float* __restrict__ states, float* __restrict__ cumq, int L, int H, int G,
+                  int Q, int fault) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* xw = align1024(smem_raw);        // x w: hi, lo (+T128)
-  uint8_t* bt = xw + 2 * T128;              // B, tile t (columns 64 t ..) at 2 t T128
-  float* cum = reinterpret_cast<float*>(bt + 4 * T128);
+  uint8_t* vw = align1024(smem_raw);        // v w: hi, lo (+T128)
+  uint8_t* kt = vw + 2 * T128;              // k, tile t (columns 64 t ..) at 2 t T128
+  float* cum = reinterpret_cast<float*>(kt + 4 * T128);
   float* dts = cum + QM;
   float* wv = dts + QM;
-  const int tid = threadIdx.x, c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, c = blockIdx.x + REV, h = blockIdx.y, b = blockIdx.z;
   const int nc = L / Q;
-  if (c >= nc - 1) return;   // the last chunk's own state enters no chunk
+  // the last chunk's own state enters no chunk; the first's gradient leaves none
+  if (REV ? c >= nc : c >= nc - 1) return;
   const int g = h / (H / G);
   const size_t row0 = static_cast<size_t>(b) * L + c * Q;
   chunk_cum(dts, cum, dt + h, a[h], row0, H, Q);
   for (int t = 0; t < 2; ++t)
-    stage<QM>(bt + 2 * t * T128, T128, bm + (row0 * G + g) * N + 64 * t,
+    stage<QM>(kt + 2 * t * T128, T128, km + (row0 * G + g) * N + 64 * t,
               static_cast<size_t>(G) * N, Q);
   __syncthreads();
   const float cl = cum[Q - 1];
-  if (tid < QM) wv[tid] = tid < Q ? __fmul_rn(expf(cl - cum[tid]), dts[tid]) : 0.0f;
+  if (tid < QM) {
+    float w = 0.0f;
+    if (tid < Q) {
+      if constexpr (REV) w = expf(cum[fault == 4 ? min(tid + 1, Q - 1) : tid]);
+      else w = __fmul_rn(expf(cl - cum[tid]), dts[tid]);
+    }
+    wv[tid] = w;
+  }
   if (tid == 0) cumq[(static_cast<size_t>(b) * H + h) * nc + c] = cl;
   __syncthreads();
-  stage<QM>(xw, T128, x + (row0 * H + h) * P, static_cast<size_t>(H) * P, Q, wv);
+  stage<QM>(vw, T128, v + (row0 * H + h) * P, static_cast<size_t>(H) * P, Q, wv);
   fence_proxy_async();
   __syncthreads();
 
-  // s[p, n] = sum_j (x w)[j, p] B[j, n]: A = (x w)^T, B = the warpgroup's
-  // half of B, both MN-major; k16 steps of 16 rows j
+  // s[p, n] = sum_j (v w)[j, p] k[j, n]: A = (v w)^T, B = the warpgroup's
+  // half of k, both MN-major; k16 steps of 16 rows j
   const int wg = tid / 128;
-  const uint8_t* bw = bt + 2 * wg * T128;
+  const uint8_t* kw = kt + 2 * wg * T128;
   float acc[32];
   wgmma_fence();
   for (int s = 0; s < (Q + 15) / 16; ++s)
-    mma3<64, 1, 1>(acc, xw + s * KSTEP, T128, bw + s * KSTEP, T128, s > 0);
+    mma3<64, 1, 1>(acc, vw + s * KSTEP, T128, kw + s * KSTEP, T128, s > 0);
   wgmma_commit();
   wgmma_wait();
   fence_regs(acc);
   const Frag f;
-  float* out = h0s + state_at(b, h, c + 1, H, nc) + 64 * wg;
+  float* out = states + state_at(b, h, REV ? c - 1 : c + 1, H, nc) + 64 * wg;
 #pragma unroll
   for (int x2 = 0; x2 < 32; x2 += 2)
     *reinterpret_cast<float2*>(out + f.row(x2) * N + f.col(x2)) =
         make_float2(acc[x2], acc[x2 + 1]);
 }
 
-// 8b': the carry.  Thread: four consecutive floats of every state of one
-// (batch, head).
+// The carry, in place over the states of one (batch, head), each slot
+// holding a chunk's own state: forward (rev 0), h0s[0] = 0 and for c = 1
+// .. nc - 1 h0s[c] <- h0s[c - 1] exp(cumq[c - 1]) + h0s[c]; in reverse
+// (rev 1), dhs[nc - 1] = 0 and for c = nc - 2 .. 0 dhs[c] <- dhs[c + 1]
+// exp(cumq[c + 1]) + dhs[c].  Fault 1: no decay; fault 3: nothing carried.
+// Thread: four consecutive floats of every state.
 __global__ void __launch_bounds__(NT)
-ssd_fwd_carry_kernel(const float* __restrict__ cumq, float* h0s, int nc, int fault) {
+ssd_carry_kernel(const float* __restrict__ cumq, float* states, int nc, int rev, int fault) {
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  float4* st = reinterpret_cast<float4*>(h0s + state_at(b, h, 0, H, nc)) +
+  float4* st = reinterpret_cast<float4*>(states + state_at(b, h, 0, H, nc)) +
                blockIdx.x * NT + threadIdx.x;
   const float* cq = cumq + (static_cast<size_t>(b) * H + h) * nc;
   constexpr int STRIDE = P * N / 4;   // float4s a state
+  const int step = rev ? -1 : 1, first = rev ? nc - 1 : 0;
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 next = nc > 1 ? st[STRIDE] : s;
-  st[0] = s;
-  for (int c = 1; c < nc; ++c) {
+  float4 next = nc > 1 ? st[(first + step) * STRIDE] : s;
+  st[first * STRIDE] = s;
+  for (int k = 1; k < nc; ++k) {
+    const int c = first + step * k;
     const float4 own = next;
-    if (c + 1 < nc) next = st[(c + 1) * STRIDE];
-    const float d = fault == 1 ? 1.0f : expf(cq[c - 1]);
+    if (k + 1 < nc) next = st[(c + step) * STRIDE];
+    const float d = fault == 1 ? 1.0f : fault == 3 ? 0.0f : expf(cq[c - step]);
     s.x = __fadd_rn(__fmul_rn(s.x, d), own.x);
     s.y = __fadd_rn(__fmul_rn(s.y, d), own.y);
     s.z = __fadd_rn(__fmul_rn(s.z, d), own.z);
@@ -401,7 +429,7 @@ constexpr int OUT_H = OUT_X + 2 * T128;  // h0 [P x N]: tile t hi at OUT_H + 2 t
 constexpr int OUT_F = OUT_H + 4 * T64;   // cum, dts, exp(cum)
 constexpr int OUT_SMEM = OUT_F + 3 * QM * 4 + 1024;
 
-// 8c': y for the warpgroup's 64 rows i (r0 ..); NARROW: rows 0 .. 63, whose
+// out: y for the warpgroup's 64 rows i (r0 ..); NARROW: rows 0 .. 63, whose
 // causal columns are 0 .. 63.
 template <bool NARROW>
 __device__ __forceinline__ void out_rows(const uint8_t* sm, const float* cum, const float* dts,
@@ -458,7 +486,7 @@ __device__ __forceinline__ void out_rows(const uint8_t* sm, const float* cum, co
   }
 }
 
-// 8c': the outputs.
+// out: the outputs.
 __global__ void __launch_bounds__(NT, 1)
 ssd_fwd_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ a, const float* __restrict__ bm,
@@ -489,76 +517,6 @@ ssd_fwd_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float* yb = y + (row0 * H + h) * P;
   if (tid < 128) out_rows<true>(sm, cum, dts, ecum, yb, static_cast<size_t>(H) * P, 0, Q, fault);
   else out_rows<false>(sm, cum, dts, ecum, yb, static_cast<size_t>(H) * P, 64, Q, fault);
-}
-
-// ------------------------------------------------------------ kernel 8b
-
-// Rows [l0, l0 + rows) of a [B, L, R, W] tensor's slice r into a shared
-// [rows][stride] tile (columns col0 .. col0 + width).
-__device__ __forceinline__ void stage_f32(float* dst, int stride, const float* src, int b,
-                                          int L, int R, int r, int W, int l0, int rows,
-                                          int col0, int width) {
-  for (int i = threadIdx.x; i < rows * width; i += NT) {
-    const int row = i / width, col = i % width;
-    dst[row * stride + col] =
-        src[((static_cast<size_t>(b) * L + l0 + row) * R + r) * W + col0 + col];
-  }
-}
-
-// dt of the chunk into dts, and (after a barrier) cum = the inclusive
-// cumsum of dt a, summed sequentially by one thread.
-__device__ __forceinline__ void chunk_cum_serial(float* dts, float* cum, const float* dt,
-                                                 float av, int b, int L, int H, int h,
-                                                 int l0, int Q) {
-  if (threadIdx.x < Q)
-    dts[threadIdx.x] = dt[(static_cast<size_t>(b) * L + l0 + threadIdx.x) * H + h];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int i = 0; i < Q; ++i) {
-      s += dts[i] * av;
-      cum[i] = s;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(NT, 1)
-ssd_bwd_state_kernel(const float* __restrict__ dt, const float* __restrict__ a,
-                     const float* __restrict__ cm, const float* __restrict__ dy,
-                     float* __restrict__ dhs, int L, int H, int G, int Q, int fault) {
-  extern __shared__ float smem[];
-  float* cs = smem;               // [QM][NS]
-  float* ds = cs + QM * NS;       // [QM][PS]
-  float* cum = ds + QM * PS;      // [QM]
-  float* dts = cum + QM;          // [QM]
-  const int tid = threadIdx.x, h = blockIdx.x, b = blockIdx.y;
-  const int g = h / (H / G), nc = L / Q;
-  const float av = a[h];
-  const int n = tid % N, p0 = (tid / N) * 32;
-  float dh[32];
-#pragma unroll
-  for (int k = 0; k < 32; ++k) dh[k] = 0.0f;
-
-  for (int c = nc - 1;; --c) {
-    float* out = dhs + state_at(b, h, c, H, nc);
-#pragma unroll
-    for (int k = 0; k < 32; ++k) out[(p0 + k) * N + n] = dh[k];
-    if (c == 0) break;
-    const int l0 = c * Q;
-    __syncthreads();   // the previous chunk's readers are done
-    stage_f32(cs, NS, cm, b, L, G, g, N, l0, Q, 0, N);
-    stage_f32(ds, PS, dy, b, L, H, h, P, l0, Q, 0, P);
-    chunk_cum_serial(dts, cum, dt, av, b, L, H, h, l0, Q);
-    __syncthreads();
-    const float dec = fault == 3 ? 0.0f : expf(cum[Q - 1]);
-#pragma unroll
-    for (int k = 0; k < 32; ++k) dh[k] *= dec;
-    for (int i = 0; i < Q; ++i) {
-      const float cv = cs[i * NS + n] * expf(cum[i]);
-#pragma unroll
-      for (int k = 0; k < 32; ++k) dh[k] = fmaf(ds[i * PS + p0 + k], cv, dh[k]);
-    }
-  }
 }
 
 // ------------------------------------------------------------ kernel 8c
@@ -977,6 +935,27 @@ bool bad_shape(int B, int L, int H, int G, int p, int n, int Q) {
          B <= 0 || H <= 0;
 }
 
+
+template <bool REV>
+int launch_states(const float* v, const float* dt, const float* a, const float* k, float* states,
+                  float* cumq, int B, int L, int H, int G, int p, int n, int Q, int fault,
+                  void* stream) {
+  if (bad_shape(B, L, H, G, p, n, Q)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = L / Q;
+  return launch_dyn(ssd_states_kernel<REV>, dim3(nc > 1 ? nc - 1 : 1, H, B), STATES_SMEM,
+                    static_cast<cudaStream_t>(stream), v, dt, a, k, states, cumq, L, H, G, Q,
+                    fault);
+}
+
+int launch_carry(const float* cumq, float* states, int B, int L, int H, int Q, int rev,
+                 int fault, void* stream) {
+  if (B <= 0 || H <= 0 || Q <= 0 || Q > QM || L % Q != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ssd_carry_kernel<<<dim3(P * N / (4 * NT), H, B), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      cumq, states, L / Q, rev, fault);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Kernel 8, in three launches on one stream: h0s [B, H, nc, P, N] and the
@@ -984,19 +963,12 @@ bool bad_shape(int B, int L, int H, int G, int p, int n, int Q) {
 extern "C" int ssd_fwd_states(const float* x, const float* dt, const float* a, const float* b,
                               float* h0s, float* cumq, int B, int L, int H, int G, int p,
                               int n, int Q, void* stream) {
-  if (bad_shape(B, L, H, G, p, n, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const int nc = L / Q;
-  return launch_dyn(ssd_fwd_states_kernel, dim3(nc > 1 ? nc - 1 : 1, H, B), STATES_SMEM,
-                    static_cast<cudaStream_t>(stream), x, dt, a, b, h0s, cumq, L, H, G, Q);
+  return launch_states<false>(x, dt, a, b, h0s, cumq, B, L, H, G, p, n, Q, 0, stream);
 }
 
 extern "C" int ssd_fwd_carry(const float* cumq, float* h0s, int B, int L, int H, int Q,
                              int fault, void* stream) {
-  if (B <= 0 || H <= 0 || Q <= 0 || Q > QM || L % Q != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  ssd_fwd_carry_kernel<<<dim3(P * N / (4 * NT), H, B), NT, 0,
-                         static_cast<cudaStream_t>(stream)>>>(cumq, h0s, L / Q, fault);
-  return static_cast<int>(cudaGetLastError());
+  return launch_carry(cumq, h0s, B, L, H, Q, 0, fault, stream);
 }
 
 extern "C" int ssd_fwd_out(const float* x, const float* dt, const float* a, const float* b,
@@ -1008,14 +980,17 @@ extern "C" int ssd_fwd_out(const float* x, const float* dt, const float* a, cons
                     fault);
 }
 
-extern "C" int ssd_scan_bwd_state(const float* dt, const float* a, const float* c,
-                                  const float* dy, float* dhs, int B, int L, int H,
-                                  int G, int p, int n, int Q, int fault, void* stream) {
-  if (bad_shape(B, L, H, G, p, n, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (QM * NS + QM * PS + 2 * QM);
-  return launch_dyn(ssd_bwd_state_kernel, dim3(H, B), smem,
-                    static_cast<cudaStream_t>(stream), dt, a, c, dy, dhs, L, H, G, Q,
-                    fault);
+// Kernel 8b, in two launches on one stream: dhs [B, H, nc, P, N] and the
+// scratch cumq [B, H, nc] are the caller's.
+extern "C" int ssd_bwd_own(const float* dt, const float* a, const float* c, const float* dy,
+                           float* dhs, float* cumq, int B, int L, int H, int G, int p, int n,
+                           int Q, int fault, void* stream) {
+  return launch_states<true>(dy, dt, a, c, dhs, cumq, B, L, H, G, p, n, Q, fault, stream);
+}
+
+extern "C" int ssd_bwd_carry(const float* cumq, float* dhs, int B, int L, int H, int Q,
+                             int fault, void* stream) {
+  return launch_carry(cumq, dhs, B, L, H, Q, 1, fault, stream);
 }
 
 extern "C" int ssd_scan_bwd_chunk(const float* x, const float* dt, const float* a,
@@ -1031,7 +1006,8 @@ extern "C" int ssd_scan_bwd_chunk(const float* x, const float* dt, const float* 
 }
 
 // Dynamic shared memory of the tensor-core kernels, for the build report:
-// 0 the states kernel (8a), 1 the output kernel, 2 kernel 8c.
+// 0 the states kernel (kernel 8's states and 8b's own), 1 the output
+// kernel, 2 kernel 8c.
 extern "C" int ssd_scan_smem(int kind) {
   return kind == 0 ? STATES_SMEM : kind == 1 ? OUT_SMEM : CHUNK_SMEM;
 }

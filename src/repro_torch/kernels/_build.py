@@ -43,7 +43,12 @@ ENTRY_POINTS = {
                                        _P] + [_I] * 6 + [_P],
         "ent_matmul_stream_smem": [_I, _I],
         "ent_matmul_tc_smem": [_I],
-        "ent_matmul_planes": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]},
+        "ent_matmul_planes": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ent_matmul_planes_stream": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 7
+                                    + [_P],
+        "ent_matmul_planes_tc": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 6 + [_P],
+        "ent_matmul_planes_stream_smem": [_I, _I],
+        "ent_matmul_planes_tc_smem": []},
     "int8_matmul": {
         "int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
         "int8_matmul_stream": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 7 + [_P],
@@ -63,7 +68,8 @@ ENTRY_POINTS = {
         "ssd_fwd_states": [_P] * 6 + [_I] * 7 + [_P],
         "ssd_fwd_carry": [_P] * 2 + [_I] * 5 + [_P],
         "ssd_fwd_out": [_P] * 7 + [_I] * 8 + [_P],
-        "ssd_scan_bwd_state": [_P] * 5 + [_I] * 8 + [_P],
+        "ssd_bwd_own": [_P] * 6 + [_I] * 8 + [_P],
+        "ssd_bwd_carry": [_P] * 2 + [_I] * 5 + [_P],
         "ssd_scan_bwd_chunk": [_P] * 13 + [_I] * 7 + [_P],
         "ssd_scan_smem": [_I]},
 }

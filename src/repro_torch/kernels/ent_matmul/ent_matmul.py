@@ -9,15 +9,16 @@ digit-plane matmuls (replacing the Pallas kernels of
 
 On a CUDA tensor a wrapper launches its kernel or raises; only CPU
 tensors take the plain PyTorch version.  Each wrapper's ``launches``
-counts its kernel launches.  ``ent_matmul_packed_fused`` (kernel 1), like
-``int8_matmul`` (kernel 6), routes by M: up to ``M_STREAM`` rows (the
-decode shape; each wrapper has its own cut) the split-K weight stream of
-``csrc/int8_stream.cuh``, counted in ``.stream_launches``; above, the int8
-tensor-core loop of ``csrc/int8_tc.cuh``, counted in ``.tc_launches``,
-both among its ``.launches``.  The CUDA-core tile loop of
-``csrc/int8_tile.cuh`` serves the other two wrappers (kernels 4 and 5,
-which no serving or training path launches); ``chip_smoke.py`` times it
-beside the two routes.
+counts its kernel launches.  ``ent_matmul_packed_fused`` (kernel 1) and
+``ent_matmul`` (kernel 5), like ``int8_matmul`` (kernel 6), route by M:
+up to their cut (the decode shape; ``M_STREAM`` for kernel 1,
+``M_STREAM_PLANES`` for kernel 5, kernel 6's in its own module) the
+split-K weight stream of ``csrc/int8_stream.cuh``, counted in
+``.stream_launches``; above, the int8 tensor-core loop of
+``csrc/int8_tc.cuh``, counted in ``.tc_launches``, both among their
+``.launches``.  The CUDA-core tile loop of ``csrc/int8_tile.cuh`` serves
+``ent_matmul_packed`` (kernel 4, which no serving or training path
+launches); ``chip_smoke.py`` times it beside the two routes.
 ``out_dtype`` is float32 (the default, as in the reference), bfloat16, or
 int32 for the int32 accumulator itself (no epilogue: the quantity the
 ``*_int32_ref`` oracles return).
@@ -44,6 +45,10 @@ OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 # less time than the tensor-core loop over a layer's seven qwen2.5-3b
 # projections (PERF.md).  Kernel 6 has its own cut (int8_matmul.py).
 M_STREAM = 16
+# Kernel 5 (the legacy 4-plane records) has its own cut, from the same
+# table for kernel 5: at four planes the stream reads twice kernel 1's
+# bytes, and the tensor-core loop is the faster from M = 16 on.
+M_STREAM_PLANES = 8
 # the stream's strip width, K-slice step and cap, and rows a block
 # (csrc/int8_stream.cuh: BN, KSTEP; the instantiated MB: larger M runs in
 # chunks of 8 rows): the plan is made here, and the launcher refuses one
@@ -53,8 +58,10 @@ STREAM_KSTEP = 16
 STREAM_KSLICE_MAX = 2048
 STREAM_MB = (4, 8)
 # the tensor-core loop's output tile and k step (csrc/int8_tc.cuh: BM, BN,
-# BK), and the fewest k steps a K slice of it takes
+# BK; bm<4>, the rows of a block at four planes), and the fewest k steps a
+# K slice of it takes
 TC_BM = 128
+TC_BM_PLANES = 64
 TC_BN = 128
 TC_BK = 128
 TC_MIN_STEPS = 2
@@ -77,22 +84,23 @@ def stream_plan(m: int, n: int, k: int, sms: int):
     return mb, kslice, splits, (strips, splits, chunks)
 
 
-def tc_plan(m: int, n: int, k: int, sms: int):
+def tc_plan(m: int, n: int, k: int, sms: int, bm: int = TC_BM):
     """The tensor-core loop's launch plan for X [m, k] x planes [., k, n]
-    on a card of ``sms`` SMs (one block an SM): (kslice rows a K slice,
-    splits, grid (M tiles, N tiles, splits)).  Where the output tiles fill
+    on a card of ``sms`` SMs (one block an SM) with ``bm`` rows a block
+    (TC_BM_PLANES at four planes): (kslice rows a K slice, splits, grid (M
+    tiles, N tiles, splits)).  Where the output tiles fill
     more than half the SMs, K is not split; otherwise it is cut into as
     many slices of whole TC_BK steps (TC_MIN_STEPS at least) as fit in one
     wave, since a split that spills into a second wave takes longer than
     none.  The last slice may be shorter."""
-    tiles = -(-m // TC_BM) * -(-n // TC_BN)
+    tiles = -(-m // bm) * -(-n // TC_BN)
     steps = max(1, -(-k // TC_BK))
     splits = 1
     if 2 * tiles <= sms:
         splits = max(1, min(sms // tiles, steps // TC_MIN_STEPS))
     kslice = -(-steps // splits) * TC_BK
     splits = max(1, -(-k // kslice))
-    return kslice, splits, (-(-m // TC_BM), -(-n // TC_BN), splits)
+    return kslice, splits, (-(-m // bm), -(-n // TC_BN), splits)
 
 
 def check_operands(x, w, scale_x, scale_w, out_dtype, *, x_dtypes, planes,
@@ -172,12 +180,12 @@ def _launch_fused(x, packed, scale_x, scale_w, out_dtype, route: str):
     return out
 
 
-def launch_route(source, entries, lead, x, m, n, k, route: str) -> int:
+def launch_route(source, entries, lead, x, m, n, k, route: str, tc_bm: int = TC_BM) -> int:
     """Call ``route``'s C entry point of ``csrc/<source>.cu`` (``entries``:
     route -> name) with the operand arguments ``lead``, then, for the
-    stream and the tensor-core loop, the split-K workspace and tickets
-    (None, 0 when K is not split), the shape and the route's plan; returns
-    the entry point's error code."""
+    stream and the tensor-core loop (``tc_bm`` rows a block), the split-K
+    workspace and tickets (None, 0 when K is not split), the shape and the
+    route's plan; returns the entry point's error code."""
     if route not in entries:
         raise ValueError(f"route must be one of {tuple(entries)}, got {route!r}")
     cuda_stream = _build.stream_of(x)
@@ -189,7 +197,7 @@ def launch_route(source, entries, lead, x, m, n, k, route: str) -> int:
         mb, kslice, splits, (strips, _, chunks) = stream_plan(m, n, k, _build.sm_count(dev))
         plan, tickets = (mb, kslice, splits), strips * chunks
     else:
-        kslice, splits, (mt, nt, _) = tc_plan(m, n, k, _build.sm_count(dev))
+        kslice, splits, (mt, nt, _) = tc_plan(m, n, k, _build.sm_count(dev), tc_bm)
         plan, tickets = (kslice, splits), mt * nt
     ws = tk = None
     if splits > 1:
@@ -205,41 +213,68 @@ def count_launch(wrapper, route: str) -> None:
     wrapper.tc_launches += route == "tc"
 
 
-def _planes_call(wrapper, x, planes, scale_x, scale_w, out_dtype, nplanes,
-                 int32_ref, ref):
-    m, n, k = check_operands(x, planes, scale_x, scale_w, out_dtype,
-                             x_dtypes=(torch.int8,), planes=nplanes,
-                             max_k=PACKED_MAX_K)
-    if x.device.type == "cpu":
-        if out_dtype == torch.int32:
-            return int32_ref(x, planes)
-        return ref(x, planes, scale_x, scale_w, out_dtype)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0 or n == 0:
-        return out
-    fn = _build.entry("ent_matmul", "ent_matmul_planes")
-    rc = fn(x.data_ptr(), planes.data_ptr(), nplanes, scale_x.data_ptr(),
-            scale_w.data_ptr(), out.data_ptr(), OUT_KINDS[out_dtype], m, n, k,
-            _build.stream_of(x))
-    _build.check(rc, wrapper.__name__)
-    wrapper.launches += 1
-    return out
-
-
 def ent_matmul_packed(x, packed, scale_x, scale_w, out_dtype=torch.float32):
     """int8 X [M, K], packed planes int8 [2, K, N], sx f32 [M, 1], sw f32
     [1, N] -> [M, N]: ``(float(X @ P0 + (X @ P1 << 4)) * sx) * sw``."""
-    return _planes_call(ent_matmul_packed, x, packed, scale_x, scale_w, out_dtype,
-                        NUM_PACKED_PLANES, ent_packed_matmul_int32_ref,
-                        ent_packed_matmul_ref)
+    m, n, k = check_operands(x, packed, scale_x, scale_w, out_dtype, x_dtypes=(torch.int8,),
+                             planes=NUM_PACKED_PLANES, max_k=PACKED_MAX_K)
+    if x.device.type == "cpu":
+        if out_dtype == torch.int32:
+            return ent_packed_matmul_int32_ref(x, packed)
+        return ent_packed_matmul_ref(x, packed, scale_x, scale_w, out_dtype)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m and n:
+        _launch_tile_planes(x, packed, scale_x, scale_w, out)
+        ent_matmul_packed.launches += 1
+    return out
+
+
+def _launch_tile_planes(x, planes, scale_x, scale_w, out):
+    """Kernel 4 or 5 (by the planes' count) on the CUDA-core tile loop."""
+    m, k = x.shape
+    n = planes.shape[-1]
+    rc = _build.entry("ent_matmul", "ent_matmul_planes")(
+        x.data_ptr(), planes.data_ptr(), planes.shape[0], scale_x.data_ptr(),
+        scale_w.data_ptr(), out.data_ptr(), OUT_KINDS[out.dtype], m, n, k,
+        _build.stream_of(x))
+    _build.check(rc, "ent_matmul_planes")
 
 
 def ent_matmul(x, planes, scale_x, scale_w, out_dtype=torch.float32):
     """int8 X [M, K], digit planes int8 [4, K, N] in {-2..2}, sx f32
     [M, 1], sw f32 [1, N] -> [M, N]:
     ``(float(sum_i (X @ P_i) << 2i) * sx) * sw``."""
-    return _planes_call(ent_matmul, x, planes, scale_x, scale_w, out_dtype,
-                        NUM_PLANES, ent_matmul_int32_ref, ent_matmul_ref)
+    m, n, k = check_operands(x, planes, scale_x, scale_w, out_dtype, x_dtypes=(torch.int8,),
+                             planes=NUM_PLANES, max_k=PACKED_MAX_K)
+    if x.device.type == "cpu":
+        if out_dtype == torch.int32:
+            return ent_matmul_int32_ref(x, planes)
+        return ent_matmul_ref(x, planes, scale_x, scale_w, out_dtype)
+    return _launch_planes(x, planes, scale_x, scale_w, out_dtype, route_of(m, M_STREAM_PLANES))
+
+
+_PLANES_ENTRIES = {"stream": "ent_matmul_planes_stream", "tc": "ent_matmul_planes_tc"}
+
+
+def _launch_planes(x, planes, scale_x, scale_w, out_dtype, route: str):
+    """Launch kernel 5 on checked card operands through ``route``
+    ("stream", "tc" or "tile"); the wrapper chooses by M, chip_smoke.py
+    calls this to time the three loops at one M."""
+    m, k = x.shape
+    n = planes.shape[-1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    if route == "tile":
+        _launch_tile_planes(x, planes, scale_x, scale_w, out)
+    else:
+        lead = (x.data_ptr(), planes.data_ptr(), scale_x.data_ptr(), scale_w.data_ptr(),
+                out.data_ptr(), OUT_KINDS[out_dtype])
+        rc = launch_route("ent_matmul", _PLANES_ENTRIES, lead, x, m, n, k, route,
+                          TC_BM_PLANES)
+        _build.check(rc, "ent_matmul")
+    count_launch(ent_matmul, route)
+    return out
 
 
 ent_matmul_packed_fused.launches = 0
@@ -247,3 +282,5 @@ ent_matmul_packed_fused.stream_launches = 0
 ent_matmul_packed_fused.tc_launches = 0
 ent_matmul_packed.launches = 0
 ent_matmul.launches = 0
+ent_matmul.stream_launches = 0
+ent_matmul.tc_launches = 0

@@ -42,7 +42,8 @@ group; y [B, L, H, P].  Per head the recurrence over a [P, N] state is
   over the heads of each group, da over batch rows and chunks.
 
 ``einsum`` (default ``torch.einsum``) takes every chunk product of
-``ssd_scan_fwd_ref`` and ``ssd_scan_bwd_chunk_ref``: ``split_bf16_einsum``
+``ssd_scan_fwd_ref``, ``ssd_scan_bwd_state_ref`` and
+``ssd_scan_bwd_chunk_ref``: ``split_bf16_einsum``
 emulates the tensor-core kernels' split-bf16 three-pass products (each
 operand a = hi + lo, hi = bf16(a), lo = bf16(a - hi); a b taken as hi hi
 + hi lo + lo hi, accumulated in f32), ``bf16_einsum`` one bf16 pass.  No
@@ -180,7 +181,7 @@ def ssd_scan_chunked(x, dt, a, b, c, chunk: int = 128):
     return ssd_scan_fwd_ref(x, dt, a, b, c, chunk)[0].to(x.dtype)
 
 
-def ssd_scan_bwd_state_ref(dt, a, c, dy, chunk: int = 128):
+def ssd_scan_bwd_state_ref(dt, a, c, dy, chunk: int = 128, einsum=torch.einsum):
     """dhs f32 [B, H, nc, P, N]: the gradient of the state leaving each
     chunk, carried from the last chunk (zeros) to the first."""
     bsz, l, h, p = dy.shape
@@ -189,7 +190,7 @@ def ssd_scan_bwd_state_ref(dt, a, c, dy, chunk: int = 128):
     dyf = _wide(dy).reshape(bsz, nc, q, h, p)
     cf = _heads(c, h // g).reshape(bsz, nc, q, h, n)
     cum = torch.cumsum(_wide(dt).reshape(bsz, nc, q, h) * _wide(a), dim=2)
-    own = torch.einsum("bcihp,bcihn->bchpn", dyf * torch.exp(cum)[..., None], cf)
+    own = einsum("bcihp,bcihn->bchpn", dyf * torch.exp(cum)[..., None], cf)
     carry = torch.exp(cum[:, :, -1])
     dh = torch.zeros_like(own[:, 0])
     dhs = [dh]

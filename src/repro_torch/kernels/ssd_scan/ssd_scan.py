@@ -7,15 +7,19 @@
   chunk to chunk (``carry``) and the outputs (``out``);
 * ``ssd_scan_bwd_state`` and ``ssd_scan_bwd_chunk``: its backward
   (kernels 8b and 8c; the reference has no backward kernel), run
-  together by ``ssd_scan_bwd``.
+  together by ``ssd_scan_bwd``.  Kernel 8b is two launches in kernel 8's
+  form: each chunk's own term (``own``) and the carry from the last chunk
+  to the first (``carry``).
 
 On a CUDA tensor each wrapper launches its kernels or raises; only CPU
 tensors take the plain PyTorch version.  The kernels take float32
-operands, P = 64, N = 128 and chunks of at most 128 steps; kernels 8 and
-8c run their chunk products on the tensor cores in split-bf16 three-pass
-form (``csrc/ssd_scan.cu`` has the error budget; ``ref.split_bf16_einsum``
-emulates it).  Each kernel wrapper's ``.launches`` counts its calls, and
-``ssd_scan.<part>_launches`` each of kernel 8's three launches.
+operands, P = 64, N = 128 and chunks of at most 128 steps; kernels 8, 8b
+and 8c run their chunk products on the tensor cores in split-bf16
+three-pass form (``csrc/ssd_scan.cu`` has the error budget;
+``ref.split_bf16_einsum`` emulates it).  Each kernel wrapper's
+``.launches`` counts its calls, ``ssd_scan.<part>_launches`` each of
+kernel 8's three launches and ``ssd_scan_bwd_state.<part>_launches``
+each of 8b's two.
 ``fault`` (0 on every path of the port) plants a kernel fault for
 ``chip_smoke.py``'s checks (see ``csrc/ssd_scan.cu``); it has no plain
 version.
@@ -99,11 +103,19 @@ def ssd_scan_bwd_state(dt, a, c, dy, *, chunk: int = 128, fault: int = 0):
         _no_fault(fault)
         return ssd_scan_bwd_state_ref(dt, a, c, dy, q)
     _check_cuda(dt, a, c, dy, p=p, n=n, chunk=q)
-    dhs = torch.empty((bsz, h, l // q, p, n), dtype=torch.float32, device=dy.device)
-    rc = _build.entry("ssd_scan", "ssd_scan_bwd_state")(
+    nc = l // q
+    dhs = torch.empty((bsz, h, nc, p, n), dtype=torch.float32, device=dy.device)
+    cumq = torch.empty((bsz, h, nc), dtype=torch.float32, device=dy.device)
+    stream = _build.stream_of(dy)
+    rc = _build.entry("ssd_scan", "ssd_bwd_own")(
         dt.data_ptr(), a.data_ptr(), c.data_ptr(), dy.data_ptr(), dhs.data_ptr(),
-        bsz, l, h, g, p, n, q, fault, _build.stream_of(dy))
-    _build.check(rc, "ssd_scan_bwd_state")
+        cumq.data_ptr(), bsz, l, h, g, p, n, q, fault, stream)
+    _build.check(rc, "ssd_bwd_own")
+    ssd_scan_bwd_state.own_launches += 1
+    rc = _build.entry("ssd_scan", "ssd_bwd_carry")(
+        cumq.data_ptr(), dhs.data_ptr(), bsz, l, h, q, fault, stream)
+    _build.check(rc, "ssd_bwd_carry")
+    ssd_scan_bwd_state.carry_launches += 1
     ssd_scan_bwd_state.launches += 1
     return dhs
 
@@ -150,4 +162,5 @@ def ssd_scan_bwd(x, dt, a, b, c, h0s, dy, *, chunk: int = 128):
 ssd_scan.launches = 0
 ssd_scan.states_launches = ssd_scan.carry_launches = ssd_scan.out_launches = 0
 ssd_scan_bwd_state.launches = 0
+ssd_scan_bwd_state.own_launches = ssd_scan_bwd_state.carry_launches = 0
 ssd_scan_bwd_chunk.launches = 0

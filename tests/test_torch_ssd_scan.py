@@ -143,12 +143,19 @@ def test_ssdscan_gradcheck_float64(l, chunk):
     assert torch.autograd.gradcheck(lambda *t: ops.ssd(*t, chunk=chunk), (x, dt, a, b, c))
 
 
+def _counts():
+    """Every launch counter of the three SSD wrappers, and the plain route's."""
+    return ([f.launches for f in (ssd_scan, ssd_scan_bwd_state, ssd_scan_bwd_chunk)]
+            + [getattr(ssd_scan, f"{p}_launches") for p in ("states", "carry", "out")]
+            + [getattr(ssd_scan_bwd_state, f"{p}_launches") for p in ("own", "carry")]
+            + [ops.ssd.plain_launches])
+
+
 def test_ops_routes_on_the_cpu():
     """use_kernel=True goes through SSDScan (the wrappers' plain
     versions), use_kernel=False through the reference's CPU route; both
     agree, and the CPU launches no kernel and counts no plain run."""
-    counters = (ssd_scan, ssd_scan_bwd_state, ssd_scan_bwd_chunk)
-    before = [f.launches for f in counters] + [ops.ssd.plain_launches]
+    before = _counts()
     for l, chunk in ((256, 64), (64, 128)):
         arrays = _t(_data(1, l, 2, 8, 1, 16))
         ts = [t.clone().requires_grad_(True) for t in arrays]
@@ -159,7 +166,7 @@ def test_ops_routes_on_the_cpu():
         assert torch.equal(yp, want)
         _close(y.detach(), yp, FWD_RTOL, "SSDScan vs the plain route")
         y.sum().backward()
-    assert [f.launches for f in counters] + [ops.ssd.plain_launches] == before
+    assert _counts() == before
 
 
 def test_wrappers_refuse_bad_arguments():
@@ -180,3 +187,68 @@ def test_wrappers_refuse_bad_arguments():
     _, h0s = ssd_scan(x, dt, a, b, c, chunk=32, save_states=True)
     with pytest.raises(ValueError, match="h0s"):
         ssd_scan_bwd(x, dt, a, b, c, h0s[:, :, :2], dy, chunk=32)
+
+
+@pytest.mark.parametrize("shape", SWEEP[:2])
+def test_state_gradient_wrapper_on_the_cpu(shape):
+    """Kernel 8b's wrapper on CPU tensors is its plain version: with 8c's
+    it gives jax.vjp's five gradients, and it counts none of its launches
+    (calls, own, carry); a planted fault has no plain version."""
+    *dims, chunk = shape
+    arrays = _data(*dims)
+    dy = np.random.default_rng(4).normal(size=arrays[0].shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *t: jax_chunked(*t, chunk=chunk), *map(jnp.asarray, arrays))
+    want = vjp(jnp.asarray(dy))
+    x, dt, a, b, c = _t(arrays)
+    f = ssd_scan_bwd_state
+    assert (f.launches, f.own_launches, f.carry_launches) == (0, 0, 0)
+    _, h0s = ssd_scan_fwd_ref(x, dt, a, b, c, chunk)
+    dhs = f(dt, a, c, torch.from_numpy(dy), chunk=chunk)
+    got = ssd_scan_bwd_chunk(x, dt, a, b, c, h0s, dhs, torch.from_numpy(dy), chunk=chunk)
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc"), got, want):
+        _close(g, w, GRAD_RTOL, f"{name} vs jax.vjp")
+    assert (f.launches, f.own_launches, f.carry_launches) == (0, 0, 0)
+    for fault in (3, 4):
+        with pytest.raises(ValueError, match="fault"):
+            f(dt, a, c, torch.from_numpy(dy), chunk=chunk, fault=fault)
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def entry(self, name, fname=None):
+        def fn(*args):
+            self.calls.append((fname, args))
+            return 0
+        return fn
+
+
+@pytest.mark.parametrize("l,chunk", [(4096, 128), (128, 128), (96, 32)])
+def test_state_gradient_wrapper_launches_own_then_carry(monkeypatch, l, chunk):
+    """On card tensors (meta tensors here, with a recorder for the built
+    library) kernel 8b is two launches on one stream: the own kernel
+    writes dhs and the [B, H, nc] cum_Q scratch that the reverse carry
+    then reads, each counted beside the call; the fault reaches both."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as mod
+    rec = _Recorder()
+    monkeypatch.setattr(mod._build, "entry", rec.entry)
+    monkeypatch.setattr(mod._build, "stream_of", lambda t: 7)
+    f = ssd_scan_bwd_state
+    for name in ("launches", "own_launches", "carry_launches"):
+        monkeypatch.setattr(f, name, 0)
+    meta = torch.device("meta")
+    bsz, h, g = 2, 4, 1
+    dt = torch.empty((bsz, l, h), device=meta)
+    a = torch.empty((h,), device=meta)
+    c = torch.empty((bsz, l, g, 128), device=meta)
+    dy = torch.empty((bsz, l, h, 64), device=meta)
+    dhs = f(dt, a, c, dy, chunk=chunk, fault=4)
+    nc = l // chunk
+    assert dhs.shape == (bsz, h, nc, 64, 128) and dhs.dtype == torch.float32
+    (own, oargs), (carry, cargs) = rec.calls
+    assert (own, carry) == ("ssd_bwd_own", "ssd_bwd_carry")
+    assert oargs[4] == dhs.data_ptr() and oargs[6:] == (bsz, l, h, g, 64, 128, chunk, 4, 7)
+    assert cargs[0] == oargs[5] and cargs[1] == dhs.data_ptr()   # the scratch, then dhs
+    assert cargs[2:] == (bsz, l, h, chunk, 4, 7)
+    assert (f.launches, f.own_launches, f.carry_launches) == (1, 1, 1)

@@ -1,13 +1,15 @@
-"""The split-bf16 three-pass products of SSD kernels 8 and 8c, rehearsed
-on the CPU.
+"""The split-bf16 three-pass products of SSD kernels 8, 8b and 8c,
+rehearsed on the CPU.
 
-Kernels 8 (the scan) and 8c (the chunk gradients) run every chunk
-product on the tensor cores with each float32 operand split once into
-bf16 hi + lo and the product taken as hi hi + hi lo + lo hi, summed in
-f32 (``csrc/ssd_scan.cu`` has the error budget).  ``split_bf16_einsum``
-(``kernels/ssd_scan/ref.py``) is that product in plain torch; the chunk
-algorithm run with it (``ssd_scan_fwd_ref`` and ``ssd_scan_bwd_chunk_ref``
-with ``einsum=``) is held to ``chip_smoke.py``'s own SSD limits
+Kernels 8 (the scan), 8b (the state gradients' own term of each chunk)
+and 8c (the chunk gradients) run every chunk product on the tensor cores
+with each float32 operand split once into bf16 hi + lo and the product
+taken as hi hi + hi lo + lo hi, summed in f32 (``csrc/ssd_scan.cu`` has
+the error budget).  ``split_bf16_einsum`` (``kernels/ssd_scan/ref.py``) is
+that product in plain torch; the chunk algorithm run with it
+(``ssd_scan_fwd_ref``, ``ssd_scan_bwd_state_ref`` and
+``ssd_scan_bwd_chunk_ref`` with ``einsum=``, the backward fed the
+emulated dhs as 8c is fed 8b's) is held to ``chip_smoke.py``'s own SSD limits
 (``ssd_units`` / ``ssd_reading``: TOL_F32 plus the decay slack in units
 of each output's absolute computation, and da's 6 sigma), against the
 float32 plain versions and, for y, against the JAX package's
@@ -65,17 +67,21 @@ def _inputs(shape, seed=20):
 
 
 def _readings(cs, arrays, chunk, einsum):
-    """(forward, backward) readings of the chunk algorithm with ``einsum``
-    against the float32 plain versions, in chip_smoke.py's units."""
+    """(forward, backward, dhs) readings of the chunk algorithm with
+    ``einsum`` against the float32 plain versions, in chip_smoke.py's
+    units; the backward takes the dhs computed with ``einsum``."""
     x, dt, a, bm, cm, dy = map(torch.from_numpy, arrays)
     units, slack, sigma = cs.ssd_units(torch, x, dt, a, bm, cm, dy, chunk)
     want_f = ssd_scan_fwd_ref(x, dt, a, bm, cm, chunk)
     got_f = ssd_scan_fwd_ref(x, dt, a, bm, cm, chunk, einsum=einsum)
     dhs = ssd_scan_bwd_state_ref(dt, a, cm, dy, chunk)
+    got_dhs = ssd_scan_bwd_state_ref(dt, a, cm, dy, chunk, einsum=einsum)
     want_b = ssd_scan_bwd_chunk_ref(x, dt, a, bm, cm, want_f[1], dhs, dy, chunk)
-    got_b = ssd_scan_bwd_chunk_ref(x, dt, a, bm, cm, got_f[1], dhs, dy, chunk, einsum=einsum)
+    got_b = ssd_scan_bwd_chunk_ref(x, dt, a, bm, cm, got_f[1], got_dhs, dy, chunk,
+                                   einsum=einsum)
     return (cs.ssd_reading(got_f, want_f, units, slack, cs.SSD_FWD_OUT),
             cs.ssd_reading(got_b, want_b, units, slack, cs.SSD_BWD_OUT, sigma),
+            cs.ssd_reading((got_dhs,), (dhs,), units, slack, ("dhs",)),
             got_f[0], units, slack)
 
 
@@ -83,8 +89,8 @@ def _readings(cs, arrays, chunk, einsum):
 def test_split_bf16_fits_the_chip_limits(cs, shape):
     chunk = shape[-1]
     arrays = _inputs(shape)
-    r_fwd, r_bwd, y, units, slack = _readings(cs, arrays, chunk, split_bf16_einsum)
-    assert r_fwd <= 1 and r_bwd <= 1, (r_fwd, r_bwd)
+    r_fwd, r_bwd, r_dhs, y, units, slack = _readings(cs, arrays, chunk, split_bf16_einsum)
+    assert r_fwd <= 1 and r_bwd <= 1 and r_dhs <= 1, (r_fwd, r_bwd, r_dhs)
     y_jax = torch.from_numpy(np.asarray(jax_chunked(*map(jnp.asarray, arrays[:5]),
                                                     chunk=chunk)))
     r_jax = cs.ssd_reading((y,), (y_jax,), units, slack, ("y",))
@@ -96,6 +102,29 @@ def test_one_bf16_pass_breaks_the_limits(cs, shape):
     """The limits bite: one bf16 pass reads above 1."""
     r_fwd, r_bwd, *_ = _readings(cs, _inputs(shape), shape[-1], bf16_einsum)
     assert min(r_fwd, r_bwd) > 1, (r_fwd, r_bwd)
+
+
+# the shapes with more than one chunk: the last chunk's dhs is zeros, so a
+# one-chunk call has no own term
+MULTI = [s for s in SHAPES if s[1] > s[-1]]
+
+
+@pytest.mark.parametrize("shape", MULTI, ids=[i for s, i in zip(SHAPES, IDS) if s in MULTI])
+def test_state_gradients_split_fit_and_one_pass_breaks(cs, shape):
+    """8b's own term, (dy exp(cum))^T C, as three split-bf16 passes reads
+    within chip_smoke.py's dhs limit (<= 0.02 of it here: 0.0125 and
+    0.0067); as one bf16 pass it reads above 1 (5.8 and 3.5), so the
+    limit has no room for fewer passes."""
+    x, dt, a, bm, cm, dy = map(torch.from_numpy, _inputs(shape))
+    chunk = shape[-1]
+    units, slack, _ = cs.ssd_units(torch, x, dt, a, bm, cm, dy, chunk)
+    want = ssd_scan_bwd_state_ref(dt, a, cm, dy, chunk)
+
+    def reading(einsum):
+        got = ssd_scan_bwd_state_ref(dt, a, cm, dy, chunk, einsum=einsum)
+        return cs.ssd_reading((got,), (want,), units, slack, ("dhs",))
+    split, one = reading(split_bf16_einsum), reading(bf16_einsum)
+    assert split <= 0.02 and one > 1, (split, one)
 
 
 def test_split_residual_and_product_bounds():
