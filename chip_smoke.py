@@ -11,21 +11,23 @@ Phases (each prints its seconds; any failure exits non-zero):
    memory (``-Xptxas -v``) and HGMMA / IGMMA / HMMA (IDP4A) counts
    (``cuobjdump``, where the toolkit has it) of the tensor-core kernels (7,
    7b, 7c, kernel 2's masked instantiations, the int8 loop of kernels 1,
-   6 and 5, kernel 8's three launches, 8b's two and kernel 8c), of the
-   split-K stream of kernels 1, 6 and 5 and of the paged decode (3 and 3b);
+   6, 5 and 4, kernel 8's three launches, 8b's two and kernel 8c), of the
+   split-K stream of kernels 1, 6, 5 and 4 and of the paged decode (3 and
+   3b);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
    w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
    projection shapes, with the EN-T identity (all four int32
-   accumulators equal); kernels 1, 6 and 5 on each of their routes, the
-   split-K stream (M 1..32) and the int8 tensor-core loop (M 1..512; X
-   near rounding ties and rows whose 1 / sx overflows for kernel 1), bit
-   for bit on those shapes and a ragged one, in f32, bf16 and int32
-   outputs, timed beside the old CUDA-core tile loop, and the two routes
-   timed against each other at M 8..128 (the table each wrapper's cut
-   comes from);
+   accumulators equal); each of them on both its routes, the split-K
+   stream (M 1..32) and the int8 tensor-core loop (M 1..512; X near
+   rounding ties and rows whose 1 / sx overflows for kernel 1), bit for
+   bit on those shapes and a ragged one, in f32, bf16 and int32 outputs,
+   and the two routes timed against each other at M 8..128 (the table
+   each wrapper's cut comes from);
    the flash kernel (bf16 on its tensor-core route, float32 on CUDA
-   cores; ragged starts, a chunked prefill) and the paged attention
+   cores; ragged starts, a chunked prefill, the prefix cache's peek at
+   Sq = 1 and its tail-padded suffix at a page-aligned q_offset) and the
+   paged attention
    kernel (split-KV, one launch), the latter with bf16 pools and with
    int8 pools + bf16 scales, at the serving tick's shape, at G = 12 and
    D = 64 with pos on split boundaries, and at long context (8 x 4096
@@ -40,7 +42,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    tokens each) on qwen2.5-3b at full width (36 layers, random weights
    from a seed) through ``repro_torch.launch.serve``'s code, in two
    configurations: EN-T w8a8 with a bf16 KV cache, and w8a8 int8
-   (``QuantConfig(ent_encode=False)``) with an int8 KV cache.  Each
+   (``QuantConfig(ent_encode=False)``) with an int8 KV cache, both with
+   plain paged admission (``prefix_cache=False``).  Each
    asserts that the kernels of its path launched, no other serving
    kernel and no plain version ran, that every decode tick launched the
    paged decode once per layer (36) and no prefill did, that every
@@ -49,14 +52,24 @@ Phases (each prints its seconds; any failure exits non-zero):
    decode ticks' all on the split-K stream, the prefills' all on the
    tensor-core loop) and kernel 2 once per layer per prefill (36), all on
    its tensor-core route, and profiles full-batch decode ticks (with the
-   matmul on each route, in one process) and one admission prefill;
+   matmul on each route, in one process) and one admission prefill; then
+   the EN-T configuration with prefix sharing (``prefix_cache="auto"``):
+   the same 16 prompts behind one seeded 256-token prefix and two
+   page-aligned prompts whose pages are all cached (the full-match peek),
+   with every admission after the first mapping the prefix's 16 pages,
+   and one suffix prefill profiled beside the unshared admission of the
+   same prompt;
 5. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
    int8 KV, bf16 with legacy 4-plane records, whose 70 kernel 5 launches
    must split between the split-K stream (the ticks) and the tensor-core
    loop (the prefill) as its cut says), and with planted mask and scale
-   faults that the limits must reject;
+   faults that the limits must reject; and the prefix cache's path (a
+   256-token prefix, a 200-token suffix tail-padded to 256 with its last
+   real row picked, a peek over 28 shared pages that must leave the pool
+   unchanged, 4 decode ticks), whose planted faults (kernel 2 at q_offset
+   0, the last real row ignored) the limit must reject;
 6. the training kernels: the flash forward (kernel 7) against
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
@@ -223,23 +236,20 @@ def check_matmuls(torch, timer):
     """The four serving matmuls at the full-width projection shapes:
     kernel 1 (``ent_matmul_packed_fused``) and kernels 6 / A
     (``int8_matmul``), 5 / C (``ent_matmul``, 4-plane) and 4 / D
-    (``ent_matmul_packed``), at M = 8 (kernels 1, 6 and 5 on the split-K
-    stream) and M = 512 (on the tensor-core loop).  Each is held bit for
+    (``ent_matmul_packed``), at M = 8 (on the split-K stream) and M = 512
+    (on the tensor-core loop).  Each is held bit for
     bit against its plain version; the four int32 accumulators at the same
     Xq (kernel 1 quantizes X with the same sx) must all be equal, the EN-T
     identity; one planted fault per kernel (one weight or plane code off
     by one) must fail the exact check at both M; and all four, their plain
-    versions and ``torch._int_mm`` are timed, kernels 1, 6 and 5 also on
-    the CUDA-core tile loop that served them before.  Returns {kernel name:
-    [row per shape]}."""
+    versions and ``torch._int_mm`` are timed, each on the route its
+    wrapper takes at that M.  Returns {kernel name: [row per shape]}."""
     from repro_torch.core.multiplier import ent_packed_planes
-    from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.ent_matmul.ent_matmul import (ent_matmul, ent_matmul_packed,
                                                            ent_matmul_packed_fused)
     from repro_torch.kernels.ent_matmul.ops import encode_weights, row_scale
     from repro_torch.kernels.ent_matmul.ref import (ent_matmul_ref, ent_packed_matmul_ref,
                                                     quantize_with_scale)
-    from repro_torch.kernels.int8_matmul import int8_matmul as im
     from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref, int8_matmul_ref
     g = torch.Generator(device=DEV).manual_seed(11)
@@ -312,15 +322,7 @@ def check_matmuls(torch, timer):
                 nplanes, x_bytes = PLANES_X_BYTES[name]
                 nbytes = m * k * x_bytes + nplanes * k * n + 4 * m + 4 * n + 4 * m * n
                 b, by = bound_ms(nbytes, nplanes * 2 * m * k * n, INT8_OPS_S)
-                extra = {}
-                if name in MATMULS:
-                    tile = {"ent_matmul_packed_fused": lambda: em._launch_fused(
-                                x, packed, sx, sw, torch.float32, "tile"),
-                            "int8_matmul": lambda: im._launch(xq, w8, sx, sw, torch.float32,
-                                                              "tile"),
-                            "ent_matmul": lambda: em._launch_planes(xq, planes, sx, sw,
-                                                                    torch.float32, "tile")}[name]
-                    extra = dict(route=matmul_route(name, m), tile_ms=timer(tile))
+                extra = dict(route=matmul_route(name, m))
                 print(f"kernel {name} M={m} K={k} N={n} ms={ms:.4f} "
                       f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
                       f"bound_ms={b:.4f} ({by}) max_abs_err={err} bit_exact=True"
@@ -337,44 +339,44 @@ def check_matmuls(torch, timer):
 
 # the four projection shapes and a ragged one
 STREAM_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048), (1000, 300)]
-# kernels 1 and 6 on the stream: M up to the cut (decode: 8), and one M
-# past it at which check_cut times the stream (in chunks of 8 rows); on
+# kernels 1, 6, 5 and 4 on the stream: M up to the cut (decode: 8), and one
+# M past it at which check_cut times the stream (in chunks of 8 rows); on
 # the tensor-core loop at these M as well (check_cut and the decode ticks'
 # route comparison run it there)
 STREAM_CHECK_M = (1, 3, 8, 16, 32)
-# kernels 1 and 6 on the tensor-core loop: one tile, the M just past it,
-# and the serving prefills' range (260..505 prompt tokens) and cap
+# the matmuls on the tensor-core loop: one tile, the M just past it, and
+# the serving prefills' range (260..505 prompt tokens) and cap
 TC_CHECK_M = (128, 129, 260, 505, 512)
 CUT_M = (8, 16, 32, 64, 96, 128)   # where check_cut times the two routes
-# kernels 1, 6 and 5: the matmuls routed by M
-MATMULS = ("ent_matmul_packed_fused", "int8_matmul", "ent_matmul")
+# kernels 1, 6, 5 and 4: the matmuls routed by M, each by its own cut
+MATMULS = ("ent_matmul_packed_fused", "int8_matmul", "ent_matmul", "ent_matmul_packed")
 # each matmul's weight planes and bytes an X element (kernel 1 reads bf16 X)
 PLANES_X_BYTES = {"ent_matmul_packed_fused": (2, 2), "int8_matmul": (1, 1),
                   "ent_matmul": (4, 1), "ent_matmul_packed": (2, 1)}
 
 
 def matmul_cuts():
-    """{kernel 1, 6 or 5: (the wrapper module, the name of its cut)}."""
+    """{kernel 1, 6, 5 or 4: (the wrapper module, the name of its cut)}."""
     from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.int8_matmul import int8_matmul as im
     return {"ent_matmul_packed_fused": (em, "M_STREAM"), "int8_matmul": (im, "M_STREAM"),
-            "ent_matmul": (em, "M_STREAM_PLANES")}
+            "ent_matmul": (em, "M_STREAM_PLANES"), "ent_matmul_packed": (em, "M_STREAM_PACKED")}
 
 
 def matmul_cut(name):
-    """The cut of kernel 1, 6 or 5, read at call time."""
+    """The cut of kernel 1, 6, 5 or 4, read at call time."""
     mod, attr = matmul_cuts()[name]
     return getattr(mod, attr)
 
 
 def matmul_route(name, m):
-    """The route the wrapper of kernel 1, 6 or 5 takes at ``m`` rows."""
+    """The route the wrapper of kernel 1, 6, 5 or 4 takes at ``m`` rows."""
     from repro_torch.kernels.ent_matmul import ent_matmul as em
     return em.route_of(m, matmul_cut(name))
 
 
 def _routed(torch, g, k, n):
-    """Operands of kernels 1, 6 and 5 at one projection shape (weights,
+    """Operands of kernels 1, 6, 5 and 4 at one projection shape (weights,
     packed planes, 4-plane digits, sw), and a call of each by route:
     {kernel: (call(x, sx, xq, route or None, out dtype), wrapper)}; route
     None is the public wrapper, whose choice by M is counted."""
@@ -401,13 +403,19 @@ def _routed(torch, g, k, n):
         if route is None:
             return em.ent_matmul(xq, planes, sx, sw, o)
         return em._launch_planes(xq, planes, sx, sw, o, route)
+
+    def k4(x, sx, xq, route, o, planes=packed):
+        if route is None:
+            return em.ent_matmul_packed(xq, planes, sx, sw, o)
+        return em._launch_packed(xq, planes, sx, sw, o, route)
     return w8, (packed, digits), sw, {"ent_matmul_packed_fused": (k1, em.ent_matmul_packed_fused),
                                       "int8_matmul": (k6, im.int8_matmul),
-                                      "ent_matmul": (k5, em.ent_matmul)}
+                                      "ent_matmul": (k5, em.ent_matmul),
+                                      "ent_matmul_packed": (k4, em.ent_matmul_packed)}
 
 
 def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
-    """Kernels 1, 6 and 5 on ``route`` at every M of ``ms`` ({kernel name:
+    """Kernels 1, 6, 5 and 4 on ``route`` at every M of ``ms`` ({kernel name:
     M values}; a kernel not named is skipped) on STREAM_SHAPES: kernel 1
     with each X dtype of ``x_dtypes``, all in f32, bf16 and int32
     outputs, bit for bit against the plain version, the int32 accumulator
@@ -463,7 +471,7 @@ def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
                             n_checked += 1
                     if m == max(ms[name]) and xdt == x_dtypes[0]:   # planted fault
                         bad = {"ent_matmul_packed_fused": packed, "int8_matmul": w8,
-                               "ent_matmul": digits}[name].clone()
+                               "ent_matmul": digits, "ent_matmul_packed": packed}[name].clone()
                         flat = bad.view(-1)
                         flat[k * n // 2] += 1 if int(flat[k * n // 2]) < 1 else -1
                         n_bad = int((call(x, sx, xq, route, torch.int32, bad) != acc).sum())
@@ -485,7 +493,7 @@ def check_launchers_refuse(torch):
     """The stream's and the tensor-core loop's launchers hold the
     wrapper's plan and workspace to their own constants: a ticket short,
     an int of the sums short, or a K slice off its step is refused, for
-    kernels 1, 6 and 5 alike."""
+    kernels 1, 6, 5 and 4 alike."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.ent_matmul.ops import row_scale
@@ -510,7 +518,11 @@ def check_launchers_refuse(torch):
             "ent_matmul": (
                 _build.entry("ent_matmul", f"ent_matmul_planes_{route}"),
                 (x8.data_ptr(), planes.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                 out.data_ptr(), 0), em.TC_BM_PLANES)}
+                 out.data_ptr(), 0), em.TC_BM_PLANES),
+            "ent_matmul_packed": (
+                _build.entry("ent_matmul", f"ent_matmul_packed_{route}"),
+                (x8.data_ptr(), planes.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                 out.data_ptr(), 0), em.TC_BM)}
         for name, (fn, lead, bm) in launchers.items():
             if route == "stream":
                 mb, kslice, splits, (strips, _, chunks) = em.stream_plan(m, n, k, sms)
@@ -528,12 +540,12 @@ def check_launchers_refuse(torch):
                 if rc == 0:
                     raise AssertionError(f"{name} {route} launcher: took a plan with {what} "
                                          f"short or off")
-    print("  stream and tensor-core launchers (kernels 1, 6 and 5): a ticket short, a sum "
+    print("  stream and tensor-core launchers (kernels 1, 6, 5 and 4): a ticket short, a sum "
           "short and a K slice off its step refused", flush=True)
 
 
 def time_routes(torch, timer, ms, routes, seed, names=MATMULS):
-    """Kernels ``names`` of 1, 6 and 5 (X bf16, f32 out) on each of ``routes``
+    """Kernels ``names`` of 1, 6, 5 and 4 (X bf16, f32 out) on each of ``routes``
     at every M of ``ms`` on the four projection shapes, beside the bound
     and ``torch._int_mm`` (one plane, M padded to 32 rows).  Returns rows."""
     from repro_torch.kernels.ent_matmul.ops import row_scale
@@ -564,7 +576,7 @@ def time_routes(torch, timer, ms, routes, seed, names=MATMULS):
 
 def check_stream(torch):
     """The split-K weight stream (``csrc/int8_stream.cuh``) of kernels 1,
-    6 and 5, which their wrappers take up to their cuts: bit for bit at
+    6, 5 and 4, which their wrappers take up to their cuts: bit for bit at
     STREAM_CHECK_M (``check_routes_exact``), then the launchers'
     refusals.  Returns the number of calls checked."""
     n = check_routes_exact(torch, "stream", dict.fromkeys(MATMULS, STREAM_CHECK_M), "stream",
@@ -574,8 +586,8 @@ def check_stream(torch):
 
 
 def check_tc(torch):
-    """The int8 tensor-core loop (``csrc/int8_tc.cuh``) of kernels 1, 6 and
-    5, which their wrappers take above their cuts: bit for bit at STREAM_CHECK_M,
+    """The int8 tensor-core loop (``csrc/int8_tc.cuh``) of kernels 1, 6, 5
+    and 4, which their wrappers take above their cuts: bit for bit at STREAM_CHECK_M,
     the M just past each cut and TC_CHECK_M (``check_routes_exact``); then
     kernel 1, on both its routes, with X on rounding ties of X / sx (k + 1/2 exactly, and one
     float32 ulp to either side) and with rows whose 1 / sx overflows (0 <
@@ -636,8 +648,8 @@ LAYER_SHAPES = {(2048, 2048): 2, (2048, 256): 2, (2048, 11008): 2, (11008, 2048)
 
 
 def check_cut(torch, timer):
-    """The stream against the tensor-core loop at CUT_M, kernels 1, 6 and
-    5, on the four projection shapes: the table each wrapper's cut is set
+    """The stream against the tensor-core loop at CUT_M, kernels 1, 6, 5
+    and 4, on the four projection shapes: the table each wrapper's cut is set
     from.  Prints, for each kernel and M, the two routes' time over a
     layer's seven projections, and the largest timed M up to which the
     stream's is the smaller.  Returns the rows."""
@@ -699,18 +711,24 @@ def attn_check(torch, what, kernel, plain, operands, faults):
 # kernel 2's checked calls: (B, Sq, Skv, start per sequence, q_offset,
 # window, D); Hq = 16, Hkv = 2 (qwen2.5-3b's heads).  D = 128 as served:
 # ragged B = 3 with one start past a whole q tile, and a chunked prefill
-# (q_offset > 0); and a ragged, windowed D = 64 case for the route's other
-# instantiation.
+# (q_offset > 0); a ragged, windowed D = 64 case for the route's other
+# instantiation; and the prefix cache's two shapes: the peek of a fully
+# cached prompt (Sq = 1 at q_offset = n - 1, not a multiple of the 64-row
+# q tile) and a tail-padded suffix at a page-aligned q_offset that is not a
+# multiple of the 64-column kv tile (Skv = q_offset + its bucket).
 FLASH_CASES = [(1, 64, 64, (12,), 0, None, 128), (1, 200, 200, (40,), 0, None, 128),
                (1, 512, 512, (102,), 0, None, 128), (1, 512, 512, (102,), 0, 128, 128),
                (3, 300, 300, (0, 150, 290), 0, None, 128),
-               (1, 128, 512, (37,), 384, None, 128), (2, 200, 200, (17, 90), 0, 96, 64)]
+               (1, 128, 512, (37,), 384, None, 128), (2, 200, 200, (17, 90), 0, 96, 64),
+               (1, 1, 761, (0,), 760, None, 128), (1, 256, 528, (0,), 272, None, 128)]
 
 
 def check_flash(torch, timer):
     """Kernel 2 at FLASH_CASES against ``masked_attention_ref``: bf16 (the
     tensor-core route) and float32 (the CUDA-core route) through
-    ``attn_check``, with the planted faults start + 1 (and window + 1);
+    ``attn_check``, with the planted faults start + 1 (where Sq > 1: one
+    key more or less in a single row of ~760 stays within the bf16 limit),
+    window + 1 and q_offset 0 (where they are set);
     query rows before their start must be exact zeros; every bf16 call one
     tensor-core launch.  Timed against the plain version and SDPA.
     Returns rows."""
@@ -727,7 +745,12 @@ def check_flash(torch, timer):
         v = torch.randn((b, hkv, skv, d), generator=g, device=DEV).to(torch.bfloat16)
         start = torch.tensor(starts, dtype=torch.int32, device=DEV)
         kw = dict(q_offset=qo, window=window)
-        faults = {"start + 1": lambda q, k, v, st: kern2(q, k, v, st + 1, **kw)}
+        faults = {}
+        if sq > 1:
+            faults["start + 1"] = lambda q, k, v, st: kern2(q, k, v, st + 1, **kw)
+        if qo:
+            faults["q_offset 0"] = lambda q, k, v, st: kern2(q, k, v, st, q_offset=0,
+                                                             window=window)
         if window:
             faults["window + 1"] = lambda q, k, v, st: kern2(
                 q, k, v, st, q_offset=qo, window=window + 1)
@@ -1637,12 +1660,14 @@ def read_tc_counts(torch):
 
 
 def read_matmul_routes(torch):
-    """Launches of kernels 1, 6 and 5 by route: {"<name>[stream]": n,
-    "<name>[tc]": n}; the rest of their ``launches`` took the tile loop."""
-    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul, ent_matmul_packed_fused
+    """Launches of kernels 1, 6, 5 and 4 by route: {"<name>[stream]": n,
+    "<name>[tc]": n}, which sum to their ``launches``."""
+    from repro_torch.kernels.ent_matmul.ent_matmul import (ent_matmul, ent_matmul_packed,
+                                                           ent_matmul_packed_fused)
     from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
     return {f"{f.__name__}[{r}]": getattr(f, f"{r}_launches")
-            for f in (ent_matmul_packed_fused, int8_matmul, ent_matmul) for r in ("stream", "tc")}
+            for f in (ent_matmul_packed_fused, int8_matmul, ent_matmul, ent_matmul_packed)
+            for r in ("stream", "tc")}
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
@@ -1736,6 +1761,117 @@ PROJECTIONS = 7   # quantized projections a layer: q, k, v, o, gate, up, down
 SLOTS = 8         # the serving engine's slots: a full decode tick's M
 
 
+PREFIX = 256      # the shared-prefix phase's common prefix: 16 pages of 16 tokens
+SUFFIX = 200      # its profiled admission's unshared suffix
+
+
+def serve_shared_prefix(torch):
+    """Serve with prefix sharing on full-width qwen2.5-3b, EN-T, bf16 KV:
+    the serve phase's 16 ragged greedy requests (seed 0) each behind one
+    seeded PREFIX-token prefix, then two requests made of the full pages of
+    the last two prompts (still decoding when these arrive, so their pages
+    are pinned and cached: the full-match peek); 32 new tokens each, 8 slots, 16-token pages, max_len
+    576 + PREFIX, ``prefix_cache="auto"``.  Asserts that every request
+    returns 32 tokens, every admission after the first maps the PREFIX / 16
+    shared pages, a peek ran, kernels 1, 2 and 3 launched (kernel 1 on the
+    stream at every tick and peek, on the tensor-core loop at every suffix
+    prefill), no plain version ran, and ``check_leaks`` passes.  Then one
+    suffix prefill (SUFFIX tokens over the cached prefix) and the unshared
+    admission of the same prompt (another engine, ``prefix_cache=False``),
+    each unprofiled (host clock) and profiled (device time by kernel).
+    Returns (launches, tokens/s, prefix stats, the two admissions)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    cfg = get_config("qwen2.5-3b")
+    model, params = launch.build(cfg, seed=0, quantize=True)
+    max_len = 576 + PREFIX
+    engine = ServeEngine(model, params, slots=SLOTS, max_len=max_len, page_size=16,
+                         prefix_cache="auto", seed=0)
+    prefix = np.random.default_rng(1).integers(0, cfg.vocab_size, PREFIX).tolist()
+    prompts = [prefix + p for p in launch.ragged_prompts(np.random.default_rng(0), 16, 256, 512,
+                                                         cfg.vocab_size)]
+    prompts += [p[:len(p) // 16 * 16] for p in prompts[-2:]]
+    mapped, peeks = [], []
+    map_prefix, peek = engine._map_prefix, engine._peek
+
+    def counted_map(slot, req):
+        pos0 = map_prefix(slot, req)
+        if pos0 is not None:
+            mapped.append(len(engine._slot_shared[slot]))
+        return pos0
+
+    def counted_peek(*a):
+        peeks.append(a[-1])
+        return peek(*a)
+    engine._map_prefix, engine._peek = counted_map, counted_peek
+    reset_counts(torch)
+    results, dt = launch.serve(engine, prompts, max_new_tokens=32)
+    launches, plain_runs = read_counts(torch)
+    routes = {"flash_attention_masked[tensor-core]": read_tc_counts(torch)[
+        "flash_attention_masked"], **read_matmul_routes(torch)}
+    engine.check_leaks()
+    stats = engine.prefix_stats
+    n = len(prompts)
+    if sorted(results) != list(range(n)) or any(len(v) != 32 for v in results.values()):
+        raise AssertionError(f"shared prefix: {len(results)} results, lengths "
+                             f"{sorted(len(v) for v in results.values())}")
+    if len(mapped) != n or mapped[0] != 0 or min(mapped[1:]) < PREFIX // 16:
+        raise AssertionError(f"shared prefix: shared pages mapped by admission {mapped}")
+    if not peeks:
+        raise AssertionError("shared prefix: no full-match peek ran")
+    if any(launches[k] < 1 for k in ("ent_matmul_packed_fused", "flash_attention_masked",
+                                     "paged_attention_kernel")):
+        raise AssertionError(f"shared prefix: a kernel of the path never launched: {launches}")
+    if any(plain_runs.values()):
+        raise AssertionError(f"shared prefix: plain versions ran on the path: {plain_runs}")
+    per = PROJECTIONS * cfg.num_layers
+    ticks = launches["paged_attention_kernel"] // cfg.num_layers
+    want = {"paged_attention_kernel": cfg.num_layers * ticks,
+            "flash_attention_masked": cfg.num_layers * n,
+            "flash_attention_masked[tensor-core]": cfg.num_layers * n,
+            "ent_matmul_packed_fused[stream]": per * (ticks + len(peeks)),
+            "ent_matmul_packed_fused[tc]": per * (n - len(peeks))}
+    got = {k: {**launches, **routes}[k] for k in want}
+    if got != want:
+        raise AssertionError(f"shared prefix: launches {got}, expected {want} ({ticks} ticks, "
+                             f"{n} admissions, {len(peeks)} peeks)")
+    toks = sum(len(v) for v in results.values())
+    print(f"serve [EN-T w8a8, bf16 KV, shared prefix]: {n} requests ({PREFIX}-token prefix + "
+          f"{min(map(len, prompts)) - PREFIX}..{max(map(len, prompts)) - PREFIX} tokens) x 32 new "
+          f"tokens on 8 slots: {toks} tokens in {dt:.3f}s = {toks / dt:.2f} tok/s; shared pages "
+          f"mapped by admission {mapped}; {len(peeks)} peeks (at positions {peeks}); prefix "
+          f"stats {stats}; copy-on-write copies {stats['cow_copies']}; page stats "
+          f"{engine.page_stats}; decode ticks {ticks}; launches {got}", flush=True)
+
+    # one suffix prefill beside the unshared admission of the same prompt
+    rng = np.random.default_rng(3)
+    suffixes = [rng.integers(0, cfg.vocab_size, SUFFIX).tolist() for _ in range(2)]
+    unshared = ServeEngine(model, params, slots=SLOTS, max_len=max_len, page_size=16,
+                           prefix_cache=False, seed=0)
+    admissions = {}
+    for label, eng in (("suffix prefill over the cached prefix", engine),
+                       ("unshared admission", unshared)):
+        runs = {}
+        for profiled, sfx in zip((False, True), suffixes):
+            runs[profiled] = admit_profiled(torch, eng, prefix + sfx, profiled)
+            eng.run()
+        host, busy, dev = runs[False][0], runs[True][1], runs[True][2]
+        admissions[label] = dict(host_ms=host, busy_ms=busy, by_kernel=dev)
+        print(f"{label} ({PREFIX} + {SUFFIX} tokens, full width): {host:.3f} ms host-clock "
+              f"({runs[True][0]:.3f} ms under the profiler); device busy {busy:.3f} ms "
+              + (f"({100 * (1 - busy / host):.1f}% idle)" if busy else "(not measured)"),
+              flush=True)
+        for name, ms in list(dev.items())[:10]:
+            print(f"  {ms:9.3f} ms/admission  {name[:90]}")
+        eng.check_leaks()
+    del engine, unshared, params, model
+    torch.cuda.empty_cache()
+    return launches, toks / dt, stats, admissions
+
+
 def check_serve_routes(cfg, config, launches, routes, ticks):
     """Per decode tick and per prefill, each layer launches its path's
     matmul (kernel 1 or 6) once per projection, on the route its wrapper's
@@ -1788,35 +1924,43 @@ def profile_prefill(torch, engine, prompt, cfg, config):
     unprofiled (host clock, its launches: the path's matmul once per
     projection and layer, all on the tensor-core loop) and once under
     torch.profiler (device time by kernel)."""
-    from torch.profiler import ProfilerActivity, profile
     runs = {}
     for profiled in (False, True):
-        engine.submit(prompt, max_new_tokens=2)
-        torch.cuda.synchronize()
-        reset_counts(torch)
-        ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled \
-            else contextlib.nullcontext()
-        with ctx as prof:
-            t0 = time.perf_counter()
-            engine._admit()
-            torch.cuda.synchronize()
-            runs[profiled] = (time.perf_counter() - t0) * 1e3
+        runs[profiled] = admit_profiled(torch, engine, prompt, profiled)
         if not profiled:
             launches, _ = read_counts(torch)
             check_serve_routes(cfg, config, launches, {
                 "flash_attention_masked[tensor-core]": launches["flash_attention_masked"],
                 **read_matmul_routes(torch)}, 0)
         engine.run()
-    dev = device_ms_by_kernel(prof)
-    busy = sum(dev.values())
-    print(f"admission prefill ({len(prompt)} tokens, full width): {runs[False]:.3f} ms "
-          f"host-clock ({runs[True]:.3f} ms under the profiler); device busy {busy:.3f} ms "
-          f"({100 * (1 - busy / runs[False]):.1f}% idle)" if busy else "device time not measured")
-    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
+    host, (under, busy, dev) = runs[False][0], runs[True]
+    print(f"admission prefill ({len(prompt)} tokens, full width): {host:.3f} ms "
+          f"host-clock ({under:.3f} ms under the profiler); device busy {busy:.3f} ms "
+          f"({100 * (1 - busy / host):.1f}% idle)" if busy else "device time not measured")
+    for name, ms in dev.items():
         print(f"  {ms:9.3f} ms/prefill  {name[:90]}")
     engine.check_leaks()
-    return dict(host_ms=runs[False], busy_ms=busy,
-                by_kernel=dict(sorted(dev.items(), key=lambda kv: -kv[1])[:10]))
+    return dict(host_ms=host, busy_ms=busy, by_kernel=dev)
+
+
+def admit_profiled(torch, engine, prompt, profiled):
+    """Admit ``prompt`` into the idle ``engine`` (``_admit``: the prefill
+    alone, no decode tick; launch counts set to 0 just before it), under
+    torch.profiler if ``profiled``; the caller drains the engine.  Returns
+    (host ms, device busy ms, device ms by kernel, the top ten)."""
+    from torch.profiler import ProfilerActivity, profile
+    engine.submit(prompt, max_new_tokens=2)
+    torch.cuda.synchronize()
+    reset_counts(torch)
+    ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled \
+        else contextlib.nullcontext()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        engine._admit()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    dev = device_ms_by_kernel(prof) if profiled else {}
+    return host, sum(dev.values()), dict(sorted(dev.items(), key=lambda kv: -kv[1])[:10])
 
 
 def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
@@ -2032,6 +2176,103 @@ def kernels_vs_plain_end_to_end(torch, compute_dtype, weights, bound, kv_quant=F
                              f"({compute_dtype}, {label}: relative L2 {sound} > {bound})")
     if missed:
         raise AssertionError(f"the limit {bound} misses planted faults {missed}")
+    return launches
+
+
+def kernels_vs_plain_prefix(torch, bound):
+    """The prefix cache's model-level path at 2 layers of full-width
+    qwen2.5-3b (bf16, EN-T), with the kernels and with the plain versions,
+    on one paged pool of 2 slots: a 256-token prefix prefilled into slot 0,
+    a 200-token suffix at pos0 = 256 tail-padded to 256 rows with the real
+    last row picked (``last_index``), a read-only peek of a fully cached
+    448-token prompt from slot 1 (whose table maps slot 0's first 28 pages),
+    then 4 teacher-forced decode ticks of both slots.  Fails when the
+    logits' relative L2 difference exceeds ``bound``, when the peek writes
+    the pool on the kernel path, or when a planted fault (kernel 2 called
+    with q_offset 0; ``last_index`` ignored) stays within the limit.
+    Returns the kernel launches of the kernel run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2, compute_dtype="bfloat16")
+    model, params = launch.build(cfg, seed=1, quantize=True)
+    plain_model = Model(cfg, use_kernels=False)
+    rng = np.random.default_rng(2)
+    dev = model.device
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 456))).to(dev)
+    suffix = torch.cat([toks[:, 256:], toks.new_zeros((1, 56))], dim=1)   # 200 + 56 pad rows
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2))).to(dev)
+    shared = 448 // 16   # slot 1 maps slot 0's first 28 pages: a cached 448-token prompt
+
+    def run(m, last_index=199, check_peek=False):
+        cache = m.init_cache(2, 576, kind="paged", page_size=16)
+        table = cache["layers"][0].block_table.clone()
+        table[1, :shared] = table[0, :shared]
+        for c in cache["layers"]:
+            c.with_table(table)
+
+        def view(slot, pos):
+            return {"layers": [c.prefill_view(slot) for c in cache["layers"]], "pos": pos}
+        first, _ = m.prefill(params, view(0, 0), toks[:, :256])
+        out = m.apply(params, suffix, cache=view(0, 256), write_cache=True, last_only=True,
+                      pos0=256, last_index=last_index)
+        pools = [t.clone() for c in cache["layers"] for t in (c.k, c.v)]
+        peek = m.apply(params, toks[:, 447:448], cache=view(1, 447), write_cache=True, peek=True,
+                       last_only=True, pos0=447)
+        if check_peek and not all(torch.equal(a, b) for a, b in zip(
+                pools, [t for c in cache["layers"] for t in (c.k, c.v)])):
+            raise AssertionError("the peek wrote the KV pool")
+        seq = [first, out["logits"][:, 0], peek["logits"][:, 0]]
+        cache["pos"] = torch.tensor([456, 448], dtype=torch.int32, device=dev)
+        cache["start"] = torch.zeros((2,), dtype=torch.int32, device=dev)
+        for i in range(4):
+            logits, cache = m.decode_step(params, cache, forced[i])
+            seq.append(logits)
+        return torch.cat(seq)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    reset_counts(torch)
+    a = run(model, check_peek=True)
+    launches, plain_runs = read_counts(torch)
+    launches.update(read_matmul_routes(torch))
+    if any(plain_runs.values()):
+        raise AssertionError(f"prefix case: the kernel run ran plain versions {plain_runs}")
+    b = run(plain_model)
+    if a.shape != (11, cfg.padded_vocab) or not torch.isfinite(a).all():
+        raise AssertionError(f"prefix case: logits shape {tuple(a.shape)} / finite "
+                             f"{bool(torch.isfinite(a).all())}")
+    sound = rel(a, b)
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    print(f"2-layer full width, bfloat16, EN-T weights, prefix cache: 256-token prefix, 200-token "
+          f"suffix at pos0 256 tail-padded to 256, peek at 447 over 28 shared pages, 4 decode "
+          f"ticks of 2 slots; kernels vs plain: relative L2 {sound:.3e} (limit {bound}), max abs "
+          f"diff {float((a - b).abs().max()):.3e}, greedy agreement {agree:.3f}; the peek left "
+          f"the pools unchanged; kernel launches {launches}", flush=True)
+    faults = {"kernel 2 called with q_offset 0": lambda: planted(
+                  attn_ops, "flash_attention_masked",
+                  lambda f: lambda q, k, v, st, **kw: f(q, k, v, st, **{**kw, "q_offset": 0})),
+              "last_index ignored": None}
+    missed = []
+    for name, plant in faults.items():
+        if plant is None:
+            reading = rel(run(model, last_index=None), b)
+        else:
+            with plant():
+                reading = rel(run(model), b)
+        print(f"  planted fault '{name}': relative L2 {reading:.3e} "
+              f"({'over' if reading > bound else 'within'} the limit)", flush=True)
+        if reading <= bound:
+            missed.append(name)
+    if sound > bound:
+        raise AssertionError(f"prefix case: kernel path disagrees with the plain path "
+                             f"(relative L2 {sound} > {bound})")
+    if missed:
+        raise AssertionError(f"prefix case: the limit {bound} misses planted faults {missed}")
     return launches
 
 
@@ -2370,8 +2611,8 @@ def _scan_build(report, source, ops):
 
 def tc_build_report():
     """Registers and spills of the tensor-core kernels (2, 7, 7b, 7c; the
-    int8 loop of kernels 1, 6 and 5; kernel 8's three launches, 8b's two
-    and 8c), of the split-K stream of kernels 1, 6 and 5 and of the paged
+    int8 loop of kernels 1, 6, 5 and 4; kernel 8's three launches, 8b's two
+    and 8c), of the split-K stream of kernels 1, 6, 5 and 4 and of the paged
     decode (3 and
     3b, both routes) from this run's build (``nvcc -Xptxas -v``), their
     HGMMA / IGMMA (int8 wgmma) / HMMA (mma.sync; the stream: IDP4A)
@@ -2388,7 +2629,7 @@ def tc_build_report():
         name, d = lab[:-1].split("<")
         rec["smem_bytes"] = smem(kinds[name], int(d))
     _scan_build(report, "flash_attention", ("HGMMA", "HMMA"))
-    # kernels 1, 6 and 5: the stream as served (bf16 / int8 X, f32 out),
+    # kernels 1, 6, 5 and 4: the stream as served (bf16 / int8 X, f32 out),
     # one instantiation per rows a block, its shared memory at the largest
     # of the four projection shapes' plans; and every instantiation of the
     # int8 tensor-core loop
@@ -2396,7 +2637,8 @@ def tc_build_report():
     for source, smem_of, x0, np_, shift, xs in (
             ("ent_matmul", "ent_matmul", "bf16", 2, 4, ("bf16", "f32")),
             ("int8_matmul", "int8_matmul", "int8", 1, 0, ("int8",)),
-            ("ent_matmul", "ent_matmul_planes", "int8", 4, 2, ("int8",))):
+            ("ent_matmul", "ent_matmul_planes", "int8", 4, 2, ("int8",)),
+            ("ent_matmul", "ent_matmul_packed", "int8", 2, 4, ("int8",))):
         recs = {f"stream_kernel<{x0},{np_},{shift},{mb},float>": {} for mb in em.STREAM_MB}
         stream_smem = _build.entry(source, f"{smem_of}_stream_smem")
         for mb, rec in zip(em.STREAM_MB, recs.values()):
@@ -2406,7 +2648,8 @@ def tc_build_report():
         for x in xs:
             for o in ("float", "bf16", "int"):
                 recs[f"tc_kernel<{x},{np_},{shift},{o}>"] = {
-                    "smem_bytes": tc_smem(int(x == "bf16")) if np_ == 2 else tc_smem()}
+                    "smem_bytes": tc_smem(int(x == "bf16")) if smem_of == "ent_matmul"
+                    else tc_smem()}
         _scan_build(recs, source, ("HGMMA", "IGMMA", "HMMA", "IDP"))
         report.update(recs)
     # kernel 8's three launches, 8b's two and kernel 8c (split-bf16 wgmma;
@@ -2495,6 +2738,9 @@ def main():
         t = phase(f"serve qwen2.5-3b full width, {config}")
         serves[config] = serve_full_width(torch, config)
         done(t, f"serve qwen2.5-3b full width, {config}")
+    t = phase("serve qwen2.5-3b full width, EN-T, shared prefix")
+    shared = serve_shared_prefix(torch)
+    done(t, "serve qwen2.5-3b full width, EN-T, shared prefix")
 
     t = phase("kernels vs plain, 2 layers")
     # Limits between the sound readings and the planted faults' on the
@@ -2520,6 +2766,7 @@ def main():
         raise AssertionError(f"legacy 4-plane records: ent_matmul launches {got}, expected "
                              f"{want}")
     print(f"  legacy 4-plane records: ent_matmul launches {got}", flush=True)
+    kernels_vs_plain_prefix(torch, 0.07)   # the prefix cache's path, as served
     done(t, "kernels vs plain, 2 layers")
 
     t = phase("training kernel checks")
@@ -2589,11 +2836,12 @@ def main():
             build={lab: rec for lab, rec in tc_build.items()
                    if lab.startswith("paged_decode") and ("<int8," in lab) == int8_kv})
     config_of = dict(zip(MATMULS[:2], SERVE_CONFIGS))   # kernel 1: EN-T, kernel 6: int8
-    signature = {"ent_matmul_packed_fused": ",2,4,", "int8_matmul": "<int8,1,0,",
-                 "ent_matmul": "<int8,4,2,"}   # each matmul's instantiations
+    signature = {"ent_matmul_packed_fused": ("<bf16,2,4,", "<f32,2,4,"),
+                 "int8_matmul": ("<int8,1,0,",), "ent_matmul": ("<int8,4,2,",),
+                 "ent_matmul_packed": ("<int8,2,4,",)}   # each matmul's instantiations
 
     def routed(name, launches, routes, **extra):
-        """Kernels 1, 6 and 5: launches by route on their path, the cut
+        """Kernels 1, 6, 5 and 4: launches by route on their path, the cut
         table, the build, and ``extra``."""
         return dict(
             design=(f"M <= {matmul_cut(name)} (decode): the split-K weight "
@@ -2608,14 +2856,13 @@ def main():
                     + ("X quantized into the A tile, " if name == "ent_matmul_packed_fused"
                        else "")
                     + "split-K by tc_plan)"),
-            route_launches={"stream": routes[f"{name}[stream]"], "tc": routes[f"{name}[tc]"],
-                            "tile": launches[name] - routes[f"{name}[stream]"]
-                            - routes[f"{name}[tc]"]},
+            route_launches={"stream": routes[f"{name}[stream]"], "tc": routes[f"{name}[tc]"]},
             at_prefill=next(r for r in mm[name] if r["M"] == 512 and r["N"] == 11008),
             stream_vs_tc=[r for r in cut if r["kernel"] == name],
             calls_checked={"stream": n_stream, "tc": n_tc},
             build={lab: rec for lab, rec in tc_build.items()
-                   if lab.startswith(("stream", "tc_kernel")) and signature[name] in lab},
+                   if lab.startswith(("stream", "tc_kernel"))
+                   and any(sig in lab for sig in signature[name])},
             **extra)
 
     def served(name):
@@ -2658,9 +2905,14 @@ def main():
               launches_from="2-layer run with legacy 4-plane records",
               **routed("ent_matmul", legacy, legacy)),
         entry("ent_matmul_packed", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:205",
-              mm["ent_matmul_packed"], at_decode, int8["ent_matmul_packed"],
-              launches_from="no serving path; run by the kernel checks only"),
+              mm["ent_matmul_packed"], at_decode, ent_t["ent_matmul_packed"],
+              launches_from="no serving path; run by the kernel checks only",
+              **routed("ent_matmul_packed", ent_t, serves[config_of["ent_matmul_packed_fused"]][2])),
     ]
+    for k in kernels:   # kernels 1, 2 and 3 on the prefix-shared serve run too
+        if k["name"] in ("ent_matmul_packed_fused", "flash_attention_masked",
+                         "paged_attention_kernel"):
+            k["launches_shared_prefix"] = shared[0][k["name"]]
     flash = "src/repro/kernels/flash_attention/flash_attention.py"
     at_train = lambda rows: rows[0]   # noqa: E731  (B=1, H=36, S=4096, D=64)
     designs = {   # kernels 7, 7b, 7c: the route each dtype takes, and the tensor-core design
@@ -2755,6 +3007,7 @@ def main():
               f"{run['peak_gib']:.2f} GiB")
     for config in SERVE_CONFIGS:
         print(f"serve tokens/s [{config}] {serves[config][1]:.3f}")
+    print(f"serve tokens/s [EN-T w8a8, bf16 KV, shared prefix] {shared[1]:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,33 +12,18 @@
 //     int8 Xq, digit planes P [4, K, N] in {-2..2}: acc = sum_i (Xq @ P_i) * 4^i
 //
 // and out = (float(acc) * sx) * sw, for per-row sx [M, 1] and per-channel
-// sw [1, N].  Kernels 1 and 5 each have three loops, each bit-identical to
-// the plain version: the split-K weight stream of int8_stream.cuh at the
-// decode shape (M <= the wrapper's cut; ent_matmul_packed_fused_stream,
-// ent_matmul_planes_stream), the int8 tensor-core loop of int8_tc.cuh above
-// it (ent_matmul_packed_fused_tc, ent_matmul_planes_tc), and the CUDA-core
-// tile loop of int8_tile.cuh (ent_matmul_packed_fused, ent_matmul_planes),
-// kept for chip_smoke.py to time beside them.  Kernel 5 takes its four
-// planes one by one, acc = sum_i (Xq @ P_i) 4^i, as the TPU kernel does.
-// Kernel 4 (ent_matmul_planes, two planes), which no serving or training
-// path launches, takes the tile loop.  Each header describes its loop's
-// bit-exactness and bounds.
+// sw [1, N].  Each kernel has two loops, each bit-identical to the plain
+// version: the split-K weight stream of int8_stream.cuh at the decode shape
+// (M <= the wrapper's cut; ent_matmul_packed_fused_stream,
+// ent_matmul_packed_stream, ent_matmul_planes_stream) and the int8
+// tensor-core loop of int8_tc.cuh above it (the *_tc entries).  Kernel 4
+// is kernel 1's two packed planes fed kernel 6's pre-quantized int8 X, and
+// no serving or training path launches it.  Kernel 5 takes its four planes
+// one by one, acc = sum_i (Xq @ P_i) 4^i, as the TPU kernel does.  Each
+// header describes its loop's bit-exactness and bounds.
 
 #include "int8_stream.cuh"
 #include "int8_tc.cuh"
-#include "int8_tile.cuh"
-
-extern "C" int ent_matmul_packed_fused(const void* x, int x_is_bf16,
-                                       const int8_t* planes, const float* sx,
-                                       const float* sw, void* out, int out_kind,
-                                       int M, int N, int K, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    return ent_mm::launch<__nv_bfloat16, 2, 4>(
-        static_cast<const __nv_bfloat16*>(x), planes, sx, sw, out, out_kind, M, N, K, st);
-  return ent_mm::launch<float, 2, 4>(static_cast<const float*>(x), planes, sx, sw,
-                                     out, out_kind, M, N, K, st);
-}
 
 // Kernel 1 through the split-K weight stream, with the wrapper's plan (mb,
 // kslice, splits) and, for splits > 1, its zeroed workspace (ws_len ints)
@@ -111,15 +96,27 @@ extern "C" int ent_matmul_planes_stream_smem(int mb, int kslice) {
 }
 extern "C" int ent_matmul_planes_tc_smem() { return ent_tc::smem_bytes<int8_t, 4>(); }
 
-// The tile loop, int8 X; nplanes 2 (packed, shift 4: kernel 4) or 4 (digit
-// planes, shift 2: kernel 5, timed by chip_smoke.py)
-extern "C" int ent_matmul_planes(const int8_t* x, const int8_t* planes, int nplanes,
-                                 const float* sx, const float* sw, void* out,
-                                 int out_kind, int M, int N, int K, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nplanes == 2)
-    return ent_mm::launch<int8_t, 2, 4>(x, planes, sx, sw, out, out_kind, M, N, K, st);
-  if (nplanes == 4)
-    return ent_mm::launch<int8_t, 4, 2>(x, planes, sx, sw, out, out_kind, M, N, K, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// Kernel 4 (two packed planes, int8 X) through the split-K weight stream and
+// through the int8 tensor-core loop, with the wrapper's plans, workspace
+// and tickets, as kernel 1's entries take them.
+extern "C" int ent_matmul_packed_stream(const int8_t* x, const int8_t* planes, const float* sx,
+                                        const float* sw, void* out, int out_kind, int* ws,
+                                        long long ws_len, int* tickets, int n_tickets, int M,
+                                        int N, int K, int mb, int kslice, int splits,
+                                        void* stream) {
+  return ent_stream::launch<int8_t, 2, 4>(x, planes, sx, sw, out, out_kind, ws, ws_len, tickets,
+                                          n_tickets, M, N, K, mb, kslice, splits,
+                                          static_cast<cudaStream_t>(stream));
 }
+extern "C" int ent_matmul_packed_tc(const int8_t* x, const int8_t* planes, const float* sx,
+                                    const float* sw, void* out, int out_kind, int* ws,
+                                    long long ws_len, int* tickets, int n_tickets, int M, int N,
+                                    int K, int kslice, int splits, void* stream) {
+  return ent_tc::launch<int8_t, 2, 4>(x, planes, sx, sw, out, out_kind, ws, ws_len, tickets,
+                                      n_tickets, M, N, K, kslice, splits,
+                                      static_cast<cudaStream_t>(stream));
+}
+extern "C" int ent_matmul_packed_stream_smem(int mb, int kslice) {
+  return ent_stream::smem_bytes<2>(mb, kslice);
+}
+extern "C" int ent_matmul_packed_tc_smem() { return ent_tc::smem_bytes<int8_t, 2>(); }

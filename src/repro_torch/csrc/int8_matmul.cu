@@ -5,23 +5,14 @@
 // int8 X [M, K] x int8 W [K, N] -> int32 acc, then the epilogue
 // (float(acc) * sx) * sw for per-row sx [M, 1] and per-channel sw [1, N],
 // stored as f32 or bf16 (or acc itself, int32).  The wrapper takes one of
-// three one-plane instances of the shared int8 loops, each bit-identical
-// to the plain version: the split-K weight stream (int8_stream.cuh) at M
-// <= its cut M_STREAM (the decode tick), the tensor-core loop
-// (int8_tc.cuh) above, and the CUDA-core tile loop (int8_tile.cuh), kept
-// for chip_smoke.py to time beside them.  Each header describes its
-// bit-exactness and its bounds.
+// two one-plane instances of the shared int8 loops, each bit-identical to
+// the plain version: the split-K weight stream (int8_stream.cuh) at M <=
+// its cut M_STREAM (the decode tick) and the tensor-core loop
+// (int8_tc.cuh) above.  Each header describes its bit-exactness and its
+// bounds.
 
 #include "int8_stream.cuh"
 #include "int8_tc.cuh"
-#include "int8_tile.cuh"
-
-extern "C" int int8_matmul(const int8_t* x, const int8_t* w, const float* sx,
-                           const float* sw, void* out, int out_kind, int M,
-                           int N, int K, void* stream) {
-  return ent_mm::launch<int8_t, 1, 0>(x, w, sx, sw, out, out_kind, M, N, K,
-                                      static_cast<cudaStream_t>(stream));
-}
 
 // The split-K weight stream with the wrapper's plan (mb, kslice, splits)
 // and, for splits > 1, its zeroed workspace (ws_len ints) and tickets

@@ -1,24 +1,21 @@
 // The split-K weight stream: kernels 1 (ent_matmul_packed_fused, two
-// planes, f32 / bf16 X) and 6 (int8_matmul, one plane, int8 X) at the
-// decode shape, M <= M_STREAM rows (each wrapper's cut; larger M takes the
-// tensor-core loop of int8_tc.cuh).  It computes what the tile loop of
-// int8_tile.cuh computes, parameterised the same way (X prologue, plane
-// count, shift):
+// planes, f32 / bf16 X), 4 (ent_matmul_packed, two planes, int8 X), 5
+// (ent_matmul, four planes, int8 X) and 6 (int8_matmul, one plane, int8 X)
+// at the decode shape, M up to each wrapper's cut (larger M takes the
+// tensor-core loop of int8_tc.cuh).  Parameterised by the X prologue, the
+// plane count and the shift, it computes
 //
 //   Xq  = X (int8), or clip(rint(X / sx), -127, 127) from f32/bf16 X
 //   acc = sum_i (Xq @ P_i) * 2^(SHIFT * i)       (int32, exact)
 //   out = (float(acc) * sx) * sw  in f32 or bf16, or acc itself (int32)
 //
-// with the tile loop's quantize / store helpers, so each result is
-// bit-identical to the plain version (ref.py) and to the tile loop.
+// with the quantize / store helpers of int8_common.cuh, so each result is
+// bit-identical to the plain version (ref.py).
 //
 // What bounds it on the H100: at M = 8 the planes (NP K N bytes at K =
 // 2048, N = 11008: 45 MB for kernel 1, 22.5 MB for kernel 6) are read once
 // against 2 NP M K N int8 operations, far below the card's ops / byte
-// balance: memory bandwidth, ~13.5 / ~6.7 us at 3.35 TB/s.  The tile loop
-// pads M = 8 to 64 rows, reads the planes a byte at a time with a stride of
-// N and launches N / 64 blocks (4 for N = 256), so it streams far below
-// that rate.  Design:
+// balance: memory bandwidth, ~13.5 / ~6.7 us at 3.35 TB/s.  Design:
 //
 // * Grid: column strips of BN = 64 x K slices x M chunks of MB rows.  The
 //   wrapper's stream_plan sizes the K slices (multiples of KSTEP = 16 rows)
@@ -47,7 +44,7 @@
 //   allocated) is zero again for the next call on the same stream.
 #pragma once
 
-#include "int8_tile.cuh"
+#include "int8_common.cuh"
 
 namespace ent_stream {
 

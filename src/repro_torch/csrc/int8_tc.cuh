@@ -1,25 +1,25 @@
 // The int8 tensor-core tile loop: kernels 1 (ent_matmul_packed_fused, two
-// packed planes, f32 / bf16 X quantized in the kernel), 5 (ent_matmul, four
+// packed planes, f32 / bf16 X quantized in the kernel), 4
+// (ent_matmul_packed, two packed planes, int8 X), 5 (ent_matmul, four
 // digit planes, int8 X) and 6 (int8_matmul, one plane, int8 X) at prefill
-// sizes of M, M > M_STREAM (each wrapper's cut; smaller M takes the split-K
-// stream of int8_stream.cuh).  There it replaces the Pallas TPU kernels
+// sizes of M, above each wrapper's cut (smaller M takes the split-K stream
+// of int8_stream.cuh).  There it replaces the Pallas TPU kernels
 // ent_matmul_packed_fused (src/repro/kernels/ent_matmul/ent_matmul.py:227),
-// ent_matmul (:75) and int8_matmul
-// (src/repro/kernels/int8_matmul/int8_matmul.py:47), and computes what the
-// CUDA-core tile loop of int8_tile.cuh computes:
+// ent_matmul_packed (:205), ent_matmul (:75) and int8_matmul
+// (src/repro/kernels/int8_matmul/int8_matmul.py:47), and computes
 //
 //   Xq  = X (int8), or clip(rint(X / sx), -127, 127) from f32/bf16 X
 //   acc = sum_i (Xq @ P_i) * 2^(SHIFT * i)       (int32, exact)
 //   out = (float(acc) * sx) * sw  in f32 or bf16, or acc itself (int32)
 //
-// with the tile loop's quantize / store helpers; wgmma's s8 x s8 -> s32
-// sums are exact in any order, so each result is bit-identical to the
+// with the quantize / store helpers of int8_common.cuh; wgmma's s8 x s8 ->
+// s32 sums are exact in any order, so each result is bit-identical to the
 // plain version (ref.py).
 //
 // What bounds it on the H100: at M = 512, K = 2048, N = 11008, kernel 1's
 // 2 planes x 2 M K N int8 operations take 0.0233 ms at 1,979 TOP/s (kernel
-// 5's 4 planes 0.0466 ms), and kernel 6 moves 46 MB (X, W, f32 out),
-// 0.0138 ms at 3.35 TB/s.  Design:
+// 4's the same, kernel 5's 4 planes 0.0466 ms), and kernel 6 moves 46 MB
+// (X, W, f32 out), 0.0138 ms at 3.35 TB/s.  Design:
 //
 // * Products: wgmma m64n128k32 s8.s8 -> s32 with A and B from shared
 //   memory.  A block of 256 threads (two warpgroups) owns BM = 128 rows x
@@ -43,22 +43,25 @@
 //   32 k-words of one column, and the raw tile's 16-byte chunks rotated by
 //   k row / 4: no bank conflict either way).
 // * Loads: 16-byte cp.async into a ring of raw steps in shared memory (4
-//   slots with int8 X, 2 with bf16, 1 with f32 X or with four planes: what
-//   fits beside two converted stages, ring_slots), a slot refilled as soon
-//   as it is free.  Loads into registers a step ahead stalled: every wgmma
-//   fence waits for them.
+//   slots with int8 X at one plane, 3 with int8 X at two, 2 with bf16, 1
+//   with f32 X or with four planes: what fits beside two converted stages,
+//   ring_slots), a slot refilled as soon as it is free.  Loads into
+//   registers a step ahead stalled: every wgmma fence waits for them.
 // * Four planes (kernel 5): one slot, which holds only the planes; int8 X
 //   lands directly in the converted stage as its A tile.  While step i's
 //   wgmmas run, step i + 1 is converted and step i + 2's planes load into
 //   the freed slot; step i + 2's X follows into step i's stage once its
 //   wgmmas are done.
 // * X: int8 X lands in the ring already in the swizzled A layout and is
-//   the wgmma's A operand there.  f32 / bf16 X is quantized from the ring
-//   into the converted stage's A tile, so Xq never goes to HBM.  Each X
-//   element is quantized once in every 128-column tile, so the oracle's
-//   IEEE division (__fdiv_rn, then rintf) becomes a branch-free multiply
-//   by the row's reciprocal, with the division redone for the rare word
-//   within 2^-13 of a rounding boundary (quantize_r): bit-equal, cheaper.
+//   the wgmma's A operand there, for every plane's accumulator set (at two
+//   planes, kernel 4, both wgmmas of a k32 step read the same A rows of the
+//   slot), which is refilled only after the step's wgmmas retire.  f32 /
+//   bf16 X is quantized from the ring into the converted stage's A tile, so
+//   Xq never goes to HBM.  Each X element is quantized once in every
+//   128-column tile, so the oracle's IEEE division (__fdiv_rn, then rintf)
+//   becomes a branch-free multiply by the row's reciprocal, with the
+//   division redone for the rare word within 2^-13 of a rounding boundary
+//   (quantize_r): bit-equal, cheaper.
 // * Pipeline: while the wgmmas of step i run, the threads convert step
 //   i + 1 into the other converted stage.
 // * Split-K: where the (M, N) tiles would leave more than half the SMs
@@ -142,7 +145,7 @@ __host__ __device__ constexpr int fixed_bytes() {
   return 2 * stage_bytes<XT, NP>() + (int8_x<XT> ? 0 : 4 * bm<NP>()) + 1024;
 }
 // slots of the ring: as many as fit, at most 4 (int8 X at one plane: 4;
-// bf16 X: 2; f32 X, and four planes: 1)
+// int8 X at two planes: 3; bf16 X: 2; f32 X, and four planes: 1)
 template <typename XT, int NP>
 __host__ __device__ constexpr int ring_slots() {
   int s = 4;

@@ -36,21 +36,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # return an int: a cudaError_t, or for the *_smem functions a size)
 ENTRY_POINTS = {
     "ent_matmul": {
-        "ent_matmul_packed_fused": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "ent_matmul_packed_fused_stream": [_P, _I, _P, _P, _P, _P, _I, _P, ctypes.c_longlong,
                                            _P] + [_I] * 7 + [_P],
         "ent_matmul_packed_fused_tc": [_P, _I, _P, _P, _P, _P, _I, _P, ctypes.c_longlong,
                                        _P] + [_I] * 6 + [_P],
         "ent_matmul_stream_smem": [_I, _I],
         "ent_matmul_tc_smem": [_I],
-        "ent_matmul_planes": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ent_matmul_packed_stream": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 7
+                                    + [_P],
+        "ent_matmul_packed_tc": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 6 + [_P],
+        "ent_matmul_packed_stream_smem": [_I, _I],
+        "ent_matmul_packed_tc_smem": [],
         "ent_matmul_planes_stream": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 7
                                     + [_P],
         "ent_matmul_planes_tc": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 6 + [_P],
         "ent_matmul_planes_stream_smem": [_I, _I],
         "ent_matmul_planes_tc_smem": []},
     "int8_matmul": {
-        "int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
         "int8_matmul_stream": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 7 + [_P],
         "int8_matmul_tc": [_P] * 5 + [_I, _P, ctypes.c_longlong, _P] + [_I] * 6 + [_P],
         "int8_matmul_stream_smem": [_I, _I],

@@ -9,19 +9,16 @@ digit-plane matmuls (replacing the Pallas kernels of
 
 On a CUDA tensor a wrapper launches its kernel or raises; only CPU
 tensors take the plain PyTorch version.  Each wrapper's ``launches``
-counts its kernel launches.  ``ent_matmul_packed_fused`` (kernel 1) and
-``ent_matmul`` (kernel 5), like ``int8_matmul`` (kernel 6), route by M:
-up to their cut (the decode shape; ``M_STREAM`` for kernel 1,
-``M_STREAM_PLANES`` for kernel 5, kernel 6's in its own module) the
+counts its kernel launches.  All three, like ``int8_matmul`` (kernel 6),
+route by M, each with its own cut (``M_STREAM`` for kernel 1,
+``M_STREAM_PACKED`` for kernel 4, ``M_STREAM_PLANES`` for kernel 5,
+kernel 6's in its own module): up to the cut (the decode shape) the
 split-K weight stream of ``csrc/int8_stream.cuh``, counted in
 ``.stream_launches``; above, the int8 tensor-core loop of
 ``csrc/int8_tc.cuh``, counted in ``.tc_launches``, both among their
-``.launches``.  The CUDA-core tile loop of ``csrc/int8_tile.cuh`` serves
-``ent_matmul_packed`` (kernel 4, which no serving or training path
-launches); ``chip_smoke.py`` times it beside the two routes.
-``out_dtype`` is float32 (the default, as in the reference), bfloat16, or
-int32 for the int32 accumulator itself (no epilogue: the quantity the
-``*_int32_ref`` oracles return).
+``.launches``.  ``out_dtype`` is float32 (the default, as in the
+reference), bfloat16, or int32 for the int32 accumulator itself (no
+epilogue: the quantity the ``*_int32_ref`` oracles return).
 """
 
 from __future__ import annotations
@@ -36,7 +33,7 @@ from repro_torch.kernels.ent_matmul.ref import (ent_matmul_int32_ref, ent_matmul
                                                 quantize_with_scale)
 
 NUM_PLANES = 4
-# the kernels' output kinds (csrc/int8_tile.cuh, OutKind)
+# the kernels' output kinds (csrc/int8_common.cuh, OutKind)
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 # Kernel 1 takes the split-K weight stream up to M_STREAM rows, the
@@ -49,6 +46,10 @@ M_STREAM = 16
 # table for kernel 5: at four planes the stream reads twice kernel 1's
 # bytes, and the tensor-core loop is the faster from M = 16 on.
 M_STREAM_PLANES = 8
+# Kernel 4 (packed planes, int8 X) has its own cut, from the same table
+# for kernel 4: it reads kernel 1's plane bytes, but its tensor-core loop
+# has no quantizer and is the faster from M = 16 on.
+M_STREAM_PACKED = 8
 # the stream's strip width, K-slice step and cap, and rows a block
 # (csrc/int8_stream.cuh: BN, KSTEP; the instantiated MB: larger M runs in
 # chunks of 8 rows): the plan is made here, and the launcher refuses one
@@ -154,19 +155,19 @@ def ent_matmul_packed_fused(x, packed, scale_x, scale_w, out_dtype=torch.float32
 
 
 def route_of(m: int, cut: int | None = None) -> str:
-    """The route kernel 1 takes at ``m`` rows, or kernel 6 with its own
-    ``cut``: the stream up to the cut, the tensor-core loop above."""
+    """The route kernel 1 takes at ``m`` rows, or kernel 4, 5 or 6 with
+    its own ``cut``: the stream up to the cut, the tensor-core loop above."""
     return "stream" if m <= (M_STREAM if cut is None else cut) else "tc"
 
 
 _FUSED_ENTRIES = {"stream": "ent_matmul_packed_fused_stream",
-                  "tc": "ent_matmul_packed_fused_tc", "tile": "ent_matmul_packed_fused"}
+                  "tc": "ent_matmul_packed_fused_tc"}
 
 
 def _launch_fused(x, packed, scale_x, scale_w, out_dtype, route: str):
     """Launch kernel 1 on checked card operands through ``route``
-    ("stream", "tc" or "tile"); the wrapper chooses by M, chip_smoke.py
-    calls this to time the three loops at one M."""
+    ("stream" or "tc"); the wrapper chooses by M, chip_smoke.py calls this
+    to time the two loops at one M."""
     m, k = x.shape
     n = packed.shape[-1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -190,8 +191,6 @@ def launch_route(source, entries, lead, x, m, n, k, route: str, tc_bm: int = TC_
         raise ValueError(f"route must be one of {tuple(entries)}, got {route!r}")
     cuda_stream = _build.stream_of(x)
     fn = _build.entry(source, entries[route])
-    if route == "tile":
-        return fn(*lead, m, n, k, cuda_stream)
     dev = x.device
     if route == "stream":
         mb, kslice, splits, (strips, _, chunks) = stream_plan(m, n, k, _build.sm_count(dev))
@@ -222,22 +221,8 @@ def ent_matmul_packed(x, packed, scale_x, scale_w, out_dtype=torch.float32):
         if out_dtype == torch.int32:
             return ent_packed_matmul_int32_ref(x, packed)
         return ent_packed_matmul_ref(x, packed, scale_x, scale_w, out_dtype)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m and n:
-        _launch_tile_planes(x, packed, scale_x, scale_w, out)
-        ent_matmul_packed.launches += 1
-    return out
-
-
-def _launch_tile_planes(x, planes, scale_x, scale_w, out):
-    """Kernel 4 or 5 (by the planes' count) on the CUDA-core tile loop."""
-    m, k = x.shape
-    n = planes.shape[-1]
-    rc = _build.entry("ent_matmul", "ent_matmul_planes")(
-        x.data_ptr(), planes.data_ptr(), planes.shape[0], scale_x.data_ptr(),
-        scale_w.data_ptr(), out.data_ptr(), OUT_KINDS[out.dtype], m, n, k,
-        _build.stream_of(x))
-    _build.check(rc, "ent_matmul_planes")
+    return _launch_packed(x, packed, scale_x, scale_w, out_dtype,
+                          route_of(m, M_STREAM_PACKED))
 
 
 def ent_matmul(x, planes, scale_x, scale_w, out_dtype=torch.float32):
@@ -253,27 +238,39 @@ def ent_matmul(x, planes, scale_x, scale_w, out_dtype=torch.float32):
     return _launch_planes(x, planes, scale_x, scale_w, out_dtype, route_of(m, M_STREAM_PLANES))
 
 
+_PACKED_ENTRIES = {"stream": "ent_matmul_packed_stream", "tc": "ent_matmul_packed_tc"}
 _PLANES_ENTRIES = {"stream": "ent_matmul_planes_stream", "tc": "ent_matmul_planes_tc"}
+
+
+def _launch_packed(x, packed, scale_x, scale_w, out_dtype, route: str):
+    """Launch kernel 4 on checked card operands through ``route``
+    ("stream" or "tc"); the wrapper chooses by M, chip_smoke.py calls this
+    to time the two loops at one M."""
+    return _launch_int8_x(ent_matmul_packed, _PACKED_ENTRIES, TC_BM, x, packed, scale_x,
+                          scale_w, out_dtype, route)
 
 
 def _launch_planes(x, planes, scale_x, scale_w, out_dtype, route: str):
     """Launch kernel 5 on checked card operands through ``route``
-    ("stream", "tc" or "tile"); the wrapper chooses by M, chip_smoke.py
-    calls this to time the three loops at one M."""
+    ("stream" or "tc"), as ``_launch_packed`` does kernel 4."""
+    return _launch_int8_x(ent_matmul, _PLANES_ENTRIES, TC_BM_PLANES, x, planes, scale_x,
+                          scale_w, out_dtype, route)
+
+
+def _launch_int8_x(wrapper, entries, tc_bm, x, planes, scale_x, scale_w, out_dtype, route):
+    """Kernel 4 or 5 (int8 X, ``wrapper``'s planes) through ``route``'s
+    entry of ``entries``, ``tc_bm`` rows a tensor-core block; counted on
+    ``wrapper``."""
     m, k = x.shape
     n = planes.shape[-1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    if route == "tile":
-        _launch_tile_planes(x, planes, scale_x, scale_w, out)
-    else:
-        lead = (x.data_ptr(), planes.data_ptr(), scale_x.data_ptr(), scale_w.data_ptr(),
-                out.data_ptr(), OUT_KINDS[out_dtype])
-        rc = launch_route("ent_matmul", _PLANES_ENTRIES, lead, x, m, n, k, route,
-                          TC_BM_PLANES)
-        _build.check(rc, "ent_matmul")
-    count_launch(ent_matmul, route)
+    lead = (x.data_ptr(), planes.data_ptr(), scale_x.data_ptr(), scale_w.data_ptr(),
+            out.data_ptr(), OUT_KINDS[out_dtype])
+    rc = launch_route("ent_matmul", entries, lead, x, m, n, k, route, tc_bm)
+    _build.check(rc, wrapper.__name__)
+    count_launch(wrapper, route)
     return out
 
 
@@ -281,6 +278,8 @@ ent_matmul_packed_fused.launches = 0
 ent_matmul_packed_fused.stream_launches = 0
 ent_matmul_packed_fused.tc_launches = 0
 ent_matmul_packed.launches = 0
+ent_matmul_packed.stream_launches = 0
+ent_matmul_packed.tc_launches = 0
 ent_matmul.launches = 0
 ent_matmul.stream_launches = 0
 ent_matmul.tc_launches = 0

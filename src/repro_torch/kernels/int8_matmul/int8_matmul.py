@@ -30,7 +30,7 @@ INT8_MAX_K = (2**31 - 1) // (128 * 128)
 # qwen2.5-3b projections (PERF.md)
 M_STREAM = 16
 
-_ENTRIES = {"stream": "int8_matmul_stream", "tc": "int8_matmul_tc", "tile": "int8_matmul"}
+_ENTRIES = {"stream": "int8_matmul_stream", "tc": "int8_matmul_tc"}
 
 
 def int8_matmul(x, w, scale_x, scale_w, out_dtype=torch.bfloat16):
@@ -48,8 +48,8 @@ def int8_matmul(x, w, scale_x, scale_w, out_dtype=torch.bfloat16):
 
 def _launch(x, w, scale_x, scale_w, out_dtype, route: str):
     """Launch kernel 6 on checked card operands through ``route``
-    ("stream", "tc" or "tile"); the wrapper chooses by M, chip_smoke.py
-    calls this to time the three loops at one M."""
+    ("stream" or "tc"); the wrapper chooses by M, chip_smoke.py calls this
+    to time the two loops at one M."""
     m, k = x.shape
     n = w.shape[-1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)

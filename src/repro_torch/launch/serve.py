@@ -1,15 +1,18 @@
 """Serving entry point of the port: EN-T w8a8 continuous batching.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
-        --engine --quantize --no-prefix-cache [--smoke] [--device cuda|cpu]
+        --engine --quantize [--shared-prefix N] [--no-prefix-cache] \\
+        [--smoke] [--device cuda|cpu]
 
 Builds the model at the config's widths (``--smoke``: the reduced
 config), draws random weights from ``--seed`` on the device, encodes
 every projection into packed EN-T planes layer by layer
 (``--quantize``), then serves ``2 * --batch`` ragged requests through
-the paged ``ServeEngine``.  Runs on the CUDA card unless ``--device
-cpu``.  The one-shot ``generate`` path (no ``--engine``) and the prefix
-cache are later slices and are refused.
+the paged ``ServeEngine``, with the radix prefix cache unless
+``--no-prefix-cache``; ``--shared-prefix N`` puts one seeded N-token
+prefix in front of every request (a system prompt).  Runs on the CUDA
+card unless ``--device cpu``.  The one-shot ``generate`` path (no
+``--engine``) is a later slice and is refused.
 """
 
 from __future__ import annotations
@@ -77,8 +80,11 @@ def main(argv=None):
                     help="EN-T w8a8: encode weights once, serve int8")
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="radix prefix cache (not ported yet: pass "
-                         "--no-prefix-cache)")
+                    help="radix prefix cache + copy-on-write page sharing "
+                         "(default: auto, on for paged attention-only models)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend one common N-token prefix (seeded) to every "
+                         "request (exercises prefix sharing)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda")
@@ -109,7 +115,8 @@ def main(argv=None):
           f"{time.perf_counter() - t0:.2f}s")
     slots = args.slots or args.batch
     engine = ServeEngine(
-        model, params, slots=slots, max_len=2 * args.prompt_len + args.steps + 8,
+        model, params, slots=slots,
+        max_len=2 * args.prompt_len + args.steps + 8 + args.shared_prefix,
         prefill_chunk=args.prefill_chunk or None, top_k=args.top_k or None,
         top_p=args.top_p or None, page_size=args.page_size or None,
         pages=args.pages or None, seed=args.seed,
@@ -117,16 +124,25 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = ragged_prompts(rng, 2 * args.batch, max(1, args.prompt_len // 2),
                              args.prompt_len, cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    prefix = rng.integers(0, cfg.vocab_size, args.shared_prefix).tolist()
+    prompts = [prefix + p for p in prompts]
     results, dt = serve(engine, prompts, max_new_tokens=args.steps,
                         temperature=args.temperature)
     total = sum(len(v) for v in results.values())
-    lens = [len(p) for p in prompts]
     print(f"engine[paged]: served {len(prompts)} ragged requests (prompt lens "
-          f"{min(lens)}..{max(lens)}) on {slots} slots: {total} tokens in "
-          f"{dt:.2f}s ({total / dt:.1f} tok/s)")
+          f"{min(lens)}..{max(lens)}"
+          + (f" after a {args.shared_prefix}-token shared prefix" if args.shared_prefix else "")
+          + f") on {slots} slots: {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
     ps = engine.page_stats
-    print(f"pages: {ps['total']} total, {ps['free']} free, "
-          f"{ps['resident']} resident; KV pools {engine.pool_bytes / 2**20:.2f} MiB")
+    print(f"pages: {ps['total']} total, {ps['free']} free, {ps['resident']} resident, "
+          f"{ps['shared']} shared, {ps.get('cached', 0)} cached; KV pools "
+          f"{engine.pool_bytes / 2**20:.2f} MiB")
+    fs = engine.prefix_stats
+    if fs is not None:
+        print(f"prefix cache: {fs['hits']}/{fs['lookups']} hits ({fs['hit_rate']:.0%}), "
+              f"{fs['hit_tokens']} prompt tokens reused, {fs['resident']} pages cached, "
+              f"{fs['evicted']} evicted, {fs['cow_copies']} copy-on-write copies")
     print("sample:", results[min(results)][:16])
 
 

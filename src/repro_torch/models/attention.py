@@ -161,13 +161,20 @@ def decode_step(cfg: ModelConfig, p, x, cache, pos, start=None,
 
 
 def prefill_step(cfg: ModelConfig, p, x, cache, start=None, pos0: int = 0,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, write: bool = True):
     """Prompt-chunk forward with KV write-through at positions
     ``pos0 .. pos0+S-1``.  x: [B, S, D] -> (y [B, S, D], cache).  The
     queries attend over the retained context ``[0, pos0)`` read after
     the write (the chunk's positions are disjoint from it) plus the
     chunk itself: through the masked flash kernel, or on the plain path
-    one row at a time as ``decode_step`` attends."""
+    one row at a time as ``decode_step`` attends.
+
+    ``write=False`` runs the same math read-only (the prefix-cache peek
+    of a fully cached prompt): the cache's pools are never written.  The
+    kernel path attends the context as it stands plus the chunk's rows in
+    storage form (``cache.stored``); the plain path writes the chunk into
+    a detached copy of the view's pages (``cache.detached``) and attends
+    there row by row, so both give what a writing forward gives."""
     b, s, _ = x.shape
     pos0 = int(pos0)
     rows = plain_path(x, use_kernel)
@@ -177,11 +184,15 @@ def prefill_step(cfg: ModelConfig, p, x, cache, start=None, pos0: int = 0,
     q, k, v = _project(cfg, p, x, positions, use_kernel, rows)
     q = q.transpose(1, 2)
 
-    new, kf, vf, ksf, vsf = cache.write_prompt(k, v, pos0)
     if rows:
+        new = (cache if write else cache.detached()).write_prompt(k, v, pos0)[0]
         out = torch.cat([_token_attention(cfg, q[:, :, t:t + 1], new, cols[t].expand(b),
                                           start_b, use_kernel) for t in range(s)], dim=2)
-        return _finish(cfg, p, out, use_kernel, rows), new
+        return _finish(cfg, p, out, use_kernel, rows), (new if write else cache)
+    if write:
+        new, kf, vf, ksf, vsf = cache.write_prompt(k, v, pos0)
+    else:
+        new, (kf, vf, ksf, vsf) = cache, cache.stored(k, v)
     kc, vc, ksc, vsc, ctx = new.context(pos0)
 
     def cat(prev, fresh):

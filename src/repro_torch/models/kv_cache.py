@@ -8,7 +8,11 @@ assignment into the pool tensors) and the methods return ``self``, so
 callers keep the reference's ``new = cache.write_...`` shape without a
 pool-sized copy per token.  Nothing in this slice keeps an old cache
 alive across a write (fork/rollback and engine snapshots are later
-work), so in-place updates are safe.
+work), so in-place updates are safe.  A read-only forward (the
+prefix-cache peek) therefore cannot leave the store to dead-code
+elimination as the reference does: ``stored`` gives a chunk's rows in
+storage form without writing them, and ``PagedCache.detached`` a copy
+of a view that the plain path may write instead of the pool.
 
 :class:`PagedCache` keeps per-layer ``[P, page, H, hd]`` pools, page 0
 being the reserved null page, plus a ``[B, pages_per_slot]`` int32 block
@@ -63,6 +67,11 @@ class _KV:
     @property
     def quantized(self) -> bool:
         return self.k_s is not None
+
+    def stored(self, k, v):
+        """Rows ``k``, ``v`` as ``write_prompt`` would store them (codes and
+        scales when int8), written nowhere."""
+        return self._write(lambda c, n: None, k, v)
 
     def _write(self, put, k, v):
         if self.quantized:
@@ -177,6 +186,33 @@ class PagedCache(_KV):
 
         return (gather(self.k), gather(self.v), gather(self.k_s),
                 gather(self.v_s), pos0)
+
+    def detached(self):
+        """A copy of the pages this view's table maps, in a pool of their
+        own (entry ``i`` of the flattened table becomes page ``1 + i``,
+        null entries stay null), that writes leave this cache untouched:
+        a read-only forward on the plain path writes its chunk there and
+        attends exactly what a writing one would."""
+        bt = self.block_table.long()
+        ids = 1 + torch.arange(bt.numel(), device=bt.device).reshape(bt.shape)
+        table = torch.where(bt != 0, ids, 0).to(self.block_table.dtype)
+
+        def take(c):
+            return None if c is None else torch.cat([c[:1], c[bt.reshape(-1)]])
+        return PagedCache(take(self.k), take(self.v), table, self.page_size,
+                          take(self.k_s), take(self.v_s))
+
+    def copy_pages(self, src, dst):
+        """Copy whole pages ``src[i] -> dst[i]`` in place in every pool (K,
+        V and the int8 scale pools), one indexed copy a pool: the device
+        half of copy-on-write.  The engine copies a still-shared page to a
+        fresh one and remaps the writing slot's table BEFORE the write
+        lands, so the other holders' bytes never change.  ``src``/``dst``:
+        [n] int64 page ids on the pools' device."""
+        for c in (self.k, self.v, self.k_s, self.v_s):
+            if c is not None:
+                c[dst] = c[src]
+        return self
 
     @property
     def nbytes(self) -> int:

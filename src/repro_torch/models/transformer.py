@@ -150,7 +150,8 @@ class Model:
     def apply(self, params, tokens=None, *, labels=None, remat: str = "none",
               fused_loss: bool = False, cache=None, write_cache: bool = False,
               last_only: bool = False, pad_mask=None, pos0: int = 0,
-              start=None, need_logits: bool = True):
+              start=None, need_logits: bool = True, peek: bool = False,
+              last_index: int | None = None):
         """Without ``write_cache``: the full-sequence forward of ``tokens``
         [B, S] (training), returning {"logits" [B, S, V_padded] f32 (not
         with ``fused_loss``), "aux_loss"} and, given ``labels``, "loss" and
@@ -159,7 +160,14 @@ class Model:
         With ``write_cache``: cache write-through prefill of chunk
         ``[pos0, pos0+S)``.  ``pad_mask`` ([B, S] bool, True = real token)
         marks LEFT padding of the first chunk; ``start`` overrides the pad
-        count derived from it.  Returns {"logits", "cache"}."""
+        count derived from it.  Returns {"logits", "cache"}.
+
+        ``peek=True`` runs the chunk read-only: the logits are what a
+        writing prefill gives, but no pool is written and ``pos`` does
+        not advance (how serving recovers the last token's logits for a
+        fully prefix-cached prompt without copying its shared pages).
+        ``last_index`` picks the row whose logits ``last_only`` returns
+        instead of the last one: a tail-padded chunk's last real row."""
         cfg = self.cfg
         if not write_cache:
             return self._apply_full(params, tokens, labels, remat, fused_loss,
@@ -184,21 +192,26 @@ class Model:
             h = L.norm_apply(cfg, p["mixer_norm"], x)
             y, layers[i] = attention.prefill_step(
                 cfg, p["mixer"], h, layers[i], start=start, pos0=pos0,
-                use_kernel=self.use_kernels)
+                use_kernel=self.use_kernels, write=not peek)
             x = x + y
             if spec[1] == "dense":
                 h = L.norm_apply(cfg, p["ffn_norm"], x)
                 x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels, rows)
         new_cache = dict(cache)
         new_cache["layers"] = layers
-        new_cache["pos"] = cache["pos"] + s
+        new_cache["pos"] = cache["pos"] + (0 if peek else s)
         if start is not None:
             new_cache["start"] = start
         out = {"cache": new_cache}
         if not need_logits:
             return out
         if last_only:
-            x = x[:, -1:, :]
+            if last_index is None:
+                x = x[:, -1:, :]
+            elif 0 <= last_index < s:
+                x = x[:, last_index:last_index + 1, :]
+            else:
+                raise ValueError(f"last_index {last_index} outside the chunk's {s} rows")
         x = L.norm_apply(cfg, params["final_norm"], x)
         out["logits"] = L.lm_head_apply(cfg, params.get("lm_head"),
                                         params["embed"], x, rows)

@@ -122,20 +122,20 @@ def test_wrapper_routes_decode_rows_to_the_stream(recorder, m):
 
 
 def test_wrapper_loop_override(recorder):
-    """The launch helper chip_smoke.py times the three loops with takes the
-    loop it is given, whatever M, and counts it as the wrapper does; the
-    public wrapper has no override."""
+    """The launch helper chip_smoke.py times the two loops with takes the
+    loop it is given, whatever M, and counts it as the wrapper does; it
+    refuses the removed CUDA-core tile loop; the public wrapper has no
+    override."""
     em._launch_fused(*_meta_operands(64, 2048, 256), torch.float32, "stream")
-    em._launch_fused(*_meta_operands(8, 2048, 256), torch.float32, "tile")
     em._launch_fused(*_meta_operands(8, 2048, 256), torch.float32, "tc")
     assert [c[0] for c in recorder.calls] == ["ent_matmul_packed_fused_stream",
-                                              "ent_matmul_packed_fused",
                                               "ent_matmul_packed_fused_tc"]
-    assert recorder.calls[1][1][7:10] == (8, 256, 2048)
     f = em.ent_matmul_packed_fused
-    assert (f.launches, f.stream_launches, f.tc_launches) == (3, 1, 1)
-    with pytest.raises(ValueError):
-        em._launch_fused(*_meta_operands(8, 2048, 256), torch.float32, "dp4a")
+    assert (f.launches, f.stream_launches, f.tc_launches) == (2, 1, 1)
+    for route in ("tile", "dp4a"):
+        with pytest.raises(ValueError):
+            em._launch_fused(*_meta_operands(8, 2048, 256), torch.float32, route)
+    assert len(recorder.calls) == 2 and f.launches == 2
     with pytest.raises(TypeError):
         em.ent_matmul_packed_fused(*_meta_operands(8, 64, 64), loop="tile")
 

@@ -95,17 +95,19 @@ def test_wrapper_routes_by_m(recorder, m):
 
 
 def test_launch_helper_takes_the_route_it_is_given(recorder):
-    """chip_smoke.py times kernel 6's three loops at one M through the
-    private launch helper; each launch is counted as the wrapper counts it."""
-    for route in ("stream", "tc", "tile"):
+    """chip_smoke.py times kernel 6's two loops at one M through the
+    private launch helper; each launch is counted as the wrapper counts it,
+    and a route that is not one of the two (the CUDA-core tile loop is
+    gone) is refused."""
+    for route in ("stream", "tc"):
         im._launch(*_meta_operands(512, 2048, 256), torch.float32, route)
-    assert [c[1] for c in recorder.calls] == ["int8_matmul_stream", "int8_matmul_tc",
-                                              "int8_matmul"]
-    assert recorder.calls[2][2][6:9] == (512, 256, 2048)   # the tile loop: no plan
+    assert [c[1] for c in recorder.calls] == ["int8_matmul_stream", "int8_matmul_tc"]
     f = im.int8_matmul
-    assert (f.launches, f.stream_launches, f.tc_launches) == (3, 1, 1)
-    with pytest.raises(ValueError):
-        im._launch(*_meta_operands(8, 2048, 256), torch.float32, "mma")
+    assert (f.launches, f.stream_launches, f.tc_launches) == (2, 1, 1)
+    for route in ("tile", "mma"):
+        with pytest.raises(ValueError):
+            im._launch(*_meta_operands(8, 2048, 256), torch.float32, route)
+    assert len(recorder.calls) == 2 and f.launches == 2
 
 
 def test_kernels_1_and_6_share_one_workspace(recorder):

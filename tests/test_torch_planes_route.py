@@ -111,18 +111,18 @@ def test_the_cut_is_read_at_call_time(recorder, monkeypatch):
 
 
 def test_launch_helper_takes_the_route_it_is_given(recorder):
-    """chip_smoke.py times kernel 5's three loops at one M through the
-    private launch helper; the tile loop is the planes entry with the
-    plane count, and each launch is counted as the wrapper counts it."""
-    for route in ("stream", "tc", "tile"):
+    """chip_smoke.py times kernel 5's two loops at one M through the
+    private launch helper; each launch is counted as the wrapper counts it,
+    and the removed CUDA-core tile loop is refused."""
+    for route in ("stream", "tc"):
         em._launch_planes(*_meta_operands(512, 2048, 256), torch.float32, route)
-    assert [c[1] for c in recorder.calls] == ["ent_matmul_planes_stream", "ent_matmul_planes_tc",
-                                              "ent_matmul_planes"]
-    assert recorder.calls[2][2][2] == 4 and recorder.calls[2][2][7:10] == (512, 256, 2048)
+    assert [c[1] for c in recorder.calls] == ["ent_matmul_planes_stream", "ent_matmul_planes_tc"]
     f = em.ent_matmul
-    assert (f.launches, f.stream_launches, f.tc_launches) == (3, 1, 1)
-    with pytest.raises(ValueError):
-        em._launch_planes(*_meta_operands(8, 2048, 256), torch.float32, "dp4a")
+    assert (f.launches, f.stream_launches, f.tc_launches) == (2, 1, 1)
+    for route in ("tile", "dp4a"):
+        with pytest.raises(ValueError):
+            em._launch_planes(*_meta_operands(8, 2048, 256), torch.float32, route)
+    assert len(recorder.calls) == 2 and f.launches == 2
 
 
 @pytest.mark.parametrize("k,n", QWEN + [(1000, 300)], ids=[f"{k}x{n}" for k, n in QWEN]
@@ -191,16 +191,18 @@ def _tc_smem(x_bytes, np_):
 
 
 # (X dtype, planes) of every instantiation: kernel 1 (bf16 and f32 X, two
-# packed planes), kernel 6 (int8 X, one plane), kernel 5 (int8 X, four
-# planes), with the ring each gets
-INSTANTIATIONS = {("bf16", 2): 2, ("f32", 2): 1, ("int8", 1): 4, ("int8", 4): 1}
+# packed planes), kernel 6 (int8 X, one plane), kernel 4 (int8 X, two
+# packed planes), kernel 5 (int8 X, four planes), with the ring each gets
+INSTANTIATIONS = {("bf16", 2): 2, ("f32", 2): 1, ("int8", 1): 4, ("int8", 2): 3,
+                  ("int8", 4): 1}
 
 
 @pytest.mark.parametrize("inst", list(INSTANTIATIONS), ids=[f"{x}x{p}" for x, p in
                                                           INSTANTIATIONS])
 def test_tc_loop_shared_memory_fits_every_instantiation(inst):
     """The tensor-core loop's ring is sized to what fits beside its two
-    converted stages: four slots with int8 X at one plane, two with bf16
+    converted stages: four slots with int8 X at one plane, three at two
+    (kernel 4: the int8 X in the ring needs two at least), two with bf16
     X, one with f32 X and one at four planes (whose int8 X lands in the
     stage), each within the H100's 227 KB a block."""
     (x, np_), slots = inst, INSTANTIATIONS[inst]
@@ -209,3 +211,5 @@ def test_tc_loop_shared_memory_fits_every_instantiation(inst):
     assert got_slots == slots and smem <= SMEM_MAX < H100_SMEM
     if inst == ("int8", 4):
         assert smem == 214016   # two stages of 72 KB, one 64 KB slot, alignment slack
+    if inst == ("int8", 2):
+        assert smem == 214016   # two stages of 32 KB, three 48 KB slots, alignment slack

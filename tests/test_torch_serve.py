@@ -1,5 +1,6 @@
 """The port's ServeEngine against the reference's on the qwen2.5-3b smoke
-config: plain paged admission (``prefix_cache=False``), greedy streams
+config: plain paged admission (``prefix_cache=False``; prefix sharing is
+held in ``tests/test_torch_prefix_cache.py``), greedy streams
 equal token for token, float and EN-T quantized, also on the reduced
 qwen2-72b, minicpm-2b (MHA: one q head per kv head) and llava-next-34b
 (fed tokens) configs, whose decode reads the paged pool through the same
@@ -115,14 +116,24 @@ def test_temperature_streams_replay_identically(setup):
 
 
 def test_unported_options_raise(setup):
-    _, params, _ = setup
+    """Speculative decoding and the dense backend are refused; prefix
+    sharing is accepted: "auto" (the default, as in the reference) and
+    True both serve through the prefix cache on this paged attention-only
+    model, and False bypasses it."""
+    _, params, prompts = setup
     port_params = bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     model = Model(port_reduced(port_get_config("qwen2.5-3b")), device="cpu")
-    for kw in ({"prefix_cache": "auto"}, {"prefix_cache": True},
-               {"prefix_cache": False, "draft_model": model},
+    for kw in ({"prefix_cache": False, "draft_model": model},
                {"prefix_cache": False, "cache_kind": "dense"}):
         with pytest.raises(NotImplementedError):
             ServeEngine(model, port_params, **kw)
+    streams = []
+    for kw in ({}, {"prefix_cache": "auto"}, {"prefix_cache": True}, {"prefix_cache": False}):
+        eng = ServeEngine(model, port_params, slots=SLOTS, max_len=MAX_LEN, **kw)
+        assert (eng.prefix_stats is None) == (kw.get("prefix_cache", "auto") is False)
+        streams.append(_submit_all(eng, prompts))
+        eng.check_leaks()
+    assert streams[0] == streams[1] == streams[2] == streams[3]
 
 
 def test_cancel_and_pool_pressure_stay_leak_free(setup):
@@ -144,3 +155,16 @@ def test_launch_serve_cpu_smoke(capsys):
                      "--steps", "4", "--prompt-len", "8"])
     out = capsys.readouterr().out
     assert "served 4 ragged requests" in out and "16 tokens" in out
+
+
+def test_launch_serve_shared_prefix_cpu(capsys):
+    """The CLI's default serves with the prefix cache; ``--shared-prefix``
+    puts one seeded prefix in front of every request, which every request
+    after the first maps from the cache."""
+    port_serve.main(["--arch", "qwen2.5-3b", "--smoke", "--engine", "--quantize",
+                     "--device", "cpu", "--batch", "2", "--steps", "4", "--prompt-len", "8",
+                     "--shared-prefix", "40"])
+    out = capsys.readouterr().out
+    assert "served 4 ragged requests" in out and "40-token shared prefix" in out
+    assert "16 tokens" in out and "prefix cache: 3/4 hits" in out
+    assert "96 prompt tokens reused" in out   # 2 full 16-token pages x 3 hits

@@ -3,7 +3,9 @@ every gradient leaf, one AdamW step (with and without microbatches and
 int8 error-feedback compression), the LR schedules, the data pipeline,
 the config schema and the training CLI.  Reduced minicpm-2b (MHA, tied
 embeddings) and reduced qwen2.5-3b (GQA, qkv biases, untied head), f32
-compute, weights bridged from the reference's param tree.
+compute, weights bridged from the reference's param tree; the loss and
+gradients also on reduced starcoder2-15b (sliding window), qwen2-72b,
+musicgen-medium and llava-next-34b (both fed tokens).
 
 Tolerances: the two frameworks compute the same float32 math in other
 summation orders; losses agree to ~1e-6 and every gradient leaf to
@@ -12,6 +14,7 @@ leaf's largest element) leaves a margin of ~8x and nothing more.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -44,16 +47,19 @@ from repro_torch.optim.schedule import lr_at  # noqa: E402
 from repro_torch.runtime.train_loop import init_opt_state, make_train_step  # noqa: E402
 from repro_torch.tree import leaves, map_tree  # noqa: E402
 
+# the AdamW step and remat cases run on the first two; the loss and every
+# gradient leaf on all six (a step of each would take the file past 60 s)
 ARCHS = ("minicpm-2b", "qwen2.5-3b")
+GRAD_ARCHS = ARCHS + ("starcoder2-15b", "qwen2-72b", "musicgen-medium", "llava-next-34b")
 ROWS, SEQ = 2, 24
 GRAD_RTOL = 1e-5
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def arch(request):
+@functools.lru_cache(maxsize=None)
+def _reference(name):
     """Reference model, params (numpy), batch, and the reference's loss and
     gradients of that batch."""
-    cfg = reduced_config(get_config(request.param))
+    cfg = reduced_config(get_config(name))
     model = ref_build(cfg)
     params = model.init(jax.random.PRNGKey(0))
     toks = RefSynthetic(cfg.vocab_size, seed=3).batch(0, 0, ROWS, SEQ)
@@ -61,9 +67,19 @@ def arch(request):
     (loss, _), grads = jax.jit(jax.value_and_grad(
         lambda p: ref_loss_fn(model, p, jax.tree.map(jnp.asarray, batch)),
         has_aux=True))(params)
-    return dict(name=request.param, model=model, params=params,
+    return dict(name=name, model=model, params=params,
                 np_params=jax.tree.map(np.asarray, params), batch=batch,
                 loss=float(loss), grads=jax.tree.map(np.asarray, grads))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return _reference(request.param)
+
+
+@pytest.fixture(scope="module", params=GRAD_ARCHS)
+def grad_arch(request):
+    return _reference(request.param)
 
 
 def _port(a, **kw):
@@ -91,13 +107,14 @@ def _assert_tree_close(got, want, rtol, what):
         assert err <= rtol, f"{what} {jax.tree_util.keystr(path)}: {err:.3e} > {rtol}"
 
 
-def test_loss_and_every_gradient_leaf_match_reference(arch):
-    loss, aux, grads = _port_loss_and_grads(arch)
-    assert abs(float(loss.detach()) - arch["loss"]) <= 1e-5 * abs(arch["loss"])
+def test_loss_and_every_gradient_leaf_match_reference(grad_arch):
+    a = grad_arch
+    loss, aux, grads = _port_loss_and_grads(a)
+    assert abs(float(loss.detach()) - a["loss"]) <= 1e-5 * abs(a["loss"])
     assert float(aux["aux_loss"]) == 0.0
-    got = bridge.params_to_numpy(grads, like=arch["np_params"])
-    assert jax.tree.structure(got) == jax.tree.structure(arch["grads"])
-    _assert_tree_close(got, arch["grads"], GRAD_RTOL, "grad")
+    got = bridge.params_to_numpy(grads, like=a["np_params"])
+    assert jax.tree.structure(got) == jax.tree.structure(a["grads"])
+    _assert_tree_close(got, a["grads"], GRAD_RTOL, "grad")
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
