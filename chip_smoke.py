@@ -26,7 +26,11 @@ Phases (each prints its seconds; any failure exits non-zero):
    each wrapper's cut comes from);
    the flash kernel (bf16 on its tensor-core route, float32 on CUDA
    cores; ragged starts, a chunked prefill, the prefix cache's peek at
-   Sq = 1 and its tail-padded suffix at a page-aligned q_offset) and the
+   Sq = 1 and its tail-padded suffix at a page-aligned q_offset; with
+   per-sequence offsets at the speculative drafter's tick, Sq = 1, and
+   its verify burst, Sq = 5, over 8 x 576 columns, with planted faults
+   "slot 0's offset for every slot" and "offset off by one", and a CUDA
+   ``valid`` mask refused) and the
    paged attention
    kernel (split-KV, one launch), the latter with bf16 pools and with
    int8 pools + bf16 scales, at the serving tick's shape, at G = 12 and
@@ -58,7 +62,14 @@ Phases (each prints its seconds; any failure exits non-zero):
    page-aligned prompts whose pages are all cached (the full-match peek),
    with every admission after the first mapping the prefix's 16 pages,
    and one suffix prefill profiled beside the unshared admission of the
-   same prompt;
+   same prompt; then EN-T with speculative decoding (k = 4, plain paged
+   admission), a weight-shared drafter and the target's own first layer
+   as drafter: every spec tick's launches (kernel 1 on the stream for the
+   drafter's K + 1 steps and on the tensor-core loop for the verify,
+   kernel 2 with per-sequence offsets once per layer of each, kernel 3
+   never), acceptance >= 0.95 with the weight-shared drafter, the
+   streams equal to the plain EN-T run's counted, and one spec tick
+   profiled (drafter steps, verify, its page gathers, device busy);
 5. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
@@ -69,7 +80,11 @@ Phases (each prints its seconds; any failure exits non-zero):
    256-token prefix, a 200-token suffix tail-padded to 256 with its last
    real row picked, a peek over 28 shared pages that must leave the pool
    unchanged, 4 decode ticks), whose planted faults (kernel 2 at q_offset
-   0, the last real row ignored) the limit must reject;
+   0, the last real row ignored) the limit must reject; and the
+   speculative path (bf16 EN-T, and int8 with int8 KV): two verify bursts
+   around a rollback and the drafter's dense decode steps, kernels vs
+   plain and the bursts vs K + 1 kernel decode steps within the same
+   limit, the planted fault "pos not reset after a rejection" over it;
 6. the training kernels: the flash forward (kernel 7) against
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
@@ -788,6 +803,84 @@ def check_flash(torch, timer):
               flush=True)
         rows.append(dict(B=b, S=sq, Skv=skv, start=list(starts), q_offset=qo, window=window,
                          D=d, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
+                         bound_by=by, max_abs_err=err))
+    return rows
+
+
+# kernel 2's per-sequence offsets (``q_offsets``) at the speculative path's
+# shapes: (name, Sq, pos per slot, start per slot); B = 8 slots, Hq 16, Hkv
+# 2, D 128 over W = 576 columns (max_len: the drafter's dense rows and the
+# verify's gathered pages).  Sq = 1: the drafter's decode read; Sq = 5: a
+# verify burst of K + 1.  pos and start are ragged as the spec phase's
+# slots (prompts of 256..512 tokens bucketed to 512, so start = 512 - n and
+# pos 512..575), with one short sequence (slot 7: 4 live keys at Sq = 1),
+# where one key more or less moves the output past the limit in both
+# dtypes, so that the planted faults show.
+OFFSET_CASES = [
+    ("drafter tick", 1, (512, 530, 547, 560, 571, 515, 523, 9),
+     (0, 37, 120, 251, 4, 199, 88, 6)),
+    ("verify burst", 5, (512, 526, 540, 566, 519, 531, 550, 9),
+     (251, 0, 12, 140, 77, 3, 210, 6)),
+]
+
+
+def check_flash_offsets(torch, timer):
+    """Kernel 2 with per-sequence offsets at OFFSET_CASES against
+    ``masked_attention_ref(q_offsets=)`` through ``attn_check`` (bf16 on the
+    tensor-core route, float32 on CUDA cores), with the planted faults
+    "slot 0's offset for every slot" and "offset off by one"; every call
+    one offset launch.  A CUDA ``valid`` mask must still raise.  Timed
+    against the plain version and SDPA with the same bool mask
+    (``burst_valid``), beside its bound from the live keys.  Returns rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import masked_attention_ref
+    from repro_torch.models.kv_cache import burst_valid
+    kern2 = fa.flash_attention_masked
+    g = torch.Generator(device=DEV).manual_seed(14)
+    rows = []
+    b, hq, hkv, d, w = SLOTS, 16, 2, 128, 576
+    for name, sq, poss, starts in OFFSET_CASES:
+        q = torch.randn((b, hq, sq, d), generator=g, device=DEV).to(torch.bfloat16)
+        k = torch.randn((b, hkv, w, d), generator=g, device=DEV).to(torch.bfloat16)
+        v = torch.randn((b, hkv, w, d), generator=g, device=DEV).to(torch.bfloat16)
+        pos = torch.tensor(poss, dtype=torch.int32, device=DEV)
+        start = torch.tensor(starts, dtype=torch.int32, device=DEV)
+        faults = {
+            "slot 0's offset for every slot": lambda q, k, v, st, qo: kern2(
+                q, k, v, st, q_offsets=qo[:1].expand(b).contiguous()),
+            "offset off by one": lambda q, k, v, st, qo: kern2(q, k, v, st, q_offsets=qo + 1)}
+        what = (f"flash_attention_masked q_offsets ({name}) B={b} Sq={sq} Skv={w} "
+                f"pos={list(poss)} start={list(starts)} D={d}")
+        n0 = kern2.launches, kern2.offset_launches
+        err = attn_check(torch, what, lambda q, k, v, st, qo: kern2(q, k, v, st, q_offsets=qo),
+                         lambda q, k, v, st, qo: masked_attention_ref(q, k, v, start=st,
+                                                                      q_offsets=qo),
+                         (q, k, v, start, pos), faults)
+        if kern2.launches - n0[0] != kern2.offset_launches - n0[1]:
+            raise AssertionError(f"{what}: a call launched without its offsets")
+        mask = burst_valid(pos, start, sq, w)
+        try:
+            attn_ops.masked_attention(q, k, v, valid=mask)
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError("a CUDA valid mask ran without raising")
+        ms = timer(lambda: kern2(q, k, v, start, q_offsets=pos))
+        plain_ms = timer(lambda: masked_attention_ref(q, k, v, start=start, q_offsets=pos),
+                         reps=5)
+        library_ms = timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None], enable_gqa=True))
+        pairs = int(mask.sum())
+        live = sum(p + sq - st for p, st in zip(poss, starts))   # keys a sequence attends
+        # q and the output once, the live K/V rows once, pos and start
+        nbytes = 2 * q.numel() * 2 + live * hkv * d * 2 * 2 + 8 * b
+        bnd, by = bound_ms(nbytes, pairs * hq * d * 4, BF16_FLOPS_S)
+        print(f"kernel {what} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"bound_ms={bnd:.5f} ({by}) max_abs_err={err}", flush=True)
+        rows.append(dict(case=name, B=b, S=sq, Skv=w, pos=list(poss), start=list(starts), D=d,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
                          bound_by=by, max_abs_err=err))
     return rows
 
@@ -1628,7 +1721,7 @@ def reset_counts(torch):
     kernels, plains, paged = wrappers(torch)
     for f in kernels:
         f.launches = 0
-        for route in ("tc_launches", "stream_launches",
+        for route in ("tc_launches", "stream_launches", "offset_launches",
                       *(f"{part}_launches" for part in SSD_FWD_PARTS + SSD_BWD_STATE_PARTS)):
             if hasattr(f, route):
                 setattr(f, route, 0)
@@ -1651,6 +1744,12 @@ def read_counts(torch):
     for part in SSD_BWD_STATE_PARTS:
         launches[f"ssd_scan_bwd_state[{part}]"] = getattr(ssd_scan_bwd_state, f"{part}_launches")
     return launches, {f.__name__: f.plain_launches for f in plains}
+
+
+def read_offset_launches(torch):
+    """Kernel 2's launches with per-sequence offsets (``q_offsets``)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked
+    return flash_attention_masked.offset_launches
 
 
 def read_tc_counts(torch):
@@ -1754,7 +1853,7 @@ def serve_full_width(torch, config):
     prefill = profile_prefill(torch, engine, max(prompts, key=len), cfg, config)
     del engine, params, model
     torch.cuda.empty_cache()
-    return launches, toks / dt, routes, prefill, tick_routes
+    return launches, toks / dt, routes, prefill, tick_routes, results
 
 
 PROJECTIONS = 7   # quantized projections a layer: q, k, v, o, gate, up, down
@@ -1870,6 +1969,192 @@ def serve_shared_prefix(torch):
     del engine, unshared, params, model
     torch.cuda.empty_cache()
     return launches, toks / dt, stats, admissions
+
+
+SPEC_K = 4        # the speculative phase's drafts a tick
+
+
+def spec_drafters(cfg, model, params):
+    """The speculative phase's two drafters: arm -> (draft model, params).
+    "weight-shared": the target itself (the reference CLI's same-arch
+    pairing); "truncated (layer 0)": the target's own first layer with the
+    shared embedding, final norm and LM head (the reference benchmark's
+    drafter)."""
+    from repro_torch.models.transformer import Model
+    one = Model(dataclasses.replace(cfg, num_layers=1), device=model.device)
+    head = {k: v for k, v in params.items() if k != "layers"}
+    return {"weight-shared": (model, params),
+            "truncated (layer 0)": (one, dict(head, layers=params["layers"][:1]))}
+
+
+def serve_spec(torch, plain_streams, plain_tok_s):
+    """Speculative decoding on full-width qwen2.5-3b, EN-T, bf16 KV: the EN-T
+    serve phase's 16 ragged greedy prompts, 32 new tokens each, 8 slots,
+    plain paged admission (``prefix_cache=False``), k = SPEC_K, with each
+    drafter of ``spec_drafters``.  Counts set to 0 just before each run and
+    read just after must show, per spec tick T and admission A: kernel 1
+    once per projection and layer on the split-K stream for each of the
+    K + 1 drafter steps, and on the tensor-core loop for the verify (M = 8
+    (K + 1) = 40) and for both prefills of each admission; kernel 2 with
+    per-sequence offsets once per layer for each drafter step and the
+    verify, all on the tensor-core route, and plainly once per layer of
+    both prefills; kernel 3 never; no plain version.  ``check_leaks``
+    passes, and the weight-shared arm accepts >= 0.95 of its drafts.
+    Counts the streams equal to the plain EN-T phase's (with the token
+    where each first differs) and to the earlier arm's, and profiles one
+    spec tick (``profile_spec_tick``).  Returns {arm: numbers}."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    cfg = get_config("qwen2.5-3b")
+    model, params = launch.build(cfg, seed=0, quantize=True)
+    prompts = launch.ragged_prompts(np.random.default_rng(0), 16, 256, 512, cfg.vocab_size)
+    arms = {}
+    for arm, (dm, dp) in spec_drafters(cfg, model, params).items():
+        engine = ServeEngine(model, params, slots=SLOTS, max_len=576, page_size=16,
+                             prefix_cache=False, seed=0, draft_model=dm, draft_params=dp,
+                             spec_k=SPEC_K)
+        reset_counts(torch)
+        results, dt = launch.serve(engine, prompts, max_new_tokens=32)
+        launches, plain_runs = read_counts(torch)
+        got = {**launches, **read_matmul_routes(torch),
+               "flash_attention_masked[offsets]": read_offset_launches(torch),
+               "flash_attention_masked[tensor-core]": read_tc_counts(torch)[
+                   "flash_attention_masked"]}
+        engine.check_leaks()
+        if sorted(results) != list(range(16)) or any(len(v) != 32 for v in results.values()):
+            raise AssertionError(f"spec [{arm}]: {len(results)} results, lengths "
+                                 f"{sorted(len(v) for v in results.values())}")
+        st, rate = dict(engine.spec_stats), engine.acceptance_rate
+        ticks, adm, nl, dl = st["ticks"], len(prompts), cfg.num_layers, dm.cfg.num_layers
+        offsets = (nl + (SPEC_K + 1) * dl) * ticks
+        want = {"ent_matmul_packed_fused[stream]": (SPEC_K + 1) * PROJECTIONS * dl * ticks,
+                "ent_matmul_packed_fused[tc]": PROJECTIONS * (nl * ticks + (nl + dl) * adm),
+                "flash_attention_masked": offsets + (nl + dl) * adm,
+                "flash_attention_masked[tensor-core]": offsets + (nl + dl) * adm,
+                "flash_attention_masked[offsets]": offsets,
+                "paged_attention_kernel": 0, "paged_attention_kernel[int8_kv]": 0}
+        seen = {k: got[k] for k in want}
+        if seen != want:
+            raise AssertionError(f"spec [{arm}]: launches {seen}, expected {want} ({ticks} "
+                                 f"spec ticks, {adm} admissions)")
+        if any(plain_runs.values()):
+            raise AssertionError(f"spec [{arm}]: plain versions ran on the path: {plain_runs}")
+        if arm == "weight-shared" and rate < 0.95:
+            raise AssertionError(f"spec [{arm}]: acceptance {rate} < 0.95")
+        toks = sum(len(v) for v in results.values())
+        same = sum(results[u] == plain_streams[u] for u in results)
+        first = [first_difference(results[u], plain_streams[u]) for u in sorted(results)]
+        arms_same = {a: sum(results[u] == r["streams"][u] for u in results)
+                     for a, r in arms.items()}
+        per_slot = st["emitted"] / (st["drafted"] / SPEC_K)   # an active slot's a tick
+        print(f"serve [EN-T w8a8, bf16 KV, speculative k={SPEC_K}, {arm} drafter]: 16 "
+              f"requests x 32 new tokens on 8 slots: {toks} tokens in {dt:.3f}s = "
+              f"{toks / dt:.2f} tok/s ({toks / dt / plain_tok_s:.3f} of the plain EN-T phase's "
+              f"{plain_tok_s:.2f}); acceptance {rate:.4f}; spec stats {st}; "
+              f"{st['emitted'] / ticks:.3f} tokens a tick ({per_slot:.3f} an active slot); streams "
+              f"equal to the plain EN-T phase's: {same} of 16 (first differing token of each: "
+              f"{first}); equal to the other arms': {arms_same}; launches {seen}", flush=True)
+        tick = profile_spec_tick(torch, engine, prompts[:SLOTS], arm)
+        arms[arm] = dict(tok_s=toks / dt, of_plain=toks / dt / plain_tok_s, acceptance=rate,
+                         stats=st, tokens_per_tick=st["emitted"] / ticks,
+                         tokens_per_slot_tick=per_slot,
+                         streams_equal_plain=same, first_difference=first,
+                         streams_equal_arms=arms_same, streams=results, launches=got,
+                         tick=tick)
+        del engine
+    del params, model
+    torch.cuda.empty_cache()
+    return arms
+
+
+def first_difference(a, b):
+    """Index of the first token where streams ``a`` and ``b`` differ (their
+    length when equal)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+
+
+def profile_spec_tick(torch, engine, prompts, arm):
+    """Where a full-batch spec tick's time goes: fill the 8 slots, then one
+    tick on the host clock; one with its parts timed (the K + 1 drafter
+    steps and the verify, each synchronised; the verify's page gathers,
+    ``verify_view``, between CUDA events); one under torch.profiler (device
+    busy and time by kernel).  Returns the numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        engine.submit(p, max_new_tokens=40)
+    engine.step()                      # admits all 8 (prefills) + 1 spec tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.step()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    parts = {"drafter steps": 0.0, "verify": 0.0}
+    events = []
+
+    def timed(fn, part):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[part] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    def evented(fn):
+        def run(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            events.append((s, e))
+            return out
+        return run
+
+    dm, tm = engine.draft_model, engine.model
+    layers = engine.cache["layers"]
+    dm.decode_step = timed(dm.decode_step, "drafter steps")
+    tm.verify_step = timed(tm.verify_step, "verify")
+    for c in layers:
+        c.verify_view = evented(c.verify_view)
+    try:
+        engine.step()
+        torch.cuda.synchronize()
+    finally:
+        for obj in (dm, tm):   # the weight-shared drafter is the target itself
+            vars(obj).pop("decode_step", None)
+            vars(obj).pop("verify_step", None)
+        for c in layers:
+            vars(c).pop("verify_view", None)
+    gather = sum(s.elapsed_time(e) for s, e in events)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        under = (time.perf_counter() - t0) * 1e3
+    dev = device_ms_by_kernel(prof)
+    busy = sum(dev.values())
+    # indexing kernels: the verify's page gathers, the rows' writes, the embedding lookups
+    index_ms = sum(ms for name, ms in dev.items() if "index" in name)
+    idle = "not measured" if not busy else f"{100 * (1 - busy / host):.1f}% idle"
+    print(f"spec tick [{arm}] (8 slots, k={SPEC_K}, full width): {host:.3f} ms host-clock "
+          f"({under:.3f} ms under the profiler); parts, each synchronised: drafter steps "
+          f"{parts['drafter steps']:.3f} ms ({SPEC_K + 1} steps), verify {parts['verify']:.3f} ms, "
+          f"of which the page gathers span {gather:.3f} ms of the stream (CUDA events around "
+          f"{len(events)} verify_view calls, host dispatch included); device busy {busy:.3f} ms "
+          f"({idle}), indexing kernels (gathers, row writes, embedding lookups) "
+          f"{index_ms:.3f} ms", flush=True)
+    top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:10])
+    for name, ms in top.items():
+        print(f"  {ms:9.3f} ms/tick  {name[:90]}")
+    engine.run()
+    engine.check_leaks()
+    return dict(host_ms=host, drafter_ms=parts["drafter steps"], verify_ms=parts["verify"],
+                gather_stream_ms=gather, index_kernels_ms=index_ms, busy_ms=busy, by_kernel=top)
 
 
 def check_serve_routes(cfg, config, launches, routes, ticks):
@@ -2273,6 +2558,103 @@ def kernels_vs_plain_prefix(torch, bound):
                              f"(relative L2 {sound} > {bound})")
     if missed:
         raise AssertionError(f"prefix case: the limit {bound} misses planted faults {missed}")
+    return launches
+
+
+def kernels_vs_plain_spec(torch, weights, bound, kv_quant=False):
+    """The speculative path's model-level calls at 2 layers of full-width
+    qwen2.5-3b (bf16), with the kernels and with the plain versions, on
+    the same tokens: a paged prefill (2 x 256 tokens, one left-padded to
+    200), a verify burst of K + 1 tokens at pos 256, the rollback to the
+    accepted (1 and 3 drafts: pos 258 and 260), a second burst there; and
+    the drafter's dense read (a dense prefill of the same prompts, then
+    K + 1 decode steps).  Readings, each the largest relative L2 over the
+    three parts (each burst's logits, the dense steps'): kernels vs plain;
+    the kernels' verify bursts vs K + 1 kernel decode steps (kernel 3) of
+    the same tokens; and the planted rollback fault (``pos`` not reset
+    after the first burst) against the plain run, which must exceed
+    ``bound`` where the first two stay within it.  Returns the kernel
+    run's launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2, compute_dtype="bfloat16")
+    model, params = launch.build(cfg, seed=1, kv_quant=kv_quant, **build_kw(E2E_WEIGHTS[weights]))
+    plain_model = Model(cfg, use_kernels=False, kv_quant=kv_quant)
+    label = f"{weights} weights{', int8 KV' if kv_quant else ''}"
+    rng = np.random.default_rng(4)
+    dev = model.device
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256))).to(dev)
+    mask = torch.ones((2, 256), dtype=torch.bool, device=dev)
+    mask[1, :56] = False
+    bursts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2, SPEC_K + 1))).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    accepted = torch.tensor([1, 3], **i32)
+
+    def prefilled(m, kind):
+        cache = m.init_cache(2, 288, kind=kind)
+        _, cache = m.prefill(params, cache, toks, pad_mask=mask)
+        cache["pos"] = torch.full((2,), 256, **i32)
+        cache["start"] = torch.tensor([0, 56], **i32)
+        return cache
+
+    def run(m, rollback=True, sequential=False):
+        cache, parts = prefilled(m, "paged"), []
+        for burst in bursts:
+            pos = cache["pos"]
+            if sequential:
+                steps = []
+                for t in range(burst.shape[1]):
+                    logits, cache = m.decode_step(params, cache, burst[:, t])
+                    steps.append(logits)
+                logits = torch.stack(steps, dim=1)
+            else:
+                logits, cache, _ = m.verify_step(params, cache, burst)
+            parts.append(logits)
+            if rollback:
+                cache["pos"] = pos + accepted + 1
+        dense, steps = prefilled(m, "dense"), []
+        for t in range(SPEC_K + 1):
+            logits, dense = m.decode_step(params, dense, bursts[0][:, t])
+            steps.append(logits)
+        return parts + [torch.stack(steps, dim=1)]
+
+    def rel(a, b):
+        return max(float((x - y).norm() / y.norm()) for x, y in zip(a, b))
+
+    reset_counts(torch)
+    a = run(model)
+    launches, plain_runs = read_counts(torch)
+    launches["flash_attention_masked[offsets]"] = read_offset_launches(torch)
+    if any(plain_runs.values()):
+        raise AssertionError(f"spec 2-layer ({label}): the kernel run ran plain versions "
+                             f"{plain_runs}")
+    offsets = cfg.num_layers * (2 + SPEC_K + 1)   # two bursts, K + 1 dense steps
+    if launches["flash_attention_masked[offsets]"] != offsets:
+        raise AssertionError(f"spec 2-layer ({label}): {launches} (expected {offsets} offset "
+                             "launches of kernel 2)")
+    b = run(plain_model)
+    if any(x.shape != (2, SPEC_K + 1, cfg.padded_vocab) or not torch.isfinite(x).all()
+           for x in a):
+        raise AssertionError(f"spec 2-layer ({label}): logits shapes "
+                             f"{[tuple(x.shape) for x in a]} or non-finite")
+    sound = rel(a, b)
+    seq = rel(a[:2], run(model, sequential=True)[:2])
+    fault = rel(run(model, rollback=False), b)
+    print(f"2-layer full width, bfloat16, {label}, speculative path: verify bursts of "
+          f"{SPEC_K + 1} at pos 256 and after the rollback, the drafter's dense steps; "
+          f"kernels vs plain: relative L2 {sound:.3e} (limit {bound}); verify bursts vs "
+          f"{SPEC_K + 1} kernel decode steps: {seq:.3e}; planted fault 'pos not reset after a "
+          f"rejection': {fault:.3e} ({'over' if fault > bound else 'within'} the limit); "
+          f"kernel launches {launches}", flush=True)
+    if sound > bound or seq > bound:
+        raise AssertionError(f"spec 2-layer ({label}): kernels vs plain {sound}, burst vs "
+                             f"decode steps {seq}, limit {bound}")
+    if fault <= bound:
+        raise AssertionError(f"spec 2-layer ({label}): the limit {bound} misses the planted "
+                             f"rollback fault ({fault})")
     return launches
 
 
@@ -2728,6 +3110,7 @@ def main():
     n_tc = check_tc(torch)
     cut = check_cut(torch, timer)
     k2 = check_flash(torch, timer)
+    k2o = check_flash_offsets(torch, timer)
     k3 = check_paged(torch, timer)
     k3i = check_paged(torch, timer, int8_kv=True)
     del timer
@@ -2741,6 +3124,10 @@ def main():
     t = phase("serve qwen2.5-3b full width, EN-T, shared prefix")
     shared = serve_shared_prefix(torch)
     done(t, "serve qwen2.5-3b full width, EN-T, shared prefix")
+    t = phase(f"serve qwen2.5-3b full width, EN-T, speculative (k = {SPEC_K})")
+    plain_ent = serves["EN-T w8a8, bf16 KV"]
+    spec = serve_spec(torch, plain_ent[5], plain_ent[1])
+    done(t, f"serve qwen2.5-3b full width, EN-T, speculative (k = {SPEC_K})")
 
     t = phase("kernels vs plain, 2 layers")
     # Limits between the sound readings and the planted faults' on the
@@ -2767,6 +3154,8 @@ def main():
                              f"{want}")
     print(f"  legacy 4-plane records: ent_matmul launches {got}", flush=True)
     kernels_vs_plain_prefix(torch, 0.07)   # the prefix cache's path, as served
+    spec_2l = {w: kernels_vs_plain_spec(torch, w, 0.07, kv_quant=kvq)   # the spec path
+               for w, kvq in (("EN-T", False), ("int8", True))}
     done(t, "kernels vs plain, 2 layers")
 
     t = phase("training kernel checks")
@@ -2868,7 +3257,7 @@ def main():
     def served(name):
         """Kernels 1 and 6: ``routed`` from their serve run, with the decode
         tick's route comparison and the prefill profile."""
-        launches, _, routes, prefill, tick_routes = serves[config_of[name]]
+        launches, _, routes, prefill, tick_routes = serves[config_of[name]][:5]
         return routed(name, launches, routes, decode_tick_ms_by_route=tick_routes,
                       prefill_profile=prefill)
 
@@ -2888,7 +3277,15 @@ def main():
                   for c in SERVE_CONFIGS},
               design=("bfloat16: tensor-core flash_fwd_masked_tc (kernel 7's body with the "
                       "start mask, 64-row q tiles, 64-column kv tiles, no lse); "
-                      "float32: the CUDA-core kernel"),
+                      "float32: the CUDA-core kernel; per-sequence offsets (q_offsets, int32 "
+                      "[B]): each block reads its sequence's offset before its band"),
+              offset_form=dict(
+                  checks=k2o, at_verify=next(r for r in k2o if r["S"] == SPEC_K + 1),
+                  launches_spec={arm: {"offsets": r["launches"]["flash_attention_masked[offsets]"],
+                                       "spec_ticks": r["stats"]["ticks"]}
+                                 for arm, r in spec.items()},
+                  launches_2_layer_spec={w: r["flash_attention_masked[offsets]"]
+                                         for w, r in spec_2l.items()}),
               build={lab: rec for lab, rec in tc_build.items() if "masked" in lab}),
         entry("paged_attention_kernel", "src/repro_torch/csrc/paged_attention.cu",
               f"{paged}:109", k3, lambda rows: rows[0], ent_t["paged_attention_kernel"],
@@ -2909,10 +3306,12 @@ def main():
               launches_from="no serving path; run by the kernel checks only",
               **routed("ent_matmul_packed", ent_t, serves[config_of["ent_matmul_packed_fused"]][2])),
     ]
-    for k in kernels:   # kernels 1, 2 and 3 on the prefix-shared serve run too
+    for k in kernels:   # kernels 1, 2 and 3 on the prefix-shared and speculative runs too
         if k["name"] in ("ent_matmul_packed_fused", "flash_attention_masked",
                          "paged_attention_kernel"):
             k["launches_shared_prefix"] = shared[0][k["name"]]
+            k["launches_speculative"] = {arm: r["launches"].get(k["name"], 0)
+                                         for arm, r in spec.items()}
     flash = "src/repro/kernels/flash_attention/flash_attention.py"
     at_train = lambda rows: rows[0]   # noqa: E731  (B=1, H=36, S=4096, D=64)
     designs = {   # kernels 7, 7b, 7c: the route each dtype takes, and the tensor-core design
@@ -3008,6 +3407,10 @@ def main():
     for config in SERVE_CONFIGS:
         print(f"serve tokens/s [{config}] {serves[config][1]:.3f}")
     print(f"serve tokens/s [EN-T w8a8, bf16 KV, shared prefix] {shared[1]:.3f}")
+    for arm, r in spec.items():
+        print(f"serve tokens/s [EN-T w8a8, bf16 KV, speculative k={SPEC_K}, {arm}] "
+              f"{r['tok_s']:.3f} ({r['of_plain']:.3f} of plain), acceptance "
+              f"{r['acceptance']:.4f}, {r['tokens_per_tick']:.3f} tokens a tick")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,11 @@
 // writes it.  Query row t sits at kv position q_offset + t; kv column j
 // attends iff j <= q_offset + t (causal), j > q_offset + t - window
 // (window > 0) and j >= start[b].  GQA reads kv head q_head / (Hq / Hkv).
+// A non-null q_offsets (int32 [B]) gives each sequence its own offset:
+// every block reads q_offset = q_offsets[b] once, before its band, so
+// sequence b's row t sits at q_offsets[b] + t (speculative decoding's
+// verify burst and the dense decode read, both the mask start_b <= j <=
+// pos_b + t).  The rest of the kernel is unchanged.
 // Online softmax in f32; fully masked rows give exact zeros.  As in the
 // plain version (masked_attention_ref), scores are (q . k) * scale and the
 // probabilities are rounded to the value dtype before the value product.
@@ -186,9 +191,9 @@ template <typename T, int D, bool TRAIN>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ start,
-                 T* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv,
-                 int Sq, int Skv, int q_offset, int causal, int window,
-                 float scale) {
+                 const int* __restrict__ q_offsets, T* __restrict__ out,
+                 float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int q_offset,
+                 int causal, int window, float scale) {
   constexpr int DT = D / 32;
   __shared__ float qs[BQ][D];
   __shared__ float ks[BKV][D + 1];
@@ -200,6 +205,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + static_cast<size_t>(b * Hkv + hk) * Skv * D;
   const T* vp = v + static_cast<size_t>(b * Hkv + hk) * Skv * D;
   const int st = TRAIN ? 0 : start[b];
+  if (!TRAIN && q_offsets) q_offset = q_offsets[b];   // kernel 2: per-sequence offset
 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
     const int r = i / D, d = i % D;
@@ -487,7 +493,8 @@ template <typename L, bool MASKED>
 __device__ __forceinline__ void fwd_tc_body(const CUtensorMap* qmap, const CUtensorMap* kmap,
                                             const CUtensorMap* vmap, const CUtensorMap* omap,
                                             float* __restrict__ lse,
-                                            const int* __restrict__ start, int Hq, int Hkv,
+                                            const int* __restrict__ start,
+                                            const int* __restrict__ q_offsets, int Hq, int Hkv,
                                             int Sq, int Skv, int q_offset, int causal,
                                             int window, float scale) {
   using namespace sm90;
@@ -508,6 +515,7 @@ __device__ __forceinline__ void fwd_tc_body(const CUtensorMap* qmap, const CUten
   const int hq = blockIdx.y, b = blockIdx.z;
   const int qplane = b * Hq + hq, kvplane = b * Hkv + hq / (Hq / Hkv);
   const int st = MASKED ? start[b] : 0;   // kernel 2: columns before it never attend
+  if (MASKED && q_offsets) q_offset = q_offsets[b];   // kernel 2: per-sequence offset
   // kv tiles any row of this block attends to
   const int qpos_lo = q_offset + q0, qpos_hi = q_offset + min(q0 + BQ, Sq) - 1;
   int kv_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
@@ -682,8 +690,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
              float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int q_offset,
              int causal, int window, float scale) {
-  fwd_tc_body<FwdTC<D>, false>(&qmap, &kmap, &vmap, &omap, lse, nullptr, Hq, Hkv, Sq, Skv,
-                               q_offset, causal, window, scale);
+  fwd_tc_body<FwdTC<D>, false>(&qmap, &kmap, &vmap, &omap, lse, nullptr, nullptr, Hq, Hkv, Sq,
+                               Skv, q_offset, causal, window, scale);
 }
 
 // Kernel 2, tensor-core route (bf16 operands).
@@ -693,10 +701,10 @@ flash_fwd_masked_tc(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap omap, const int* __restrict__ start,
-                    int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal, int window,
-                    float scale) {
-  fwd_tc_body<MaskedTC<D>, true>(&qmap, &kmap, &vmap, &omap, nullptr, start, Hq, Hkv, Sq, Skv,
-                                 q_offset, causal, window, scale);
+                    const int* __restrict__ q_offsets, int Hq, int Hkv, int Sq, int Skv,
+                    int q_offset, int causal, int window, float scale) {
+  fwd_tc_body<MaskedTC<D>, true>(&qmap, &kmap, &vmap, &omap, nullptr, start, q_offsets, Hq, Hkv,
+                                 Sq, Skv, q_offset, causal, window, scale);
 }
 
 // Kernel 7b shared memory: K, V [NSUB][BKV][64] | Q, dO [STAGES][NSUB][BQ][64]
@@ -1149,9 +1157,9 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, float*
 }
 
 template <int D>
-int launch_masked_tc(const void* q, const void* k, const void* v, const int* start, void* out,
-                     int B, int Hq, int Hkv, int Sq, int Skv, int q_offset, int causal,
-                     int window, float scale, cudaStream_t st) {
+int launch_masked_tc(const void* q, const void* k, const void* v, const int* start,
+                     const int* q_offsets, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
+                     int q_offset, int causal, int window, float scale, cudaStream_t st) {
   using L = MaskedTC<D>;
   CUtensorMap qm, km, vm, om;
   int e;
@@ -1163,7 +1171,7 @@ int launch_masked_tc(const void* q, const void* k, const void* v, const int* sta
     return e;
   const dim3 grid((Sq + L::BQ - 1) / L::BQ, Hq, B);
   flash_fwd_masked_tc<D><<<grid, L::THREADS, L::SMEM, st>>>(
-      qm, km, vm, om, start, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
+      qm, km, vm, om, start, q_offsets, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1213,8 +1221,8 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, con
 
 template <typename T, bool TRAIN>
 int launch_fwd(const void* q, const void* k, const void* v, const int* start,
-               void* out, float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
-               int D, int q_offset, int causal, int window, float scale,
+               const int* q_offsets, void* out, float* lse, int B, int Hq, int Hkv, int Sq,
+               int Skv, int D, int q_offset, int causal, int window, float scale,
                cudaStream_t st) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const T* qq = static_cast<const T*>(q);
@@ -1223,10 +1231,10 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* start,
   T* oo = static_cast<T*>(out);
   if (D == 128) {
     flash_fwd_kernel<T, 128, TRAIN><<<grid, NTHREADS, 0, st>>>(
-        qq, kk, vv, start, oo, lse, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
+        qq, kk, vv, start, q_offsets, oo, lse, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
   } else if (D == 64) {
     flash_fwd_kernel<T, 64, TRAIN><<<grid, NTHREADS, 0, st>>>(
-        qq, kk, vv, start, oo, lse, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
+        qq, kk, vv, start, q_offsets, oo, lse, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1288,20 +1296,21 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" int flash_attention_masked(const void* q, const void* k,
                                       const void* v, const int* start,
-                                      void* out, int is_bf16, int B, int Hq,
+                                      const int* q_offsets, void* out,
+                                      int is_bf16, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D,
                                       int q_offset, int causal, int window,
                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return launch_fwd<float, false>(q, k, v, start, out, nullptr, B, Hq, Hkv, Sq, Skv, D,
-                                    q_offset, causal, window, scale, st);
+    return launch_fwd<float, false>(q, k, v, start, q_offsets, out, nullptr, B, Hq, Hkv, Sq,
+                                    Skv, D, q_offset, causal, window, scale, st);
   if (D == 64)
-    return launch_masked_tc<64>(q, k, v, start, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
-                                window, scale, st);
+    return launch_masked_tc<64>(q, k, v, start, q_offsets, out, B, Hq, Hkv, Sq, Skv, q_offset,
+                                causal, window, scale, st);
   if (D == 128)
-    return launch_masked_tc<128>(q, k, v, start, out, B, Hq, Hkv, Sq, Skv, q_offset, causal,
-                                 window, scale, st);
+    return launch_masked_tc<128>(q, k, v, start, q_offsets, out, B, Hq, Hkv, Sq, Skv, q_offset,
+                                 causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1312,8 +1321,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return launch_fwd<float, true>(q, k, v, nullptr, out, lse, B, Hq, Hkv, Sq, Skv, D,
-                                   q_offset, causal, window, scale, st);
+    return launch_fwd<float, true>(q, k, v, nullptr, nullptr, out, lse, B, Hq, Hkv, Sq, Skv,
+                                   D, q_offset, causal, window, scale, st);
   if (D == 64)
     return launch_fwd_tc<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, q_offset, causal,
                              window, scale, st);

@@ -18,7 +18,8 @@ Kernels 2, 7, 7b and 7c take one of two routes by the operands' dtype
 (:func:`route`), with no fallback: bfloat16 (what serving and training
 run) the tensor-core kernels (``wgmma`` + TMA), float32 the CUDA-core
 ones.  Each wrapper's ``.tc_launches`` counts the tensor-core launches
-among its ``.launches``.  On the tensor-core route kernel 7c also writes
+among its ``.launches`` (and kernel 2's ``.offset_launches`` those with
+per-sequence offsets).  On the tensor-core route kernel 7c also writes
 D_i = rowsum(dO * O), which ``flash_attention_bwd`` hands to 7b
 (``delta=``).
 """
@@ -78,33 +79,39 @@ def _mask_args(sq, skv, d, causal, window, scale, q_offset):
             0 if window is None else int(window), d**-0.5 if scale is None else float(scale))
 
 
-def flash_attention_masked(q, k, v, start, *, q_offset: int = 0,
+def flash_attention_masked(q, k, v, start, *, q_offset: int = 0, q_offsets=None,
                            causal: bool = True, window: int | None = None,
                            scale: float | None = None):
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (f32 or bf16, one dtype),
     start int32 [B] -> [B, Hq, Sq, D] in q's dtype (as the Pallas kernel;
-    softmax and accumulation in f32).  The bfloat16 (tensor-core) route
-    rounds P to bf16 relative to the running max after each 64-column kv
-    tile (64-row q tiles)."""
+    softmax and accumulation in f32).  Query row t of sequence b sits at
+    kv position ``q_offset + t``, or ``q_offsets[b] + t`` when the int32
+    [B] ``q_offsets`` is given (a verify burst, a dense decode read).  The
+    bfloat16 (tensor-core) route rounds P to bf16 relative to the running
+    max after each 64-column kv tile (64-row q tiles)."""
     _check_qkv(q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if start.shape != (b,) or start.dtype != torch.int32:
         raise ValueError("start must be int32 [B]")
+    if q_offsets is not None and (q_offsets.shape != (b,) or q_offsets.dtype != torch.int32):
+        raise ValueError("q_offsets must be int32 [B]")
     if scale is None:
         scale = d**-0.5
     if q.device.type == "cpu":
         return masked_attention_ref(q, k, v, start=start, q_offset=q_offset,
-                                    causal=causal, window=window,
+                                    q_offsets=q_offsets, causal=causal, window=window,
                                     scale=scale).to(q.dtype)
     _check_cuda(q, k, v)
-    if start.device != q.device or not start.is_contiguous():
-        raise ValueError("operands must be contiguous and on one device")
+    for t in (start, q_offsets):
+        if t is not None and (t.device != q.device or not t.is_contiguous()):
+            raise ValueError("operands must be contiguous and on one device")
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if b * hq * sq == 0:
         return out
     fn = _build.entry("flash_attention", "flash_attention_masked")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
+            None if q_offsets is None else q_offsets.data_ptr(),
             out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv, sq,
             skv, d, int(q_offset), int(causal),
             0 if window is None else int(window), float(scale),
@@ -112,6 +119,7 @@ def flash_attention_masked(q, k, v, start, *, q_offset: int = 0,
     _build.check(rc, "flash_attention_masked")
     flash_attention_masked.launches += 1
     flash_attention_masked.tc_launches += route(q.dtype, d) == "tensor-core"
+    flash_attention_masked.offset_launches += q_offsets is not None
     return out
 
 
@@ -264,6 +272,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 flash_attention_masked.launches = 0
 flash_attention_masked.tc_launches = 0
+flash_attention_masked.offset_launches = 0
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention_bwd_dkdv.launches = 0

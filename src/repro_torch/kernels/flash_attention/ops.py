@@ -19,10 +19,14 @@ oracle" route, because the kernel masks ragged tiles itself.  int8-KV dequant sc
 K and V are dequantized to q's dtype before the kernel (``ops.py:75-78``,
 :func:`dequantize`).  On CPU tensors a scaled call takes the plain
 version, which folds the scales exactly, as the reference's CPU route
-does.  The explicit ``valid`` mask of ring/dense decode has no kernel:
-it runs the plain version on the CPU and raises on the card.
-``use_kernel=False`` asks for the plain version explicitly (counted in
-``masked_attention.plain_launches`` on the card).
+does.  ``q_offsets`` (int32 [B]) gives each sequence its own query
+offset (the kernel's per-sequence form): the dense decode read and the
+speculative verify burst, whose masks ``start_b <= j <= pos_b + t`` it
+computes from ``(start, q_offsets)``.  The explicit ``valid`` mask (the
+ring's scattered one; the plain path's decode reads) has no kernel: it
+runs the plain version on the CPU and raises on the card unless
+``use_kernel=False``, which asks for the plain version explicitly
+(counted in ``masked_attention.plain_launches`` on the card).
 """
 
 from __future__ import annotations
@@ -88,7 +92,7 @@ def dequantize(t, t_scale, dtype):
 
 def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
                      window=None, scale=None, k_scale=None, v_scale=None,
-                     valid=None, use_kernel: bool = True, chunk=None):
+                     valid=None, use_kernel: bool = True, chunk=None, q_offsets=None):
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D]: in q's
     dtype from the kernel (as the Pallas kernel writes it), float32 from
     the plain version.  The reference op upcasts the kernel's output to
@@ -109,17 +113,18 @@ def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
         return flash_attention_masked(
             q.contiguous(), k.contiguous(), v.contiguous(),
             start.to(torch.int32).contiguous(), q_offset=q_offset,
+            q_offsets=None if q_offsets is None else q_offsets.to(torch.int32).contiguous(),
             causal=causal, window=window, scale=scale)
     if q.is_cuda:
-        if valid is not None:
+        if valid is not None and use_kernel:
             raise NotImplementedError(
-                "the explicit-mask (ring/dense decode) attention has no "
-                "kernel in this slice; the card serves the paged backend")
+                "the explicit-mask attention has no kernel: the card reads "
+                "dense rows and verify bursts through (start, q_offsets)")
         masked_attention.plain_launches += 1
     return masked_attention_ref(q, k, v, start=start, q_offset=q_offset,
                                 causal=causal, window=window, scale=scale,
                                 k_scale=k_scale, v_scale=v_scale, valid=valid,
-                                chunk=chunk)
+                                chunk=chunk, q_offsets=q_offsets)
 
 
 masked_attention.plain_launches = 0

@@ -21,6 +21,11 @@ column j and query row t (q row t sits at position ``q_offset + t``):
   * start:   j >= start[b]        (left-pad slots, masked forever)
   * valid:   [B, Sq, Skv] bool — overrides the positional masks
 
+``q_offsets`` (int [B]) gives each sequence its own offset in place of
+``q_offset``: sequence b's row t sits at ``q_offsets[b] + t``.  With
+causal, no window and ``start``, that is the verify burst's mask
+``burst_valid(q_offsets, start, Sq, Skv)`` (``models/kv_cache.py``).
+
 Scores are q.k dots accumulated in float32; the probabilities are cast
 to the value dtype before the value contraction, as the reference does.
 ``k_scale``/``v_scale`` ([B, Hkv, Skv] f32) are int8-KV dequant scales,
@@ -175,7 +180,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
 
 def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,
                          window=None, scale=None, k_scale=None, v_scale=None,
-                         valid=None, chunk=None):
+                         valid=None, chunk=None, q_offsets=None):
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     group = hq // hkv
@@ -189,7 +194,9 @@ def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,
         valid = v1[:, None, :]
     dev = q.device
     qg = q.reshape(b, hkv, group, sq, d).to(torch.float32)
-    q_pos = q_offset + torch.arange(sq, device=dev)[:, None]            # [Sq, 1]
+    q_pos = torch.arange(sq, device=dev)[:, None]                       # [Sq, 1]
+    # [Sq, 1], or [B, Sq, 1] with per-sequence offsets
+    q_pos = q_pos + (q_offset if q_offsets is None else q_offsets.to(dev)[:, None, None])
     m = torch.full((b, hkv, group, sq, 1), _NEG_INF, device=dev)
     l = torch.zeros((b, hkv, group, sq, 1), device=dev)
     acc = torch.zeros((b, hkv, group, sq, d), device=dev)
@@ -203,16 +210,16 @@ def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,
         if valid is not None:
             mask = valid[:, None, None, :, lo:lo + chunk]               # [B,1,1,Sq,C]
         else:
-            mask = torch.ones((sq, chunk), dtype=torch.bool, device=dev)
+            mask = torch.ones(q_pos.shape[:-1] + (chunk,), dtype=torch.bool, device=dev)
             if causal:
                 mask = mask & (kv_pos <= q_pos)
             if window is not None:
                 mask = mask & (kv_pos > q_pos - window)
+            if mask.dim() == 2:   # one offset for the batch
+                mask = mask[None]
             if start is not None:
-                mask = mask[None] & (kv_pos[None] >= start[:, None, None])
-                mask = mask[:, None, None]
-            else:
-                mask = mask[None, None, None]
+                mask = mask & (kv_pos[None] >= start[:, None, None])
+            mask = mask[:, None, None]
         s = torch.where(mask, s, _NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)

@@ -2,15 +2,20 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --engine --quantize [--shared-prefix N] [--no-prefix-cache] \\
-        [--smoke] [--device cuda|cpu]
+        [--cache-kind auto|paged|dense] [--draft-arch ARCH --spec-k K \\
+        --spec-mode match|rejection] [--smoke] [--device cuda|cpu]
 
 Builds the model at the config's widths (``--smoke``: the reduced
 config), draws random weights from ``--seed`` on the device, encodes
 every projection into packed EN-T planes layer by layer
 (``--quantize``), then serves ``2 * --batch`` ragged requests through
-the paged ``ServeEngine``, with the radix prefix cache unless
-``--no-prefix-cache``; ``--shared-prefix N`` puts one seeded N-token
-prefix in front of every request (a system prompt).  Runs on the CUDA
+the ``ServeEngine`` (paged unless ``--cache-kind dense``), with the
+radix prefix cache unless ``--no-prefix-cache``; ``--shared-prefix N``
+puts one seeded N-token prefix in front of every request (a system
+prompt).  ``--draft-arch`` turns speculative decoding on with ``--spec-k``
+drafts a tick: the same arch as ``--arch`` is a weight-shared drafter
+(the target's own model and params), another arch a float drafter with
+random weights from ``--seed + 1``.  Runs on the CUDA
 card unless ``--device cpu``.  The one-shot ``generate`` path (no
 ``--engine``) is a later slice and is refused.
 """
@@ -82,6 +87,16 @@ def main(argv=None):
                     default=None,
                     help="radix prefix cache + copy-on-write page sharing "
                          "(default: auto, on for paged attention-only models)")
+    ap.add_argument("--cache-kind", default="auto", choices=["auto", "paged", "dense"],
+                    help="KV-cache backend (auto: paged)")
+    ap.add_argument("--draft-arch", default="", choices=[""] + list(ARCH_IDS),
+                    help="speculative decoding: drafter arch (same arch = "
+                         "weight-shared drafter)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per slot per tick")
+    ap.add_argument("--spec-mode", default="match", choices=["match", "rejection"],
+                    help="'match' emits the plain engine's stream; 'rejection' "
+                         "is classic rejection sampling")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend one common N-token prefix (seeded) to every "
                          "request (exercises prefix sharing)")
@@ -114,13 +129,25 @@ def main(argv=None):
           f"{' + EN-T encode' if args.quantize else ''} "
           f"{time.perf_counter() - t0:.2f}s")
     slots = args.slots or args.batch
+    spec_kw = {}
+    if args.draft_arch:
+        if args.draft_arch == args.arch:   # weight-shared drafter
+            dmodel, dparams = model, params
+        else:
+            dcfg = get_config(args.draft_arch)
+            if args.smoke:
+                dcfg = reduced_config(dcfg)
+            dmodel, dparams = build(dcfg, seed=args.seed + 1, device=args.device)
+        spec_kw = dict(draft_model=dmodel, draft_params=dparams, spec_k=args.spec_k,
+                       spec_mode=args.spec_mode)
     engine = ServeEngine(
         model, params, slots=slots,
         max_len=2 * args.prompt_len + args.steps + 8 + args.shared_prefix,
         prefill_chunk=args.prefill_chunk or None, top_k=args.top_k or None,
         top_p=args.top_p or None, page_size=args.page_size or None,
-        pages=args.pages or None, seed=args.seed,
-        prefix_cache="auto" if args.prefix_cache is None else args.prefix_cache)
+        pages=args.pages or None, seed=args.seed, cache_kind=args.cache_kind,
+        prefix_cache="auto" if args.prefix_cache is None else args.prefix_cache,
+        **spec_kw)
     rng = np.random.default_rng(args.seed)
     prompts = ragged_prompts(rng, 2 * args.batch, max(1, args.prompt_len // 2),
                              args.prompt_len, cfg.vocab_size)
@@ -130,14 +157,21 @@ def main(argv=None):
     results, dt = serve(engine, prompts, max_new_tokens=args.steps,
                         temperature=args.temperature)
     total = sum(len(v) for v in results.values())
-    print(f"engine[paged]: served {len(prompts)} ragged requests (prompt lens "
+    print(f"engine[{engine.cache_kind}]: served {len(prompts)} ragged requests (prompt lens "
           f"{min(lens)}..{max(lens)}"
           + (f" after a {args.shared_prefix}-token shared prefix" if args.shared_prefix else "")
           + f") on {slots} slots: {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
+    if args.draft_arch:
+        st, rate = engine.spec_stats, engine.acceptance_rate
+        print(f"spec[k={args.spec_k}, {args.spec_mode}]: {st['ticks']} ticks, "
+              f"{st['drafted']} drafted, {st['accepted']} accepted "
+              f"({0.0 if rate is None else rate:.2%}), {st['emitted']} emitted "
+              f"({st['emitted'] / max(st['ticks'], 1):.2f} tok/tick)")
     ps = engine.page_stats
-    print(f"pages: {ps['total']} total, {ps['free']} free, {ps['resident']} resident, "
-          f"{ps['shared']} shared, {ps.get('cached', 0)} cached; KV pools "
-          f"{engine.pool_bytes / 2**20:.2f} MiB")
+    if ps is not None:
+        print(f"pages: {ps['total']} total, {ps['free']} free, {ps['resident']} resident, "
+              f"{ps['shared']} shared, {ps.get('cached', 0)} cached")
+    print(f"KV {'pools' if ps is not None else 'rows'} {engine.pool_bytes / 2**20:.2f} MiB")
     fs = engine.prefix_stats
     if fs is not None:
         print(f"prefix cache: {fs['hits']}/{fs['lookups']} hits ({fs['hit_rate']:.0%}), "

@@ -4,15 +4,20 @@
 ``prefill_step`` writes the prompt chunk's rotated K/V through the cache
 and attends through the masked flash kernel; ``decode_step`` writes one
 row and, for the paged backend, reads the pool in place through the
-paged decode kernel (dense rows go through the plain masked version,
-for the paged ≡ dense test).
+paged decode kernel; dense rows (the dense engine backend, a
+speculative drafter) go through the masked flash kernel at Sq = 1 with
+per-sequence offsets ``q_offsets = pos_b``.  ``verify_step`` is
+speculative decoding's burst: S rows per sequence written at ``pos_b ..
+pos_b+S-1`` and attended through the same kernel over the cache's
+position-ordered view with ``q_offsets = pos_b``.
 
 On the plain path (CPU tensors, or ``use_kernel=False``) the two share
 one reduction order, so that batched prefill ≡ sequential decode bit for
 bit: the projections multiply row by row (``layers.row_matmul``), and
-prefill attends each query row exactly as ``decode_step`` attends at
-that position (``_token_attention``: the cache view's full width,
-decode's mask, one row per sequence), after writing the whole chunk.
+prefill and the verify burst attend each query row exactly as
+``decode_step`` attends at that position (``_token_attention``: the
+cache view's full width, decode's mask, one row per sequence), after
+writing the whole chunk.
 Masked columns give exact zeros wherever they sit, so the later rows
 that prefill has already written change nothing.
 
@@ -121,8 +126,9 @@ def _finish(cfg: ModelConfig, p, out, use_kernel: bool = True, rows: bool = Fals
 def _token_attention(cfg: ModelConfig, q, cache, pos_b, start_b, use_kernel: bool):
     """One query row per sequence (q [B, Hq, 1, hd]) at positions ``pos_b``
     over what ``cache.token_view`` gives: the paged pool in place through
-    the paged decode op, or the dense rows with their [B, W] mask through
-    the masked op."""
+    the paged decode op, or the dense rows through the masked op (the
+    kernel with ``(start_b, q_offsets=pos_b)``, the plain path with the
+    view's [B, W] mask)."""
     view = cache.token_view(pos_b, start_b)
     if isinstance(view, kv_cache.PagedView):
         return paged_ops.paged_attention(
@@ -133,9 +139,11 @@ def _token_attention(cfg: ModelConfig, q, cache, pos_b, start_b, use_kernel: boo
     dt = L.cdtype(cfg)
     if kop.dtype == torch.int8:
         kop, vop = kop.to(dt), vop.to(dt)
+    mask = (dict(valid=valid[:, None, :]) if plain_path(q, use_kernel)
+            else dict(start=start_b, q_offsets=pos_b))
     return attn_ops.masked_attention(
-        q, kop.transpose(1, 2), vop.transpose(1, 2), valid=valid[:, None, :],
-        k_scale=_scale_op(ks), v_scale=_scale_op(vs), use_kernel=use_kernel)
+        q, kop.transpose(1, 2), vop.transpose(1, 2), k_scale=_scale_op(ks),
+        v_scale=_scale_op(vs), use_kernel=use_kernel, **mask)
 
 
 def _starts(start, b, device):
@@ -158,6 +166,39 @@ def decode_step(cfg: ModelConfig, p, x, cache, pos, start=None,
     new = cache.write_token(k, v, pos, per_seq)
     out = _token_attention(cfg, q.transpose(1, 2), new, pos_b, start_b, use_kernel)
     return _finish(cfg, p, out, use_kernel, rows), new
+
+
+def verify_step(cfg: ModelConfig, p, x, cache, pos, start=None, use_kernel: bool = True):
+    """Speculative verify burst: S tokens per sequence at per-sequence
+    positions, the multi-token twin of ``decode_step``.  x: [B, S, D];
+    pos: [B] int32.  Rows are projected at ``(pos_b - start_b) + t`` and
+    written at ``pos_b + t`` (``write_tokens``); query t then attends what
+    decode at ``pos_b + t`` would: on the kernel path through the masked
+    flash kernel over ``verify_view`` with ``(start_b, q_offsets=pos_b)``;
+    on the plain path row by row through ``_token_attention``, so that the
+    burst is bit for bit S decode steps.  Returns (y [B, S, D], cache
+    written in place).  Rollback is the caller's ``pos`` reset."""
+    b, s, _ = x.shape
+    rows = plain_path(x, use_kernel)
+    pos_b = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
+    start_b = _starts(start, b, x.device)
+    positions = ((pos_b - start_b)[:, None]
+                 + torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
+    q, k, v = _project(cfg, p, x, positions, use_kernel, rows)
+    q = q.transpose(1, 2)
+    new = cache.write_tokens(k, v, pos_b)
+    if rows:
+        out = torch.cat([_token_attention(cfg, q[:, :, t:t + 1], new, pos_b + t, start_b,
+                                          use_kernel) for t in range(s)], dim=2)
+        return _finish(cfg, p, out, use_kernel, rows), new
+    kop, vop, ks, vs, _ = new.verify_view(pos_b, start_b, s)
+    dt = L.cdtype(cfg)
+    if kop.dtype == torch.int8:
+        kop, vop = kop.to(dt), vop.to(dt)
+    out = attn_ops.masked_attention(
+        q, kop.transpose(1, 2), vop.transpose(1, 2), start=start_b, q_offsets=pos_b,
+        k_scale=_scale_op(ks), v_scale=_scale_op(vs), use_kernel=use_kernel)
+    return _finish(cfg, p, out, use_kernel), new
 
 
 def prefill_step(cfg: ModelConfig, p, x, cache, start=None, pos0: int = 0,

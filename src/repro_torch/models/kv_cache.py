@@ -1,14 +1,15 @@
 """KV-cache backends (port of ``repro/models/kv_cache.py``): the paged
-pool the serving engine admits into, and the dense rows the paged ≡
-dense test holds it against.
+pool the serving engine admits into, and the dense rows of the dense
+engine backend and of a speculative drafter.
 
 The reference's caches are immutable pytrees: every write returns a new
 cache.  Here the writes land IN PLACE (``index_put_`` / slice
 assignment into the pool tensors) and the methods return ``self``, so
 callers keep the reference's ``new = cache.write_...`` shape without a
-pool-sized copy per token.  Nothing in this slice keeps an old cache
-alive across a write (fork/rollback and engine snapshots are later
-work), so in-place updates are safe.  A read-only forward (the
+pool-sized copy per token.  Nothing keeps an old cache alive across a
+write (engine snapshots are later work; a speculative rollback is a
+layout operation, see below), so in-place updates are safe.  A
+read-only forward (the
 prefix-cache peek) therefore cannot leave the store to dead-code
 elimination as the reference does: ``stored`` gives a chunk's rows in
 storage form without writing them, and ``PagedCache.detached`` a copy
@@ -18,6 +19,20 @@ of a view that the plain path may write instead of the pool.
 being the reserved null page, plus a ``[B, pages_per_slot]`` int32 block
 table; ``token_view`` returns the pool and table as stored
 (:class:`PagedView`) for the paged decode kernel.
+
+Speculative decoding: a verify burst writes S rows per sequence at
+``pos_b .. pos_b+S-1`` (``write_tokens``, bit for bit S ``write_token``
+calls) and reads them back through a position-ordered full-width view
+(``verify_view``: the dense rows, or the paged pool gathered) with the
+[B, S, W] mask of the S decode ticks it replaces (:func:`burst_valid`).
+Rolling rejected drafts back is the engine's ``pos`` reset: the rows past
+the accepted position are masked from every later read and rewritten
+before their position is reached.  ``fork`` / ``rollback`` snapshot and
+restore the paged block table (None / no-op on dense rows).
+
+:class:`DenseCache` also carries the engine's slot protocol:
+``prefill_view`` (zeroed single-slot rows), ``admit`` (splice them in at
+the slot) and ``free_slot`` (a no-op: stale rows stay masked).
 
 int8 KV (``quantized=True``): the pools hold int8 codes and every write
 quantizes on the way in (:func:`quantize_kv`), with bf16 per-(row, head)
@@ -46,6 +61,16 @@ class PagedView(NamedTuple):
     v_s: torch.Tensor | None
     block_table: torch.Tensor        # [B, pages_per_slot] int32
     page_size: int
+
+
+def burst_valid(pos_b, start_b, s: int, w: int):
+    """[B, S, W] causal validity of a verify burst over a position-ordered
+    width-``w`` view: query t (position ``pos_b + t``) sees columns
+    ``start_b .. pos_b + t``, the masks of ``s`` successive decode ticks
+    stacked."""
+    qpos = pos_b[:, None] + torch.arange(s, dtype=torch.int32, device=pos_b.device)[None, :]
+    col = torch.arange(w, dtype=torch.int32, device=pos_b.device)[None, None, :]
+    return (col <= qpos[:, :, None]) & (col >= start_b[:, None, None])
 
 
 def quantize_kv(t):
@@ -85,6 +110,21 @@ class _KV:
         put(self.v, vc)
         return kc, vc, ks, vs
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the K/V pools and their scale pools."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_s, self.v_s) if t is not None)
+
+    def fork(self):
+        """Checkpoint before a verify burst writes: None for rows, whose
+        rollback is the engine's ``pos`` reset alone."""
+        return None
+
+    def rollback(self, snap):
+        del snap
+        return self
+
 
 class DenseCache(_KV):
     """Contiguous [B, W, H, hd] rows; slot = absolute position."""
@@ -109,10 +149,22 @@ class DenseCache(_KV):
         self._write(put, k, v)
         return self
 
+    def write_tokens(self, k, v, pos):
+        """Write S rows per sequence at ``pos .. pos+S-1`` (pos [B])."""
+        b, s = k.shape[:2]
+        rows = torch.arange(b, device=k.device)[:, None]
+        cols = pos.long().expand(b)[:, None] + torch.arange(s, device=k.device)[None, :]
+        self._write(lambda c, n: c.index_put_((rows, cols), n), k, v)
+        return self
+
     def token_view(self, pos_b, start_b):
         idx = torch.arange(self.width, device=pos_b.device)[None, :]
         valid = (idx <= pos_b[:, None]) & (idx >= start_b[:, None])
         return self.k, self.v, self.k_s, self.v_s, valid
+
+    def verify_view(self, pos_b, start_b, s: int):
+        """The rows as stored, with the burst's [B, S, W] mask."""
+        return self.k, self.v, self.k_s, self.v_s, burst_valid(pos_b, start_b, s, self.width)
 
     def write_prompt(self, k, v, pos0: int):
         s = k.shape[1]
@@ -129,6 +181,28 @@ class DenseCache(_KV):
             return None, None, None, None, 0
         sl = lambda c: None if c is None else c[:, :pos0]   # noqa: E731
         return sl(self.k), sl(self.v), sl(self.k_s), sl(self.v_s), pos0
+
+    # .. engine slot management: rows move ..
+    def _leaves(self):
+        return self.k, self.v, self.k_s, self.v_s
+
+    def prefill_view(self, slot: int):
+        """Zeroed single-slot rows for admission prefill."""
+        del slot
+        return DenseCache(*(None if t is None else t.new_zeros((1,) + tuple(t.shape[1:]))
+                            for t in self._leaves()))
+
+    def admit(self, one, slot: int):
+        """Splice the prefilled single-slot rows ``one`` in at ``slot``."""
+        for full, new in zip(self._leaves(), one._leaves()):
+            if full is not None:
+                full[slot] = new[0]
+        return self
+
+    def free_slot(self, slot: int):
+        """A no-op: a freed slot's rows stay masked by pos / start."""
+        del slot
+        return self
 
 
 class PagedCache(_KV):
@@ -157,12 +231,57 @@ class PagedCache(_KV):
         self._write(lambda c, n: c.index_put_((pid, off), n[:, 0]), k, v)
         return self
 
+    def write_tokens(self, k, v, pos):
+        """Write S rows per sequence at ``pos .. pos+S-1`` (pos [B]) into
+        the pages that hold them."""
+        b, s = k.shape[:2]
+        cols = pos.long().expand(b)[:, None] + torch.arange(s, device=k.device)[None, :]
+        # idle engine slots (an all-null table row) clamp as write_token does
+        pp = torch.clamp_max(cols // self.page_size, self.block_table.shape[1] - 1)
+        pid = self.block_table.gather(1, pp).long()
+        off = cols % self.page_size
+        self._write(lambda c, n: c.index_put_((pid, off), n), k, v)
+        return self
+
     def token_view(self, pos_b, start_b):
         """In-place decode read: pools + table, no gathered copy (masking
         happens in the kernel from the same [B] vectors)."""
         del pos_b, start_b
         return PagedView(self.k, self.v, self.k_s, self.v_s, self.block_table,
                          self.page_size)
+
+    def _gather(self, c):
+        """[P, page, ...] pool -> [B, W, ...] position-ordered copy."""
+        if c is None:
+            return None
+        g = c[self.block_table.long()]
+        return g.reshape((g.shape[0], -1) + tuple(c.shape[2:]))
+
+    def verify_view(self, pos_b, start_b, s: int):
+        """The burst read: the pages gathered into position order, with the
+        burst's [B, S, W] mask (the in-place paged kernel stays the
+        one-query decode read)."""
+        return (self._gather(self.k), self._gather(self.v), self._gather(self.k_s),
+                self._gather(self.v_s), burst_valid(pos_b, start_b, s, self.width))
+
+    def gather_view(self, pos_b, start_b):
+        """The decode read as the row backends give it: the pages gathered
+        into position order with a [B, W] mask (unmapped tail pages sit past
+        pos, masked like a dense cache's unwritten rows)."""
+        idx = torch.arange(self.width, device=pos_b.device)[None, :]
+        valid = (idx <= pos_b[:, None]) & (idx >= start_b[:, None])
+        return (self._gather(self.k), self._gather(self.v), self._gather(self.k_s),
+                self._gather(self.v_s), valid)
+
+    def fork(self):
+        """Block-table snapshot: rollback restores page mappings (a burst
+        may have mapped pages the accepted prefix never reached), not page
+        contents."""
+        return self.block_table.clone()
+
+    def rollback(self, snap):
+        self.block_table = snap
+        return self
 
     def write_prompt(self, k, v, pos0: int):
         s = k.shape[1]
@@ -213,12 +332,6 @@ class PagedCache(_KV):
             if c is not None:
                 c[dst] = c[src]
         return self
-
-    @property
-    def nbytes(self) -> int:
-        """Bytes of the K/V pools and their scale pools."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.k, self.v, self.k_s, self.v_s) if t is not None)
 
     # .. engine slot management: indices move, rows don't ..
     def prefill_view(self, slot: int):

@@ -9,6 +9,8 @@ and SSM (Mamba-2) mixers with dense or no FFN; ``moe`` layer specs
 raise ``NotImplementedError``, and so do the serving entry points
 (``init_cache``, ``prefill``, ``decode_step``,
 ``apply(write_cache=True)``) of a model with SSM layers.
+``Model.verify_step`` runs speculative decoding's verify burst (S tokens
+per sequence at per-sequence depths in one pass).
 ``Model.apply`` without a cache is the full-sequence (training)
 forward, with the reference's remat policies: ``remat="full"``
 recomputes each layer group in the backward
@@ -291,6 +293,45 @@ class Model:
         new_cache["layers"] = layers
         new_cache["pos"] = pos + 1
         return logits[:, 0], new_cache
+
+    def verify_step(self, params, cache, tokens):
+        """Speculative verify burst: S tokens for the whole batch at the
+        per-slot depths ``cache["pos"]``.  tokens: [B, S] (column 0 the
+        already sampled next token, then the drafts).  Returns (logits
+        [B, S, V], cache at pos + S, states): position t's logits are what
+        decode at ``pos + t`` gives after the same prefix (bit for bit on
+        the plain path).  ``states`` has one entry per layer, None for
+        every attention layer (SSM serving is not ported)."""
+        self._check_serving()
+        cfg = self.cfg
+        pos = cache["pos"]
+        start = cache.get("start")
+        x = L.embed_apply(cfg, params["embed"], tokens)
+        rows = attention.plain_path(x, self.use_kernels)
+        layers = list(cache["layers"])
+        for i, spec in enumerate(self._specs()):
+            p = params["layers"][i]
+            h = L.norm_apply(cfg, p["mixer_norm"], x)
+            y, layers[i] = attention.verify_step(
+                cfg, p["mixer"], h, layers[i], pos, start=start,
+                use_kernel=self.use_kernels)
+            x = x + y
+            if spec[1] == "dense":
+                h = L.norm_apply(cfg, p["ffn_norm"], x)
+                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels, rows)
+        x = L.norm_apply(cfg, params["final_norm"], x)
+        logits = L.lm_head_apply(cfg, params.get("lm_head"), params["embed"], x, rows)
+        new_cache = dict(cache)
+        new_cache["layers"] = layers
+        new_cache["pos"] = pos + tokens.shape[1]
+        return logits, new_cache, [None] * len(layers)
+
+    def select_ssm_states(self, layers, states, sel):
+        """Roll SSM layer caches back to the post-state at step ``sel[b]``
+        of a verify burst: SSM serving is not ported."""
+        raise NotImplementedError(
+            "select_ssm_states rolls SSM layer states back after a verify burst; "
+            "SSM serving is not ported yet (ROADMAP queue 1 item 5)")
 
     def prefill(self, params, cache, tokens, pad_mask=None,
                 chunk: int | None = None, pos0: int = 0):

@@ -13,6 +13,18 @@ Randomness comes from one ``torch.Generator`` per row (per request in
 the engine, seeded from ``(seed, uid)``), so a request replays the same
 stream whichever slot or neighbours it lands with.  The draws differ
 from the reference's threefry keys; the distributions are the same.
+
+Speculative verify (``spec_verify``, reference :115): ``greedy_verify``
+is argmax matching.  "match" mode couples acceptance to this sampler:
+position t of a burst draws exactly the uniforms ``sample_logits`` would
+draw on the (t+1)-th tick from now and samples from them with the same
+arithmetic (:func:`_gumbel_tokens`), so a draft is accepted iff plain
+decode would have sampled it; each generator is left in its state after
+``n_acc + 1`` draws (a snapshot after every draw).  "rejection" mode
+keeps the reference's arithmetic (accept draft d when u < p_target(d),
+else sample the residual with d excluded; the bonus sample after a clean
+sweep) on the port's generators: position t draws one uniform for the
+acceptance, then V for its sample.  Greedy rows touch no generator.
 """
 
 from __future__ import annotations
@@ -69,6 +81,14 @@ def init_keys(seed: int, batch: int, device=None) -> list[torch.Generator]:
     return [seed_generator(seed, i, device or "cpu") for i in range(batch)]
 
 
+def _gumbel_tokens(lt, u):
+    """Rows of (truncated, tempered) logits ``lt`` [n, V] and uniforms
+    ``u`` [n, V] -> Gumbel-max tokens [n] int32."""
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(torch.clamp_min(u, tiny)))
+    return (lt + gumbel).argmax(-1).to(torch.int32)
+
+
 def sample_logits(logits, keys, temperature, *, top_k: int | None = None,
                   top_p: float | None = None, done=None, pad_id: int = 0):
     """One token per row.  logits [B, V]; keys: B generators (advanced
@@ -87,10 +107,8 @@ def sample_logits(logits, keys, temperature, *, top_k: int | None = None,
         u = torch.stack([
             torch.rand(v, generator=keys[i], device=l32.device,
                        dtype=torch.float32) for i in hot])
-        tiny = torch.finfo(torch.float32).tiny
-        gumbel = -torch.log(-torch.log(torch.clamp_min(u, tiny)))
         tok = greedy.clone()
-        tok[rows] = (lt + gumbel).argmax(-1).to(torch.int32)
+        tok[rows] = _gumbel_tokens(lt, u)
     if done is not None:
         tok = torch.where(done, pad_id, tok)
     return tok, keys
@@ -110,3 +128,120 @@ def make_sampler(top_k: int | None = None, top_p: float | None = None,
 def greedy(logits):
     """Greedy argmax tokens [B] int32."""
     return logits.argmax(-1).to(torch.int32)
+
+
+# .. speculative verify ..
+
+def _accepted(ok):
+    """[B, S-1] per-draft acceptance -> accepted prefix lengths [B] int32."""
+    return torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+
+
+def greedy_verify(logits, draft):
+    """All-greedy verify.  logits [B, S, V], draft [B, S-1] -> (tokens
+    [B, S] int32 per-position argmax, n_acc [B] int32: drafts matching it
+    in a row).  No generator is touched."""
+    tokens = logits.to(torch.float32).argmax(-1).to(torch.int32)
+    return tokens, _accepted(draft == tokens[:, :-1])
+
+
+def rejection_parts(logits, draft, temperature, top_k: int | None = None,
+                    top_p: float | None = None):
+    """The deterministic half of rejection mode: (truncated tempered
+    logits lt [B, S, V] (temperature 1 for greedy rows), the target's
+    probability of each draft p_target(d) [B, S-1], the residual logits
+    [B, S-1, V]: lt with the draft excluded)."""
+    l32 = logits.to(torch.float32)
+    b, s, v = l32.shape
+    temp = torch.as_tensor(temperature, dtype=torch.float32, device=l32.device).expand(b)
+    tsafe = torch.where(temp > 0, temp, 1.0)[:, None, None]
+    lt = _truncate((l32 / tsafe).reshape(b * s, v), top_k, top_p).reshape(b, s, v)
+    e = torch.exp(lt - lt.amax(-1, keepdim=True))
+    probs = e / e.sum(-1, keepdim=True)
+    d = draft.long()[..., None]
+    p_draft = probs[:, :-1].gather(-1, d)[..., 0]
+    res_lt = lt[:, :-1].scatter(-1, d, _NEG_INF)
+    return lt, p_draft, res_lt
+
+
+def _draws(keys, hot, s, sizes, device):
+    """For each hot row i, ``s`` positions of uniforms from ``keys[i]``: at
+    each position one tensor per entry of ``sizes``, drawn in that order.
+    Returns ([per size: [n_hot, s, size]], per hot row the generator
+    states after each position)."""
+    out = [[] for _ in sizes]
+    states = []
+    for i in hot:
+        per = [[] for _ in sizes]
+        after = []
+        for _ in range(s):
+            for j, n in enumerate(sizes):
+                per[j].append(torch.rand(n, generator=keys[i], device=device,
+                                         dtype=torch.float32))
+            after.append(keys[i].get_state())
+        for j in range(len(sizes)):
+            out[j].append(torch.stack(per[j]))
+        states.append(after)
+    return [torch.stack(o) for o in out], states
+
+
+def spec_verify(logits, draft, keys, temperature, *, top_k: int | None = None,
+                top_p: float | None = None, mode: str = "match"):
+    """Speculative accept / sample over one verify burst.  logits [B, S,
+    V] (column 0: the last committed token's position), draft [B, S-1],
+    keys: B generators, temperature [B].  Returns (tokens [B, S] int32,
+    n_acc [B] int32, keys): the engine emits ``tokens[b, :n_acc[b] + 1]``.
+    Hot rows' generators end in their state after ``n_acc + 1``
+    positions' draws; greedy rows' are not touched."""
+    if mode not in ("match", "rejection"):
+        raise ValueError(f"unknown spec_verify mode {mode!r}")
+    l32 = logits.to(torch.float32)
+    b, s, v = l32.shape
+    dev = l32.device
+    temp = torch.as_tensor(temperature, dtype=torch.float32, device=dev).expand(b)
+    hot = [i for i, t in enumerate(temp.tolist()) if t > 0]
+    greedy_tok = l32.argmax(-1).to(torch.int32)
+    ok = draft == greedy_tok[:, :-1]
+    tokens = greedy_tok
+    if hot:
+        rows = torch.tensor(hot, device=dev)
+        n = len(hot)
+        if mode == "match":
+            (u,), states = _draws(keys, hot, s, (v,), dev)
+            lt = _truncate((l32[rows] / temp[rows][:, None, None]).reshape(n * s, v),
+                           top_k, top_p)
+            tok = _gumbel_tokens(lt, u.reshape(n * s, v)).reshape(n, s)
+            ok_hot = draft[rows] == tok[:, :-1]
+        else:
+            (a, u), states = _draws(keys, hot, s, (1, v), dev)
+            lt, p_draft, res_lt = rejection_parts(l32[rows], draft[rows], temp[rows],
+                                                  top_k, top_p)
+            ok_hot = a[:, :-1, 0] < p_draft
+            res_tok = _gumbel_tokens(res_lt.reshape(-1, v),
+                                     u[:, :-1].reshape(-1, v)).reshape(n, s - 1)
+            bonus = _gumbel_tokens(lt[:, -1], u[:, -1])
+            alt = torch.cat([res_tok, bonus[:, None]], dim=1)
+            d = draft[rows].to(torch.int32)
+            path = torch.cat([d, d[:, -1:]], dim=1)
+            n_hot = _accepted(ok_hot)
+            tok = torch.where(torch.arange(s, device=dev)[None, :] < n_hot[:, None], path, alt)
+        tokens = greedy_tok.clone()
+        tokens[rows] = tok
+        ok[rows] = ok_hot
+    n_acc = _accepted(ok)
+    if hot:
+        acc = n_acc.cpu().tolist()
+        for j, i in enumerate(hot):
+            keys[i].set_state(states[j][acc[i]])
+    return tokens, n_acc, keys
+
+
+@functools.lru_cache(maxsize=None)
+def make_spec_verifier(top_k: int | None = None, top_p: float | None = None,
+                       mode: str = "match"):
+    """(logits [B, S, V], draft [B, S-1], keys, temperature [B]) ->
+    (tokens, n_acc, keys) with the truncation knobs and mode bound."""
+    def verifier(logits, draft, keys, temperature):
+        return spec_verify(logits, draft, keys, temperature, top_k=top_k,
+                           top_p=top_p, mode=mode)
+    return verifier

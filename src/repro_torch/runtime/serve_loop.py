@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine over the paged KV pool (port of
-``ServeEngine`` from ``repro/runtime/serve_loop.py``).
+"""Continuous-batching serving engine over the paged KV pool or dense
+rows (port of ``ServeEngine`` from ``repro/runtime/serve_loop.py``).
 
 Each ``step()`` admits queued requests into free slots, then runs ONE
 batched decode step for every slot plus one batched sample; only the
@@ -28,10 +28,27 @@ the cache.  Any write into a page another holder still maps is
 copy-on-write (``_cow``), and idle cached pages are evicted, LRU, when
 the pool runs short.
 
-Not ported in this slice (each raises ``NotImplementedError``):
-speculative decoding (``draft_model``) and the dense/ring engine
-backends.  ``generate``, the one-shot path of the same reference file,
-is a later slice too.
+The dense backend (``cache_kind="dense"``, reference :406-452) keeps
+[slots, max_len] rows per layer: admission prefills zeroed single-slot
+rows and splices them in (``DenseCache.admit``), and there is no page
+accounting.  "auto" stays paged.
+
+Speculative decoding (``draft_model``, reference :558-643 and
+:1058-1120): the drafter keeps its own dense cache, prefilled beside the
+target's at admission (the whole prompt, tail-padded, on the prefix
+route).  Each tick the drafter runs K+1 greedy decode steps, the target
+verifies the K+1 tokens in ONE ``verify_step`` burst, and each slot
+emits its accepted drafts plus one token of its own (``sampling.
+spec_verify``; ``greedy_verify`` at temperature 0); rollback is the
+``pos`` push to both caches.  Pages for the burst are mapped, and
+copy-on-write cleared, up front (``_map_tick_pages(span)``), from a
+reservation ``spec_k`` positions larger.  In "match" mode the emitted
+streams equal plain decode's at every temperature.
+
+Not ported (each raises ``NotImplementedError``): the ring backend
+(sliding-window models), SSM targets and drafters, and parking.
+``generate``, the one-shot path of the same reference file, is a later
+slice too.
 """
 
 from __future__ import annotations
@@ -47,6 +64,49 @@ from repro_torch.models.transformer import Model
 from repro_torch.runtime import sampling
 from repro_torch.runtime.page_allocator import PageAllocator
 from repro_torch.runtime.prefix_cache import PrefixCache
+
+
+def _has_ssm(model: Model) -> bool:
+    return any(m == "ssm" for m, _ in model.cfg.group)
+
+
+def _check_spec(model: Model, draft: Model, cache_kind: str, spec_k: int,
+                spec_mode: str) -> None:
+    """The reference's guards on a speculative pair (ValueError), then what
+    the port does not serve yet (NotImplementedError)."""
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    if spec_mode not in ("match", "rejection"):
+        raise ValueError(f"unknown spec_mode {spec_mode!r}")
+    if cache_kind == "ring":
+        raise ValueError(
+            "speculative decoding is unsupported on the ring backend: a K-token "
+            "verify burst evicts sliding-window rows that rollback cannot restore")
+    if draft.cfg.sliding_window:
+        raise ValueError(
+            "sliding-window drafters are unsupported: rolling the drafter's ring "
+            "back past an eviction would resurface overwritten rows as history")
+    if draft.cfg.vocab_size != model.cfg.vocab_size:
+        raise ValueError(
+            f"drafter vocab ({draft.cfg.vocab_size}) != target vocab "
+            f"({model.cfg.vocab_size}): speculative pairs must share a tokenizer")
+    if _has_ssm(model) or _has_ssm(draft):
+        raise NotImplementedError(
+            "speculative decoding with SSM layers rolls recurrent state back "
+            "(select_ssm_states); SSM serving is not ported yet (ROADMAP queue 1 "
+            "item 5)")
+
+
+def _prefill_slot(model: Model, params, cache, slot: int, toks, mask, chunk):
+    """Prefill ``toks`` [1, S] from position 0 into ``slot`` of ``cache``
+    (every layer's ``prefill_view``, then ``admit``: a write-through for
+    paged pools, a row splice for dense rows); returns the last token's
+    logits."""
+    view = {"layers": [c.prefill_view(slot) for c in cache["layers"]], "pos": 0}
+    logits, out = model.prefill(params, view, toks, pad_mask=mask, chunk=chunk)
+    for c, one in zip(cache["layers"], out["layers"]):
+        c.admit(one, slot)
+    return logits
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -73,11 +133,15 @@ class _SlotState:
 
 
 class ServeEngine:
-    """Fixed-slot continuous-batching engine on the paged backend.
+    """Fixed-slot continuous-batching engine on the paged (default) or
+    dense backend, with optional speculative decoding.
 
-    ``pages`` caps the pool (default: slots * ceil(max_len / page_size));
-    an undersized pool stalls admission instead of failing a request in
-    flight.  ``on_token(uid, token, done)`` streams tokens as sampled.
+    ``pages`` caps the paged pool (default: slots * ceil(max_len /
+    page_size)); an undersized pool stalls admission instead of failing a
+    request in flight.  ``on_token(uid, token, done)`` streams tokens as
+    sampled.  ``draft_model`` / ``draft_params`` turn speculative decoding
+    on with ``spec_k`` drafts a tick, ``spec_mode`` "match" (streams equal
+    plain decode's) or "rejection".
     """
 
     def __init__(self, model: Model, params, *, slots: int = 4,
@@ -87,33 +151,34 @@ class ServeEngine:
                  top_p: float | None = None, on_token=None,
                  cache_kind: str | None = None, page_size: int | None = None,
                  pages: int | None = None, draft_model: Model | None = None,
-                 draft_params=None, prefix_cache: bool | str = "auto"):
+                 draft_params=None, spec_k: int = 4, spec_mode: str = "match",
+                 prefix_cache: bool | str = "auto"):
         if slots < 1:
             raise ValueError(f"ServeEngine needs at least one slot, got {slots}")
-        has_ssm = any(m == "ssm" for m, _ in model.cfg.group)
+        if cache_kind in (None, "auto"):
+            cache_kind = "ring" if model.cfg.sliding_window else "paged"
+        self._spec = draft_model is not None
+        if self._spec:
+            _check_spec(model, draft_model, cache_kind, spec_k, spec_mode)
+        has_ssm = _has_ssm(model)
         if prefix_cache == "auto":
-            prefix_cache = not has_ssm
+            prefix_cache = cache_kind == "paged" and not has_ssm
         if prefix_cache and has_ssm:
             raise ValueError(
                 "prefix caching shares attention KV pages only; SSM layers "
                 "carry recurrent state the cache cannot resume from: serve "
                 "hybrid/SSM models with prefix_cache=False")
-        if prefix_cache and cache_kind not in (None, "auto", "paged"):
+        if prefix_cache and cache_kind != "paged":
             raise ValueError(
                 f"prefix caching requires the paged backend, not {cache_kind!r}: "
                 "only block tables can map one page into many slots")
-        if cache_kind not in (None, "auto", "paged"):
-            raise NotImplementedError(
-                f"the {cache_kind!r} engine backend is not ported; this "
-                "slice serves the paged backend")
-        if model.cfg.sliding_window:
+        if cache_kind == "ring":
             raise NotImplementedError("sliding-window models serve through "
                                       "the ring backend, not ported yet")
-        if draft_model is not None or draft_params is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP: spec decode)")
-        del draft_params
-        self.cache_kind = "paged"
+        if cache_kind not in ("paged", "dense"):
+            raise ValueError(f"unknown cache_kind {cache_kind!r} "
+                             "(ported: 'paged', 'dense')")
+        self.cache_kind = cache_kind
         self.model, self.params = model, params
         self.device = model.device
         self.slots, self.max_len = slots, max_len
@@ -122,21 +187,31 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         self.on_token = on_token
         self.seed = seed
-        self.page_size = page_size or kv_cache.DEFAULT_PAGE_SIZE
-        self._pps = -(-max_len // self.page_size)   # pages per slot
-        self._npages = self._pps * slots if pages is None else pages
-        cache = model.init_cache(slots, max_len, kind="paged",
-                                 page_size=self.page_size,
-                                 pages=self._npages, mapped=False)
-        # host-side page accounting: refcounted allocator + block-table
-        # mirror + per-slot page lists, so ticks never read device state
-        self._alloc = PageAllocator(self._npages)
+        # speculative decoding (set before the page accounting: the
+        # reservation counts spec_k)
+        self.spec_k, self.spec_mode = spec_k, spec_mode
+        self.spec_enabled = True     # off: plain decode ticks, same streams in "match"
+        self.spec_stats = {"ticks": 0, "drafted": 0, "accepted": 0, "emitted": 0}
         self._slot_pages: dict[int, list[int]] = {}    # exclusive refs
         self._slot_shared: dict[int, list[int]] = {}   # prefix-shared refs
         self._slot_reserved: dict[int, int] = {}
-        self._prefix = PrefixCache(self.page_size, self._alloc) if prefix_cache else None
+        self._prefix = None
         self._cow_copies = 0
-        self._table = np.zeros((slots, self._pps), np.int32)
+        if cache_kind == "paged":
+            self.page_size = page_size or kv_cache.DEFAULT_PAGE_SIZE
+            self._pps = -(-max_len // self.page_size)   # pages per slot
+            self._npages = self._pps * slots if pages is None else pages
+            cache = model.init_cache(slots, max_len, kind="paged",
+                                     page_size=self.page_size,
+                                     pages=self._npages, mapped=False)
+            # host-side page accounting: refcounted allocator + block-table
+            # mirror + per-slot page lists, so ticks never read device state
+            self._alloc = PageAllocator(self._npages)
+            if prefix_cache:
+                self._prefix = PrefixCache(self.page_size, self._alloc)
+            self._table = np.zeros((slots, self._pps), np.int32)
+        else:
+            cache = model.init_cache(slots, max_len, kind="dense")
         cache["pos"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         cache["start"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.cache = cache
@@ -153,6 +228,18 @@ class ServeEngine:
         self._next_tok = np.full((slots,), pad_id, np.int32)
         self._results: dict[int, list[int]] = {}
         self._next_uid = 0
+        if not self._spec:
+            return
+        self.draft_model, self.draft_params = draft_model, draft_params
+        dcache = draft_model.init_cache(slots, max_len, kind="dense")
+        dcache["pos"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
+        dcache["start"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
+        self._dcache = dcache
+        self._verifier = sampling.make_spec_verifier(top_k, top_p, spec_mode)
+
+    @property
+    def _paged(self) -> bool:
+        return self.cache_kind == "paged"
 
     # .. request intake ..
     def submit(self, tokens, *, max_new_tokens: int = 32,
@@ -169,8 +256,8 @@ class ServeEngine:
                 f"prompt ({len(tokens)} tokens"
                 f"{'' if self._prefix is not None else ', bucketed'}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds engine max_len {self.max_len}")
-        need = self._pages_needed(sp, max_new_tokens)
-        if need > self._npages:
+        need = self._pages_needed(sp, max_new_tokens) if self._paged else 0
+        if self._paged and need > self._npages:
             raise ValueError(f"request needs {need} pages worst-case but the "
                              f"pool only has {self._npages}; raise pages= or "
                              "page_size=")
@@ -200,6 +287,13 @@ class ServeEngine:
         self._start[slot] = 0
         self._temp[slot] = 0.0
         self._next_tok[slot] = self.pad_id
+        if self._spec:
+            self._dcache["pos"][slot] = 0
+            self._dcache["start"][slot] = 0
+        if not self._paged:
+            for c in self.cache["layers"]:
+                c.free_slot(slot)
+            return
         for pid in self._slot_pages.pop(slot, ()):
             self._alloc.release(pid)
         for pid in self._slot_shared.pop(slot, ()):
@@ -239,18 +333,23 @@ class ServeEngine:
 
     def _pages_needed(self, prompt_len: int, max_new: int) -> int:
         """Worst-case pages one request can touch: positions
-        [0, prompt + max_new), capped at the per-slot table length."""
-        return min(-(-(prompt_len + max_new) // self.page_size), self._pps)
+        [0, prompt + max_new), plus ``spec_k`` speculative positions (a
+        verify burst writes that far past the last committed token),
+        capped at the per-slot table length."""
+        extra = self.spec_k if self._spec else 0
+        return min(-(-(prompt_len + max_new + extra) // self.page_size), self._pps)
 
     @property
     def pool_bytes(self) -> int:
-        """Bytes of every layer's K/V pools and int8-KV scale pools."""
+        """Bytes of every layer's K/V pools (or rows) and int8-KV scales."""
         return sum(c.nbytes for c in self.cache["layers"])
 
     @property
-    def page_stats(self) -> dict:
+    def page_stats(self) -> dict | None:
         """{total, free, shared, resident, reserved, cached (prefix-cache
-        pins, when enabled)} pool accounting."""
+        pins, when enabled)} pool accounting; None on the dense backend."""
+        if not self._paged:
+            return None
         stats = self._alloc.stats()
         stats["reserved"] = sum(self._slot_reserved.values())
         if self._prefix is not None:
@@ -404,7 +503,8 @@ class ServeEngine:
         rotations, line up across every request sharing the pages), or
         peek a fully cached prompt; then cache its full prompt pages.
         Without: a bucketed left-padded prefill straight through the slot's
-        pages."""
+        pages (or into its dense rows).  A drafter prefills the same prompt
+        into its own dense rows."""
         n = len(req.tokens)
         dev = self.device
         if self._prefix is not None:
@@ -425,22 +525,29 @@ class ServeEngine:
             # their pages)
             self._prefix.insert(req.tokens,
                                 [int(p) for p in self._table[slot, :n // self.page_size]])
-            pos, start = n, 0
+            # the drafter shadow-prefills the whole prompt, tail-padded
+            spd = min(_bucket(n, self.prefill_bucket), self.max_len)
+            dtoks = torch.tensor([req.tokens + [self.pad_id] * (spd - n)],
+                                 dtype=torch.int64, device=dev)
+            dmask, pos, start = None, n, 0
         else:
             sp = _bucket(n, self.prefill_bucket)
-            if not self._alloc_pages(slot, -(-sp // self.page_size),
-                                     self._pages_needed(sp, req.max_new_tokens)):
+            if self._paged and not self._alloc_pages(
+                    slot, -(-sp // self.page_size), self._pages_needed(sp, req.max_new_tokens)):
                 return False
             toks = torch.tensor([[self.pad_id] * (sp - n) + req.tokens],
                                 dtype=torch.int64, device=dev)
             mask = torch.arange(sp, device=dev)[None, :] >= (sp - n)
-            view = {"layers": [c.prefill_view(slot) for c in self.cache["layers"]],
-                    "pos": 0}
-            logits, _ = self.model.prefill(self.params, view, toks, pad_mask=mask,
-                                           chunk=self.prefill_chunk)
-            pos, start = sp, sp - n
+            logits = _prefill_slot(self.model, self.params, self.cache, slot, toks, mask,
+                                   self.prefill_chunk)
+            dtoks, dmask, pos, start = toks, mask, sp, sp - n
         self.cache["pos"][slot] = pos
         self.cache["start"][slot] = start
+        if self._spec:   # the drafter shadows the prompt's prefill
+            _prefill_slot(self.draft_model, self.draft_params, self._dcache, slot, dtoks,
+                          dmask, self.prefill_chunk)
+            self._dcache["pos"][slot] = pos
+            self._dcache["start"][slot] = start
         self._pos[slot] = pos
         self._start[slot] = start
         self._active[slot] = _SlotState(req)
@@ -462,38 +569,52 @@ class ServeEngine:
             self._queue.popleft()
             self._free.remove(slot)
 
-    def _map_tick_pages(self) -> None:
-        """Make each active slot's next write position write-safe before a
-        decode tick: map its page if still null (one grab from the slot's
-        own reservation) and run the copy-on-write gate over it, so no write
-        lands on an unmapped page or on a page another holder maps.  All of
-        a tick's table changes push as one copy."""
+    def _map_tick_pages(self, span: int = 0) -> None:
+        """Make positions ``[pos, pos + span]`` of each active slot
+        write-safe before a decode tick (span 0) or a verify burst (span
+        ``tick_k``): map each still-null page there (grabs from the slot's
+        own reservation) and run the copy-on-write gate over the range, so
+        no write lands on an unmapped page or on a page another holder maps
+        (a rolled-back burst would scribble on a shared prompt).  All of a
+        tick's table changes push as one copy.  Nothing to do on dense
+        rows."""
+        if not self._paged:
+            return
         dirty = False
         for slot in self._active:
             p = min(int(self._pos[slot]), self.max_len - 1)
-            pp = p // self.page_size
-            if self._table[slot, pp] == 0:
-                pid = self._take_pages(1)[0]
-                self._slot_pages[slot].append(pid)
-                self._table[slot, pp] = pid
-                dirty = True
+            hi = min(p + span, self.max_len - 1)
+            for pp in range(p // self.page_size,
+                            min(hi // self.page_size, self._pps - 1) + 1):
+                if self._table[slot, pp] == 0:
+                    pid = self._take_pages(1)[0]
+                    self._slot_pages[slot].append(pid)
+                    self._table[slot, pp] = pid
+                    dirty = True
             if self._prefix is not None:
-                dirty |= self._cow(slot, p, p)
+                dirty |= self._cow(slot, p, hi)
         if dirty:
             self._push_table()
 
     # .. driving ..
     def step(self) -> bool:
         """Admit newcomers, then one batched decode tick + one batched
-        sample for every slot.  Returns True while work remains."""
+        sample for every slot, or with a drafter one speculative tick
+        (``_spec_tick``).  Returns True while work remains."""
         self._admit()
         if not self._active:
             return bool(self._queue)
+        if self._spec and self.spec_enabled:
+            return self._spec_tick()
         self._map_tick_pages()
         toks_in = torch.from_numpy(self._next_tok.astype(np.int64)).to(self.device)
         logits, self.cache = self.model.decode_step(self.params, self.cache,
                                                     toks_in)
         self._pos += 1     # decode_step advances every slot's pos
+        if self._spec:
+            # spec degraded to plain ticks: keep the drafter's pos in step
+            # (its missing rows only cost acceptance, never correctness)
+            self._dcache["pos"] = self._pos_tensor()
         if self._temp.any() or self._truncates:
             toks, _ = self._sampler(logits, self._keys, self._temp.tolist())
         else:              # all-greedy tick: no Gumbel draw
@@ -503,10 +624,63 @@ class ServeEngine:
             self._emit(slot, int(toks[slot]))
         return bool(self._active or self._queue)
 
+    def _pos_tensor(self):
+        return torch.from_numpy(self._pos.astype(np.int32)).to(self.device)
+
+    def _spec_tick(self) -> bool:
+        """One speculative tick: K+1 greedy drafter decode steps, ONE
+        verify burst through the target, then each slot emits its accepted
+        drafts and one token of its own, and ``pos`` rolls both caches back
+        to what was emitted."""
+        active = list(self._active)
+        # the burst writes pos .. pos + tick_k, inside max_len for every
+        # slot (slots free at max_len - 1, so tick_k >= 1)
+        tick_k = min(self.spec_k, self.max_len - 1 - max(int(self._pos[s]) for s in active))
+        self._map_tick_pages(tick_k)
+        tok0 = torch.from_numpy(self._next_tok.astype(np.int64)).to(self.device)
+        dc, tok, drafts = dict(self._dcache), tok0, []
+        for _ in range(tick_k + 1):   # the last step writes the last draft's row
+            logits, dc = self.draft_model.decode_step(self.draft_params, dc, tok)
+            tok = sampling.greedy(logits).long()
+            drafts.append(tok)
+        drafts = torch.stack(drafts[:tick_k], dim=1)            # [B, K]
+        burst = torch.cat([tok0[:, None], drafts], dim=1)       # [B, K+1]
+        vlogits, self.cache, _ = self.model.verify_step(self.params, self.cache, burst)
+        if self._temp.any() or self._truncates:
+            toks, n_acc, _ = self._verifier(vlogits, drafts, self._keys, self._temp.tolist())
+        else:              # all-greedy tick: argmax matching, no generator
+            toks, n_acc = sampling.greedy_verify(vlogits, drafts)
+        toks_h, acc_h = toks.cpu().numpy(), n_acc.cpu().numpy()   # the only pulls
+        self.spec_stats["ticks"] += 1
+        for slot in active:
+            a = int(acc_h[slot])
+            self.spec_stats["drafted"] += tick_k
+            self.spec_stats["accepted"] += a
+            # the accepted drafts + the free token, the pos mirror advancing
+            # per token so EOS / max_new / max_len stop where plain decode does
+            for j in range(a + 1):
+                self._pos[slot] += 1
+                self.spec_stats["emitted"] += 1
+                if self._emit(slot, int(toks_h[slot, j])):
+                    break
+        # the rollback: rejected rows sit past every slot's committed depth,
+        # masked until overwritten (freed slots' mirrors are zero)
+        self.cache["pos"] = self._pos_tensor()
+        self._dcache["pos"] = self._pos_tensor()
+        return bool(self._active or self._queue)
+
+    @property
+    def acceptance_rate(self) -> float | None:
+        """Fraction of drafted tokens accepted (None before a spec tick)."""
+        d = self.spec_stats["drafted"]
+        return None if d == 0 else self.spec_stats["accepted"] / d
+
     def check_leaks(self) -> None:
         """Allocator leak check: every page's refcount equals its holders
         (block-table occurrences plus the prefix cache's pins) and free +
-        resident pages tile the pool."""
+        resident pages tile the pool.  Nothing to check on dense rows."""
+        if not self._paged:
+            return
         occupancy: dict[int, int] = {}
         pins = self._prefix.pages() if self._prefix is not None else []
         for pid in self._table.reshape(-1).tolist() + pins:

@@ -116,24 +116,28 @@ def test_temperature_streams_replay_identically(setup):
 
 
 def test_unported_options_raise(setup):
-    """Speculative decoding and the dense backend are refused; prefix
-    sharing is accepted: "auto" (the default, as in the reference) and
-    True both serve through the prefix cache on this paged attention-only
-    model, and False bypasses it."""
+    """The ring backend (``cache_kind="ring"``) and SSM targets are
+    refused; a drafter and the dense backend are accepted and serve the
+    plain paged engine's streams; prefix sharing is accepted: "auto" (the
+    default, as in the reference) and True both serve through the prefix
+    cache on this paged attention-only model, and False bypasses it."""
     _, params, prompts = setup
     port_params = bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     model = Model(port_reduced(port_get_config("qwen2.5-3b")), device="cpu")
-    for kw in ({"prefix_cache": False, "draft_model": model},
-               {"prefix_cache": False, "cache_kind": "dense"}):
+    ssm = Model(port_reduced(port_get_config("mamba2-370m")), device="cpu")
+    for m, kw in ((model, {"prefix_cache": False, "cache_kind": "ring"}),
+                  (ssm, {"prefix_cache": False})):
         with pytest.raises(NotImplementedError):
-            ServeEngine(model, port_params, **kw)
+            ServeEngine(m, port_params, **kw)
     streams = []
-    for kw in ({}, {"prefix_cache": "auto"}, {"prefix_cache": True}, {"prefix_cache": False}):
+    for kw in ({}, {"prefix_cache": "auto"}, {"prefix_cache": True}, {"prefix_cache": False},
+               {"cache_kind": "dense"}, {"draft_model": model, "draft_params": port_params}):
         eng = ServeEngine(model, port_params, slots=SLOTS, max_len=MAX_LEN, **kw)
-        assert (eng.prefix_stats is None) == (kw.get("prefix_cache", "auto") is False)
+        paged = kw.get("cache_kind") != "dense"
+        assert (eng.prefix_stats is None) == (kw.get("prefix_cache") is False or not paged)
         streams.append(_submit_all(eng, prompts))
         eng.check_leaks()
-    assert streams[0] == streams[1] == streams[2] == streams[3]
+    assert all(s == streams[0] for s in streams)
 
 
 def test_cancel_and_pool_pressure_stay_leak_free(setup):
