@@ -70,7 +70,28 @@ Phases (each prints its seconds; any failure exits non-zero):
    never), acceptance >= 0.95 with the weight-shared drafter, the
    streams equal to the plain EN-T run's counted, and one spec tick
    profiled (drafter steps, verify, its page gathers, device busy);
-5. one prefill + 4 decode ticks of the same widths at 2 layers with the
+5. the scheduler phase on the speculative phase's model
+   (``serve_scheduler``): (a) the shared-prefix phase's 18 prompts
+   through ``PipelinedScheduler`` at depth 1 and at depth 0, chunked
+   admission in 128-token windows: depth 1 ≡ depth 0 token for token;
+   per decode tick kernel 1 252 times on the stream and kernel 3 36
+   times, per chunk kernel 1 252 times on the tensor-core loop and kernel
+   2 36 times, per peek kernel 1 on the stream and kernel 2, no plain
+   version; no host sync in a depth-1 tick outside entry processing
+   (``torch.cuda.set_sync_debug_mode``); the streams equal to the
+   synchronous engine's with the same ``prefill_chunk`` counted; host ms
+   a tick and device idle at depths 0 and 1 (order 0, 1, 1, 0); TTFT and
+   ITL; (b) 8 of them at temperature 0.9 through the fault-tolerant
+   scheduler (max_retries 3, a 3 s watchdog) under a fixed fault plan
+   (errors at decode.dispatch, prefill.dispatch for one uid, sampler and
+   allocator.alloc, a decode.dispatch hang past the watchdog): retried ≡
+   fault-free, the plan fired as planned, no quarantine, and the planted
+   fault "restore skips the generator states" must break the equality;
+   the snapshot's bytes and its host and device ms; (c) the same 8 parked
+   and resumed by ``ElasticSupervisor`` over 2 simulated hosts, ≡ the
+   uninterrupted streams, leak-free; (d) ``launch/serve.py``'s
+   ``--http --http-smoke`` path, plain and under "ci-chaos";
+6. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
    int8 KV, bf16 with legacy 4-plane records, whose 70 kernel 5 launches
@@ -85,7 +106,7 @@ Phases (each prints its seconds; any failure exits non-zero):
    around a rollback and the drafter's dense decode steps, kernels vs
    plain and the bursts vs K + 1 kernel decode steps within the same
    limit, the planted fault "pos not reset after a rejection" over it;
-6. the training kernels: the flash forward (kernel 7) against
+7. the training kernels: the flash forward (kernel 7) against
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
    H=36, S=4096, D=64, causal) and at a GQA + window shape (Hq=16,
@@ -96,17 +117,17 @@ Phases (each prints its seconds; any failure exits non-zero):
    a group) that must fail in both dtypes; the D_i that 7c writes held
    against ``bwd_delta``; each kernel, its plain version and SDPA
    (forward; backward through autograd) timed at the training shape;
-7. loss and every gradient leaf of full-width minicpm-2b at 2 layers
+8. loss and every gradient leaf of full-width minicpm-2b at 2 layers
    (S=1024) with the kernels and with the plain versions, bf16 and
    float32, with planted faults in the attention wrappers, and with
    remat full and dots against no remat;
-8. 3 training steps of full-width minicpm-2b (40 layers, seq 4096,
+9. 3 training steps of full-width minicpm-2b (40 layers, seq 4096,
    global batch 2, microbatch 1, remat full) through
    ``repro_torch.launch.train``'s code, each step's launches of kernels
    7 / 7b / 7c checked against 160 / 80 / 80, all on the tensor-core
    route, with no plain D_i pass (``bwd_delta``: 7c writes D_i for 7b),
    then one more step under ``torch.profiler``;
-9. the SSD kernels: the scan (kernel 8: each chunk's own state, the
+10. the SSD kernels: the scan (kernel 8: each chunk's own state, the
    carry from chunk to chunk, the outputs; split-bf16 three-pass products
    on the tensor cores) against ``ssd_scan_fwd_ref`` (y and each chunk's
    entering state) and its backward (8b the state gradients: each chunk's
@@ -122,17 +143,17 @@ Phases (each prints its seconds; any failure exits non-zero):
    plain version timed at the training step's call (B=4, L=4096, H=32)
    beside its bytes bound, its three-pass tensor-core bound and its f32
    CUDA-core bound;
-10. loss and every gradient leaf of full-width mamba2-370m at 2 layers
+11. loss and every gradient leaf of full-width mamba2-370m at 2 layers
    (S=1024) with the kernels and with the plain versions, bf16 and
    float32, with planted faults in the SSD wrappers, and remat full and
    dots against no remat;
-11. 3 training steps of full-width mamba2-370m (48 layers, seq 4096,
+12. 3 training steps of full-width mamba2-370m (48 layers, seq 4096,
    global batch 8, microbatch 4, remat full), each step's launches of
    kernels 8 / 8b / 8c checked against 192 / 96 / 96, of each of kernel
    8's three launches (states, carry, outputs) against 192 and of each of
    8b's two (own, carry) against 96, then
    one more step under ``torch.profiler``;
-12. a ``kernels`` JSON line, the card line, and the final result line.
+13. a ``kernels`` JSON line, the card line, and the final result line.
 
 Without a CUDA card it prints nothing but an error and exits 2.
 """
@@ -1987,7 +2008,7 @@ def spec_drafters(cfg, model, params):
             "truncated (layer 0)": (one, dict(head, layers=params["layers"][:1]))}
 
 
-def serve_spec(torch, plain_streams, plain_tok_s):
+def serve_spec(torch, plain_streams, plain_tok_s, model, params):
     """Speculative decoding on full-width qwen2.5-3b, EN-T, bf16 KV: the EN-T
     serve phase's 16 ragged greedy prompts, 32 new tokens each, 8 slots,
     plain paged admission (``prefix_cache=False``), k = SPEC_K, with each
@@ -2002,14 +2023,15 @@ def serve_spec(torch, plain_streams, plain_tok_s):
     passes, and the weight-shared arm accepts >= 0.95 of its drafts.
     Counts the streams equal to the plain EN-T phase's (with the token
     where each first differs) and to the earlier arm's, and profiles one
-    spec tick (``profile_spec_tick``).  Returns {arm: numbers}."""
+    spec tick (``profile_spec_tick``).  ``model`` / ``params``: full-width
+    qwen2.5-3b EN-T, built once for this phase and the scheduler phase.
+    Returns {arm: numbers}."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch
     from repro_torch.runtime.serve_loop import ServeEngine
 
     cfg = get_config("qwen2.5-3b")
-    model, params = launch.build(cfg, seed=0, quantize=True)
     prompts = launch.ragged_prompts(np.random.default_rng(0), 16, 256, 512, cfg.vocab_size)
     arms = {}
     for arm, (dm, dp) in spec_drafters(cfg, model, params).items():
@@ -2065,7 +2087,6 @@ def serve_spec(torch, plain_streams, plain_tok_s):
                          streams_equal_arms=arms_same, streams=results, launches=got,
                          tick=tick)
         del engine
-    del params, model
     torch.cuda.empty_cache()
     return arms
 
@@ -2155,6 +2176,431 @@ def profile_spec_tick(torch, engine, prompts, arm):
     engine.check_leaks()
     return dict(host_ms=host, drafter_ms=parts["drafter steps"], verify_ms=parts["verify"],
                 gather_stream_ms=gather, index_kernels_ms=index_ms, busy_ms=busy, by_kernel=top)
+
+
+SCHED_CHUNK = 128   # the scheduler phase's prefill chunk grid (windows end at its multiples)
+SCHED_WATCHDOG = 3.0   # its fault-tolerant runs' watchdog budget, seconds (a tick takes < 0.5)
+FT_TOKENS = 16         # new tokens a request in its fault-tolerant runs
+
+
+def shared_prefix_prompts(cfg):
+    """The shared-prefix phase's prompts: 16 ragged prompts (seed 0) behind
+    one seeded PREFIX-token prefix, then the full pages of the last two
+    (fully cached once those two are admitted: the peek)."""
+    import numpy as np
+    from repro_torch.launch import serve as launch
+    prefix = np.random.default_rng(1).integers(0, cfg.vocab_size, PREFIX).tolist()
+    prompts = [prefix + p for p in launch.ragged_prompts(np.random.default_rng(0), 16, 256, 512,
+                                                         cfg.vocab_size)]
+    return prompts + [p[:len(p) // 16 * 16] for p in prompts[-2:]]
+
+
+def sched_engine(model, params):
+    """The scheduler phase's engine: 8 slots, 16-token pages, max_len 576 +
+    PREFIX, the prefix cache, prefill_chunk SCHED_CHUNK."""
+    from repro_torch.runtime.serve_loop import ServeEngine
+    return ServeEngine(model, params, slots=SLOTS, max_len=576 + PREFIX, page_size=16,
+                       prefix_cache="auto", seed=0, prefill_chunk=SCHED_CHUNK)
+
+
+class SyncCounter:
+    """Counts host syncs (``torch.cuda.set_sync_debug_mode("warn")``'s
+    warnings) that the program's code (``src/repro_torch``) causes while
+    on, except inside ``exempt`` calls (entry processing, whose pull is
+    the pipeline's one intended sync); each with the innermost frame of
+    the program that caused it.  Syncs with no program frame on the stack
+    (this script's own instrumentation) are kept apart in ``other``."""
+
+    def __init__(self, torch):
+        self.torch, self.records, self.other, self._on = torch, [], [], False
+
+    def exempt(self, fn):
+        def run(*a, **kw):
+            self.torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.torch.cuda.set_sync_debug_mode(1 if self._on else 0)
+        return run
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        import traceback
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if f.filename.startswith(os.path.join(HERE, "src"))]
+        if ours:
+            self.records.append(f"{os.path.relpath(ours[-1].filename, HERE)}:{ours[-1].lineno}")
+        else:
+            self.other.append(f"{message} at " + " <- ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno}" for f in stack[-4:][::-1]))
+
+    @contextlib.contextmanager
+    def counting(self):
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = self._show
+            self._on = True
+            self.torch.cuda.set_sync_debug_mode(1)
+            try:
+                yield self
+            finally:
+                self.torch.cuda.set_sync_debug_mode(0)
+                self._on = False
+
+    def where(self):
+        """The distinct source lines of the repo that synced, with counts."""
+        out = {}
+        for key in self.records:
+            out[key] = out.get(key, 0) + 1
+        return out
+
+
+def scheduled_run(torch, model, params, prompts, depth, syncs=None):
+    """Serve ``prompts`` (32 greedy new tokens each) through a
+    ``PipelinedScheduler`` at ``depth`` over ``sched_engine``; counts set
+    to 0 just before and read just after, host syncs counted by ``syncs``
+    if given.  Returns {streams (in prompt order), launches (kernels 1, 2
+    and 3 by route, checked), counts (decode ticks, chunks, peeks),
+    seconds, tok_s, stats (the scheduler's metrics document)}."""
+    from repro_torch.runtime.scheduler import PipelinedScheduler
+    engine = sched_engine(model, params)
+    sched = PipelinedScheduler(engine, pipeline_depth=depth, prefill_chunk=SCHED_CHUNK)
+    n = {"ticks": 0, "chunks": 0, "peeks": 0}
+
+    def counted(fn, key):
+        def run(*a, **kw):
+            n[key] += 1
+            return fn(*a, **kw)
+        return run
+    sched._dispatch_decode = counted(sched._dispatch_decode, "ticks")
+    sched._advance_chunk = counted(sched._advance_chunk, "chunks")
+    engine._peek = counted(engine._peek, "peeks")
+    if syncs is not None:
+        sched._process_entry = syncs.exempt(sched._process_entry)
+    uids = [sched.submit(p, max_new_tokens=32) for p in prompts]
+    torch.cuda.synchronize()
+    reset_counts(torch)
+    t0 = time.perf_counter()
+    with syncs.counting() if syncs is not None else contextlib.nullcontext():
+        while sched.tick():
+            pass
+    sched.flush()
+    dt = time.perf_counter() - t0
+    launches, plain_runs = read_counts(torch)
+    routes = {"flash_attention_masked[tensor-core]": read_tc_counts(torch)[
+        "flash_attention_masked"], **read_matmul_routes(torch)}
+    engine.check_leaks()
+    if any(plain_runs.values()):
+        raise AssertionError(f"scheduler depth {depth}: plain versions ran: {plain_runs}")
+    results = sched.results
+    if sorted(results) != sorted(uids) or any(len(v) != 32 for v in results.values()):
+        raise AssertionError(f"scheduler depth {depth}: {len(results)} results, lengths "
+                             f"{sorted(len(v) for v in results.values())}")
+    from repro_torch.configs import get_config
+    return dict(streams=[results[u] for u in uids], counts=n, seconds=dt,
+                tok_s=sum(map(len, results.values())) / dt, stats=sched.stats(),
+                launches=check_sched_launches(get_config("qwen2.5-3b"), depth, launches,
+                                              routes, n))
+
+
+def check_sched_launches(cfg, depth, launches, routes, n):
+    """Per decode tick kernel 1 on the stream (252) and kernel 3 (36); per
+    prefill chunk kernel 1 on the tensor-core loop (252) and kernel 2 on
+    its tensor-core route (36); per peek kernel 1 on the stream and kernel
+    2 (tensor-core); nothing else."""
+    per, nl = PROJECTIONS * cfg.num_layers, cfg.num_layers
+    ticks, chunks, peeks = n["ticks"], n["chunks"], n["peeks"]
+    want = {"ent_matmul_packed_fused[stream]": per * (ticks + peeks),
+            "ent_matmul_packed_fused[tc]": per * chunks,
+            "flash_attention_masked": nl * (chunks + peeks),
+            "flash_attention_masked[tensor-core]": nl * (chunks + peeks),
+            "paged_attention_kernel": nl * ticks, "paged_attention_kernel[int8_kv]": 0,
+            "int8_matmul": 0, "ent_matmul": 0, "ent_matmul_packed": 0}
+    got = {k: {**launches, **routes}[k] for k in want}
+    if got != want:
+        raise AssertionError(f"scheduler depth {depth}: launches {got}, expected {want} "
+                             f"({ticks} decode ticks, {chunks} chunks, {peeks} peeks)")
+    return got
+
+
+def profile_sched_ticks(torch, model, params, prompts, ticks=3):
+    """Host ms per scheduler tick and the device's idle share at depth 0
+    and depth 1: fill 8 slots through a depth-1 scheduler (64 new tokens
+    each), then, on the same full batch, in the order depth 0, 1, 1, 0
+    (``sched.depth`` set between runs; the reservation slack of depth 1
+    covers both), ``ticks`` ticks on the host clock (flushed) and
+    ``ticks`` under torch.profiler (device busy).  Returns {depth: {...}}."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.scheduler import PipelinedScheduler
+    engine = sched_engine(model, params)
+    sched = PipelinedScheduler(engine, pipeline_depth=1, prefill_chunk=SCHED_CHUNK)
+    for p in prompts[:SLOTS]:
+        sched.submit(p, max_new_tokens=64)
+    while len(engine._active) < SLOTS or sched._prefill is not None or sched._queued:
+        sched.tick()
+    sched.flush()
+    out = {0: {"host_ms": [], "busy_ms": [], "profiled_ms": []},
+           1: {"host_ms": [], "busy_ms": [], "profiled_ms": []}}
+    for depth in (0, 1, 1, 0):
+        sched.depth = depth
+        sched.flush()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            sched.tick()
+        sched.flush()
+        out[depth]["host_ms"].append((time.perf_counter() - t0) * 1e3 / ticks)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                sched.tick()
+            sched.flush()
+            under = (time.perf_counter() - t0) * 1e3 / ticks
+        out[depth]["busy_ms"].append(sum(device_ms_by_kernel(prof, ticks).values()))
+        out[depth]["profiled_ms"].append(under)
+        if len(engine._active) < SLOTS:
+            raise AssertionError(f"scheduler profile: a slot finished mid-measurement "
+                                 f"({len(engine._active)} active)")
+    sched.run()
+    for depth, r in out.items():
+        host, busy = statistics.mean(r["host_ms"]), statistics.mean(r["busy_ms"])
+        r.update(mean_host_ms=host, mean_busy_ms=busy,
+                 idle=None if not busy else 1 - busy / host)
+        print(f"scheduler tick at depth {depth} (8 slots decoding, full width): host "
+              f"{' / '.join(f'{v:.3f}' for v in r['host_ms'])} ms a tick (A B B A order: "
+              f"depth 0, 1, 1, 0); device busy "
+              f"{' / '.join(f'{v:.3f}' for v in r['busy_ms'])} ms a tick; "
+              + (f"{100 * r['idle']:.1f}% idle" if busy else "idle not measured")
+              + f"; under the profiler {' / '.join(f'{v:.3f}' for v in r['profiled_ms'])} ms",
+              flush=True)
+    return out
+
+
+def hits_at_first_admission(uid):
+    """An empty fault plan that records every site's hit count at ``uid``'s
+    first ``prefill.dispatch`` (``.at``)."""
+    from repro_torch.runtime.faults import FaultPlan
+
+    class Recorder(FaultPlan):
+        at = None
+
+        def observe(self, site, ctx):
+            if self.at is None and site == "prefill.dispatch" and ctx.get("uid") == uid:
+                self.at = dict(self.hits)
+            super().observe(site, ctx)
+    return Recorder([])
+
+
+def ft_plan(uid, at):
+    """Phase (b)'s fixed plan, from the hit counts ``at`` of the fault-free
+    run when request ``uid`` first reached ``prefill.dispatch``: an error
+    there for that uid (the run is the fault-free one up to it), then one
+    error each at decode.dispatch, sampler and allocator.alloc, and a
+    decode.dispatch hang past the watchdog."""
+    from repro_torch.runtime.faults import Fault, FaultPlan
+    return FaultPlan([Fault("prefill.dispatch", at=at["prefill.dispatch"], uid=uid),
+                      Fault("decode.dispatch", at=at["decode.dispatch"] + 2),
+                      Fault("sampler", at=at["sampler"] + 3),
+                      Fault("allocator.alloc", at=at["allocator.alloc"] + 2),
+                      Fault("decode.dispatch", at=at["decode.dispatch"] + 8, kind="hang",
+                            seconds=SCHED_WATCHDOG + 1.0)])
+
+
+def ft_run(torch, model, params, prompts, plan=None, keep_generators=False, snap_times=None):
+    """8 requests (FT_TOKENS new tokens at temperature 0.9) through a
+    fault-tolerant scheduler (max_retries 3, the watchdog at
+    SCHED_WATCHDOG s), under ``plan`` if given.  ``keep_generators``
+    plants the fault "restore skips the generator states".
+    ``snap_times`` collects each engine snapshot's (host ms, device ms,
+    bytes).  Returns (streams, scheduler stats, errors, fired)."""
+    from repro_torch.runtime.scheduler import PipelinedScheduler
+    engine = sched_engine(model, params)
+    sched = PipelinedScheduler(engine, prefill_chunk=SCHED_CHUNK, max_retries=3,
+                               watchdog_timeout=SCHED_WATCHDOG)
+    if keep_generators:
+        restore = engine.restore
+
+        def restore_keeping_generators(snap):
+            keys = engine._keys
+            restore(snap)
+            engine._keys = keys
+        engine.restore = restore_keeping_generators
+    if snap_times is not None:
+        snapshot = engine.snapshot
+
+        def timed_snapshot():
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            snap = snapshot()
+            e.record()
+            snap_times.append(((time.perf_counter() - t0) * 1e3, (s, e), snap.nbytes))
+            return snap
+        engine.snapshot = timed_snapshot
+    uids = [sched.submit(p, max_new_tokens=FT_TOKENS, temperature=0.9) for p in prompts]
+    with plan if plan is not None else contextlib.nullcontext():
+        results = sched.run()
+    engine.check_leaks()
+    fired = [] if plan is None else [(f.site, f.hit, f.kind, f.uid) for f in plan.fired]
+    streams = [results.get(u) for u in uids]
+    return streams, sched.stats(), dict(sched.errors), fired, uids
+
+
+def serve_scheduler(torch, model, params):
+    """The scheduler phase on full-width qwen2.5-3b, EN-T, bf16 KV (phase
+    4's model): (a) the shared-prefix phase's 18 prompts through a
+    ``PipelinedScheduler`` at depth 1 and at depth 0 (chunked admission,
+    SCHED_CHUNK-token windows), against the synchronous engine with the
+    same prefill_chunk; (b) 8 of them at temperature 0.9 through the
+    fault-tolerant scheduler under a fixed fault plan, retried ≡ fault-free,
+    with the planted fault "restore skips the generator states"; (c) park
+    and resume under ``ElasticSupervisor`` over 2 simulated hosts; (d) the
+    ``--http --http-smoke`` path of ``launch/serve.py``.  Returns the
+    numbers."""
+    import argparse
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.elastic import ElasticSupervisor, HealthMonitor
+    from repro_torch.runtime.scheduler import PARKED, PipelinedScheduler
+
+    cfg = get_config("qwen2.5-3b")
+    prompts = shared_prefix_prompts(cfg)
+    out = {}
+
+    # (a) pipelined and chunked serving
+    engine = sched_engine(model, params)
+    t0 = time.perf_counter()
+    for p in prompts:
+        engine.submit(p, max_new_tokens=32)
+    sync = engine.run()
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    sync_streams = [sync[u] for u in sorted(sync)]
+    del engine
+    syncs = SyncCounter(torch)
+    runs = {depth: scheduled_run(torch, model, params, prompts, depth,
+                                 syncs if depth == 1 else None) for depth in (1, 0)}
+    if runs[1]["streams"] != runs[0]["streams"]:
+        raise AssertionError("scheduler: depth-1 streams differ from depth-0 streams: first "
+                             "differences " + str([first_difference(a, b) for a, b in zip(
+                                 runs[1]["streams"], runs[0]["streams"])]))
+    n_syncs = len(syncs.records)
+    if n_syncs:
+        raise AssertionError(f"scheduler depth 1: {n_syncs} host syncs outside entry "
+                             f"processing, at {syncs.where()}")
+    same_sync = sum(a == b for a, b in zip(runs[1]["streams"], sync_streams))
+    for depth, r in runs.items():
+        print(f"scheduler [depth {depth}, chunk {SCHED_CHUNK}]: 18 requests x 32 new tokens "
+              f"on 8 slots in {r['seconds']:.3f}s = {r['tok_s']:.2f} tok/s; "
+              f"{r['counts']['ticks']} decode ticks, {r['counts']['chunks']} prefill chunks, "
+              f"{r['counts']['peeks']} peeks; launches {r['launches']}", flush=True)
+    print(f"scheduler: depth 1 ≡ depth 0, 18 of 18 streams; equal to the synchronous "
+          f"engine's (prefill_chunk {SCHED_CHUNK}, {sync_s:.3f}s = "
+          f"{576 / sync_s:.2f} tok/s): {same_sync} of 18; host syncs in depth-1 ticks "
+          f"outside entry processing: {n_syncs} (syncs of this script's instrumentation, "
+          f"not counted: {syncs.other[:3]})", flush=True)
+    lat = runs[1]["stats"]     # latency under the scheduler: the depth-1 run's metrics
+    print(f"scheduler [depth 1] ServingMetrics: TTFT p50 {lat['ttft']['p50_us']} us, p99 "
+          f"{lat['ttft']['p99_us']} us; ITL p50 {lat['inter_token']['p50_us']} us, p99 "
+          f"{lat['inter_token']['p99_us']} us; queue wait p50 "
+          f"{lat['queue_wait']['p50_us']} us; {lat['tokens']['per_s']} tok/s", flush=True)
+    prof = profile_sched_ticks(torch, model, params, prompts)
+    out["a"] = dict(runs={d: {k: v for k, v in r.items() if k not in ("streams", "stats")}
+                          for d, r in runs.items()},
+                    equal_sync=same_sync, host_syncs=n_syncs, latency=dict(
+                        ttft=lat["ttft"], inter_token=lat["inter_token"],
+                        queue_wait=lat["queue_wait"]), profile=prof,
+                    sync_seconds=sync_s)
+
+    # (b) retried ≡ fault-free
+    few = prompts[:SLOTS]
+    rec = hits_at_first_admission(5)           # the sixth request's uid
+    clean, _, _, _, uids = ft_run(torch, model, params, few, plan=rec)
+    snap_times = []
+    plan = ft_plan(uids[5], rec.at)
+    faulty, stats, errors, fired, _ = ft_run(torch, model, params, few, plan=plan,
+                                             snap_times=snap_times)
+    torch.cuda.synchronize()
+    # each planned fault fired once: at its hit, or (uid filter) for its uid
+    as_planned = len(fired) == len(plan.faults) and all(
+        any(site == f.site and kind == f.kind and (hit == f.at if f.uid is None else uid == f.uid)
+            for site, hit, kind, uid in fired) for f in plan.faults)
+    if faulty != clean:
+        raise AssertionError("scheduler FT: retried streams differ from the fault-free run's "
+                             f"(first differences {[first_difference(a, b) for a, b in zip(faulty, clean)]})")
+    if not as_planned:
+        raise AssertionError(f"scheduler FT: fired {fired}, planned {plan.faults}")
+    if errors or stats["faults"]["quarantined"]:
+        raise AssertionError(f"scheduler FT: quarantined {errors}")
+    if stats["faults"]["watchdog_trips"] != 1:
+        raise AssertionError(f"scheduler FT: watchdog trips {stats['faults']}")
+    planted, *_ = ft_run(torch, model, params, few, plan=ft_plan(uids[5], rec.at),
+                                      keep_generators=True)
+    if planted == clean:
+        raise AssertionError("scheduler FT: the planted fault 'restore skips the generator "
+                             "states' kept the streams equal")
+    host_ms = [h for h, _, _ in snap_times]
+    dev_ms = [s.elapsed_time(e) for _, (s, e), _ in snap_times]
+    nbytes = snap_times[-1][2]
+    print(f"scheduler FT (8 requests x {FT_TOKENS} tokens at temperature 0.9, max_retries 3, "
+          f"watchdog "
+          f"{SCHED_WATCHDOG}s): fired {fired}; faults {stats['faults']}; retried ≡ fault-free, "
+          f"8 of 8 streams; planted fault 'restore skips the generator states': "
+          f"{sum(a == b for a, b in zip(planted, clean))} of 8 equal (caught); snapshot "
+          f"{nbytes / 2**20:.1f} MiB ({nbytes} bytes), {len(snap_times)} snapshots: host "
+          f"median {statistics.median(host_ms):.3f} ms, device median "
+          f"{statistics.median(dev_ms):.3f} ms (CUDA events around snapshot())", flush=True)
+    out["b"] = dict(fired=fired, faults=stats["faults"], snapshot_bytes=nbytes,
+                    snapshot_host_ms=statistics.median(host_ms),
+                    snapshot_device_ms=statistics.median(dev_ms), snapshots=len(snap_times),
+                    planted_equal=sum(a == b for a, b in zip(planted, clean)))
+
+    # (c) park and resume under the elastic supervisor
+    engine = sched_engine(model, params)
+    sched = PipelinedScheduler(engine, pipeline_depth=1, prefill_chunk=SCHED_CHUNK)
+    uids = [sched.submit(p, max_new_tokens=32) for p in few]
+    sup = ElasticSupervisor(sched, hosts=2, clock=lambda: 0.0,
+                            monitor=HealthMonitor(timeout_s=10.0))
+    while len(engine._active) < SLOTS or sched._prefill is not None or sched._queued:
+        sched.tick()
+    sup.beat(0, now=20.0)                      # host 1 goes silent
+    ev = sup.poll(now=20.0)
+    parked = [u for u in uids if sched.status(u) == PARKED]
+    if ev["capacity"] != SLOTS // 2 or len(parked) != SLOTS // 2:
+        raise AssertionError(f"elastic: event {ev}, parked {parked}")
+    engine.check_leaks()
+    for _ in range(3):
+        sched.tick()
+    for h in range(2):
+        sup.beat(h, now=21.0)
+    ev2 = sup.poll(now=21.0)
+    results = sched.run()
+    parked_streams = [results[u] for u in uids]
+    if parked_streams != runs[1]["streams"][:SLOTS] or engine.parked_uids:
+        raise AssertionError("elastic: parked streams differ from the uninterrupted run's")
+    print(f"elastic (2 simulated hosts, depth 1): host 1 lost -> {ev}, {len(parked)} streams "
+          f"parked mid-generation; back -> {ev2}; 8 of 8 streams equal the uninterrupted "
+          f"run's; parked {sched.metrics.parked_total}, resumed {sched.metrics.resumed_total}; "
+          "leak check clean", flush=True)
+    out["c"] = dict(events=[ev, ev2], parked=len(parked))
+    del sched, engine
+
+    # (d) the --http --http-smoke path of launch/serve.py
+    smoke = {}
+    for plan_name in ("", "ci-chaos"):
+        args = argparse.Namespace(
+            fault_plan=plan_name, max_retries=0, pipeline_depth=1, max_queue=256,
+            prefill_chunk=SCHED_CHUNK, watchdog=0.0, host="127.0.0.1", port=0,
+            http_smoke=True, prompt_len=PREFIX, steps=32)
+        res = launch.serve_http(args, cfg, sched_engine(model, params))
+        m = res["metrics"]
+        smoke[plan_name or "no plan"] = dict(
+            tokens=len(res["tokens"]), fired=res["fired"], ttft=m["ttft"],
+            inter_token=m["inter_token"], faults=m["faults"])
+    out["d"] = smoke
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_serve_routes(cfg, config, launches, routes, ticks):
@@ -3125,9 +3571,17 @@ def main():
     shared = serve_shared_prefix(torch)
     done(t, "serve qwen2.5-3b full width, EN-T, shared prefix")
     t = phase(f"serve qwen2.5-3b full width, EN-T, speculative (k = {SPEC_K})")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    ent_model, ent_params = launch.build(get_config("qwen2.5-3b"), seed=0, quantize=True)
     plain_ent = serves["EN-T w8a8, bf16 KV"]
-    spec = serve_spec(torch, plain_ent[5], plain_ent[1])
+    spec = serve_spec(torch, plain_ent[5], plain_ent[1], ent_model, ent_params)
     done(t, f"serve qwen2.5-3b full width, EN-T, speculative (k = {SPEC_K})")
+    t = phase("serve qwen2.5-3b full width, EN-T, scheduler, faults, elastic, HTTP")
+    sched = serve_scheduler(torch, ent_model, ent_params)
+    del ent_model, ent_params
+    torch.cuda.empty_cache()
+    done(t, "serve qwen2.5-3b full width, EN-T, scheduler, faults, elastic, HTTP")
 
     t = phase("kernels vs plain, 2 layers")
     # Limits between the sound readings and the planted faults' on the
@@ -3306,12 +3760,16 @@ def main():
               launches_from="no serving path; run by the kernel checks only",
               **routed("ent_matmul_packed", ent_t, serves[config_of["ent_matmul_packed_fused"]][2])),
     ]
-    for k in kernels:   # kernels 1, 2 and 3 on the prefix-shared and speculative runs too
+    sched_launches = sched["a"]["runs"][1]["launches"]
+    for k in kernels:   # kernels 1, 2 and 3 on the prefix-shared, speculative, scheduler runs
         if k["name"] in ("ent_matmul_packed_fused", "flash_attention_masked",
                          "paged_attention_kernel"):
             k["launches_shared_prefix"] = shared[0][k["name"]]
             k["launches_speculative"] = {arm: r["launches"].get(k["name"], 0)
                                          for arm, r in spec.items()}
+            k["launches_scheduler_depth_1"] = {
+                **{r: n for r, n in sched_launches.items() if r.startswith(k["name"])},
+                **sched["a"]["runs"][1]["counts"]}
     flash = "src/repro/kernels/flash_attention/flash_attention.py"
     at_train = lambda rows: rows[0]   # noqa: E731  (B=1, H=36, S=4096, D=64)
     designs = {   # kernels 7, 7b, 7c: the route each dtype takes, and the tensor-core design
@@ -3411,6 +3869,21 @@ def main():
         print(f"serve tokens/s [EN-T w8a8, bf16 KV, speculative k={SPEC_K}, {arm}] "
               f"{r['tok_s']:.3f} ({r['of_plain']:.3f} of plain), acceptance "
               f"{r['acceptance']:.4f}, {r['tokens_per_tick']:.3f} tokens a tick")
+    a = sched["a"]
+    for depth in (0, 1):
+        p = a["profile"][depth]
+        print(f"scheduler depth {depth}: {a['runs'][depth]['tok_s']:.3f} tok/s (18 requests); "
+              f"{p['mean_host_ms']:.3f} ms a tick host-clock, {p['mean_busy_ms']:.3f} ms "
+              "device busy" + (f", {100 * p['idle']:.1f}% idle" if p["idle"] is not None
+                               else ""))
+    print(f"scheduler: TTFT p50 / p99 {a['latency']['ttft']['p50_us']} / "
+          f"{a['latency']['ttft']['p99_us']} us, ITL p50 / p99 "
+          f"{a['latency']['inter_token']['p50_us']} / {a['latency']['inter_token']['p99_us']} us; "
+          f"snapshot {sched['b']['snapshot_bytes']} bytes, {sched['b']['snapshot_device_ms']:.3f} "
+          f"ms device, {sched['b']['snapshot_host_ms']:.3f} ms host; http smoke "
+          + "; ".join(f"{k}: ttft p50 {v['ttft']['p50_us']} us, itl p50 / p99 "
+                      f"{v['inter_token']['p50_us']} / {v['inter_token']['p99_us']} us"
+                      for k, v in sched["d"].items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

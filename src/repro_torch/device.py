@@ -8,6 +8,7 @@ the plain PyTorch versions on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,3 +23,20 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(arr, device: torch.device, dtype=None) -> torch.Tensor:
+    """A new tensor on ``device`` holding the host array ``arr`` (cast to
+    numpy ``dtype`` when given), copied without a stream sync.
+
+    A pageable host->device copy with ``non_blocking=False`` waits for
+    every kernel already queued on the stream.  On the card the array is
+    staged in pinned memory and copied with ``non_blocking=True``; the
+    staging block comes from PyTorch's caching host allocator, which
+    records an event on the copy and hands the block out again only
+    after that event, so a later upload never overwrites bytes still in
+    flight.  On the CPU: a copy (never a view of ``arr``)."""
+    t = torch.from_numpy(np.array(arr, dtype=dtype))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

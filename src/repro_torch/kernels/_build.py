@@ -146,6 +146,15 @@ def entry(name: str, fname: str | None = None):
     return _entries[name, fname]
 
 
+def load_all() -> None:
+    """Build every stale library and load every entry point (a server
+    does this before its first tick)."""
+    build_all()
+    for name, fns in ENTRY_POINTS.items():
+        for fname in fns:
+            entry(name, fname)
+
+
 def stream_of(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as an int handle."""
     import torch

@@ -3,7 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --engine --quantize [--shared-prefix N] [--no-prefix-cache] \\
         [--cache-kind auto|paged|dense] [--draft-arch ARCH --spec-k K \\
-        --spec-mode match|rejection] [--smoke] [--device cuda|cpu]
+        --spec-mode match|rejection] [--smoke] [--device cuda|cpu] \\
+        [--http [--port P] [--host H] [--pipeline-depth D] [--max-queue Q] \\
+         [--http-smoke] [--fault-plan NAME|seeded:N] [--max-retries R] \\
+         [--watchdog S]]
 
 Builds the model at the config's widths (``--smoke``: the reduced
 config), draws random weights from ``--seed`` on the device, encodes
@@ -18,11 +21,27 @@ drafts a tick: the same arch as ``--arch`` is a weight-shared drafter
 random weights from ``--seed + 1``.  Runs on the CUDA
 card unless ``--device cpu``.  The one-shot ``generate`` path (no
 ``--engine``) is a later slice and is refused.
+
+``--http`` puts the async front end on top (implies ``--engine``): a
+``PipelinedScheduler`` at ``--pipeline-depth`` driving the engine and the
+stdlib HTTP/SSE server (``POST /v1/completions`` streams tokens, ``GET
+/metrics``, ``GET /healthz``).  ``--http-smoke`` runs a scripted client
+against the live server instead of blocking: one streamed completion
+(the SSE stream must equal its final event), ``/healthz`` 200,
+``/metrics`` with ``leaks_clean`` and one finished request, a clean
+shutdown.  ``--fault-plan`` (a registered name such as ``ci-chaos``, or
+``seeded:<n>``) serves under a deterministic fault plan; with it the
+smoke also asserts that every fired fault was counted and none
+quarantined a request.  ``--max-retries`` and ``--watchdog`` turn the
+fault-tolerant ticks on.  On the card the CUDA libraries are built and
+loaded before the scheduler's first tick, so no ``nvcc`` run lands
+inside a watched tick.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -75,6 +94,103 @@ def serve(engine: ServeEngine, prompts, *, max_new_tokens: int,
     return results, time.perf_counter() - t0
 
 
+def _resolve_plan(spec: str):
+    """--fault-plan value -> FaultPlan: a registered name ("ci-chaos") or
+    "seeded:<n>"."""
+    from repro_torch.runtime.faults import FaultPlan
+
+    if spec.startswith("seeded:"):
+        return FaultPlan.seeded(int(spec.split(":", 1)[1]))
+    return FaultPlan.named(spec)
+
+
+def _smoke_client(host: str, port: int, prompt, steps: int):
+    """The scripted client of ``--http-smoke``: one streamed completion,
+    then ``/healthz`` and ``/metrics``.  Returns (streamed tokens, the
+    metrics document)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    conn.request("POST", "/v1/completions",
+                 json.dumps({"tokens": prompt, "max_new_tokens": steps}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200, f"completions: HTTP {resp.status}"
+    events = [json.loads(line[6:]) for line in resp.read().decode().splitlines()
+              if line.startswith("data: ")]
+    conn.close()
+    assert events and events[-1].get("done"), "SSE stream did not finish"
+    streamed = [e["token"] for e in events[:-1]]
+    assert streamed == events[-1]["tokens"], "stream/final token mismatch"
+    conn = http.client.HTTPConnection(host, port, timeout=60)
+    conn.request("GET", "/healthz")
+    hz = conn.getresponse()
+    assert hz.status == 200, f"healthz: HTTP {hz.status}"
+    hz.read()
+    conn.request("GET", "/metrics")
+    m = json.loads(conn.getresponse().read())
+    conn.close()
+    return streamed, m
+
+
+def serve_http(args, cfg, engine) -> dict | None:
+    """--http: scheduler + SSE server.  With --http-smoke, runs the scripted
+    client (under the --fault-plan plan when one is given), asserts what
+    the reference's smoke asserts, shuts down, and returns {"tokens",
+    "metrics", "fired"}; without, serves until interrupted."""
+    from repro_torch.runtime.scheduler import PipelinedScheduler
+    from repro_torch.runtime.server import ServingServer
+
+    if engine.device.type == "cuda":
+        from repro_torch.kernels import _build
+        _build.load_all()     # no nvcc run inside a (watched) tick
+    plan = _resolve_plan(args.fault_plan) if args.fault_plan else None
+    retries = args.max_retries
+    if plan is not None and retries == 0:
+        retries = 3     # a chaos plan without a retry budget just dies
+        print(f"fault plan {plan.name} active: defaulting --max-retries to {retries}")
+    sched = PipelinedScheduler(engine, pipeline_depth=args.pipeline_depth,
+                               max_queue=args.max_queue,
+                               prefill_chunk=args.prefill_chunk or None,
+                               max_retries=retries, watchdog_timeout=args.watchdog or None)
+    srv = ServingServer(sched, host=args.host, port=args.port)
+    if plan is not None:
+        plan.activate()
+    try:
+        host, port = srv.start()
+        print(f"serving http://{host}:{port} (backend={engine.cache_kind}, "
+              f"slots={engine.slots}, depth={sched.depth}, device={engine.device})",
+              flush=True)
+        if not args.http_smoke:
+            try:
+                srv.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            return None
+        prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                   args.prompt_len).tolist()
+        streamed, m = _smoke_client(host, port, prompt, args.steps)
+        assert m["leaks_clean"], "allocator leak after completion"
+        assert m["requests"]["finished"] == 1, m["requests"]
+        fired = list(plan.fired) if plan is not None else []
+        if plan is not None:
+            assert fired, "fault plan active but no fault fired"
+            assert m["faults"]["quarantined"] == 0, \
+                f"chaos smoke quarantined a request: {sched.errors}"
+            assert m["faults"]["total"] == len(fired), (m["faults"], fired)
+    finally:
+        srv.stop()
+        if plan is not None:
+            plan.deactivate()
+    engine.check_leaks()
+    ttft, itl = m["ttft"], m["inter_token"]
+    chaos = (f", {len(fired)} faults injected ({m['faults']['retries']} retries, all "
+             "recovered)") if plan is not None else ""
+    print(f"http smoke: {len(streamed)} tokens streamed, ttft p50 {ttft['p50_us']}us, "
+          f"itl p50 {itl['p50_us']}us / p99 {itl['p99_us']}us, 0 leaks{chaos}")
+    return {"tokens": streamed, "metrics": m, "fired": fired}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
@@ -115,8 +231,33 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP/SSE: PipelinedScheduler + stdlib asyncio "
+                         "server (implies --engine)")
+    ap.add_argument("--port", type=int, default=0,
+                    help="HTTP port (0 = ephemeral, printed on bind)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--pipeline-depth", type=int, default=1,
+                    help="decode ticks dispatched ahead of the host")
+    ap.add_argument("--max-queue", type=int, default=256,
+                    help="admission control: shed (429) past this depth")
+    ap.add_argument("--http-smoke", action="store_true",
+                    help="scripted client against the live server, then a clean "
+                         "shutdown and leak check")
+    ap.add_argument("--fault-plan", default="",
+                    help="serve under a deterministic fault plan: a registered name "
+                         "(e.g. 'ci-chaos') or 'seeded:<n>' (needs --http)")
+    ap.add_argument("--max-retries", type=int, default=0,
+                    help="fault tolerance: per-request retry budget; nonzero turns "
+                         "snapshot / rollback ticks on (3 when --fault-plan is set)")
+    ap.add_argument("--watchdog", type=float, default=0.0,
+                    help="fault tolerance: per-tick watchdog timeout in seconds "
+                         "(0 = off)")
     args = ap.parse_args(argv)
-    if not args.engine:
+    if args.fault_plan and not args.http:
+        ap.error("--fault-plan needs --http: only the fault-tolerant scheduler can "
+                 "recover from injected faults")
+    if not (args.engine or args.http):
         ap.error("only --engine serving is ported; generate() is a later slice")
 
     cfg = get_config(args.arch)
@@ -148,6 +289,8 @@ def main(argv=None):
         pages=args.pages or None, seed=args.seed, cache_kind=args.cache_kind,
         prefix_cache="auto" if args.prefix_cache is None else args.prefix_cache,
         **spec_kw)
+    if args.http:
+        return serve_http(args, cfg, engine)
     rng = np.random.default_rng(args.seed)
     prompts = ragged_prompts(rng, 2 * args.batch, max(1, args.prompt_len // 2),
                              args.prompt_len, cfg.vocab_size)

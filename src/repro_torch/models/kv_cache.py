@@ -7,8 +7,9 @@ cache.  Here the writes land IN PLACE (``index_put_`` / slice
 assignment into the pool tensors) and the methods return ``self``, so
 callers keep the reference's ``new = cache.write_...`` shape without a
 pool-sized copy per token.  Nothing keeps an old cache alive across a
-write (engine snapshots are later work; a speculative rollback is a
-layout operation, see below), so in-place updates are safe.  A
+write (an engine snapshot ``clone``s every tensor and restores with
+``copy_from``; a speculative rollback is a layout operation, see below),
+so in-place updates are safe.  A
 read-only forward (the
 prefix-cache peek) therefore cannot leave the store to dead-code
 elimination as the reference does: ``stored`` gives a chunk's rows in
@@ -120,6 +121,26 @@ class _KV:
         """Checkpoint before a verify burst writes: None for rows, whose
         rollback is the engine's ``pos`` reset alone."""
         return None
+
+    def clone(self):
+        """A copy of this cache with every tensor cloned (the engine's
+        snapshot)."""
+        out = object.__new__(type(self))
+        out.__dict__.update({k: v.clone() if torch.is_tensor(v) else v
+                             for k, v in vars(self).items()})
+        return out
+
+    def copy_from(self, other) -> None:
+        """Copy ``other``'s pools and scales (a ``clone`` of this cache)
+        back into this cache's tensors in place, and adopt a copy of its
+        block table where it has one: every view and table keeps pointing
+        at the same pools (the engine's restore)."""
+        for name in ("k", "v", "k_s", "v_s"):
+            t = getattr(self, name)
+            if t is not None:
+                t.copy_(getattr(other, name))
+        if getattr(other, "block_table", None) is not None:
+            self.block_table = other.block_table.clone()
 
     def rollback(self, snap):
         del snap

@@ -10,6 +10,8 @@ explicitly by a kernel-vs-plain comparison).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -53,11 +55,18 @@ def norm_apply(cfg: ModelConfig, p, x):
 
 # --- Rotary embeddings -------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(d: int, theta: float, device: torch.device):
+    """RoPE's [d/2] inverse frequencies on ``device``, computed in numpy and
+    uploaded once: a pageable copy every call would sync the stream twice a
+    layer in each decode tick."""
+    return torch.from_numpy(
+        1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))).to(device)
+
+
 def rope(x, positions, theta: float):
     """x: [..., S, H, D], positions: [..., S]."""
-    d = x.shape[-1]
-    inv_freq = torch.from_numpy(
-        1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))).to(x.device)
+    inv_freq = _inv_freq(x.shape[-1], theta, x.device)
     angles = positions[..., None].to(torch.float32) * inv_freq   # [..., S, D/2]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

@@ -1,8 +1,7 @@
 """Refcounted page allocator: the host-side half of the paged KV pool.
 
-The port's own copy of ``repro/runtime/page_allocator.py``; the
-fault-injection point in ``alloc`` is dropped until the fault-tolerance
-slice.
+The port's own copy of ``repro/runtime/page_allocator.py``, with the
+``"allocator.alloc"`` fault-injection point in ``alloc``.
 
 ``ServeEngine`` used to own a raw free list (``_free_pages``) inline —
 correct for exclusive ownership, but structurally unable to express the
@@ -35,6 +34,8 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
+from repro_torch.runtime.faults import fault_point
+
 
 class PageAllocator:
     """Refcounted allocator over page ids ``1..total`` (0 = null page)."""
@@ -57,6 +58,7 @@ class PageAllocator:
         """Pop ``n`` fresh pages, each with refcount 1."""
         if n < 0:
             raise ValueError(f"cannot allocate {n} pages")
+        fault_point("allocator.alloc", n=n, free=len(self._free))
         if n > len(self._free):
             raise RuntimeError(
                 f"page pool exhausted: need {n}, have {len(self._free)} "

@@ -25,13 +25,22 @@ keeps the reference's arithmetic (accept draft d when u < p_target(d),
 else sample the residual with d excluded; the bonus sample after a clean
 sweep) on the port's generators: position t draws one uniform for the
 acceptance, then V for its sample.  Greedy rows touch no generator.
+
+Temperatures given as host values (a sequence or numpy array, as the
+engine passes them) choose the sampled rows on the host, and the few
+small tensors that need them reach the card by a pinned, non-blocking
+upload: a tick that samples syncs the stream only where its caller
+pulls the tokens.  A device tensor of temperatures is read back once.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
+
+from repro_torch.device import upload
 
 _NEG_INF = -1e30
 
@@ -81,6 +90,20 @@ def init_keys(seed: int, batch: int, device=None) -> list[torch.Generator]:
     return [seed_generator(seed, i, device or "cpu") for i in range(batch)]
 
 
+def _hot_rows(temperature, b: int, device):
+    """Per-row temperatures on the host (read back once if given as a
+    device tensor) -> (the rows sampled at temperature > 0, and, when
+    there are any, ([n_hot] row indices, [n_hot] f32 temperatures) on
+    ``device``)."""
+    if torch.is_tensor(temperature):
+        temperature = temperature.tolist()
+    host = np.broadcast_to(np.asarray(temperature, np.float32), (b,))
+    hot = [i for i in range(b) if host[i] > 0]
+    if not hot:
+        return hot, None, None
+    return hot, upload(hot, device, np.int64), upload(host[hot], device)
+
+
 def _gumbel_tokens(lt, u):
     """Rows of (truncated, tempered) logits ``lt`` [n, V] and uniforms
     ``u`` [n, V] -> Gumbel-max tokens [n] int32."""
@@ -96,14 +119,11 @@ def sample_logits(logits, keys, temperature, *, top_k: int | None = None,
     [B] (tensor or sequence).  Returns (tokens [B] int32, keys)."""
     l32 = logits.to(torch.float32)
     b, v = l32.shape
-    temp = torch.as_tensor(temperature, dtype=torch.float32,
-                           device=l32.device).expand(b)
     greedy = l32.argmax(-1).to(torch.int32)
-    hot = [i for i, t in enumerate(temp.tolist()) if t > 0]
+    hot, rows, temp = _hot_rows(temperature, b, l32.device)
     tok = greedy
     if hot:
-        rows = torch.tensor(hot, device=l32.device)
-        lt = _truncate(l32[rows] / temp[rows][:, None], top_k, top_p)
+        lt = _truncate(l32[rows] / temp[:, None], top_k, top_p)
         u = torch.stack([
             torch.rand(v, generator=keys[i], device=l32.device,
                        dtype=torch.float32) for i in hot])
@@ -198,23 +218,21 @@ def spec_verify(logits, draft, keys, temperature, *, top_k: int | None = None,
     l32 = logits.to(torch.float32)
     b, s, v = l32.shape
     dev = l32.device
-    temp = torch.as_tensor(temperature, dtype=torch.float32, device=dev).expand(b)
-    hot = [i for i, t in enumerate(temp.tolist()) if t > 0]
+    hot, rows, temp = _hot_rows(temperature, b, dev)
     greedy_tok = l32.argmax(-1).to(torch.int32)
     ok = draft == greedy_tok[:, :-1]
     tokens = greedy_tok
     if hot:
-        rows = torch.tensor(hot, device=dev)
         n = len(hot)
         if mode == "match":
             (u,), states = _draws(keys, hot, s, (v,), dev)
-            lt = _truncate((l32[rows] / temp[rows][:, None, None]).reshape(n * s, v),
+            lt = _truncate((l32[rows] / temp[:, None, None]).reshape(n * s, v),
                            top_k, top_p)
             tok = _gumbel_tokens(lt, u.reshape(n * s, v)).reshape(n, s)
             ok_hot = draft[rows] == tok[:, :-1]
         else:
             (a, u), states = _draws(keys, hot, s, (1, v), dev)
-            lt, p_draft, res_lt = rejection_parts(l32[rows], draft[rows], temp[rows],
+            lt, p_draft, res_lt = rejection_parts(l32[rows], draft[rows], temp,
                                                   top_k, top_p)
             ok_hot = a[:, :-1, 0] < p_draft
             res_tok = _gumbel_tokens(res_lt.reshape(-1, v),

@@ -45,23 +45,39 @@ copy-on-write cleared, up front (``_map_tick_pages(span)``), from a
 reservation ``spec_k`` positions larger.  In "match" mode the emitted
 streams equal plain decode's at every temperature.
 
+Fault tolerance and elastic capacity (reference :1129-1312): ``snapshot``
+/ ``restore`` capture and roll back one tick boundary (every pool tensor
+cloned and copied back in place, each slot's generator state, the host
+mirrors, the allocator and the prefix cache), and ``park_slot`` /
+``resume_parked`` suspend a paged stream mid-generation with its pages
+resident and continue it bit for bit.  The reference's fault points
+(``runtime/faults.py``) sit at the same sites: ``"prefill.dispatch"``
+and ``"sampler"`` of an admission, ``"decode.dispatch"`` and
+``"sampler"`` of a tick, ``"spec.verify"`` of a spec tick.  A pipelined
+scheduler widens every reservation by its depth (``_reserve_slack``).
+
+The tick uploads its host arrays (block table, tokens, positions) with
+:func:`repro_torch.device.upload`, a pinned non-blocking copy, so that
+dispatching a tick never waits for the one before it.
+
 Not ported (each raises ``NotImplementedError``): the ring backend
-(sliding-window models), SSM targets and drafters, and parking.
-``generate``, the one-shot path of the same reference file, is a later
-slice too.
+(sliding-window models) and SSM targets and drafters.  ``generate``,
+the one-shot path of the same reference file, is a later slice too.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
+from repro_torch.device import upload
 from repro_torch.models import kv_cache
 from repro_torch.models.transformer import Model
 from repro_torch.runtime import sampling
+from repro_torch.runtime.faults import InjectedFault, fault_point
 from repro_torch.runtime.page_allocator import PageAllocator
 from repro_torch.runtime.prefix_cache import PrefixCache
 
@@ -109,6 +125,14 @@ def _prefill_slot(model: Model, params, cache, slot: int, toks, mask, chunk):
     return logits
 
 
+def _set_slot(cache: dict, slot: int, pos: int, start: int) -> None:
+    """Set one slot's device ``pos`` / ``start`` in place with ``fill_``: a
+    scalar setitem would stage the value through pageable host memory and
+    sync the stream."""
+    cache["pos"][slot].fill_(pos)
+    cache["start"][slot].fill_(start)
+
+
 def _bucket(n: int, lo: int) -> int:
     """Round a prompt length up to a power of two (>= lo)."""
     b = max(lo, 1)
@@ -130,6 +154,71 @@ class Request:
 class _SlotState:
     req: Request
     emitted: list[int] = field(default_factory=list)
+
+
+@dataclass
+class _Parked:
+    """A stream suspended mid-generation: what resuming it bit for bit in
+    any free slot needs.  Its page references move from the slot to this
+    record, so the pool keeps the KV resident and ``check_leaks`` counts
+    the record as a holder."""
+
+    req: Request
+    emitted: list[int]
+    pos: int
+    start: int
+    temp: float
+    key: torch.Tensor            # the slot generator's state (get_state)
+    next_tok: int
+    table_row: np.ndarray
+    pages: list[int]
+    shared: list[int]
+    reserved: int
+
+
+@dataclass
+class EngineSnapshot:
+    """One tick boundary of a :class:`ServeEngine`.
+
+    The pools are written in place, so every pool tensor is CLONED (K, V
+    and the int8 scale pools of each layer, the drafter's dense rows,
+    ``pos`` / ``start``); each slot's generator state is captured with
+    ``get_state``; host mirrors, allocator refcounts and prefix-cache
+    pins are copied, so a rollback unwinds a failed tick's partial
+    mutations exactly.  ``restore`` copies back, so one snapshot restores
+    any number of times."""
+
+    cache: dict
+    dcache: dict | None
+    keys: list                   # per-slot generator states
+    pos: np.ndarray
+    start: np.ndarray
+    temp: np.ndarray
+    next_tok: np.ndarray
+    free: list
+    queue: list
+    active: dict                 # slot -> (req, emitted copy)
+    results: dict
+    parked: dict                 # uid -> _Parked (emitted copied)
+    next_uid: int
+    spec_stats: dict
+    cow_copies: int
+    table: np.ndarray | None = None
+    slot_pages: dict | None = None
+    slot_shared: dict | None = None
+    slot_reserved: dict | None = None
+    alloc: tuple | None = None
+    prefix: tuple | None = None
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes the snapshot holds (pools, scales, pos / start)."""
+        total = 0
+        for c in (self.cache, self.dcache):
+            if c is not None:
+                total += sum(lc.nbytes for lc in c["layers"])
+                total += sum(c[k].numel() * c[k].element_size() for k in ("pos", "start"))
+        return total
 
 
 class ServeEngine:
@@ -228,6 +317,11 @@ class ServeEngine:
         self._next_tok = np.full((slots,), pad_id, np.int32)
         self._results: dict[int, list[int]] = {}
         self._next_uid = 0
+        self._parked: dict[int, _Parked] = {}
+        # positions a pipelined scheduler's dispatch-ahead ticks may write
+        # past prompt + max_new before the host learns a request finished
+        # (PipelinedScheduler sets it to its depth)
+        self._reserve_slack = 0
         if not self._spec:
             return
         self.draft_model, self.draft_params = draft_model, draft_params
@@ -268,8 +362,9 @@ class ServeEngine:
 
     # .. internals ..
     def _push_table(self) -> None:
-        """Adopt the host block-table mirror in every layer (one copy)."""
-        table = torch.from_numpy(self._table.copy()).to(self.device)
+        """Adopt the host block-table mirror in every layer (one
+        non-blocking upload)."""
+        table = upload(self._table, self.device)
         for c in self.cache["layers"]:
             c.with_table(table)
 
@@ -281,15 +376,13 @@ class ServeEngine:
         self._active.pop(slot, None)
         if slot not in self._free:
             self._free.append(slot)
-        self.cache["pos"][slot] = 0
-        self.cache["start"][slot] = 0
+        _set_slot(self.cache, slot, 0, 0)
         self._pos[slot] = 0
         self._start[slot] = 0
         self._temp[slot] = 0.0
         self._next_tok[slot] = self.pad_id
         if self._spec:
-            self._dcache["pos"][slot] = 0
-            self._dcache["start"][slot] = 0
+            _set_slot(self._dcache, slot, 0, 0)
         if not self._paged:
             for c in self.cache["layers"]:
                 c.free_slot(slot)
@@ -334,9 +427,10 @@ class ServeEngine:
     def _pages_needed(self, prompt_len: int, max_new: int) -> int:
         """Worst-case pages one request can touch: positions
         [0, prompt + max_new), plus ``spec_k`` speculative positions (a
-        verify burst writes that far past the last committed token),
-        capped at the per-slot table length."""
-        extra = self.spec_k if self._spec else 0
+        verify burst writes that far past the last committed token), plus
+        a pipelined scheduler's ``_reserve_slack`` (dispatch-ahead ticks
+        overshoot the same way), capped at the per-slot table length."""
+        extra = (self.spec_k if self._spec else 0) + self._reserve_slack
         return min(-(-(prompt_len + max_new + extra) // self.page_size), self._pps)
 
     @property
@@ -385,6 +479,8 @@ class ServeEngine:
             self._prefix.evict(short)
         try:
             return self._alloc.alloc(n)
+        except InjectedFault:
+            raise                 # keep the site / uid for recovery
         except RuntimeError as e:
             raise RuntimeError("page reservation accounting is broken: pool "
                                "exhausted under a live reservation") from e
@@ -415,8 +511,7 @@ class ServeEngine:
             self._alloc.release(pid)
         if src:
             self._cow_copies += len(src)
-            s_t, d_t = (torch.tensor(t, dtype=torch.int64, device=self.device)
-                        for t in (src, dst))
+            s_t, d_t = (upload(t, self.device, np.int64) for t in (src, dst))
             for c in self.cache["layers"]:
                 c.copy_pages(s_t, d_t)
         return bool(src)
@@ -491,7 +586,7 @@ class ServeEngine:
         """Logits of the last token of a fully cached prompt at ``pos``: a
         read-only forward over the shared pages (no write, so no fresh page
         and no copy-on-write)."""
-        toks = torch.tensor([[token]], dtype=torch.int64, device=self.device)
+        toks = upload([[token]], self.device, np.int64)
         out = self.model.apply(self.params, toks, cache={"layers": layers, "pos": pos},
                                write_cache=True, peek=True, last_only=True, pos0=pos)
         return out["logits"][:, 0]
@@ -505,6 +600,7 @@ class ServeEngine:
         Without: a bucketed left-padded prefill straight through the slot's
         pages (or into its dense rows).  A drafter prefills the same prompt
         into its own dense rows."""
+        fault_point("prefill.dispatch", uid=req.uid)
         n = len(req.tokens)
         dev = self.device
         if self._prefix is not None:
@@ -518,8 +614,8 @@ class ServeEngine:
                 real = n - pos0
                 spb = min(_bucket(real, self.prefill_bucket),
                           self._pps * self.page_size - pos0)
-                toks = torch.tensor([req.tokens[pos0:] + [self.pad_id] * (spb - real)],
-                                    dtype=torch.int64, device=dev)
+                toks = upload([req.tokens[pos0:] + [self.pad_id] * (spb - real)], dev,
+                              np.int64)
                 logits = self._prefill_suffix(toks, layers, pos0, real)
             # the full prompt pages join the cache (already cached blocks keep
             # their pages)
@@ -527,27 +623,23 @@ class ServeEngine:
                                 [int(p) for p in self._table[slot, :n // self.page_size]])
             # the drafter shadow-prefills the whole prompt, tail-padded
             spd = min(_bucket(n, self.prefill_bucket), self.max_len)
-            dtoks = torch.tensor([req.tokens + [self.pad_id] * (spd - n)],
-                                 dtype=torch.int64, device=dev)
+            dtoks = upload([req.tokens + [self.pad_id] * (spd - n)], dev, np.int64)
             dmask, pos, start = None, n, 0
         else:
             sp = _bucket(n, self.prefill_bucket)
             if self._paged and not self._alloc_pages(
                     slot, -(-sp // self.page_size), self._pages_needed(sp, req.max_new_tokens)):
                 return False
-            toks = torch.tensor([[self.pad_id] * (sp - n) + req.tokens],
-                                dtype=torch.int64, device=dev)
+            toks = upload([[self.pad_id] * (sp - n) + req.tokens], dev, np.int64)
             mask = torch.arange(sp, device=dev)[None, :] >= (sp - n)
             logits = _prefill_slot(self.model, self.params, self.cache, slot, toks, mask,
                                    self.prefill_chunk)
             dtoks, dmask, pos, start = toks, mask, sp, sp - n
-        self.cache["pos"][slot] = pos
-        self.cache["start"][slot] = start
+        _set_slot(self.cache, slot, pos, start)
         if self._spec:   # the drafter shadows the prompt's prefill
             _prefill_slot(self.draft_model, self.draft_params, self._dcache, slot, dtoks,
                           dmask, self.prefill_chunk)
-            self._dcache["pos"][slot] = pos
-            self._dcache["start"][slot] = start
+            _set_slot(self._dcache, slot, pos, start)
         self._pos[slot] = pos
         self._start[slot] = start
         self._active[slot] = _SlotState(req)
@@ -555,6 +647,7 @@ class ServeEngine:
         # per-request generator: a replay samples the same stream
         # whichever slot (or neighbours) it lands with
         self._keys[slot] = sampling.seed_generator(self.seed, req.uid, dev)
+        fault_point("sampler", uid=req.uid)
         tok, _ = self._sampler(logits, self._keys[slot:slot + 1],
                                [req.temperature])
         self._emit(slot, int(tok[0]))
@@ -606,8 +699,9 @@ class ServeEngine:
             return bool(self._queue)
         if self._spec and self.spec_enabled:
             return self._spec_tick()
+        fault_point("decode.dispatch")
         self._map_tick_pages()
-        toks_in = torch.from_numpy(self._next_tok.astype(np.int64)).to(self.device)
+        toks_in = upload(self._next_tok, self.device, np.int64)
         logits, self.cache = self.model.decode_step(self.params, self.cache,
                                                     toks_in)
         self._pos += 1     # decode_step advances every slot's pos
@@ -615,8 +709,9 @@ class ServeEngine:
             # spec degraded to plain ticks: keep the drafter's pos in step
             # (its missing rows only cost acceptance, never correctness)
             self._dcache["pos"] = self._pos_tensor()
+        fault_point("sampler")
         if self._temp.any() or self._truncates:
-            toks, _ = self._sampler(logits, self._keys, self._temp.tolist())
+            toks, _ = self._sampler(logits, self._keys, self._temp)
         else:              # all-greedy tick: no Gumbel draw
             toks = sampling.greedy(logits)
         toks = toks.cpu().numpy()          # the ONE device->host transfer
@@ -625,19 +720,20 @@ class ServeEngine:
         return bool(self._active or self._queue)
 
     def _pos_tensor(self):
-        return torch.from_numpy(self._pos.astype(np.int32)).to(self.device)
+        return upload(self._pos, self.device, np.int32)
 
     def _spec_tick(self) -> bool:
         """One speculative tick: K+1 greedy drafter decode steps, ONE
         verify burst through the target, then each slot emits its accepted
         drafts and one token of its own, and ``pos`` rolls both caches back
         to what was emitted."""
+        fault_point("spec.verify")
         active = list(self._active)
         # the burst writes pos .. pos + tick_k, inside max_len for every
         # slot (slots free at max_len - 1, so tick_k >= 1)
         tick_k = min(self.spec_k, self.max_len - 1 - max(int(self._pos[s]) for s in active))
         self._map_tick_pages(tick_k)
-        tok0 = torch.from_numpy(self._next_tok.astype(np.int64)).to(self.device)
+        tok0 = upload(self._next_tok, self.device, np.int64)
         dc, tok, drafts = dict(self._dcache), tok0, []
         for _ in range(tick_k + 1):   # the last step writes the last draft's row
             logits, dc = self.draft_model.decode_step(self.draft_params, dc, tok)
@@ -647,7 +743,7 @@ class ServeEngine:
         burst = torch.cat([tok0[:, None], drafts], dim=1)       # [B, K+1]
         vlogits, self.cache, _ = self.model.verify_step(self.params, self.cache, burst)
         if self._temp.any() or self._truncates:
-            toks, n_acc, _ = self._verifier(vlogits, drafts, self._keys, self._temp.tolist())
+            toks, n_acc, _ = self._verifier(vlogits, drafts, self._keys, self._temp)
         else:              # all-greedy tick: argmax matching, no generator
             toks, n_acc = sampling.greedy_verify(vlogits, drafts)
         toks_h, acc_h = toks.cpu().numpy(), n_acc.cpu().numpy()   # the only pulls
@@ -675,15 +771,174 @@ class ServeEngine:
         d = self.spec_stats["drafted"]
         return None if d == 0 else self.spec_stats["accepted"] / d
 
+    # .. snapshot / restore (the fault-tolerance rollback boundary) ..
+    @staticmethod
+    def _clone_cache(cache: dict) -> dict:
+        """Deep copy of a cache dict: every layer's tensors and pos / start."""
+        out = dict(cache)
+        out["layers"] = [c.clone() for c in cache["layers"]]
+        out["pos"] = cache["pos"].clone()
+        out["start"] = cache["start"].clone()
+        return out
+
+    @staticmethod
+    def _restore_cache(cache: dict, snap: dict) -> None:
+        """Copy ``snap``'s tensors back into ``cache``'s pools in place (the
+        tensors every layer, view and table refer to stay the same)."""
+        for c, sc in zip(cache["layers"], snap["layers"]):
+            c.copy_from(sc)
+        cache["pos"] = snap["pos"].clone()
+        cache["start"] = snap["start"].clone()
+
+    def _generator(self, state) -> torch.Generator:
+        """A fresh generator on the engine's device in ``state``."""
+        g = torch.Generator(device=self.device)
+        g.set_state(state)
+        return g
+
+    @staticmethod
+    def _copy_parked(parked: dict) -> dict:
+        return {u: replace(rec, emitted=list(rec.emitted), pages=list(rec.pages),
+                           shared=list(rec.shared), table_row=rec.table_row.copy())
+                for u, rec in parked.items()}
+
+    def snapshot(self) -> EngineSnapshot:
+        """Capture one tick boundary (see :class:`EngineSnapshot`).  Call it
+        between ticks only: one taken mid-tick would mix pre- and post-tick
+        state."""
+        snap = EngineSnapshot(
+            cache=self._clone_cache(self.cache),
+            dcache=self._clone_cache(self._dcache) if self._spec else None,
+            keys=[g.get_state() for g in self._keys],
+            pos=self._pos.copy(), start=self._start.copy(), temp=self._temp.copy(),
+            next_tok=self._next_tok.copy(), free=list(self._free), queue=list(self._queue),
+            active={s: (st.req, list(st.emitted)) for s, st in self._active.items()},
+            results={u: list(v) for u, v in self._results.items()},
+            parked=self._copy_parked(self._parked), next_uid=self._next_uid,
+            spec_stats=dict(self.spec_stats), cow_copies=self._cow_copies)
+        if self._paged:
+            snap.table = self._table.copy()
+            snap.slot_pages = {s: list(v) for s, v in self._slot_pages.items()}
+            snap.slot_shared = {s: list(v) for s, v in self._slot_shared.items()}
+            snap.slot_reserved = dict(self._slot_reserved)
+            snap.alloc = self._alloc.snapshot()
+            if self._prefix is not None:
+                snap.prefix = self._prefix.snapshot()
+        return snap
+
+    def restore(self, snap: EngineSnapshot) -> None:
+        """Roll the engine back to ``snap``: pools copied back in place (each
+        layer adopting a copy of its captured block table), every slot's
+        generator rebuilt in its captured state.  Everything is copied on
+        the way in, so one snapshot restores any number of times;
+        ``check_leaks`` passes right after (restore unwinds the partial
+        allocations, pins and table updates of a failed tick)."""
+        self._restore_cache(self.cache, snap.cache)
+        if self._spec:
+            self._restore_cache(self._dcache, snap.dcache)
+        self._keys = [self._generator(st) for st in snap.keys]
+        self._pos = snap.pos.copy()
+        self._start = snap.start.copy()
+        self._temp = snap.temp.copy()
+        self._next_tok = snap.next_tok.copy()
+        self._free = list(snap.free)
+        self._queue = deque(snap.queue)
+        self._active = {s: _SlotState(req, list(em)) for s, (req, em) in snap.active.items()}
+        self._results = {u: list(v) for u, v in snap.results.items()}
+        self._parked = self._copy_parked(snap.parked)
+        self._next_uid = snap.next_uid
+        self.spec_stats = dict(snap.spec_stats)
+        self._cow_copies = snap.cow_copies
+        if self._paged:
+            self._table = snap.table.copy()
+            self._slot_pages = {s: list(v) for s, v in snap.slot_pages.items()}
+            self._slot_shared = {s: list(v) for s, v in snap.slot_shared.items()}
+            self._slot_reserved = dict(snap.slot_reserved)
+            self._alloc.restore(snap.alloc)
+            if self._prefix is not None:
+                self._prefix.restore(snap.prefix)
+
+    # .. park / resume (the elastic-capacity boundary) ..
+    def park_slot(self, slot: int) -> int:
+        """Suspend the stream in ``slot`` mid-generation: its pages (and
+        their KV) stay resident under a :class:`_Parked` record while the
+        slot frees for other work; ``resume_parked`` continues the stream
+        bit for bit.  Paged backend only, and not with a drafter.  Returns
+        the parked request's uid."""
+        if not self._paged:
+            raise ValueError(
+                "parking requires the paged backend: dense slots reuse the parked "
+                "stream's KV rows for the next occupant")
+        if self._spec:
+            raise ValueError(
+                "parking speculative engines is unsupported: the drafter's dense "
+                "cache rows cannot survive slot reuse")
+        st = self._active.pop(slot)
+        uid = st.req.uid
+        self._parked[uid] = _Parked(
+            req=st.req, emitted=st.emitted, pos=int(self._pos[slot]),
+            start=int(self._start[slot]), temp=float(self._temp[slot]),
+            key=self._keys[slot].get_state(), next_tok=int(self._next_tok[slot]),
+            table_row=self._table[slot].copy(), pages=self._slot_pages.pop(slot, []),
+            shared=self._slot_shared.pop(slot, []),
+            reserved=self._slot_reserved.pop(slot, 0))
+        self._free.append(slot)
+        self._pos[slot] = 0
+        self._start[slot] = 0
+        self._temp[slot] = 0.0
+        self._next_tok[slot] = self.pad_id
+        _set_slot(self.cache, slot, 0, 0)
+        self._table[slot] = 0
+        self._push_table()
+        return uid
+
+    def resume_parked(self, uid: int) -> int:
+        """Resume a parked stream into a free slot: its block-table row,
+        generator state, positions and pending token come back exactly, so
+        the continued stream equals one never parked.  Returns the slot;
+        raises when no slot is free."""
+        rec = self._parked[uid]
+        if not self._free:
+            raise RuntimeError(f"cannot resume parked request {uid}: no free slot")
+        slot = self._free[-1]
+        self._free.remove(slot)
+        del self._parked[uid]
+        self._slot_pages[slot] = rec.pages
+        self._slot_shared[slot] = rec.shared
+        self._slot_reserved[slot] = rec.reserved
+        self._table[slot] = rec.table_row
+        self._push_table()
+        _set_slot(self.cache, slot, rec.pos, rec.start)
+        self._pos[slot] = rec.pos
+        self._start[slot] = rec.start
+        self._temp[slot] = rec.temp
+        self._next_tok[slot] = rec.next_tok
+        self._keys[slot] = self._generator(rec.key)
+        self._active[slot] = _SlotState(rec.req, rec.emitted)
+        return slot
+
+    def drop_parked(self, uid: int) -> None:
+        """Abandon a parked stream (cancel or quarantine while parked):
+        release every page reference its record holds."""
+        rec = self._parked.pop(uid)
+        for pid in rec.pages + rec.shared:
+            self._alloc.release(pid)
+
+    @property
+    def parked_uids(self) -> list[int]:
+        return list(self._parked)
+
     def check_leaks(self) -> None:
         """Allocator leak check: every page's refcount equals its holders
-        (block-table occurrences plus the prefix cache's pins) and free +
-        resident pages tile the pool.  Nothing to check on dense rows."""
+        (block-table occurrences, the prefix cache's pins and parked
+        streams' records) and free + resident pages tile the pool.
+        Nothing to check on dense rows."""
         if not self._paged:
             return
         occupancy: dict[int, int] = {}
         pins = self._prefix.pages() if self._prefix is not None else []
-        for pid in self._table.reshape(-1).tolist() + pins:
+        parked = [pid for rec in self._parked.values() for pid in rec.pages + rec.shared]
+        for pid in self._table.reshape(-1).tolist() + pins + parked:
             if pid:
                 occupancy[pid] = occupancy.get(pid, 0) + 1
         self._alloc.check(occupancy)
