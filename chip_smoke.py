@@ -30,7 +30,10 @@ Phases (each prints its seconds; any failure exits non-zero):
    per-sequence offsets at the speculative drafter's tick, Sq = 1, and
    its verify burst, Sq = 5, over 8 x 576 columns, with planted faults
    "slot 0's offset for every slot" and "offset off by one", and a CUDA
-   ``valid`` mask refused) and the
+   ``valid`` mask refused; its ring form at the starcoder2-15b tick: 8
+   slots, 48 / 4 heads, a 4096-row ring read at positions on both sides of
+   the wrap, with the planted faults "positions read unrotated" and
+   "window off by one") and the
    paged attention
    kernel (split-KV, one launch), the latter with bf16 pools and with
    int8 pools + bf16 scales, at the serving tick's shape, at G = 12 and
@@ -68,7 +71,10 @@ Phases (each prints its seconds; any failure exits non-zero):
    drafter's K + 1 steps and on the tensor-core loop for the verify,
    kernel 2 with per-sequence offsets once per layer of each, kernel 3
    never), acceptance >= 0.95 with the weight-shared drafter, the
-   streams equal to the plain EN-T run's counted, and one spec tick
+   streams equal to the plain EN-T run's counted, at each stream's first
+   divergence the plain path's top-1 minus top-2 logit beside the two
+   paths' logit difference there and before it (a flip larger than twice
+   the latter is logged as a fault), and one spec tick
    profiled (drafter steps, verify, its page gathers, device busy);
 5. the scheduler phase on the speculative phase's model
    (``serve_scheduler``): (a) the shared-prefix phase's 18 prompts
@@ -90,7 +96,21 @@ Phases (each prints its seconds; any failure exits non-zero):
    the snapshot's bytes and its host and device ms; (c) the same 8 parked
    and resumed by ``ElasticSupervisor`` over 2 simulated hosts, ≡ the
    uninterrupted streams, leak-free; (d) ``launch/serve.py``'s
-   ``--http --http-smoke`` path, plain and under "ci-chaos";
+   ``--http --http-smoke`` path, plain and under "ci-chaos"; then
+   ``generate`` on the same model: the serve phase's first 8 prompts
+   left-padded with ``prompt_lens``, 32 greedy steps on dense rows, kernel
+   1 on both routes and kernel 2 (offsets on decode) only, its streams
+   counted against the engine's;
+5b. sliding-window serving on full-width starcoder2-15b (40 layers,
+   d_model 6144, 48 / 4 heads, d_ff 24576, window 4096; EN-T weights
+   quantized layer by layer on the card; a 4096-row ring a slot): 16
+   greedy requests of 4,080..4,600 prompt tokens, 32 new tokens each, on
+   8 slots; every decode tick kernel 1 240 times on the split-K stream
+   and kernel 2's ring form 40 times, every prefill chunk (4,096 rows)
+   kernel 1 240 times on the tensor-core loop and kernel 2 40 times with
+   window 4096, kernel 3 and the plain versions never; the first wave's
+   prompts re-admitted over stale rings reproduce their streams; a
+   full-batch tick timed and profiled (kernel 2's ring share);
 6. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
@@ -106,6 +126,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    around a rollback and the drafter's dense decode steps, kernels vs
    plain and the bursts vs K + 1 kernel decode steps within the same
    limit, the planted fault "pos not reset after a rejection" over it;
+   and the ring's path (a 4,300-token prompt in chunks of 4,096 and 204
+   rows, the second over the wrap, then 4 decode ticks), whose planted
+   fault "context read after the chunk's write" the limit must reject;
 7. the training kernels: the flash forward (kernel 7) against
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
@@ -162,6 +185,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -370,6 +394,77 @@ def check_matmuls(torch, timer):
     print("  EN-T identity: int8_matmul, ent_matmul (4-plane), ent_matmul_packed and "
           "ent_matmul_packed_fused gave the same int32 accumulator at all 8 shapes",
           flush=True)
+    return rows
+
+
+# starcoder2-15b's projections (d_model 6144, 4 kv heads of 128, d_ff
+# 24576, GELU): q and o, k and v, up, down; and the M its ring serving runs
+# kernel 1 at: a decode tick's 8 slots (the split-K stream), a second
+# prefill chunk's ragged rows (a 4,097..4,600-token prompt less the ring's
+# 4,096) and a whole first chunk (both on the tensor-core loop)
+RING_SHAPES = [(6144, 6144), (6144, 512), (6144, 24576), (24576, 6144)]
+RING_MATMUL_M = (8, 497, 4096)
+
+
+def check_ring_matmuls(torch, timer):
+    """Kernel 1 (``ent_matmul_packed_fused``) at RING_SHAPES x RING_MATMUL_M
+    through its public wrapper, each call one launch on the route its cut
+    gives that M: bit for bit against its plain version in f32 and bf16
+    outputs, its int32 accumulator equal to X @ W (the EN-T identity); one
+    plane code off by one must fail the exact check at every M; timed
+    against the plain version and ``torch._int_mm``.  Returns rows."""
+    from repro_torch.core.multiplier import ent_packed_planes
+    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused as kern1
+    from repro_torch.kernels.ent_matmul.ops import row_scale
+    from repro_torch.kernels.ent_matmul.ref import ent_packed_matmul_ref, quantize_with_scale
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref
+    g = torch.Generator(device=DEV).manual_seed(16)
+    rows = []
+    for k, n in RING_SHAPES:
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
+        packed = ent_packed_planes(w8).contiguous()
+        sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
+        for m in RING_MATMUL_M:
+            x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
+            sx = row_scale(x)
+            xq = quantize_with_scale(x, sx)
+            route = matmul_route("ent_matmul_packed_fused", m)
+            what = f"ent_matmul_packed_fused (starcoder2-15b) M={m} K={k} N={n}"
+            acc = int8_matmul_int32_ref(xq, w8)
+            for o in (torch.int32, torch.float32, torch.bfloat16):
+                want = acc if o == torch.int32 else ent_packed_matmul_ref(xq, packed, sx, sw, o)
+                before = kern1.launches, getattr(kern1, f"{route}_launches")
+                got = kern1(x, packed, sx, sw, o)
+                torch.cuda.synchronize()
+                if (kern1.launches - before[0],
+                        getattr(kern1, f"{route}_launches") - before[1]) != (1, 1):
+                    raise AssertionError(f"{what}: not one launch on the {route} route")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{what} out {o}: not bit-identical "
+                                         f"({int((got != want).sum())} of {m * n} differ)")
+            bad = packed.clone()
+            flat = bad.view(-1)
+            flat[k * n // 2] += 1 if int(flat[k * n // 2]) < 1 else -1
+            n_bad = int((kern1(x, bad, sx, sw, torch.int32) != acc).sum())
+            if not n_bad:
+                raise AssertionError(f"{what}: the exact check misses a wrong code")
+            del bad, flat, acc
+            xq_lib = torch.cat([xq, xq.new_zeros((max(0, 32 - m), k))]) if m < 32 else xq
+            library_ms = timer(lambda: torch._int_mm(xq_lib, w8))
+            ms = timer(lambda: kern1(x, packed, sx, sw, torch.bfloat16))
+            plain_ms = timer(lambda: ent_packed_matmul_ref(xq, packed, sx, sw, torch.bfloat16),
+                             reps=3)
+            # bf16 X, the two planes, sx and sw read once, bf16 out written once
+            nbytes = m * k * 2 + 2 * k * n + 4 * m + 4 * n + 2 * m * n
+            b, by = bound_ms(nbytes, 2 * 2 * m * k * n, INT8_OPS_S)
+            print(f"kernel {what} route={route} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={library_ms:.4f} bound_ms={b:.4f} ({by}) max_abs_err=0.0 "
+                  f"bit_exact=True (int32 / f32 / bf16); planted fault 'one code off by one': "
+                  f"{n_bad} of {m * n} outputs differ", flush=True)
+            rows.append(dict(M=m, K=k, N=n, route=route, out="bf16", ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=b, bound_by=by, max_abs_err=0.0))
+        del w8, packed
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -751,12 +846,37 @@ def attn_check(torch, what, kernel, plain, operands, faults):
 # instantiation; and the prefix cache's two shapes: the peek of a fully
 # cached prompt (Sq = 1 at q_offset = n - 1, not a multiple of the 64-row
 # q tile) and a tail-padded suffix at a page-aligned q_offset that is not a
-# multiple of the 64-column kv tile (Skv = q_offset + its bucket).
+# multiple of the 64-column kv tile (Skv = q_offset + its bucket).  Last,
+# the ring's prefill at starcoder2-15b's heads (Hq 48 over Hkv 4: G = 12):
+# a 1,024-row chunk after a full ring of 4,096 (q_offset 4096) under the
+# 4,096 window, with keys aligned to the queries (``align_edges``) so that
+# one key more or less at a row's window edge or at its start shows.  A
+# case's optional last item: {"heads": (Hq, Hkv), "aligned": True}.
 FLASH_CASES = [(1, 64, 64, (12,), 0, None, 128), (1, 200, 200, (40,), 0, None, 128),
                (1, 512, 512, (102,), 0, None, 128), (1, 512, 512, (102,), 0, 128, 128),
                (3, 300, 300, (0, 150, 290), 0, None, 128),
                (1, 128, 512, (37,), 384, None, 128), (2, 200, 200, (17, 90), 0, 96, 64),
-               (1, 1, 761, (0,), 760, None, 128), (1, 256, 528, (0,), 272, None, 128)]
+               (1, 1, 761, (0,), 760, None, 128), (1, 256, 528, (0,), 272, None, 128),
+               (1, 1024, 5120, (37,), 4096, 4096, 128, dict(heads=(48, 4), aligned=True))]
+
+
+def align_edges(q, k, start, q_offset, window):
+    """Make the keys at a B = 1 case's mask edges carry their rows'
+    weight: query row t's window edge is column e(t) = q_offset + t -
+    window (the key ``window + 1`` adds), so column e(t) gets the sum of
+    row t's group's queries where it lies past ``start``; the rows whose
+    edge lies below ``start`` are made equal to row 0, and column
+    ``start`` (the key ``start + 1`` drops from them) gets row 0's sum.
+    Works on q [1, Hq, Sq, D] and k [1, Hkv, Skv, D] in place."""
+    hq, sq, d = q.shape[1:]
+    hkv = k.shape[1]
+    edge = q_offset - window
+    below = min(sq, max(0, start - edge))   # rows whose window edge lies below start
+    q[0, :, :below] = q[0, :, :1]
+    sums = q[0].reshape(hkv, hq // hkv, sq, d).sum(1)
+    rows = [t for t in range(sq) if edge + t > start]
+    k[0, :, edge + rows[0]:edge + rows[-1] + 1] = sums[:, rows[0]:rows[-1] + 1]
+    k[0, :, start] = sums[:, 0]
 
 
 def check_flash(torch, timer):
@@ -774,11 +894,15 @@ def check_flash(torch, timer):
     kern2 = fa.flash_attention_masked
     g = torch.Generator(device=DEV).manual_seed(12)
     rows = []
-    hq, hkv = 16, 2
-    for b, sq, skv, starts, qo, window, d in FLASH_CASES:
-        q = torch.randn((b, hq, sq, d), generator=g, device=DEV).to(torch.bfloat16)
-        k = torch.randn((b, hkv, skv, d), generator=g, device=DEV).to(torch.bfloat16)
-        v = torch.randn((b, hkv, skv, d), generator=g, device=DEV).to(torch.bfloat16)
+    for b, sq, skv, starts, qo, window, d, *extra in FLASH_CASES:
+        extra = extra[0] if extra else {}
+        hq, hkv = extra.get("heads", (16, 2))
+        q = torch.randn((b, hq, sq, d), generator=g, device=DEV)
+        k = torch.randn((b, hkv, skv, d), generator=g, device=DEV)
+        v = torch.randn((b, hkv, skv, d), generator=g, device=DEV)
+        if extra.get("aligned"):
+            align_edges(q, k, starts[0], qo, window)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         start = torch.tensor(starts, dtype=torch.int32, device=DEV)
         kw = dict(q_offset=qo, window=window)
         faults = {}
@@ -790,8 +914,8 @@ def check_flash(torch, timer):
         if window:
             faults["window + 1"] = lambda q, k, v, st: kern2(
                 q, k, v, st, q_offset=qo, window=window + 1)
-        what = (f"flash_attention_masked B={b} Sq={sq} Skv={skv} start={list(starts)} "
-                f"q_offset={qo} window={window} D={d}")
+        what = (f"flash_attention_masked B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
+                f"start={list(starts)} q_offset={qo} window={window} D={d}")
         tc0 = kern2.launches, kern2.tc_launches
         err = attn_check(torch, what, lambda q, k, v, st: kern2(q, k, v, st, **kw),
                          lambda q, k, v, st: masked_attention_ref(q, k, v, start=st, **kw),
@@ -815,16 +939,18 @@ def check_flash(torch, timer):
         library_ms = timer(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask[:, None], enable_gqa=True))
         pairs = int(mask.sum())
-        # q, k, v and start read once, the output (q's dtype) written once
-        nbytes = (q.numel() + 2 * k.numel()) * q.element_size() + 4 * b \
-            + got.numel() * got.element_size()
+        live = int(mask.any(1).sum())   # K/V columns some query row attends
+        # q, start and the live K/V columns read once, the output (q's
+        # dtype) written once
+        nbytes = q.numel() * q.element_size() + 2 * live * hkv * d * k.element_size() \
+            + 4 * b + got.numel() * got.element_size()
         bnd, by = bound_ms(nbytes, pairs * hq * d * 4, BF16_FLOPS_S)
         print(f"kernel {what} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} bound_ms={bnd:.5f} ({by}) max_abs_err={err}",
               flush=True)
-        rows.append(dict(B=b, S=sq, Skv=skv, start=list(starts), q_offset=qo, window=window,
-                         D=d, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
-                         bound_by=by, max_abs_err=err))
+        rows.append(dict(B=b, Hq=hq, Hkv=hkv, S=sq, Skv=skv, start=list(starts), q_offset=qo,
+                         window=window, D=d, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bnd, bound_by=by, max_abs_err=err))
     return rows
 
 
@@ -904,6 +1030,74 @@ def check_flash_offsets(torch, timer):
                          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
                          bound_by=by, max_abs_err=err))
     return rows
+
+
+# Kernel 2's ring form at the starcoder2-15b decode tick: B = 8 slots, Hq
+# 48 over Hkv 4 (G = 12), D 128, a ring of W = 4096 rows (its window).
+# pos per slot on both sides of the wrap: just past it (4100: the seam
+# between rows 4 and 5), exactly full (4095), before it (3000), several
+# laps (12345) and between; start inside the held range on two slots (4500
+# of 1905..6000, 4990 of 905..5000: 11 live keys) and below it on one.
+RING_W = 4096
+RING_POS = (4100, 4095, 3000, 6000, 4600, 12345, 4160, 5000)
+RING_START = (0, 0, 0, 4500, 100, 0, 0, 4990)
+
+
+def check_flash_ring(torch, timer):
+    """Kernel 2's ring form against ``masked_attention_ref(ring_width=)``
+    (the ring cache's own mask) through ``attn_check``, bf16 (tensor-core
+    route) and float32 (CUDA cores), with the planted faults "positions
+    read unrotated" (the same call without ``ring_width``: row j taken as
+    position j) and "window off by one" (window W - 1).  Slot 0's oldest
+    position (pos - W + 1, in the row after the seam) holds a key aligned
+    with its group's queries, which carries most of the row's weight, so
+    that dropping it shows in both dtypes.  Every ring call one ring
+    launch.  Timed against the plain version and SDPA with the same bool
+    mask, beside its bytes bound (each live kv row read once).  Returns rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import masked_attention_ref, ring_valid
+    kern2 = fa.flash_attention_masked
+    g = torch.Generator(device=DEV).manual_seed(15)
+    b, hq, hkv, d, w = SLOTS, 48, 4, 128, RING_W
+    q = torch.randn((b, hq, 1, d), generator=g, device=DEV)
+    k = torch.randn((b, hkv, w, d), generator=g, device=DEV)
+    v = torch.randn((b, hkv, w, d), generator=g, device=DEV)
+    k[0, :, (RING_POS[0] + 1) % w] = q[0, :, 0].reshape(hkv, hq // hkv, d).sum(1)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    pos = torch.tensor(RING_POS, dtype=torch.int32, device=DEV)
+    start = torch.tensor(RING_START, dtype=torch.int32, device=DEV)
+    faults = {
+        "positions read unrotated (p_j = j)": lambda q, k, v, st, p: kern2(
+            q, k, v, st, q_offsets=p, window=w),
+        "window off by one": lambda q, k, v, st, p: kern2(
+            q, k, v, st, q_offsets=p, ring_width=w, window=w - 1)}
+    what = (f"flash_attention_masked ring form B={b} Hq={hq} Hkv={hkv} W={w} "
+            f"pos={list(RING_POS)} start={list(RING_START)} D={d}")
+    n0 = kern2.ring_launches
+    err = attn_check(torch, what,
+                     lambda q, k, v, st, p: kern2(q, k, v, st, q_offsets=p, ring_width=w,
+                                                  window=w),
+                     lambda q, k, v, st, p: masked_attention_ref(
+                         q, k, v, start=st, q_offsets=p, ring_width=w, window=w),
+                     (q, k, v, start, pos), faults)
+    if kern2.ring_launches - n0 != 4:   # 2 dtypes x (the check, the window fault)
+        raise AssertionError(f"{what}: {kern2.ring_launches - n0} ring launches, expected 4")
+    ms = timer(lambda: kern2(q, k, v, start, q_offsets=pos, ring_width=w, window=w))
+    plain_ms = timer(lambda: masked_attention_ref(q, k, v, start=start, q_offsets=pos,
+                                                  ring_width=w, window=w), reps=5)
+    mask = ring_valid(pos, start, w, w)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[:, None, None, :], enable_gqa=True))
+    live = int(mask.sum())   # ring rows a slot attends, summed over the slots
+    # q and the output once, the live K/V rows once, pos and start
+    nbytes = 2 * q.numel() * 2 + live * hkv * d * 2 * 2 + 8 * b
+    bnd, by = bound_ms(nbytes, live * hq * d * 4, BF16_FLOPS_S)
+    print(f"kernel {what} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={bnd:.5f} ({by}) max_abs_err={err}", flush=True)
+    return [dict(case="ring tick", B=b, Hq=hq, Hkv=hkv, W=w, pos=list(RING_POS),
+                 start=list(RING_START), D=d, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=bnd, bound_by=by, max_abs_err=err)]
 
 
 # The paged decode's checked calls (kernels 3 and 3b): name -> (B, Hq, Hkv,
@@ -1742,7 +1936,7 @@ def reset_counts(torch):
     kernels, plains, paged = wrappers(torch)
     for f in kernels:
         f.launches = 0
-        for route in ("tc_launches", "stream_launches", "offset_launches",
+        for route in ("tc_launches", "stream_launches", "offset_launches", "ring_launches",
                       *(f"{part}_launches" for part in SSD_FWD_PARTS + SSD_BWD_STATE_PARTS)):
             if hasattr(f, route):
                 setattr(f, route, 0)
@@ -1771,6 +1965,12 @@ def read_offset_launches(torch):
     """Kernel 2's launches with per-sequence offsets (``q_offsets``)."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked
     return flash_attention_masked.offset_launches
+
+
+def read_ring_launches(torch):
+    """Kernel 2's launches in its ring form (``ring_width``)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked
+    return flash_attention_masked.ring_launches
 
 
 def read_tc_counts(torch):
@@ -1814,6 +2014,47 @@ def build_kw(kw):
     return kw
 
 
+@contextlib.contextmanager
+def emitted_rows(engine, rows):
+    """While inside, ``rows[(uid, i)]`` <- the logits row that token i of
+    request ``uid`` was sampled from: its admission prefill's, its decode
+    tick's, or its verify burst's (burst position i - e0, e0 the slot's
+    tokens before the tick).  Rows are views of the logits the engine
+    computed anyway: nothing is launched for them."""
+    model, last = engine.model, {}
+
+    def wrap(name):
+        real = getattr(model, name)
+
+        def f(*a, **kw):
+            out = real(*a, **kw)
+            last.update(kind=name, logits=out[0],
+                        e0={s: len(st.emitted) for s, st in engine._active.items()})
+            return out
+        return f
+
+    real_emit = engine._emit
+
+    def emit(slot, tok):
+        st = engine._active[slot]
+        i, lg = len(st.emitted), last["logits"]
+        rows[(st.req.uid, i)] = (lg[0] if last["kind"] == "prefill" else lg[slot]
+                                 if last["kind"] == "decode_step" else
+                                 lg[slot, i - last["e0"][slot]])
+        return real_emit(slot, tok)
+
+    names = ("prefill", "decode_step", "verify_step")
+    for name in names:
+        setattr(model, name, wrap(name))
+    engine._emit = emit
+    try:
+        yield
+    finally:
+        for name in names:
+            delattr(model, name)
+        del engine._emit
+
+
 def serve_full_width(torch, config):
     """Serve 16 ragged greedy requests on full-width qwen2.5-3b in one of
     SERVE_CONFIGS; every kernel of its path must launch (counts set to 0
@@ -1840,8 +2081,10 @@ def serve_full_width(torch, config):
                          prefix_cache=False, seed=0)
     rng = np.random.default_rng(0)
     prompts = launch.ragged_prompts(rng, 16, 256, 512, cfg.vocab_size)
+    rows = {}   # the logits each token came from (the spec phase's near-tie check)
     reset_counts(torch)
-    results, dt = launch.serve(engine, prompts, max_new_tokens=32)
+    with emitted_rows(engine, rows) if "EN-T" in config else contextlib.nullcontext():
+        results, dt = launch.serve(engine, prompts, max_new_tokens=32)
     launches, plain_runs = read_counts(torch)
     routes = {"flash_attention_masked[tensor-core]": read_tc_counts(torch)[
         "flash_attention_masked"], **read_matmul_routes(torch)}
@@ -1874,10 +2117,15 @@ def serve_full_width(torch, config):
     prefill = profile_prefill(torch, engine, max(prompts, key=len), cfg, config)
     del engine, params, model
     torch.cuda.empty_cache()
-    return launches, toks / dt, routes, prefill, tick_routes, results
+    return launches, toks / dt, routes, prefill, tick_routes, results, rows
 
 
-PROJECTIONS = 7   # quantized projections a layer: q, k, v, o, gate, up, down
+def projections(cfg):
+    """Quantized projections a layer: q, k, v, o and the MLP's (up, down;
+    gate too when gated)."""
+    return 4 + (3 if cfg.mlp_type == "swiglu" else 2)
+
+
 SLOTS = 8         # the serving engine's slots: a full decode tick's M
 
 
@@ -1947,7 +2195,7 @@ def serve_shared_prefix(torch):
         raise AssertionError(f"shared prefix: a kernel of the path never launched: {launches}")
     if any(plain_runs.values()):
         raise AssertionError(f"shared prefix: plain versions ran on the path: {plain_runs}")
-    per = PROJECTIONS * cfg.num_layers
+    per = projections(cfg) * cfg.num_layers
     ticks = launches["paged_attention_kernel"] // cfg.num_layers
     want = {"paged_attention_kernel": cfg.num_layers * ticks,
             "flash_attention_masked": cfg.num_layers * n,
@@ -2008,7 +2256,33 @@ def spec_drafters(cfg, model, params):
             "truncated (layer 0)": (one, dict(head, layers=params["layers"][:1]))}
 
 
-def serve_spec(torch, plain_streams, plain_tok_s, model, params):
+def flip_margins(plain_rows, spec_rows, plain_streams, streams):
+    """At each stream's first divergence from plain decode: the plain
+    path's top-1 minus top-2 logit, the plain logit of its token minus that
+    of the token the speculative path emitted, and the largest |logit
+    difference| between the two paths there; against the largest |logit
+    difference| over the positions before every divergence (the same
+    prefix read through kernel 3 in plain decode and through kernel 2 in
+    the verify).  A flip whose gap exceeds twice that is not a near-tie:
+    a fault.  Returns (flips, the prefix positions' largest difference)."""
+    ordinary, flips = 0.0, []
+    for u in sorted(streams):
+        i = first_difference(streams[u], plain_streams[u])
+        for j in range(i):
+            ordinary = max(ordinary, float((plain_rows[(u, j)] - spec_rows[(u, j)]).abs().max()))
+        if i == len(streams[u]):
+            continue
+        p, sp = plain_rows[(u, i)].float(), spec_rows[(u, i)].float()
+        top = p.topk(2).values
+        a, b = plain_streams[u][i], streams[u][i]
+        flips.append(dict(uid=u, index=i, top1_minus_top2=float(top[0] - top[1]),
+                          gap=float(p[a] - p[b]), delta=float((p - sp).abs().max())))
+    for f in flips:
+        f["fault"] = f["gap"] > 2 * ordinary
+    return flips, ordinary
+
+
+def serve_spec(torch, plain_streams, plain_tok_s, model, params, plain_rows):
     """Speculative decoding on full-width qwen2.5-3b, EN-T, bf16 KV: the EN-T
     serve phase's 16 ragged greedy prompts, 32 new tokens each, 8 slots,
     plain paged admission (``prefix_cache=False``), k = SPEC_K, with each
@@ -2038,8 +2312,10 @@ def serve_spec(torch, plain_streams, plain_tok_s, model, params):
         engine = ServeEngine(model, params, slots=SLOTS, max_len=576, page_size=16,
                              prefix_cache=False, seed=0, draft_model=dm, draft_params=dp,
                              spec_k=SPEC_K)
+        rows = {}
         reset_counts(torch)
-        results, dt = launch.serve(engine, prompts, max_new_tokens=32)
+        with emitted_rows(engine, rows) if arm == "weight-shared" else contextlib.nullcontext():
+            results, dt = launch.serve(engine, prompts, max_new_tokens=32)
         launches, plain_runs = read_counts(torch)
         got = {**launches, **read_matmul_routes(torch),
                "flash_attention_masked[offsets]": read_offset_launches(torch),
@@ -2052,8 +2328,8 @@ def serve_spec(torch, plain_streams, plain_tok_s, model, params):
         st, rate = dict(engine.spec_stats), engine.acceptance_rate
         ticks, adm, nl, dl = st["ticks"], len(prompts), cfg.num_layers, dm.cfg.num_layers
         offsets = (nl + (SPEC_K + 1) * dl) * ticks
-        want = {"ent_matmul_packed_fused[stream]": (SPEC_K + 1) * PROJECTIONS * dl * ticks,
-                "ent_matmul_packed_fused[tc]": PROJECTIONS * (nl * ticks + (nl + dl) * adm),
+        want = {"ent_matmul_packed_fused[stream]": (SPEC_K + 1) * projections(cfg) * dl * ticks,
+                "ent_matmul_packed_fused[tc]": projections(cfg) * (nl * ticks + (nl + dl) * adm),
                 "flash_attention_masked": offsets + (nl + dl) * adm,
                 "flash_attention_masked[tensor-core]": offsets + (nl + dl) * adm,
                 "flash_attention_masked[offsets]": offsets,
@@ -2079,8 +2355,23 @@ def serve_spec(torch, plain_streams, plain_tok_s, model, params):
               f"{st['emitted'] / ticks:.3f} tokens a tick ({per_slot:.3f} an active slot); streams "
               f"equal to the plain EN-T phase's: {same} of 16 (first differing token of each: "
               f"{first}); equal to the other arms': {arms_same}; launches {seen}", flush=True)
+        near_ties = None
+        if rows:
+            flips, ordinary = flip_margins(plain_rows, rows, plain_streams, results)
+            faults = [f for f in flips if f["fault"]]
+            print(f"  spec [{arm}]: at each stream's first divergence from plain decode, plain "
+                  "top-1 minus top-2 / plain gap to the emitted token / |logit difference| "
+                  "between the paths: "
+                  + "; ".join(f"uid {f['uid']} token {f['index']}: {f['top1_minus_top2']:.4f} / "
+                              f"{f['gap']:.4f} / {f['delta']:.4f}" for f in flips)
+                  + f"; the paths' largest |logit difference| before any divergence "
+                  f"{ordinary:.4f}; flips above twice it (faults): {len(faults)} of "
+                  f"{len(flips)}", flush=True)
+            near_ties = dict(flips=flips, ordinary_delta=ordinary, faults=len(faults))
+            rows.clear()
         tick = profile_spec_tick(torch, engine, prompts[:SLOTS], arm)
         arms[arm] = dict(tok_s=toks / dt, of_plain=toks / dt / plain_tok_s, acceptance=rate,
+                         near_ties=near_ties,
                          stats=st, tokens_per_tick=st["emitted"] / ticks,
                          tokens_per_slot_tick=per_slot,
                          streams_equal_plain=same, first_difference=first,
@@ -2310,7 +2601,7 @@ def check_sched_launches(cfg, depth, launches, routes, n):
     prefill chunk kernel 1 on the tensor-core loop (252) and kernel 2 on
     its tensor-core route (36); per peek kernel 1 on the stream and kernel
     2 (tensor-core); nothing else."""
-    per, nl = PROJECTIONS * cfg.num_layers, cfg.num_layers
+    per, nl = projections(cfg) * cfg.num_layers, cfg.num_layers
     ticks, chunks, peeks = n["ticks"], n["chunks"], n["peeks"]
     want = {"ent_matmul_packed_fused[stream]": per * (ticks + peeks),
             "ent_matmul_packed_fused[tc]": per * chunks,
@@ -2609,7 +2900,7 @@ def check_serve_routes(cfg, config, launches, routes, ticks):
     cut gives the tick's 8 rows (the split-K stream) and on the tensor-core
     loop at prefill sizes of M, and kernel 2 once per prefill, all of it
     on the tensor-core route."""
-    per = PROJECTIONS * cfg.num_layers
+    per = projections(cfg) * cfg.num_layers
     paged = launches["paged_attention_kernel"] + launches["paged_attention_kernel[int8_kv]"]
     if paged != cfg.num_layers * ticks:
         raise AssertionError(f"{config}: the paged decode launched {paged} times; expected "
@@ -2803,6 +3094,24 @@ def planted(module, name, wrap):
         yield
     finally:
         setattr(module, name, real)
+
+
+def context_after_write(real):
+    """The planted fault "context read after the chunk's write", around
+    ``attention.prefill_step`` (``real``): a ring chunk attends the context
+    its ring holds once the chunk is written (the step is first run on a
+    clone of the cache, whose ``context`` the cache then serves)."""
+    from repro_torch.models import kv_cache
+
+    def step(cfg, p, x, cache, *a, **kw):
+        if not isinstance(cache, kv_cache.RingCache):
+            return real(cfg, p, x, cache, *a, **kw)
+        cache.context = real(cfg, p, x, cache.clone(), *a, **kw)[1].context
+        try:
+            return real(cfg, p, x, cache, *a, **kw)
+        finally:
+            del cache.context
+    return step
 
 
 def with_legacy_planes(params):
@@ -3102,6 +3411,470 @@ def kernels_vs_plain_spec(torch, weights, bound, kv_quant=False):
         raise AssertionError(f"spec 2-layer ({label}): the limit {bound} misses the planted "
                              f"rollback fault ({fault})")
     return launches
+
+
+# The ring phase: full-width starcoder2-15b (window 4096) served through
+# the ring.  Prompts bucket to powers of two as the reference's engine
+# left-pads them: 4,097..4,600 tokens to 8,192 (two 4,096-row chunks, the
+# ring wrapped during the prefill), 4,080 and 4,095 to 4,096 (one chunk,
+# wrapped by the first decode write); so max_len is 8,192 + 32 positions
+# (the ring itself is min(max_len, window) = 4,096 rows a slot).
+RING_MAX_LEN = 8192 + 32
+RING_LONG = (4097, 4600)    # the 14 prompts' lengths, drawn from this range
+RING_SHORT = (4080, 4095)
+RING_CHECK = (5120, 5220)   # the 2-layer ring case: prompt tokens, max_len
+
+
+def ring_prompts(cfg):
+    """14 prompts of 4,097..4,600 tokens and two of RING_SHORT (seed 0), the
+    short ones third and eleventh (one in each wave of 8 slots)."""
+    import numpy as np
+    from repro_torch.launch import serve as launch
+    rng = np.random.default_rng(0)
+    prompts = launch.ragged_prompts(rng, 14, *RING_LONG, cfg.vocab_size)
+    for at, n in zip((2, 10), RING_SHORT):
+        prompts.insert(at, rng.integers(0, cfg.vocab_size, n).tolist())
+    return prompts
+
+
+def step_counts(torch):
+    """The serving kernels' counters: kernel 1 by route, kernel 2 (its
+    tensor-core, offset and ring launches), kernel 3, the plain versions."""
+    launches, plain_runs = read_counts(torch)
+    return {**read_matmul_routes(torch), "flash_attention_masked": launches[
+        "flash_attention_masked"], "flash_attention_masked[tensor-core]": read_tc_counts(
+        torch)["flash_attention_masked"], "flash_attention_masked[offsets]":
+        read_offset_launches(torch), "flash_attention_masked[ring]": read_ring_launches(torch),
+        "paged_attention_kernel": launches["paged_attention_kernel"]
+        + launches["paged_attention_kernel[int8_kv]"], "plain": sum(plain_runs.values())}
+
+
+@contextlib.contextmanager
+def counted_steps(torch, model, calls):
+    """Append ("tick", counter deltas) for each ``model.decode_step`` and
+    ("chunk", deltas, kernel 2's windows) for each cache-writing
+    ``model.apply`` (a prefill chunk) while inside; kernel 2's calls are
+    recorded through its ops-level name (window and ring width)."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    seen = []
+
+    def record(f):
+        def g(*a, **kw):
+            seen.append((kw.get("window"), kw.get("ring_width")))
+            return f(*a, **kw)
+        return g
+
+    def wrap(name, kind):
+        real = getattr(model, name)
+
+        def f(*a, **kw):
+            before, n = step_counts(torch), len(seen)
+            out = real(*a, **kw)
+            after = step_counts(torch)
+            calls.append((kind, {k: after[k] - before[k] for k in after}, seen[n:]))
+            return out
+        return f
+
+    model.decode_step = wrap("decode_step", "tick")
+    model.apply = wrap("apply", "chunk")
+    try:
+        with planted(attn_ops, "flash_attention_masked", record):
+            yield
+    finally:
+        del model.decode_step, model.apply
+
+
+def check_ring_steps(cfg, calls):
+    """Every decode tick: kernel 1 once per projection and layer, all on the
+    split-K stream, and kernel 2's ring form once per layer (ring width and
+    window 4096); every prefill chunk: kernel 1 once per projection and
+    layer on the tensor-core loop and kernel 2 once per layer with window
+    4096, not in ring form, all on the tensor-core route; kernel 3 and the
+    plain versions never."""
+    per, nl, w = projections(cfg) * cfg.num_layers, cfg.num_layers, cfg.sliding_window
+    want = {"tick": {"ent_matmul_packed_fused[stream]": per, "ent_matmul_packed_fused[tc]": 0,
+                     "flash_attention_masked": nl, "flash_attention_masked[tensor-core]": nl,
+                     "flash_attention_masked[offsets]": nl, "flash_attention_masked[ring]": nl,
+                     "paged_attention_kernel": 0, "plain": 0},
+            "chunk": {"ent_matmul_packed_fused[stream]": 0, "ent_matmul_packed_fused[tc]": per,
+                      "flash_attention_masked": nl, "flash_attention_masked[tensor-core]": nl,
+                      "flash_attention_masked[offsets]": 0, "flash_attention_masked[ring]": 0,
+                      "paged_attention_kernel": 0, "plain": 0}}
+    args = {"tick": [(w, RING_W)] * nl, "chunk": [(w, None)] * nl}
+    for i, (kind, got, seen) in enumerate(calls):
+        got = {k: got[k] for k in want[kind]}
+        if got != want[kind] or seen != args[kind]:
+            raise AssertionError(f"ring {kind} {i}: launches {got}, kernel 2 (window, ring) "
+                                 f"{sorted(set(seen))} x {len(seen)}; expected {want[kind]}, "
+                                 f"{args[kind][:1]} x {nl}")
+    return {k: sum(kind == k for kind, _, _ in calls) for k in want}
+
+
+def param_bytes(tree):
+    """Bytes of every tensor in a param tree."""
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
+
+
+def serve_ring(torch):
+    """Sliding-window serving on full-width starcoder2-15b (40 layers,
+    d_model 6144, 48/4 heads, head_dim 128, d_ff 24576, GELU, LayerNorm,
+    biases, vocab 49152; EN-T weights from seed 0, quantized layer by layer
+    on the card; bf16 KV): 16 greedy requests (``ring_prompts``), 32 new
+    tokens each, on 8 slots of a 4096-row ring (``cache_kind="ring"``).
+    Counts per decode tick and per prefill chunk (``check_ring_steps``);
+    ``check_leaks``.  Then the first wave's 8 prompts again, each admitted
+    into a slot whose ring still holds a second-wave request's rows: their
+    first 8 tokens must equal the run's; 3 full-batch decode ticks timed by
+    host clock, then 3 under torch.profiler (device busy, kernel 2's ring
+    share).  Returns the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    cfg = get_config("starcoder2-15b")
+    gc.collect()   # earlier phases' engines and schedulers hold their models in cycles
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params = launch.build(cfg, seed=0, quantize=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = param_bytes(params)
+    engine = ServeEngine(model, params, slots=SLOTS, max_len=RING_MAX_LEN, cache_kind="ring",
+                         prefix_cache=False, seed=0)
+    ring = engine.cache["layers"][0]
+    print(f"starcoder2-15b full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, {cfg.mlp_type}, {cfg.norm_type}, vocab {cfg.vocab_size}, window "
+          f"{cfg.sliding_window}), EN-T w8a8, bf16 KV: init + quantize {init_s:.2f}s, params "
+          f"{weights / 2**30:.2f} GiB (int8 codes and packed planes, f32 embedding and head), "
+          f"{before / 2**30:.2f} GiB live before the build; ring {type(ring).__name__} of "
+          f"{ring.width} rows x "
+          f"{SLOTS} slots, pools {engine.pool_bytes / 2**30:.3f} GiB", flush=True)
+    if engine.cache_kind != "ring" or ring.width != RING_W or ring.window != RING_W:
+        raise AssertionError(f"ring phase: backend {engine.cache_kind}, width {ring.width}")
+    prompts = ring_prompts(cfg)
+    calls = []
+    reset_counts(torch)
+    with counted_steps(torch, model, calls):
+        results, dt = launch.serve(engine, prompts, max_new_tokens=32)
+    engine.check_leaks()
+    if sorted(results) != list(range(16)) or any(len(v) != 32 for v in results.values()):
+        raise AssertionError(f"ring serve: {len(results)} results, lengths "
+                             f"{sorted(len(v) for v in results.values())}")
+    n = check_ring_steps(cfg, calls)
+    toks = sum(len(v) for v in results.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve [starcoder2-15b, EN-T w8a8, ring]: 16 requests (prompts "
+          f"{min(map(len, prompts))}..{max(map(len, prompts))} tokens) x 32 new tokens on 8 "
+          f"slots: {toks} tokens in {dt:.3f}s = {toks / dt:.2f} tok/s; {n['tick']} decode "
+          f"ticks, {n['chunk']} prefill chunks; per tick kernel 1 "
+          f"{projections(cfg) * cfg.num_layers} on the stream and kernel 2's ring form "
+          f"{cfg.num_layers}, per chunk kernel 1 {projections(cfg) * cfg.num_layers} on the "
+          f"tensor-core loop and kernel 2 {cfg.num_layers} "
+          f"(window {cfg.sliding_window}); kernel 3 and plain versions 0; peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+
+    # refill over stale rows, and a full batch to time
+    first = list(range(SLOTS))
+    for u in first:
+        engine.submit(prompts[u], max_new_tokens=8)
+    engine.step()                       # 8 admissions over stale rings + 1 tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / 3
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            engine.step()
+        torch.cuda.synchronize()
+        under = (time.perf_counter() - t0) * 1e3 / 3
+    again = engine.run()
+    engine.check_leaks()
+    same = sum(again[16 + i] == results[u][:8] for i, u in enumerate(first))
+    if same != SLOTS:
+        raise AssertionError(f"ring refill over stale rows: {same} of {SLOTS} streams equal "
+                             "the first admission's")
+    dev = device_ms_by_kernel(prof, 3)
+    busy = sum(dev.values())
+    ring_ms = sum(v for k, v in dev.items() if "flash_fwd_masked_tc" in k)
+    idle = "not measured" if not busy else f"{100 * (1 - busy / host):.1f}% idle"
+    print(f"ring refill: the first wave's 8 prompts re-admitted over stale rings, 8 of 8 "
+          f"streams equal; decode tick (8 slots, full width): {host:.3f} ms host-clock "
+          f"({under:.3f} ms under the profiler); device busy {busy:.3f} ms/tick ({idle}); "
+          f"kernel 2's ring form {ring_ms:.3f} ms/tick"
+          + (f" ({100 * ring_ms / busy:.1f}% of busy)" if busy else ""), flush=True)
+    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:9.3f} ms/tick  {name[:90]}")
+    ring_launches = sum(c[1]["flash_attention_masked[ring]"] for c in calls)
+    del engine, params, model
+    torch.cuda.empty_cache()
+    return dict(tok_s=toks / dt, seconds=dt, ticks=n["tick"], chunks=n["chunk"],
+                peak_gib=peak / 2**30, weights_gib=weights / 2**30,
+                live_before_gib=before / 2**30, init_s=init_s,
+                tick_host_ms=host, tick_busy_ms=busy, tick_ring_ms=ring_ms,
+                ring_launches=ring_launches, by_kernel=dict(
+                    sorted(dev.items(), key=lambda kv: -kv[1])[:10]))
+
+
+def kernels_vs_plain_ring(torch, bound):
+    """The ring's model-level path at 2 layers of full-width starcoder2-15b
+    (bf16, EN-T), with the kernels and with the plain versions: a
+    RING_CHECK-token prompt in two chunks (4,096 rows, then 1,024 over the
+    wrap), the logits of every row of the second chunk, and 4
+    teacher-forced decode ticks.  Fails when the logits' relative L2
+    difference exceeds ``bound`` or when the planted fault "context read
+    after the chunk's write" stays within it: the fault hands query t of
+    the second chunk its own chunk's rows in place of the retained
+    positions t + 1 .. 1,023, which only that chunk's rows see (the last
+    row's window starts past them), so every row of it is compared."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(get_config("starcoder2-15b"), num_layers=2)
+    model, params = launch.build(cfg, seed=1, quantize=True)
+    plain_model = Model(cfg, use_kernels=False)
+    rng = np.random.default_rng(3)
+    dev = model.device
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, RING_CHECK[0]))).to(dev)
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1))).to(dev)
+
+    w = cfg.sliding_window
+
+    def run(m):
+        cache = m.init_cache(1, RING_CHECK[1], kind="ring")
+        cache = m.apply(params, toks[:, :w], cache=cache, write_cache=True,
+                        need_logits=False)["cache"]
+        out = m.apply(params, toks[:, w:], cache=cache, write_cache=True, pos0=w)
+        cache, seq = out["cache"], [out["logits"][0]]
+        for i in range(4):
+            logits, cache = m.decode_step(params, cache, forced[i])
+            seq.append(logits)
+        return torch.cat(seq)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    reset_counts(torch)
+    a = run(model)
+    counts = step_counts(torch)
+    if counts["plain"] or counts["flash_attention_masked[ring]"] != 4 * cfg.num_layers:
+        raise AssertionError(f"ring case: kernel run counts {counts}")
+    t0 = time.perf_counter()
+    b = run(plain_model)
+    plain_s = time.perf_counter() - t0
+    if a.shape != (RING_CHECK[0] - w + 4, cfg.padded_vocab) or not torch.isfinite(a).all():
+        raise AssertionError(f"ring case: logits shape {tuple(a.shape)} / finite "
+                             f"{bool(torch.isfinite(a).all())}")
+    sound = rel(a, b)
+    with planted(attention, "prefill_step", context_after_write):
+        fault = rel(run(model), b)
+    print(f"2-layer full width, bfloat16, EN-T weights, ring: a {RING_CHECK[0]}-token prompt "
+          f"(chunks {w} + {RING_CHECK[0] - w} over the wrap, every row of the second compared) "
+          f"and 4 decode ticks; kernels vs plain: relative L2 "
+          f"{sound:.3e} (limit {bound}), max abs diff {float((a - b).abs().max()):.3e}, greedy "
+          f"agreement {float((a.argmax(-1) == b.argmax(-1)).float().mean()):.3f}; planted fault "
+          f"'context read after the chunk's write': relative L2 {fault:.3e} "
+          f"({'over' if fault > bound else 'within'} the limit); kernel counts {counts}; the "
+          f"plain run took {plain_s:.1f}s", flush=True)
+    if sound > bound:
+        raise AssertionError(f"ring case: kernel path disagrees with the plain path "
+                             f"(relative L2 {sound} > {bound})")
+    if fault <= bound:
+        raise AssertionError(f"ring case: the limit {bound} misses the planted fault")
+    return dict(relative_l2=sound, fault=fault, counts=counts)
+
+
+def generate_ent(torch, model, params, engine_streams, engine_rows):
+    """``generate`` on full-width qwen2.5-3b EN-T (the serving phases'
+    model): the EN-T serve phase's first 8 prompts left-padded to the
+    longest with ``prompt_lens``, 32 greedy steps, ``cache_kind`` auto (dense
+    rows).  The prefill launches kernel 1 once per projection and layer on
+    the tensor-core loop and kernel 2 once per layer; each decode step
+    kernel 1 on the split-K stream and kernel 2 with per-sequence offsets
+    once per layer; kernel 3 and the plain versions never.  Counts the
+    streams equal to the engine's for the same prompts (only tolerance is
+    owed: the engine prefills each prompt alone, padded to a power of two,
+    and decodes through kernel 3), and at each stream's first divergence
+    from the engine's logs the margins of ``flip_margins`` (``engine_rows``:
+    the logits each engine token was sampled from).  The prefill's logits
+    are held against the plain model (``use_kernels=False``) on the same
+    padded batch, beside the engine's first-token logits against the same
+    plain logits: both paths' distance from the exact math.  Returns the
+    numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import sampling
+    from repro_torch.runtime.serve_loop import _pad_mask_from_lens, generate
+
+    cfg = get_config("qwen2.5-3b")
+    prompts = launch.ragged_prompts(np.random.default_rng(0), 16, 256, 512,
+                                    cfg.vocab_size)[:SLOTS]
+    lens = [len(p) for p in prompts]
+    s0 = max(lens)
+    toks = np.zeros((SLOTS, s0), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, s0 - len(p):] = p
+    calls, steps = [], []
+    reset_counts(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counted_steps(torch, model, calls), planted(sampling, "greedy", recorded(steps)):
+        out = generate(model, params, toks, 32, prompt_lens=lens).cpu().numpy()
+    dt = time.perf_counter() - t0
+    per, nl = projections(cfg) * cfg.num_layers, cfg.num_layers
+    ticks = [c for k, c, _ in calls if k == "tick"]
+    chunks = [c for k, c, _ in calls if k == "chunk"]
+    want_tick = {"ent_matmul_packed_fused[stream]": per, "ent_matmul_packed_fused[tc]": 0,
+                 "flash_attention_masked[offsets]": nl, "flash_attention_masked": nl,
+                 "paged_attention_kernel": 0, "plain": 0}
+    want_chunk = {"ent_matmul_packed_fused[tc]": per, "ent_matmul_packed_fused[stream]": 0,
+                  "flash_attention_masked": nl, "flash_attention_masked[offsets]": 0,
+                  "paged_attention_kernel": 0, "plain": 0}
+    bad = [c for c in ticks if {k: c[k] for k in want_tick} != want_tick] + \
+        [c for c in chunks if {k: c[k] for k in want_chunk} != want_chunk]
+    if out.shape != (SLOTS, 32) or len(ticks) != 31 or len(chunks) != 1 or bad:
+        raise AssertionError(f"generate: out {out.shape}, {len(ticks)} decode steps, "
+                             f"{len(chunks)} prefill chunks; off counts {bad[:2]}")
+    streams = {i: out[i].tolist() for i in range(SLOTS)}
+    same = sum(streams[i] == engine_streams[i] for i in range(SLOTS))
+    first = [first_difference(streams[i], engine_streams[i]) for i in range(SLOTS)]
+    rows = {(i, j): lg[i] for j, lg in enumerate(steps) for i in range(SLOTS)}
+    flips, ordinary = flip_margins(engine_rows, rows, engine_streams, streams)
+    faults = [f for f in flips if f["fault"]]
+    logits = steps[0].float()
+    mask, start = _pad_mask_from_lens(lens, SLOTS, s0, model.device)
+    plain = Model(cfg, use_kernels=False)
+    cache = plain.init_cache(SLOTS, s0 + 32, kind="auto")
+    cache["start"] = start
+    exact = plain.prefill(params, cache, torch.from_numpy(toks).to(model.device),
+                          pad_mask=mask)[0].float()
+    del cache, plain
+    eng = torch.stack([engine_rows[(i, 0)] for i in range(SLOTS)]).float()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    agree = int((logits.argmax(-1) == eng.argmax(-1)).sum())
+    vs_plain = dict(generate=rel(logits, exact), engine=rel(eng, exact),
+                    generate_argmax_equal=int((logits.argmax(-1) == exact.argmax(-1)).sum()),
+                    engine_argmax_equal=int((eng.argmax(-1) == exact.argmax(-1)).sum()))
+    print(f"generate [qwen2.5-3b, EN-T w8a8, dense rows]: 8 prompts ({min(lens)}..{s0} tokens, "
+          f"left-padded to {s0}) x 32 greedy steps in {dt:.3f}s ({8 * 32 / dt:.2f} tok/s); per "
+          f"step kernel 1 {per} on the stream and kernel 2 {nl} with per-sequence offsets, the "
+          f"prefill kernel 1 {per} on the tensor-core loop and kernel 2 {nl}; kernel 3 and plain "
+          f"versions 0; streams equal to the engine's {same} of 8 (first differing token of "
+          f"each: {first}); the prefill's logits against the engine's admissions': relative L2 "
+          f"{rel(logits, eng):.3e}, argmax equal {agree} of 8; against the plain model's "
+          f"prefill of the same padded batch: generate {vs_plain['generate']:.3e} (argmax "
+          f"equal {vs_plain['generate_argmax_equal']} of 8), the engine's first-token logits "
+          f"{vs_plain['engine']:.3e} (argmax equal {vs_plain['engine_argmax_equal']} of 8)",
+          flush=True)
+    print("  generate: at each stream's first divergence from the engine's, engine top-1 minus "
+          "top-2 / engine gap to generate's token / |logit difference| between the paths: "
+          + "; ".join(f"row {f['uid']} token {f['index']}: {f['top1_minus_top2']:.4f} / "
+                      f"{f['gap']:.4f} / {f['delta']:.4f}" for f in flips)
+          + f"; the paths' largest |logit difference| before any divergence {ordinary:.4f}; "
+          f"flips above twice it (faults): {len(faults)} of {len(flips)}", flush=True)
+    return dict(tok_s=8 * 32 / dt, streams_equal_engine=same, first_difference=first,
+                prefill_relative_l2=rel(logits, eng), prefill_argmax_equal=agree,
+                prefill_vs_plain=vs_plain,
+                near_ties=dict(flips=flips, ordinary_delta=ordinary, faults=len(faults)))
+
+
+def recorded(seen):
+    """A ``planted`` wrap that appends each logits tensor the sampler is
+    handed to ``seen`` and samples as before."""
+    def wrap(real):
+        def sample(logits, *a, **kw):
+            seen.append(logits)
+            return real(logits, *a, **kw)
+        return sample
+    return wrap
+
+
+def kernels_vs_plain_generate(torch, bound):
+    """``generate`` at 2 layers of full-width qwen2.5-3b (bf16, EN-T), with
+    the kernels and with the plain versions: 8 ragged prompts (40..256
+    tokens) left-padded with ``prompt_lens``, 16 greedy steps, cache_kind
+    auto (dense rows).  Each row's logits are compared up to its first
+    token where the two streams differ (past it the paths decode different
+    inputs); fails when their relative L2 difference exceeds ``bound``, or
+    when the planted fault "prompt_lens ignored" (no pad mask and no
+    start: the prefill attends the left padding at absolute positions)
+    stays within it.  Returns the numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import sampling, serve_loop
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2)
+    model, params = launch.build(cfg, seed=1, quantize=True)
+    plain_model = Model(cfg, use_kernels=False)
+    prompts = launch.ragged_prompts(np.random.default_rng(4), SLOTS, 40, 256, cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    toks = np.zeros((SLOTS, max(lens)), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, max(lens) - len(p):] = p
+
+    def run(m):
+        seen = []
+        with planted(sampling, "greedy", recorded(seen)):
+            out = serve_loop.generate(m, params, toks, 16, prompt_lens=lens).cpu().tolist()
+        return out, torch.stack(seen, 1).float()   # [B, steps, V]
+
+    def compared(a, b):
+        """Each row's logits up to its streams' first difference, stacked."""
+        (sa, la), (sb, lb) = a, b
+        cut = [min(first_difference(x, y), len(x) - 1) + 1 for x, y in zip(sa, sb)]
+        return (torch.cat([la[i, :c] for i, c in enumerate(cut)]),
+                torch.cat([lb[i, :c] for i, c in enumerate(cut)]), cut)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    reset_counts(torch)
+    got = run(model)
+    counts = step_counts(torch)
+    if counts["plain"] or counts["flash_attention_masked[offsets]"] != 15 * cfg.num_layers:
+        raise AssertionError(f"generate 2-layer: kernel run counts {counts}")
+    want = run(plain_model)
+    a, b, cut = compared(got, want)
+    sound = rel(a, b)
+    with planted(serve_loop, "_pad_mask_from_lens", lambda real: lambda *a: (None, None)):
+        fa, fb, _ = compared(run(model), want)
+    fault = rel(fa, fb)
+    same = sum(x == y for x, y in zip(got[0], want[0]))
+    print(f"2-layer full width, bfloat16, EN-T weights, generate: 8 prompts ({min(lens)}.."
+          f"{max(lens)} tokens, left-padded) x 16 greedy steps, cache_kind auto (dense rows); "
+          f"kernels vs plain over each row's logits up to its first differing token "
+          f"({sum(cut)} rows; streams equal {same} of 8): relative L2 {sound:.3e} (limit "
+          f"{bound}), argmax agreement {float((a.argmax(-1) == b.argmax(-1)).float().mean()):.3f}"
+          f"; planted fault 'prompt_lens ignored': relative L2 {fault:.3e} "
+          f"({'over' if fault > bound else 'within'} the limit); kernel counts {counts}",
+          flush=True)
+    if sound > bound:
+        raise AssertionError(f"generate 2-layer: kernel path disagrees with the plain path "
+                             f"(relative L2 {sound} > {bound})")
+    if fault <= bound:
+        raise AssertionError(f"generate 2-layer: the limit {bound} misses the planted fault")
+    return dict(relative_l2=sound, fault=fault, rows_compared=sum(cut), streams_equal=same,
+                counts=counts)
 
 
 def loss_and_grads(model, params, batch, remat="none"):
@@ -3552,11 +4325,13 @@ def main():
     t = phase("kernel checks")
     timer = Timer(torch)
     mm = check_matmuls(torch, timer)
+    ring_mm = check_ring_matmuls(torch, timer)
     n_stream = check_stream(torch)
     n_tc = check_tc(torch)
     cut = check_cut(torch, timer)
     k2 = check_flash(torch, timer)
     k2o = check_flash_offsets(torch, timer)
+    k2r = check_flash_ring(torch, timer)
     k3 = check_paged(torch, timer)
     k3i = check_paged(torch, timer, int8_kv=True)
     del timer
@@ -3575,13 +4350,23 @@ def main():
     from repro_torch.launch import serve as launch
     ent_model, ent_params = launch.build(get_config("qwen2.5-3b"), seed=0, quantize=True)
     plain_ent = serves["EN-T w8a8, bf16 KV"]
-    spec = serve_spec(torch, plain_ent[5], plain_ent[1], ent_model, ent_params)
+    spec = serve_spec(torch, plain_ent[5], plain_ent[1], ent_model, ent_params, plain_ent[6])
+    engine_rows = {key: r for key, r in plain_ent[6].items() if key[0] < SLOTS}   # generate's
+    plain_ent[6].clear()
     done(t, f"serve qwen2.5-3b full width, EN-T, speculative (k = {SPEC_K})")
     t = phase("serve qwen2.5-3b full width, EN-T, scheduler, faults, elastic, HTTP")
     sched = serve_scheduler(torch, ent_model, ent_params)
+    done(t, "serve qwen2.5-3b full width, EN-T, scheduler, faults, elastic, HTTP")
+    t = phase("generate qwen2.5-3b full width, EN-T")
+    gen = generate_ent(torch, ent_model, ent_params, {u: plain_ent[5][u] for u in range(SLOTS)},
+                       engine_rows)
+    del engine_rows
     del ent_model, ent_params
     torch.cuda.empty_cache()
-    done(t, "serve qwen2.5-3b full width, EN-T, scheduler, faults, elastic, HTTP")
+    done(t, "generate qwen2.5-3b full width, EN-T")
+    t = phase("serve starcoder2-15b full width, EN-T, ring")
+    ring = serve_ring(torch)
+    done(t, "serve starcoder2-15b full width, EN-T, ring")
 
     t = phase("kernels vs plain, 2 layers")
     # Limits between the sound readings and the planted faults' on the
@@ -3598,7 +4383,7 @@ def main():
     legacy = kernels_vs_plain_end_to_end(torch, "bfloat16", "4-plane", 0.07)
     # kernel 5 once per projection and layer in the prefill (2 x 256 rows)
     # and in each of the 4 decode ticks (2 rows), on the routes its cut gives
-    per = PROJECTIONS * 2
+    per = projections(get_config("qwen2.5-3b")) * 2
     want = {"ent_matmul": 5 * per, "ent_matmul[stream]": 0, "ent_matmul[tc]": 0}
     for m, calls in ((512, per), (2, 4 * per)):
         want[f"ent_matmul[{matmul_route('ent_matmul', m)}]"] += calls
@@ -3610,6 +4395,8 @@ def main():
     kernels_vs_plain_prefix(torch, 0.07)   # the prefix cache's path, as served
     spec_2l = {w: kernels_vs_plain_spec(torch, w, 0.07, kv_quant=kvq)   # the spec path
                for w, kvq in (("EN-T", False), ("int8", True))}
+    ring_2l = kernels_vs_plain_ring(torch, 0.07)   # the ring's path, as served
+    gen_2l = kernels_vs_plain_generate(torch, 0.07)   # generate's path, as served
     done(t, "kernels vs plain, 2 layers")
 
     t = phase("training kernel checks")
@@ -3718,7 +4505,7 @@ def main():
     kernels = [
         entry("ent_matmul_packed_fused", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:227",
               mm["ent_matmul_packed_fused"], at_decode, ent_t["ent_matmul_packed_fused"],
-              **served("ent_matmul_packed_fused")),
+              starcoder2_checks=ring_mm, **served("ent_matmul_packed_fused")),
         entry("flash_attention_masked", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/flash_attention.py:145", k2,
               lambda rows: next(r for r in rows if r["S"] == 512 and r["window"] is None),
@@ -3741,6 +4528,20 @@ def main():
                   launches_2_layer_spec={w: r["flash_attention_masked[offsets]"]
                                          for w, r in spec_2l.items()}),
               build={lab: rec for lab, rec in tc_build.items() if "masked" in lab}),
+        entry("flash_attention_masked[ring]", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/flash_attention.py:145", k2r,
+              lambda rows: rows[0], ring["ring_launches"],
+              launches_from="the 16-request ring serve run of full-width starcoder2-15b "
+                            f"({ring['ticks']} decode ticks, 40 a tick)",
+              design=("kernel 2 (flash_fwd_masked_tc on bf16, the CUDA-core kernel on "
+                      "float32) with ring_width = W: each block reads its slot's pos, computes "
+                      "the seam r = pos mod W once, and row j's position as j + pos - r (less W "
+                      "past the seam); kv rows [0, min(W, pos + 1)); tiles across the seam or "
+                      "the mask's edge evaluate the mask per row"),
+              note=("the TPU reference's ring decode sends the explicit mask to the jnp core "
+                    "(src/repro/kernels/flash_attention/ops.py:57-59, 71) and reaches no "
+                    "Pallas kernel; this form of kernel 2 is the card's ring read"),
+              tick_ms=ring["tick_ring_ms"], kernels_vs_plain_2_layers=ring_2l["relative_l2"]),
         entry("paged_attention_kernel", "src/repro_torch/csrc/paged_attention.cu",
               f"{paged}:109", k3, lambda rows: rows[0], ent_t["paged_attention_kernel"],
               **paged_extra(k3, False)),
@@ -3865,6 +4666,15 @@ def main():
     for config in SERVE_CONFIGS:
         print(f"serve tokens/s [{config}] {serves[config][1]:.3f}")
     print(f"serve tokens/s [EN-T w8a8, bf16 KV, shared prefix] {shared[1]:.3f}")
+    print(f"serve tokens/s [starcoder2-15b, EN-T w8a8, ring] {ring['tok_s']:.3f}; decode tick "
+          f"{ring['tick_host_ms']:.3f} ms host-clock, {ring['tick_busy_ms']:.3f} ms device busy, "
+          f"kernel 2's ring form {ring['tick_ring_ms']:.3f} ms; peak {ring['peak_gib']:.2f} GiB")
+    print(f"generate tokens/s [qwen2.5-3b, EN-T w8a8] {gen['tok_s']:.3f}; streams equal to the "
+          f"engine's {gen['streams_equal_engine']} of 8, flips above twice the paths' ordinary "
+          f"difference {gen['near_ties']['faults']} of {len(gen['near_ties']['flips'])}; prefill "
+          f"vs plain {gen['prefill_vs_plain']['generate']:.3e} (the engine's "
+          f"{gen['prefill_vs_plain']['engine']:.3e}); 2-layer generate kernels vs plain "
+          f"{gen_2l['relative_l2']:.3e}")
     for arm, r in spec.items():
         print(f"serve tokens/s [EN-T w8a8, bf16 KV, speculative k={SPEC_K}, {arm}] "
               f"{r['tok_s']:.3f} ({r['of_plain']:.3f} of plain), acceptance "

@@ -58,7 +58,7 @@ ENTRY_POINTS = {
         "int8_matmul_stream_smem": [_I, _I],
         "int8_matmul_tc_smem": []},
     "flash_attention": {
-        "flash_attention_masked": [_P] * 6 + [_I] * 10 + [_F, _P],
+        "flash_attention_masked": [_P] * 6 + [_I] * 10 + [_F, _I, _P],
         "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
         "flash_attention_bwd_dkdv": [_P] * 9 + [_I] * 10 + [_F, _P],
         "flash_attention_bwd_dq": [_P] * 8 + [_I] * 10 + [_F, _P],

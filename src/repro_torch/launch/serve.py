@@ -1,26 +1,31 @@
 """Serving entry point of the port: EN-T w8a8 continuous batching.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
-        --engine --quantize [--shared-prefix N] [--no-prefix-cache] \\
-        [--cache-kind auto|paged|dense] [--draft-arch ARCH --spec-k K \\
+        [--engine] --quantize [--shared-prefix N] [--no-prefix-cache] \\
+        [--cache-kind auto|dense|ring|paged] [--prefill-chunk N] \\
+        [--draft-arch ARCH --spec-k K \\
         --spec-mode match|rejection] [--smoke] [--device cuda|cpu] \\
         [--http [--port P] [--host H] [--pipeline-depth D] [--max-queue Q] \\
          [--http-smoke] [--fault-plan NAME|seeded:N] [--max-retries R] \\
          [--watchdog S]]
 
 Builds the model at the config's widths (``--smoke``: the reduced
-config), draws random weights from ``--seed`` on the device, encodes
+config), draws random weights from ``--seed`` on the device and encodes
 every projection into packed EN-T planes layer by layer
-(``--quantize``), then serves ``2 * --batch`` ragged requests through
-the ``ServeEngine`` (paged unless ``--cache-kind dense``), with the
+(``--quantize``).  Without ``--engine`` it runs the one-shot
+``generate``: ``--batch`` random prompts of ``--prompt-len`` tokens,
+``--steps`` new tokens each (``--cache-kind``: auto picks the ring for a
+sliding-window model and dense rows otherwise; ``--prefill-chunk`` splits
+the prefill).  With ``--engine`` it serves ``2 * --batch`` ragged
+requests through the ``ServeEngine`` (auto: the ring for a
+sliding-window model, paged otherwise), with the
 radix prefix cache unless ``--no-prefix-cache``; ``--shared-prefix N``
 puts one seeded N-token prefix in front of every request (a system
 prompt).  ``--draft-arch`` turns speculative decoding on with ``--spec-k``
 drafts a tick: the same arch as ``--arch`` is a weight-shared drafter
 (the target's own model and params), another arch a float drafter with
 random weights from ``--seed + 1``.  Runs on the CUDA
-card unless ``--device cpu``.  The one-shot ``generate`` path (no
-``--engine``) is a later slice and is refused.
+card unless ``--device cpu``.
 
 ``--http`` puts the async front end on top (implies ``--engine``): a
 ``PipelinedScheduler`` at ``--pipeline-depth`` driving the engine and the
@@ -51,7 +56,7 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Model, build_model
-from repro_torch.runtime.serve_loop import ServeEngine
+from repro_torch.runtime.serve_loop import ServeEngine, generate
 
 
 def build(cfg: ModelConfig, *, quantize: bool = False, seed: int = 0,
@@ -191,20 +196,43 @@ def serve_http(args, cfg, engine) -> dict | None:
     return {"tokens": streamed, "metrics": m, "fired": fired}
 
 
+def run_generate(args, cfg, model, params):
+    """The one-shot path: ``--batch`` random prompts of ``--prompt-len``
+    tokens (seed ``--seed``) through ``generate``.  Returns the [B,
+    steps] tokens on the host."""
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    dev = model.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, args.steps, temperature=args.temperature,
+                   seed=args.seed, prefill_chunk=args.prefill_chunk or None,
+                   top_k=args.top_k or None, top_p=args.top_p or None,
+                   cache_kind=None if args.cache_kind == "auto" else args.cache_kind)
+    out = out.cpu().numpy()
+    dt = time.perf_counter() - t0
+    print(f"generated {args.batch}x{args.steps} tokens in {dt:.2f}s "
+          f"({args.batch * args.steps / dt:.1f} tok/s)")
+    print("sample:", out[0, :16].tolist())
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--engine", action="store_true",
-                    help="continuous-batching ServeEngine (required: the "
-                         "one-shot generate path is not ported yet)")
+                    help="continuous-batching ServeEngine over a ragged request "
+                         "stream (requests = 2x --batch); without it, one generate()")
     ap.add_argument("--quantize", action="store_true",
                     help="EN-T w8a8: encode weights once, serve int8")
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="radix prefix cache + copy-on-write page sharing "
                          "(default: auto, on for paged attention-only models)")
-    ap.add_argument("--cache-kind", default="auto", choices=["auto", "paged", "dense"],
-                    help="KV-cache backend (auto: paged)")
+    ap.add_argument("--cache-kind", default="auto", choices=["auto", "dense", "ring", "paged"],
+                    help="KV-cache backend (auto: the ring for sliding-window archs; "
+                         "else paged for the engine, dense rows for generate)")
     ap.add_argument("--draft-arch", default="", choices=[""] + list(ARCH_IDS),
                     help="speculative decoding: drafter arch (same arch = "
                          "weight-shared drafter)")
@@ -224,7 +252,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--slots", type=int, default=0,
                     help="engine batch slots (default: --batch)")
-    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: prompts in chunks of this many tokens "
+                         "(0 = one shot, or the ring's width)")
     ap.add_argument("--page-size", type=int, default=0)
     ap.add_argument("--pages", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -257,8 +287,6 @@ def main(argv=None):
     if args.fault_plan and not args.http:
         ap.error("--fault-plan needs --http: only the fault-tolerant scheduler can "
                  "recover from injected faults")
-    if not (args.engine or args.http):
-        ap.error("only --engine serving is ported; generate() is a later slice")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -269,6 +297,8 @@ def main(argv=None):
     print(f"model {cfg.name} on {model.device}: init"
           f"{' + EN-T encode' if args.quantize else ''} "
           f"{time.perf_counter() - t0:.2f}s")
+    if not (args.engine or args.http):
+        return run_generate(args, cfg, model, params)
     slots = args.slots or args.batch
     spec_kw = {}
     if args.draft_arch:

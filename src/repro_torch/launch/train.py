@@ -100,11 +100,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-device training is not ported yet "
-            "(ROADMAP queue 2, multi-device); use --mesh 1x1")
+            f"--mesh {args.mesh}: multi-device training is not ported yet; "
+            "use --mesh 1x1")
     if args.ckpt:
         raise NotImplementedError(
-            "--ckpt: the checkpointer is not ported yet (ROADMAP queue 2, training)")
+            "--ckpt: the checkpointer is not ported yet")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)

@@ -6,7 +6,9 @@ and attends through the masked flash kernel; ``decode_step`` writes one
 row and, for the paged backend, reads the pool in place through the
 paged decode kernel; dense rows (the dense engine backend, a
 speculative drafter) go through the masked flash kernel at Sq = 1 with
-per-sequence offsets ``q_offsets = pos_b``.  ``verify_step`` is
+per-sequence offsets ``q_offsets = pos_b``, and a sliding-window ring
+through the same kernel's ring form (``ring_width``), in place, never
+gathered into position order.  ``verify_step`` is
 speculative decoding's burst: S rows per sequence written at ``pos_b ..
 pos_b+S-1`` and attended through the same kernel over the cache's
 position-ordered view with ``q_offsets = pos_b``.
@@ -19,7 +21,11 @@ prefill and the verify burst attend each query row exactly as
 cache view's full width, decode's mask, one row per sequence), after
 writing the whole chunk.
 Masked columns give exact zeros wherever they sit, so the later rows
-that prefill has already written change nothing.
+that prefill has already written change nothing.  On the ring a chunk
+that wraps overwrites rows its earlier queries attend to, so the plain
+path interleaves instead: it writes a row, then attends that row, which
+is sequential decode step for step; the kernel path reads the retained
+context (``RingCache.context``, a copy) before the chunk's write.
 
 With an int8 KV cache the stored codes are cast to the compute dtype
 and the bf16 per-row scales fold into the attention (K after the q.k
@@ -85,28 +91,53 @@ def apply(cfg: ModelConfig, p, x, positions=None, use_kernel: bool = True):
     return _finish(cfg, p, out, use_kernel)
 
 
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Rows a sequence's cache holds: the sliding window bounds the ring."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def resolve_cache_kind(cfg: ModelConfig, kind: str | None) -> str:
+    """"auto" (or None) -> the ring for sliding-window models, dense rows
+    otherwise."""
+    if kind in (None, "auto"):
+        return "ring" if cfg.sliding_window else "dense"
+    return kind
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
-               quantized: bool = False, kind: str = "paged",
+               quantized: bool = False, kind: str = "auto",
                page_size: int | None = None, pages: int | None = None,
                mapped: bool = True, device=None):
-    """One attention layer's KV cache: ``"paged"`` or ``"dense"``;
-    ``quantized`` stores int8 KV with bf16 per-(row, head) scales."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window models serve through the ring cache, which "
-            "this slice has not ported")
+    """One attention layer's KV cache: ``"paged"``, ``"dense"``, ``"ring"``
+    (W = ``cache_len`` rows a sequence, slot = pos mod W) or ``"auto"``
+    (:func:`resolve_cache_kind`); ``quantized`` stores int8 KV with bf16
+    per-(row, head) scales.  The reference's refusals: paged and dense
+    carry no window mask, so a windowed model serves on the ring, and the
+    ring needs a window."""
+    kind = resolve_cache_kind(cfg, kind)
     if kind == "paged":
+        if cfg.sliding_window:
+            raise ValueError("PagedCache carries no sliding-window mask; windowed "
+                             "models serve through the ring backend (kind='ring')")
         return kv_cache.paged_init(
             batch, max_len, cfg.num_kv_heads, cfg.head_dim, dtype,
             quantized=quantized,
             page_size=page_size or kv_cache.DEFAULT_PAGE_SIZE, pages=pages,
             mapped=mapped, device=device)
+    if kind == "ring" and not cfg.sliding_window:
+        raise ValueError("RingCache requires cfg.sliding_window")
+    if kind == "dense" and cfg.sliding_window:
+        raise ValueError("sliding-window models must use the ring cache: the dense "
+                         "backend carries no window mask")
+    if kind == "ring":
+        return kv_cache.ring_init(batch, cache_len(cfg, max_len), cfg.num_kv_heads,
+                                  cfg.head_dim, dtype, window=cfg.sliding_window,
+                                  quantized=quantized, device=device)
     if kind == "dense":
         return kv_cache.dense_init(batch, max_len, cfg.num_kv_heads,
                                    cfg.head_dim, dtype, quantized=quantized,
                                    device=device)
-    raise NotImplementedError(f"cache kind {kind!r} is not ported "
-                              "(ported: 'paged', 'dense')")
+    raise ValueError(f"unknown cache kind {kind!r}")
 
 
 def _scale_op(s):
@@ -128,19 +159,26 @@ def _token_attention(cfg: ModelConfig, q, cache, pos_b, start_b, use_kernel: boo
     over what ``cache.token_view`` gives: the paged pool in place through
     the paged decode op, or the dense rows through the masked op (the
     kernel with ``(start_b, q_offsets=pos_b)``, the plain path with the
-    view's [B, W] mask)."""
-    view = cache.token_view(pos_b, start_b)
-    if isinstance(view, kv_cache.PagedView):
-        return paged_ops.paged_attention(
-            q, view.k, view.v, view.block_table, pos_b, start_b,
-            page_size=view.page_size, k_scales=view.k_s, v_scales=view.v_s,
-            use_kernel=use_kernel)
-    kop, vop, ks, vs, valid = view
+    view's [B, W] mask); a ring's rows as stored through the kernel's ring
+    form (``ring_width``), which masks them itself."""
+    plain = plain_path(q, use_kernel)
+    if isinstance(cache, kv_cache.RingCache) and not plain:
+        kop, vop, ks, vs = cache.k, cache.v, cache.k_s, cache.v_s
+        mask = dict(start=start_b, q_offsets=pos_b, ring_width=cache.width,
+                    window=cache.window)
+    else:
+        view = cache.token_view(pos_b, start_b)
+        if isinstance(view, kv_cache.PagedView):
+            return paged_ops.paged_attention(
+                q, view.k, view.v, view.block_table, pos_b, start_b,
+                page_size=view.page_size, k_scales=view.k_s, v_scales=view.v_s,
+                use_kernel=use_kernel)
+        kop, vop, ks, vs, valid = view
+        mask = (dict(valid=valid[:, None, :]) if plain
+                else dict(start=start_b, q_offsets=pos_b))
     dt = L.cdtype(cfg)
     if kop.dtype == torch.int8:
         kop, vop = kop.to(dt), vop.to(dt)
-    mask = (dict(valid=valid[:, None, :]) if plain_path(q, use_kernel)
-            else dict(start=start_b, q_offsets=pos_b))
     return attn_ops.masked_attention(
         q, kop.transpose(1, 2), vop.transpose(1, 2), k_scale=_scale_op(ks),
         v_scale=_scale_op(vs), use_kernel=use_kernel, **mask)
@@ -182,6 +220,8 @@ def verify_step(cfg: ModelConfig, p, x, cache, pos, start=None, use_kernel: bool
     rows = plain_path(x, use_kernel)
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
     start_b = _starts(start, b, x.device)
+    if isinstance(cache, kv_cache.RingCache):
+        cache.verify_view(pos_b, start_b, s)     # raises: no burst over a ring
     positions = ((pos_b - start_b)[:, None]
                  + torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
     q, k, v = _project(cfg, p, x, positions, use_kernel, rows)
@@ -205,10 +245,11 @@ def prefill_step(cfg: ModelConfig, p, x, cache, start=None, pos0: int = 0,
                  use_kernel: bool = True, write: bool = True):
     """Prompt-chunk forward with KV write-through at positions
     ``pos0 .. pos0+S-1``.  x: [B, S, D] -> (y [B, S, D], cache).  The
-    queries attend over the retained context ``[0, pos0)`` read after
-    the write (the chunk's positions are disjoint from it) plus the
-    chunk itself: through the masked flash kernel, or on the plain path
-    one row at a time as ``decode_step`` attends.
+    queries attend over the retained context (``cache.context(pos0)``:
+    ``[0, pos0)``, on the ring its last W rows, taken before the chunk's
+    write, which on the ring may evict them) plus the chunk itself: through the masked flash kernel with the cache's window,
+    or on the plain path one row at a time as ``decode_step`` attends (on
+    the ring each row written just before it is attended).
 
     ``write=False`` runs the same math read-only (the prefix-cache peek
     of a fully cached prompt): the cache's pools are never written.  The
@@ -225,16 +266,25 @@ def prefill_step(cfg: ModelConfig, p, x, cache, start=None, pos0: int = 0,
     q, k, v = _project(cfg, p, x, positions, use_kernel, rows)
     q = q.transpose(1, 2)
 
+    if rows and isinstance(cache, kv_cache.RingCache):
+        new = cache if write else cache.clone()
+        outs = []
+        for t in range(s):   # decode's write, then decode's read, row by row
+            new.write_token(k[:, t:t + 1], v[:, t:t + 1], pos0 + t, per_seq=False)
+            outs.append(_token_attention(cfg, q[:, :, t:t + 1], new, cols[t].expand(b),
+                                         start_b, use_kernel))
+        return _finish(cfg, p, torch.cat(outs, dim=2), use_kernel, rows), (
+            new if write else cache)
     if rows:
         new = (cache if write else cache.detached()).write_prompt(k, v, pos0)[0]
         out = torch.cat([_token_attention(cfg, q[:, :, t:t + 1], new, cols[t].expand(b),
                                           start_b, use_kernel) for t in range(s)], dim=2)
         return _finish(cfg, p, out, use_kernel, rows), (new if write else cache)
+    kc, vc, ksc, vsc, ctx = cache.context(pos0)
     if write:
         new, kf, vf, ksf, vsf = cache.write_prompt(k, v, pos0)
     else:
         new, (kf, vf, ksf, vsf) = cache, cache.stored(k, v)
-    kc, vc, ksc, vsc, ctx = new.context(pos0)
 
     def cat(prev, fresh):
         return fresh if prev is None else torch.cat([prev, fresh.to(prev.dtype)], dim=1)
@@ -250,6 +300,6 @@ def prefill_step(cfg: ModelConfig, p, x, cache, start=None, pos0: int = 0,
     start_local = torch.clamp_min(start_b - (pos0 - ctx), 0)
     out = attn_ops.masked_attention(
         q, kop.transpose(1, 2), vop.transpose(1, 2),
-        start=start_local, q_offset=ctx, k_scale=_scale_op(ks),
+        start=start_local, q_offset=ctx, window=new.window, k_scale=_scale_op(ks),
         v_scale=_scale_op(vs), use_kernel=use_kernel)
     return _finish(cfg, p, out, use_kernel), new

@@ -1,6 +1,7 @@
 """KV-cache backends (port of ``repro/models/kv_cache.py``): the paged
-pool the serving engine admits into, and the dense rows of the dense
-engine backend and of a speculative drafter.
+pool the serving engine admits into, the dense rows of the dense engine
+backend and of a speculative drafter, and the sliding-window ring of a
+windowed model (:class:`RingCache`).
 
 The reference's caches are immutable pytrees: every write returns a new
 cache.  Here the writes land IN PLACE (``index_put_`` / slice
@@ -35,6 +36,16 @@ restore the paged block table (None / no-op on dense rows).
 ``prefill_view`` (zeroed single-slot rows), ``admit`` (splice them in at
 the slot) and ``free_slot`` (a no-op: stale rows stay masked).
 
+:class:`RingCache` is a :class:`DenseCache` of W = min(max_len, window)
+rows per sequence in which position p lives in row p mod W; it inherits
+the slot protocol and the snapshot copies, and owns the wrap placement
+(:func:`prompt_update`) and the scattered-slot mask (``token_view``).
+Its pools are written in place too, so a prefill chunk that wraps
+overwrites rows its own earliest queries still attend to: ``context``
+gathers the retained rows into a copy, which the caller takes BEFORE the
+chunk's write (as every backend's context is taken).  A verify burst over
+the ring raises, as in the reference.
+
 int8 KV (``quantized=True``): the pools hold int8 codes and every write
 quantizes on the way in (:func:`quantize_kv`), with bf16 per-(row, head)
 scales in ``[..., H, 1]`` scale pools beside them (``k_s``/``v_s``,
@@ -49,6 +60,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.flash_attention.ref import ring_valid
 
 DEFAULT_PAGE_SIZE = 16
 
@@ -74,6 +87,24 @@ def burst_valid(pos_b, start_b, s: int, w: int):
     return (col <= qpos[:, :, None]) & (col >= start_b[:, None, None])
 
 
+def prompt_update(c, new, pos0: int, ring: bool) -> None:
+    """Write [B, S, ...] rows at positions ``pos0 .. pos0+S-1`` of ``c``
+    [B, W, ...] in place; with ``ring`` position p lands in row p mod W.
+    A ring chunk longer than W laps itself: only its last W rows are
+    still visible, so the overwritten part is dropped up front (the
+    reference's multi-wrap rule)."""
+    s, w = new.shape[1], c.shape[1]
+    new = new.to(c.dtype)
+    if ring and s > w:
+        new, pos0, s = new[:, s - w:], pos0 + (s - w), w
+    if not ring or pos0 % w + s <= w:
+        lo = pos0 % w if ring else pos0
+        c[:, lo:lo + s] = new
+        return
+    idx = torch.remainder(torch.arange(pos0, pos0 + s, device=c.device), w)
+    c[:, idx] = new
+
+
 def quantize_kv(t):
     """[B, S, H, hd] -> (int8 codes, bf16 per-(row, head) scale [B, S, H, 1]).
     ``torch.round`` rounds half to even, as ``jnp.round`` does."""
@@ -88,7 +119,10 @@ class _KV:
     """The write half shared by the backends: ``_write(put, k, v)``
     quantizes k/v on the way in when the cache is int8 and stores them
     with ``put(pool, rows)``; returns the rows and scales in storage
-    form (the operands prefill attends to)."""
+    form (the operands prefill attends to).  ``window`` is the attention
+    window a backend's reads mask (the ring's; None elsewhere)."""
+
+    window = None
 
     @property
     def quantized(self) -> bool:
@@ -192,10 +226,7 @@ class DenseCache(_KV):
         if pos0 + s > self.width:
             raise ValueError(f"prefill chunk [{pos0}, {pos0 + s}) exceeds "
                              f"cache width {self.width}")
-
-        def put(c, n):
-            c[:, pos0:pos0 + s] = n
-        return (self, *self._write(put, k, v))
+        return (self, *self._write(lambda c, n: prompt_update(c, n, pos0, ring=False), k, v))
 
     def context(self, pos0: int):
         if pos0 == 0:
@@ -207,10 +238,14 @@ class DenseCache(_KV):
     def _leaves(self):
         return self.k, self.v, self.k_s, self.v_s
 
+    def _like(self, k, v, k_s, v_s):
+        """A cache of this backend over the given tensors."""
+        return DenseCache(k, v, k_s, v_s)
+
     def prefill_view(self, slot: int):
         """Zeroed single-slot rows for admission prefill."""
         del slot
-        return DenseCache(*(None if t is None else t.new_zeros((1,) + tuple(t.shape[1:]))
+        return self._like(*(None if t is None else t.new_zeros((1,) + tuple(t.shape[1:]))
                             for t in self._leaves()))
 
     def admit(self, one, slot: int):
@@ -224,6 +259,73 @@ class DenseCache(_KV):
         """A no-op: a freed slot's rows stay masked by pos / start."""
         del slot
         return self
+
+
+class RingCache(DenseCache):
+    """Sliding-window ring of W = min(max_len, window) rows per sequence;
+    position p lives in row p mod W.  ``window`` is the attention window
+    the ring's reads mask (``token_view``, and the kernel's ring form)."""
+
+    def __init__(self, k, v, k_s=None, v_s=None, window: int = 0):
+        super().__init__(k, v, k_s, v_s)
+        self.window = window
+
+    def _like(self, k, v, k_s, v_s):
+        return RingCache(k, v, k_s, v_s, window=self.window)
+
+    def write_token(self, k, v, pos, per_seq: bool):
+        """Write one row per sequence at position ``pos`` (scalar or [B]),
+        in row ``pos mod W``."""
+        w = self.width
+        slot = torch.remainder(pos, w) if per_seq else int(pos) % w
+        return super().write_token(k, v, slot, per_seq)
+
+    def write_tokens(self, k, v, pos):
+        """Write S rows per sequence at positions ``pos .. pos+S-1`` (pos
+        [B]), each in its row mod W (bit for bit S ``write_token`` calls
+        while S <= W)."""
+        b, s = k.shape[:2]
+        rows = torch.arange(b, device=k.device)[:, None]
+        cols = torch.remainder(pos.long().expand(b)[:, None]
+                               + torch.arange(s, device=k.device)[None, :], self.width)
+        self._write(lambda c, n: c.index_put_((rows, cols), n), k, v)
+        return self
+
+    def verify_view(self, pos_b, start_b, s: int):
+        raise ValueError(
+            "RingCache does not support speculative verify bursts: a K-token write "
+            "evicts window rows that earlier burst queries need, and rollback cannot "
+            "restore them (slot = pos % W).  Serve sliding-window models with plain "
+            "decode.")
+
+    def token_view(self, pos_b, start_b):
+        """The rows as stored, with the [B, W] mask of the reference's
+        ``RingCache.token_view`` (:func:`ring_valid`): row j holds position
+        ``pos_b - ((pos_b - j) mod W)`` and attends iff that position is
+        written, at most ``pos_b``, at least ``start_b`` and inside the
+        window."""
+        return (self.k, self.v, self.k_s, self.v_s,
+                ring_valid(pos_b, start_b, self.width, self.window))
+
+    def write_prompt(self, k, v, pos0: int):
+        s, w = k.shape[1], self.width
+        if s > w:
+            raise ValueError(f"prefill chunk length {s} exceeds ring width {w}; use "
+                             "chunked prefill (Model.prefill splits prompts beyond the "
+                             "ring width)")
+        return (self, *self._write(lambda c, n: prompt_update(c, n, pos0, ring=True), k, v))
+
+    def context(self, pos0: int):
+        """The retained rows, positions ``[pos0 - ctx, pos0)`` with ctx =
+        min(pos0, W), gathered into position order as a COPY: read it
+        before the chunk's write, which may evict those rows."""
+        ctx = min(pos0, self.width)
+        if ctx == 0:
+            return None, None, None, None, 0
+        idx = torch.remainder(torch.arange(pos0 - ctx, pos0, device=self.k.device),
+                              self.width)
+        sl = lambda c: None if c is None else c[:, idx]   # noqa: E731
+        return sl(self.k), sl(self.v), sl(self.k_s), sl(self.v_s), ctx
 
 
 class PagedCache(_KV):
@@ -417,3 +519,11 @@ def dense_init(batch: int, max_len: int, kv_heads: int, head_dim: int,
                dtype, *, quantized: bool = False, device=None) -> DenseCache:
     return DenseCache(*_pools((batch, max_len, kv_heads, head_dim), dtype,
                               quantized, device))
+
+
+def ring_init(batch: int, width: int, kv_heads: int, head_dim: int, dtype, *,
+              window: int, quantized: bool = False, device=None) -> RingCache:
+    """A RingCache of ``width`` rows per sequence (W = min(max_len, window))
+    that masks reads to ``window`` positions."""
+    return RingCache(*_pools((batch, width, kv_heads, head_dim), dtype, quantized, device),
+                     window=window)

@@ -17,7 +17,7 @@ input above 20; ``jax.nn.softplus`` is ``logaddexp(x, 0)``.  The two
 differ by log1p(exp(-x)) < 2.1e-9 there.
 
 Only the full-sequence (training) forward is ported: the decode cache
-and the serving steps raise (ROADMAP queue 2 item 7).
+and the serving steps raise (SSM serving is not ported).
 """
 
 from __future__ import annotations
@@ -122,7 +122,7 @@ def apply(cfg: ModelConfig, p, x, use_kernel: bool = True):
 
 
 SERVING_UNPORTED = ("SSM serving (the decode cache and the prefill / decode / "
-                    "verify steps) is not ported yet: ROADMAP queue 2 item 7")
+                    "verify steps) is not ported yet")
 
 
 def _serving(*_a, **_kw):

@@ -19,6 +19,12 @@ recomputes each layer group in the backward
 (a selective-checkpoint policy, the counterpart of
 ``checkpoint_dots_with_no_batch_dims``).
 
+``embeds=`` ([B, S, D], cast to the compute dtype) stands in for
+``tokens`` on ``apply``, ``prefill`` and ``decode_step``, as in the
+reference: the audio and VLM configs' stub frontends hand the backbone
+frame or patch embeddings.  ``init_cache(kind="auto")`` resolves to the
+sliding-window ring for windowed models and dense rows otherwise.
+
 ``Model(..., kv_quant=True)`` serves from an int8 KV cache with bf16
 per-(row, head) scales, as the reference's ``Model(kv_quant=True)``.
 ``Model(..., use_kernels=False)`` runs every kernel's plain PyTorch
@@ -46,7 +52,7 @@ def _check_spec(spec):
     if mixer not in ("attn", "ssm") or ffn not in ("dense", "none"):
         raise NotImplementedError(
             f"layer spec {spec} is not ported yet: the port runs attention "
-            "and SSM mixers with dense or no FFN (MoE: ROADMAP queue 2 item 8)")
+            "and SSM mixers with dense or no FFN (MoE layers are not ported)")
 
 
 # remat="dots": the 2-D projection products whose outputs are kept
@@ -127,14 +133,21 @@ class Model:
                 x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels)
         return x
 
-    def _forward(self, params, tokens, remat: str):
+    def _embed(self, params, tokens, embeds):
+        """The layer stack's input: ``tokens`` embedded, or ``embeds`` in the
+        compute dtype."""
+        if embeds is None:
+            return L.embed_apply(self.cfg, params["embed"], tokens)
+        return embeds.to(L.cdtype(self.cfg))
+
+    def _forward(self, params, tokens, remat: str, embeds=None):
         """Embedding and the layer stack, each group of ``len(cfg.group)``
         layers under the remat policy.  The layers draw no random numbers,
         so recomputation keeps no RNG state."""
         cfg = self.cfg
         if remat not in ("none", "full", "dots"):
             raise ValueError(f"remat must be none | full | dots, got {remat!r}")
-        x = L.embed_apply(cfg, params["embed"], tokens)
+        x = self._embed(params, tokens, embeds)
         n = len(cfg.group)
         for g in range(cfg.num_groups):
             body = functools.partial(self._group_apply,
@@ -149,15 +162,16 @@ class Model:
                                    create_selective_checkpoint_contexts, _save_dots))
         return x
 
-    def apply(self, params, tokens=None, *, labels=None, remat: str = "none",
+    def apply(self, params, tokens=None, *, embeds=None, labels=None, remat: str = "none",
               fused_loss: bool = False, cache=None, write_cache: bool = False,
               last_only: bool = False, pad_mask=None, pos0: int = 0,
               start=None, need_logits: bool = True, peek: bool = False,
               last_index: int | None = None):
         """Without ``write_cache``: the full-sequence forward of ``tokens``
-        [B, S] (training), returning {"logits" [B, S, V_padded] f32 (not
-        with ``fused_loss``), "aux_loss"} and, given ``labels``, "loss" and
-        "ce_loss"; ``fused_loss`` never materializes the logits.
+        [B, S] (or ``embeds`` [B, S, D]; training), returning {"logits" [B,
+        S, V_padded] f32 (not with ``fused_loss``), "aux_loss"} and, given
+        ``labels``, "loss" and "ce_loss"; ``fused_loss`` never materializes
+        the logits.
 
         With ``write_cache``: cache write-through prefill of chunk
         ``[pos0, pos0+S)``.  ``pad_mask`` ([B, S] bool, True = real token)
@@ -173,7 +187,7 @@ class Model:
         cfg = self.cfg
         if not write_cache:
             return self._apply_full(params, tokens, labels, remat, fused_loss,
-                                    last_only)
+                                    last_only, embeds)
         self._check_serving()
         if cache is None:
             raise ValueError("write_cache=True requires a cache from init_cache")
@@ -181,7 +195,7 @@ class Model:
         if bool((cpos != pos0).any()):
             raise ValueError(f"write_cache prefill chunk at pos0={pos0} "
                              f"requires the cache there; got pos={cpos.tolist()}")
-        x = L.embed_apply(cfg, params["embed"], tokens)
+        x = self._embed(params, tokens, embeds)
         s = x.shape[1]
         if start is None and pad_mask is not None and pos0 == 0:
             start = s - pad_mask.to(torch.int32).sum(dim=1)
@@ -219,9 +233,10 @@ class Model:
                                         params["embed"], x, rows)
         return out
 
-    def _apply_full(self, params, tokens, labels, remat, fused_loss, last_only):
+    def _apply_full(self, params, tokens, labels, remat, fused_loss, last_only,
+                    embeds=None):
         cfg = self.cfg
-        x = self._forward(params, tokens, remat)
+        x = self._forward(params, tokens, remat, embeds)
         # attention, SSM and dense layers carry no auxiliary loss (MoE's is
         # unported)
         out = {"aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
@@ -247,8 +262,10 @@ class Model:
     # .. decode ..
     def init_cache(self, batch: int, max_len: int, kind: str = "paged",
                    **cache_kw):
-        """One KV backend per layer (``"paged"`` or ``"dense"``);
-        ``cache_kw`` (page_size, pages, mapped) configures the paged pool."""
+        """One KV backend per layer: ``"paged"``, ``"dense"``, ``"ring"`` or
+        ``"auto"`` (the ring for sliding-window models, dense rows
+        otherwise; ``attention.init_cache``); ``cache_kw`` (page_size,
+        pages, mapped) configures the paged pool."""
         self._check_serving()
         cfg = self.cfg
         layers = [attention.init_cache(cfg, batch, max_len, L.cdtype(cfg),
@@ -257,8 +274,9 @@ class Model:
                   for _ in range(cfg.num_layers)]
         return {"layers": layers, "pos": 0}
 
-    def decode_step(self, params, cache, tokens, token_mask=None):
-        """One token for the whole batch.  tokens: [B] int.  ``cache["pos"]``
+    def decode_step(self, params, cache, tokens=None, token_mask=None, embeds=None):
+        """One token for the whole batch.  tokens: [B] int (or ``embeds``
+        [B, 1, D]).  ``cache["pos"]``
         is an int or a [B] int32 tensor; ``cache.get("start")`` marks
         left-pad slots.  ``token_mask`` ([B] bool, as the reference's)
         marks the current token as a pad (sequential prefill of a ragged
@@ -267,14 +285,14 @@ class Model:
         reference's SSM layers carry their state through on a pad; SSM
         serving is not ported).  Returns (logits [B, V], cache)."""
         self._check_serving()
-        if token_mask is not None and (token_mask.shape != tokens.shape[:1]
+        x = self._embed(params, None if tokens is None else tokens[:, None], embeds)
+        if token_mask is not None and (token_mask.shape != x.shape[:1]
                                        or token_mask.dtype != torch.bool):
-            raise ValueError(f"token_mask must be bool [{tokens.shape[0]}], got "
+            raise ValueError(f"token_mask must be bool [{x.shape[0]}], got "
                              f"{token_mask.dtype} {tuple(token_mask.shape)}")
         cfg = self.cfg
         pos = cache["pos"]
         start = cache.get("start")
-        x = L.embed_apply(cfg, params["embed"], tokens[:, None])
         rows = attention.plain_path(x, self.use_kernels)
         layers = list(cache["layers"])
         for i, spec in enumerate(self._specs()):
@@ -331,22 +349,24 @@ class Model:
         of a verify burst: SSM serving is not ported."""
         raise NotImplementedError(
             "select_ssm_states rolls SSM layer states back after a verify burst; "
-            "SSM serving is not ported yet (ROADMAP queue 1 item 5)")
+            "SSM serving is not ported yet")
 
-    def prefill(self, params, cache, tokens, pad_mask=None,
-                chunk: int | None = None, pos0: int = 0):
-        """Batched serving prefill: (last-token logits [B, V], cache at
-        pos0 + S0).  ``chunk`` (or ``cfg.prefill_chunk``) splits the
-        prompt into cache-write-through chunks."""
+    def prefill(self, params, cache, tokens=None, pad_mask=None,
+                chunk: int | None = None, pos0: int = 0, embeds=None):
+        """Batched serving prefill of ``tokens`` [B, S0] (or ``embeds`` [B,
+        S0, D]): (last-token logits [B, V], cache at pos0 + S0).  ``chunk``
+        (or ``cfg.prefill_chunk``) splits the prompt into cache-write-through
+        chunks, and so does a prompt past the cache's width (a ring it would
+        wrap: chunks of at most W rows)."""
         self._check_serving()
-        s0 = tokens.shape[1]
+        s0 = (tokens if tokens is not None else embeds).shape[1]
         if pos0 and pad_mask is not None:
             raise ValueError("pos0 > 0 resumes an unpadded prompt; pad_mask "
                              "is unsupported on the resumed-suffix path")
         chunk = chunk if chunk is not None else self.cfg.prefill_chunk
         width = cache["layers"][0].width
         if chunk is None and pos0 + s0 <= width:
-            out = self.apply(params, tokens, cache=cache, write_cache=True,
+            out = self.apply(params, tokens, embeds=embeds, cache=cache, write_cache=True,
                              last_only=True, pad_mask=pad_mask, pos0=pos0)
             return out["logits"][:, 0], out["cache"]
         c = max(int(min(chunk or width, width)), 1)
@@ -356,10 +376,10 @@ class Model:
         logits = None
         for lo in range(0, s0, c):
             hi = min(lo + c, s0)
-            out = self.apply(params, tokens[:, lo:hi], cache=cache,
-                             write_cache=True, last_only=True,
-                             pos0=pos0 + lo, start=start,
-                             need_logits=(hi == s0))
+            out = self.apply(params, None if tokens is None else tokens[:, lo:hi],
+                             embeds=None if embeds is None else embeds[:, lo:hi],
+                             cache=cache, write_cache=True, last_only=True,
+                             pos0=pos0 + lo, start=start, need_logits=(hi == s0))
             cache = out["cache"]
             if hi == s0:
                 logits = out["logits"][:, 0]
@@ -372,8 +392,8 @@ def build_model(cfg: ModelConfig, **kw) -> Model:
 
 def loss_fn(model: Model, params, batch, remat: str = "none",
             fused_loss: bool = False):
-    """Scalar training loss of a {"tokens", "labels"} batch: (loss,
-    {"ce_loss", "aux_loss"})."""
-    out = model.apply(params, batch["tokens"], labels=batch["labels"],
-                      remat=remat, fused_loss=fused_loss)
+    """Scalar training loss of a {"tokens" (or "embeds"), "labels"} batch:
+    (loss, {"ce_loss", "aux_loss"})."""
+    out = model.apply(params, batch.get("tokens"), embeds=batch.get("embeds"),
+                      labels=batch["labels"], remat=remat, fused_loss=fused_loss)
     return out["loss"], {"ce_loss": out["ce_loss"], "aux_loss": out["aux_loss"]}

@@ -108,6 +108,33 @@ import torch
 from repro_torch.device import upload
 from repro_torch.runtime import sampling
 from repro_torch.runtime.faults import fault_point
+
+
+class _TurnLock:
+    """A re-entrant lock that counts the threads blocked on it.  Python's
+    locks are not fair: a thread that releases one and takes it again at
+    once (a tick loop) wins it back nearly every time under CPU contention,
+    and a control call from another thread (``cancel`` from the HTTP loop
+    on a client's disconnect) can starve until the stream has finished.
+    ``waiting`` lets such a loop step aside first
+    (``PipelinedScheduler.yield_to_waiters``)."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._count = threading.Lock()
+        self.waiting = 0
+
+    def __enter__(self):
+        if not self._lock.acquire(blocking=False):
+            with self._count:
+                self.waiting += 1
+            self._lock.acquire()
+            with self._count:
+                self.waiting -= 1
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
 from repro_torch.runtime.metrics import ServingMetrics
 from repro_torch.runtime.serve_loop import Request, ServeEngine, _set_slot, _SlotState
 
@@ -220,7 +247,7 @@ class PipelinedScheduler:
         # reservation by the depth BEFORE any admission
         engine._reserve_slack = self.depth
         self._chunked = engine._paged and engine._prefix is not None and not engine._spec
-        self._lock = threading.RLock()
+        self._lock = _TurnLock()
         self._heap: list[_QEntry] = []
         self._seq = 0
         self._queued = 0                 # live (not cancelled) heap entries
@@ -545,6 +572,15 @@ class PipelinedScheduler:
             self._pipeline.append(_Entry(None, [], [record]))
 
     # .. driving ..
+    def yield_to_waiters(self, timeout: float = 0.05) -> None:
+        """Let threads blocked on the scheduler's lock (a cancel, a submit, a
+        metrics read) take it before the caller's next tick, for at most
+        ``timeout`` seconds; a loop that ticks back to back calls it
+        between ticks."""
+        deadline = time.monotonic() + timeout
+        while self._lock.waiting and time.monotonic() < deadline:
+            time.sleep(0.0002)
+
     def tick(self) -> bool:
         """One scheduler tick: dispatch the next decode tick (if a slot is
         decoding), advance the prefill stream by one chunk or admission,

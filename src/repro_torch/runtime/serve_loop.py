@@ -1,5 +1,15 @@
-"""Continuous-batching serving engine over the paged KV pool or dense
-rows (port of ``ServeEngine`` from ``repro/runtime/serve_loop.py``).
+"""Serving: the one-shot ``generate`` path and the continuous-batching
+engine over the paged KV pool, dense rows or a sliding-window ring (port
+of ``repro/runtime/serve_loop.py``).
+
+``generate`` (reference :104) prefills a [B, S0] left-padded batch
+(``prompt_lens``; ``prefill="batched"`` through ``Model.prefill``,
+chunked past ``prefill_chunk`` or the ring's width, or "sequential"
+decode steps) and then decodes ``steps`` tokens a row with the batched
+sampler, one generator a row seeded from ``(seed, row)``; rows that hit
+``eos_id`` emit ``pad_id`` after it, and the loop stops once every row
+has.  ``make_prefill_step`` / ``make_serve_step`` are its two steps as
+plain functions (the reference jits them).
 
 Each ``step()`` admits queued requests into free slots, then runs ONE
 batched decode step for every slot plus one batched sample; only the
@@ -31,7 +41,13 @@ the pool runs short.
 The dense backend (``cache_kind="dense"``, reference :406-452) keeps
 [slots, max_len] rows per layer: admission prefills zeroed single-slot
 rows and splices them in (``DenseCache.admit``), and there is no page
-accounting.  "auto" stays paged.
+accounting.  "auto" stays paged, but for sliding-window models, which
+serve on the ring (``cache_kind="ring"``): W = min(max_len, window) rows
+a slot with positions absolute, admitted and refilled like the dense
+rows (``RingCache`` shares their slot protocol), a prompt longer than W
+prefilled in chunks of at most W rows; its decode tick reads the ring in
+place through kernel 2's ring form.  Parking and speculative decoding
+refuse the ring, as in the reference.
 
 Speculative decoding (``draft_model``, reference :558-643 and
 :1058-1120): the drafter keeps its own dense cache, prefilled beside the
@@ -60,9 +76,8 @@ The tick uploads its host arrays (block table, tokens, positions) with
 :func:`repro_torch.device.upload`, a pinned non-blocking copy, so that
 dispatching a tick never waits for the one before it.
 
-Not ported (each raises ``NotImplementedError``): the ring backend
-(sliding-window models) and SSM targets and drafters.  ``generate``,
-the one-shot path of the same reference file, is a later slice too.
+Not ported (each raises ``NotImplementedError``): SSM targets and
+drafters.
 """
 
 from __future__ import annotations
@@ -109,8 +124,112 @@ def _check_spec(model: Model, draft: Model, cache_kind: str, spec_k: int,
     if _has_ssm(model) or _has_ssm(draft):
         raise NotImplementedError(
             "speculative decoding with SSM layers rolls recurrent state back "
-            "(select_ssm_states); SSM serving is not ported yet (ROADMAP queue 1 "
-            "item 5)")
+            "(select_ssm_states); SSM serving is not ported yet")
+
+
+def make_prefill_step(model: Model):
+    """(params, batch {"tokens" [B, S] or "embeds" [B, S, D]}) -> the last
+    position's logits [B, V] of a cacheless forward (the reference's
+    prefill step; serving needs only the next-token head)."""
+    def prefill(params, batch):
+        out = model.apply(params, batch.get("tokens"), embeds=batch.get("embeds"),
+                          last_only=True)
+        return out["logits"][:, 0]
+    return prefill
+
+
+def make_serve_step(model: Model):
+    """(params, cache, tokens [B]) -> (logits [B, V], cache): one decode
+    token (the reference jits it and may donate the cache; here the
+    cache is written in place)."""
+    def serve_step(params, cache, tokens):
+        return model.decode_step(params, cache, tokens)
+    return serve_step
+
+
+def _pad_mask_from_lens(prompt_lens, b: int, s0: int, device=None):
+    """[B] real-token counts -> (left-pad mask [B, S0] bool, start [B]
+    int32) on ``device``."""
+    lens = np.asarray(prompt_lens, np.int64).reshape(-1)
+    if lens.shape != (b,):
+        raise ValueError(f"prompt_lens must have shape ({b},), got {lens.shape}")
+    if (lens < 1).any() or (lens > s0).any():
+        raise ValueError(f"prompt_lens must be in [1, {s0}], got {lens}")
+    lt = torch.as_tensor(lens, device=device)
+    mask = torch.arange(s0, device=device)[None, :] >= (s0 - lt[:, None])
+    return mask, (s0 - lt).to(torch.int32)
+
+
+def generate(model: Model, params, prompt_tokens, steps: int, *,
+             temperature: float = 0.0, seed: int = 0, max_len: int | None = None,
+             eos_id: int | None = None, pad_id: int = 0, prompt_lens=None,
+             prefill: str = "batched", prefill_chunk: int | None = None,
+             top_k: int | None = None, top_p: float | None = None,
+             cache_kind: str | None = None):
+    """Greedy / temperature generation on top of the batched prefill (the
+    reference's contract; its ``key`` is ``seed`` here).
+
+    ``prompt_tokens``: [B, S0] ints, LEFT-padded when ragged
+    (``prompt_lens`` [B]: real tokens occupy each row's last
+    ``prompt_lens[b]`` columns).  Returns [B, steps] int32 on the model's
+    device; a row that emits ``eos_id`` emits ``pad_id`` after it, and the
+    loop stops once every row has (padded back to ``steps`` columns).
+
+    ``prefill``: "batched" (``Model.prefill``, in chunks of
+    ``prefill_chunk`` when set, and of at most the ring's width on a
+    sliding-window model) or "sequential" (one decode step a prompt
+    token).  ``cache_kind``: "auto" | "dense" | "ring" | "paged" (default
+    the config's ``cache_kind``).  Sampling: ``temperature``, ``top_k``
+    and ``top_p`` for every row, one ``torch.Generator`` a row seeded
+    from ``(seed, row)``; all-greedy steps draw nothing."""
+    dev = model.device
+    prompt_tokens = torch.as_tensor(np.asarray(prompt_tokens), dtype=torch.int64, device=dev)
+    if prompt_tokens.dim() != 2 or 0 in prompt_tokens.shape:
+        raise ValueError("prompt_tokens must be [B, S0] with B >= 1 and S0 >= 1 (empty "
+                         f"prompts cannot be prefilled); got shape {tuple(prompt_tokens.shape)}")
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if prefill not in ("batched", "sequential"):
+        raise ValueError(f"unknown prefill mode {prefill!r}")
+    b, s0 = prompt_tokens.shape
+    max_len = max_len or (s0 + steps)
+    mask = start = None
+    if prompt_lens is not None:
+        mask, start = _pad_mask_from_lens(prompt_lens, b, s0, dev)
+    cache = model.init_cache(b, max_len, kind=cache_kind or model.cfg.cache_kind)
+    if start is not None:
+        cache["start"] = start
+    step = make_serve_step(model)
+    if prefill == "batched":
+        logits, cache = model.prefill(params, cache, prompt_tokens, pad_mask=mask,
+                                      chunk=prefill_chunk)
+    else:
+        for t in range(s0):
+            logits, cache = model.decode_step(
+                params, cache, prompt_tokens[:, t],
+                token_mask=None if mask is None else mask[:, t])
+    greedy = temperature <= 0 and top_k is None and top_p is None
+    if not greedy:
+        sampler = sampling.make_sampler(top_k, top_p, pad_id)
+        keys = sampling.init_keys(seed, b, dev)
+        temp = np.full((b,), temperature, np.float32)
+    outs = []
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    tok = None
+    for _ in range(steps):
+        if tok is not None:
+            logits, cache = step(params, cache, tok.long())
+        tok = sampling.greedy(logits) if greedy else sampler(logits, keys, temp)[0]
+        if eos_id is not None:
+            tok = torch.where(done, pad_id, tok)
+            done = done | (tok == eos_id)
+        outs.append(tok)
+        if eos_id is not None and bool(done.all()):
+            break
+    out = torch.stack(outs, dim=1).to(torch.int32)
+    if out.shape[1] < steps:   # early EOS stop: keep the [B, steps] contract
+        out = torch.nn.functional.pad(out, (0, steps - out.shape[1]), value=pad_id)
+    return out
 
 
 def _prefill_slot(model: Model, params, cache, slot: int, toks, mask, chunk):
@@ -222,8 +341,9 @@ class EngineSnapshot:
 
 
 class ServeEngine:
-    """Fixed-slot continuous-batching engine on the paged (default) or
-    dense backend, with optional speculative decoding.
+    """Fixed-slot continuous-batching engine on the paged (default), dense
+    or ring (sliding-window models' default) backend, with optional
+    speculative decoding.
 
     ``pages`` caps the paged pool (default: slots * ceil(max_len /
     page_size)); an undersized pool stalls admission instead of failing a
@@ -261,12 +381,8 @@ class ServeEngine:
             raise ValueError(
                 f"prefix caching requires the paged backend, not {cache_kind!r}: "
                 "only block tables can map one page into many slots")
-        if cache_kind == "ring":
-            raise NotImplementedError("sliding-window models serve through "
-                                      "the ring backend, not ported yet")
-        if cache_kind not in ("paged", "dense"):
-            raise ValueError(f"unknown cache_kind {cache_kind!r} "
-                             "(ported: 'paged', 'dense')")
+        if cache_kind not in ("paged", "dense", "ring"):
+            raise ValueError(f"unknown cache_kind {cache_kind!r}")
         self.cache_kind = cache_kind
         self.model, self.params = model, params
         self.device = model.device
@@ -299,8 +415,8 @@ class ServeEngine:
             if prefix_cache:
                 self._prefix = PrefixCache(self.page_size, self._alloc)
             self._table = np.zeros((slots, self._pps), np.int32)
-        else:
-            cache = model.init_cache(slots, max_len, kind="dense")
+        else:   # dense rows, or the ring of a sliding-window model
+            cache = model.init_cache(slots, max_len, kind=cache_kind)
         cache["pos"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         cache["start"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.cache = cache
@@ -867,8 +983,8 @@ class ServeEngine:
         the parked request's uid."""
         if not self._paged:
             raise ValueError(
-                "parking requires the paged backend: dense slots reuse the parked "
-                "stream's KV rows for the next occupant")
+                "parking requires the paged backend: dense / ring slots reuse the "
+                "parked stream's KV rows for the next occupant")
         if self._spec:
             raise ValueError(
                 "parking speculative engines is unsupported: the drafter's dense "

@@ -158,6 +158,7 @@ class ServingServer:
         sched = self.scheduler
         while not self._stop_flag:
             if sched.busy:
+                sched.yield_to_waiters()   # a cancel / submit / metrics read first
                 sched.tick()
                 if not (sched.engine._active or sched._prefill):
                     # busy but capacity-blocked (parked streams under a

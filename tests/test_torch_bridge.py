@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
@@ -51,7 +52,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env={"PYTHONPATH": _SRC, "PATH": "/usr/bin:/bin"},
+                         text=True, env={"PYTHONPATH": _SRC, "PATH": "/usr/bin:/bin",
+                                         "OMP_NUM_THREADS": "1"},
                          timeout=120)
     assert out.returncode == 0, out.stderr
 

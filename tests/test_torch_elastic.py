@@ -9,7 +9,8 @@ import itertools
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from repro.runtime import elastic as ref_elastic  # noqa: E402
 from repro.runtime import faults as ref_faults  # noqa: E402

@@ -13,8 +13,9 @@ and elastic capacity.
 * Park / resume ≡ never parked, on the engine directly and through
   ``set_capacity``; ``ElasticSupervisor`` over 2 and 4 simulated hosts
   parks and resumes real streams; drain sheds new submits.
-* Fixed chaos seeds: every request finishes bit-identical or fails with
-  a structured error.  The leak check is clean after every run.
+* Chaos seeds, fixed and five drawn by hypothesis: every request
+  finishes bit-identical or fails with a structured error.  The leak
+  check is clean after every run.
 """
 
 import functools
@@ -23,7 +24,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
+from _hypothesis_compat import given, settings, st  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.runtime.elastic import ElasticSupervisor, HealthMonitor  # noqa: E402
@@ -329,10 +332,10 @@ def test_full_loss_drains_and_sheds_new_submits():
     eng.check_leaks()
 
 
-@pytest.mark.parametrize("seed", [0, 3, 11])
-def test_chaos_fixed_seeds(seed):
+def _chaos_invariant(seed):
     """Under a seeded schedule every request finishes bit-identical to the
-    fault-free run or fails with a structured error; zero leaks."""
+    fault-free run or fails with a structured error; zero leaks (the
+    reference's ``_chaos_invariant``)."""
     kw = dict(slots=2, max_len=64, seed=5, top_k=8)
     reqs = _requests(5)
     ref = _sync(reqs, **kw)
@@ -352,3 +355,16 @@ def test_chaos_fixed_seeds(seed):
     assert any(sched.status(u) == DONE for u in uids)
     eng.check_leaks()
     assert sched.stats()["faults"]["total"] == len(plan.fired)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_chaos_fixed_seeds(seed):
+    _chaos_invariant(seed)
+
+
+@given(seed=st.integers(min_value=0, max_value=2**16))
+@settings(max_examples=5, deadline=None)
+def test_chaos_random_seeds(seed):
+    """The reference's ``TestChaosProperty::test_random_seeds``: five seeds
+    hypothesis draws."""
+    _chaos_invariant(seed)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from repro.runtime import faults as ref_faults  # noqa: E402
 from repro.runtime.page_allocator import PageAllocator as RefAllocator  # noqa: E402

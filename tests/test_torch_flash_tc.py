@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -359,6 +360,28 @@ def test_masked_rounding_within_the_chip_limit(cs, b, sq, skv, starts, q_offset,
     assert cs.excess(bad, want, att, cs.TOL_BF16) > 1
     if window:
         bad = _emulate_masked(q, k, v, start, q_offset=q_offset, window=window + 1)
+        assert cs.excess(bad, want, att, cs.TOL_BF16) > 1
+
+
+def test_aligned_edges_make_one_key_show(cs):
+    """chip_smoke.py's ``align_edges`` (its ring-prefill case: G = 12, a
+    chunk after a full window, a start inside it), at a small shape: the
+    bf16 route's rounding stays within the card's limit, and one key more
+    at each row's window edge or one less at its start reads above it."""
+    hq, hkv, sq, skv, d, qo, window, st = 24, 2, 128, 640, 64, 512, 512, 37
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((1, hq, sq, d), generator=g)
+    k, v = (torch.randn((1, hkv, skv, d), generator=g) for _ in range(2))
+    cs.align_edges(q, k, st, qo, window)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    start = torch.tensor([st], dtype=torch.int32)
+    kw = dict(q_offset=qo, window=window)
+    want = masked_attention_ref(q, k, v, start=start, **kw)
+    att = masked_attention_ref(q.float(), k.float(), v.float().abs(), start=start, **kw)
+    assert cs.excess(_emulate_masked(q, k, v, start, **kw), want, att, cs.TOL_BF16) <= 1
+    for bad in (_emulate_masked(q, k, v, start + 1, **kw),
+                _emulate_masked(q, k, v, start, q_offset=0, window=window),
+                _emulate_masked(q, k, v, start, q_offset=qo, window=window + 1)):
         assert cs.excess(bad, want, att, cs.TOL_BF16) > 1
 
 

@@ -8,7 +8,8 @@ import threading
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from repro.runtime import metrics as ref_metrics  # noqa: E402
 from repro_torch.runtime import metrics  # noqa: E402

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
@@ -153,7 +154,7 @@ def _ref_scheduler_streams():
     """The reference scheduler's greedy streams for every REF_CASES entry,
     computed in a fresh process."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
-    env = dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _REF_SCRIPT], capture_output=True, text=True,
                          env=env, timeout=300,
                          input=json.dumps([REF_CASES, _requests(4, temps=(0.0,))]))

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -116,19 +117,22 @@ def test_temperature_streams_replay_identically(setup):
 
 
 def test_unported_options_raise(setup):
-    """The ring backend (``cache_kind="ring"``) and SSM targets are
-    refused; a drafter and the dense backend are accepted and serve the
-    plain paged engine's streams; prefix sharing is accepted: "auto" (the
-    default, as in the reference) and True both serve through the prefix
-    cache on this paged attention-only model, and False bypasses it."""
+    """SSM targets are refused (not ported), and so is the ring backend
+    on a model without a sliding window (the reference's ValueError: the
+    ring carries a window mask; windowed models serve on it,
+    tests/test_torch_ring.py); a drafter and the dense backend are
+    accepted and serve the plain paged engine's streams; prefix sharing
+    is accepted: "auto" (the default, as in the reference) and True both
+    serve through the prefix cache on this paged attention-only model, and
+    False bypasses it."""
     _, params, prompts = setup
     port_params = bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     model = Model(port_reduced(port_get_config("qwen2.5-3b")), device="cpu")
     ssm = Model(port_reduced(port_get_config("mamba2-370m")), device="cpu")
-    for m, kw in ((model, {"prefix_cache": False, "cache_kind": "ring"}),
-                  (ssm, {"prefix_cache": False})):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(m, port_params, **kw)
+    with pytest.raises(ValueError, match="sliding_window"):
+        ServeEngine(model, port_params, prefix_cache=False, cache_kind="ring")
+    with pytest.raises(NotImplementedError):
+        ServeEngine(ssm, port_params, prefix_cache=False)
     streams = []
     for kw in ({}, {"prefix_cache": "auto"}, {"prefix_cache": True}, {"prefix_cache": False},
                {"cache_kind": "dense"}, {"draft_model": model, "draft_params": port_params}):

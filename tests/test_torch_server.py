@@ -4,12 +4,10 @@ on the CPU: ``/healthz`` states, 404 / 400 / 413 / 429 / 503, SSE stream
 completions, the ``/metrics`` document and its leak probe, a client
 disconnect cancelling and freeing its request, an injected socket-write
 fault doing the same, a quarantined request's structured 500, and the
-CLI's ``--http --http-smoke`` with and without a fault plan.  Every
-client call has a timeout; the server binds an ephemeral port.
-
-The reference's slow-client test (a hung write overflowing the bounded
-per-stream queue) is not ported: it is red in the reference's own runs
-(``ROADMAP.md`` queue 3)."""
+CLI's ``--http --http-smoke`` with and without a fault plan, and the
+reference's slow-client test (a hung write overflowing the bounded
+per-stream queue).  Every client call has a timeout; the server binds an
+ephemeral port."""
 
 import functools
 import http.client
@@ -20,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
@@ -221,6 +220,41 @@ def test_serving_continues_after_errors(served):
     c, r = _post(served, {"tokens": _prompt(6, seed=9), "max_new_tokens": 3, "stream": False})
     assert r.status == 200 and len(json.loads(r.read())["tokens"]) == 3
     c.close()
+
+
+def test_slow_client_bounded_queue_disconnects():
+    """The reference's slow-client test (``tests/test_server.py:279``): a
+    client that stops draining its stream (every socket write hangs 0.2 s)
+    backs tokens up into the bounded per-stream queue; its overflow is
+    treated as a dead client: cancel and abort, no unbounded buffering, no
+    leak."""
+    model, params = _port()
+    eng = ServeEngine(model, params, slots=2, max_len=512, seed=7)
+    sched = PipelinedScheduler(eng, prefill_chunk=8)
+    srv = ServingServer(sched, max_stream_queue=1)
+    host, port = srv.start()
+    plan = FaultPlan([Fault("server.write", times=9999, kind="hang", seconds=0.2)])
+    try:
+        with plan:
+            c = http.client.HTTPConnection(host, port, timeout=600)
+            c.request("POST", "/v1/completions",
+                      json.dumps({"tokens": _prompt(8, seed=8), "max_new_tokens": 400}),
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            assert r.status == 200
+            deadline = time.monotonic() + 60
+            while sched.metrics.cancelled_total < 1 and time.monotonic() < deadline:
+                time.sleep(0.2)
+            try:
+                r.read()
+            except (http.client.HTTPException, ConnectionError, OSError):
+                pass
+            c.close()
+    finally:
+        srv.stop()
+    assert sched.metrics.cancelled_total == 1
+    assert plan.fired and plan.fired[0].kind == "hang"
+    eng.check_leaks()
 
 
 @pytest.mark.parametrize("stream", [False, True])
