@@ -13,7 +13,7 @@ Phases (each prints its seconds; any failure exits non-zero):
    7b, 7c, kernel 2's masked instantiations, the int8 loop of kernels 1,
    6, 5 and 4, kernel 8's three launches, 8b's two and kernel 8c), of the
    split-K stream of kernels 1, 6, 5 and 4 and of the paged decode (3 and
-   3b);
+   3b, and its ring form, the ring decode);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the four serving matmuls (packed fused EN-T,
    w8a8 int8, 4-plane and packed EN-T) bit for bit at the full-width
@@ -30,16 +30,17 @@ Phases (each prints its seconds; any failure exits non-zero):
    per-sequence offsets at the speculative drafter's tick, Sq = 1, and
    its verify burst, Sq = 5, over 8 x 576 columns, with planted faults
    "slot 0's offset for every slot" and "offset off by one", and a CUDA
-   ``valid`` mask refused; its ring form at the starcoder2-15b tick: 8
-   slots, 48 / 4 heads, a 4096-row ring read at positions on both sides of
-   the wrap, with the planted faults "positions read unrotated" and
-   "window off by one") and the
-   paged attention
-   kernel (split-KV, one launch), the latter with bf16 pools and with
-   int8 pools + bf16 scales, at the serving tick's shape, at G = 12 and
-   D = 64 with pos on split boundaries, and at long context (8 x 4096
-   tokens, timed beside its bytes bound), in bf16 and float32 within
-   limits derived from the data (see TOL_BF16), two calls bit-identical.
+   ``valid`` mask refused) and the paged attention kernel (split-KV, one
+   launch), the latter with bf16 pools and with int8 pools + bf16
+   scales, at the serving tick's shape, at G = 12 and D = 64 with pos on
+   split boundaries, and at long context (8 x 4096 tokens, timed beside
+   its bytes bound), in bf16 and float32 within limits derived from the
+   data (see TOL_BF16), two calls bit-identical; its ring form, the ring
+   decode, at the starcoder2-15b tick (8 slots, 48 / 4 heads, a 4096-row
+   ring in its stored [B, W, Hkv, D] layout read at positions on both
+   sides of the wrap), bf16 and int8 pools, with the planted faults
+   "positions read unrotated", "window off by one" and "last split
+   dropped", timed against SDPA with the same bool mask.
    Planted faults (a wrong weight or plane code, a wrong mask argument, a
    wrong scale pool, a combine that drops the last live split) must fail
    those checks.  Kernel, plain
@@ -106,11 +107,12 @@ Phases (each prints its seconds; any failure exits non-zero):
    quantized layer by layer on the card; a 4096-row ring a slot): 16
    greedy requests of 4,080..4,600 prompt tokens, 32 new tokens each, on
    8 slots; every decode tick kernel 1 240 times on the split-K stream
-   and kernel 2's ring form 40 times, every prefill chunk (4,096 rows)
-   kernel 1 240 times on the tensor-core loop and kernel 2 40 times with
-   window 4096, kernel 3 and the plain versions never; the first wave's
-   prompts re-admitted over stale rings reproduce their streams; a
-   full-batch tick timed and profiled (kernel 2's ring share);
+   and the ring decode 40 times (kernel 2 never), every prefill chunk
+   (4,096 rows) kernel 1 240 times on the tensor-core loop and kernel 2
+   40 times with window 4096, kernel 3 and the plain versions never; the
+   first wave's prompts re-admitted over stale rings reproduce their
+   streams; a full-batch tick timed and profiled (the ring decode's
+   share, the copies);
 6. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
@@ -126,9 +128,10 @@ Phases (each prints its seconds; any failure exits non-zero):
    around a rollback and the drafter's dense decode steps, kernels vs
    plain and the bursts vs K + 1 kernel decode steps within the same
    limit, the planted fault "pos not reset after a rejection" over it;
-   and the ring's path (a 4,300-token prompt in chunks of 4,096 and 204
-   rows, the second over the wrap, then 4 decode ticks), whose planted
-   fault "context read after the chunk's write" the limit must reject;
+   and the ring's path (a 5,120-token prompt in chunks of 4,096 and
+   1,024 rows, the second over the wrap, then 4 decode ticks; bf16 KV,
+   then int8 KV through the ring decode's int8 form), whose planted fault
+   "context read after the chunk's write" the limit must reject;
 7. the training kernels: the flash forward (kernel 7) against
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
@@ -1032,72 +1035,109 @@ def check_flash_offsets(torch, timer):
     return rows
 
 
-# Kernel 2's ring form at the starcoder2-15b decode tick: B = 8 slots, Hq
-# 48 over Hkv 4 (G = 12), D 128, a ring of W = 4096 rows (its window).
-# pos per slot on both sides of the wrap: just past it (4100: the seam
-# between rows 4 and 5), exactly full (4095), before it (3000), several
-# laps (12345) and between; start inside the held range on two slots (4500
-# of 1905..6000, 4990 of 905..5000: 11 live keys) and below it on one.
+# The ring decode (the paged kernel's ring form) at the starcoder2-15b
+# decode tick: B = 8 slots, Hq 48 over Hkv 4 (G = 12), D 128, a ring of W =
+# 4096 rows (its window) in the stored layout [B, W, Hkv, D].  pos per
+# slot on both sides of the wrap: just past it (4100: the seam between rows
+# 4 and 5), exactly full (4095), before it (3000), several laps (12345) and
+# between; start inside the held range on two slots (4500 of 1905..6000,
+# 4990 of 905..5000: 11 live keys, on both sides of a split's edge at 896)
+# and below it on one.
 RING_W = 4096
 RING_POS = (4100, 4095, 3000, 6000, 4600, 12345, 4160, 5000)
 RING_START = (0, 0, 0, 4500, 100, 0, 0, 4990)
 
 
-def check_flash_ring(torch, timer):
-    """Kernel 2's ring form against ``masked_attention_ref(ring_width=)``
-    (the ring cache's own mask) through ``attn_check``, bf16 (tensor-core
-    route) and float32 (CUDA cores), with the planted faults "positions
-    read unrotated" (the same call without ``ring_width``: row j taken as
-    position j) and "window off by one" (window W - 1).  Slot 0's oldest
+def check_ring_decode(torch, timer):
+    """The ring decode (``ring_decode_kernel``, kernels 3 / 3b's split-KV
+    body over the ring's pools in place) against its plain version
+    (``ring_decode_ref``: the ring cache's own mask) through
+    ``attn_check``, bf16 q (tensor cores) and float32 q (CUDA cores), with
+    bf16 pools and with int8 pools + bf16 scale pools as ``quantize_kv``
+    writes them; planted faults "positions read unrotated" (fault 2: row
+    j as position j), "window off by one" (window W - 1) and "last split
+    dropped" (fault 1), each caught in both dtypes.  Slot 0's oldest
     position (pos - W + 1, in the row after the seam) holds a key aligned
     with its group's queries, which carries most of the row's weight, so
-    that dropping it shows in both dtypes.  Every ring call one ring
-    launch.  Timed against the plain version and SDPA with the same bool
-    mask, beside its bytes bound (each live kv row read once).  Returns rows."""
+    that dropping it shows.  Every call one launch (int8: one int8-KV
+    launch); two calls bit-identical.  Timed against the plain version,
+    SDPA with the same bool mask on ``[B, Hkv, W, D]`` (bf16 pools) and
+    the bytes bound (each live row read once).  Returns rows, bf16 pools
+    first."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.flash_attention.ref import masked_attention_ref, ring_valid
-    kern2 = fa.flash_attention_masked
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.flash_attention.ref import ring_valid
+    from repro_torch.kernels.paged_attention.paged_attention import (ring_decode_kernel,
+                                                                     ring_split_plan)
+    from repro_torch.kernels.paged_attention.ref import ring_decode_ref
+    from repro_torch.models.kv_cache import quantize_kv
     g = torch.Generator(device=DEV).manual_seed(15)
     b, hq, hkv, d, w = SLOTS, 48, 4, 128, RING_W
     q = torch.randn((b, hq, 1, d), generator=g, device=DEV)
-    k = torch.randn((b, hkv, w, d), generator=g, device=DEV)
-    v = torch.randn((b, hkv, w, d), generator=g, device=DEV)
-    k[0, :, (RING_POS[0] + 1) % w] = q[0, :, 0].reshape(hkv, hq // hkv, d).sum(1)
+    k = torch.randn((b, w, hkv, d), generator=g, device=DEV)
+    v = torch.randn((b, w, hkv, d), generator=g, device=DEV)
+    k[0, (RING_POS[0] + 1) % w] = q[0, :, 0].reshape(hkv, hq // hkv, d).sum(1)
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     pos = torch.tensor(RING_POS, dtype=torch.int32, device=DEV)
     start = torch.tensor(RING_START, dtype=torch.int32, device=DEV)
-    faults = {
-        "positions read unrotated (p_j = j)": lambda q, k, v, st, p: kern2(
-            q, k, v, st, q_offsets=p, window=w),
-        "window off by one": lambda q, k, v, st, p: kern2(
-            q, k, v, st, q_offsets=p, ring_width=w, window=w - 1)}
-    what = (f"flash_attention_masked ring form B={b} Hq={hq} Hkv={hkv} W={w} "
-            f"pos={list(RING_POS)} start={list(RING_START)} D={d}")
-    n0 = kern2.ring_launches
-    err = attn_check(torch, what,
-                     lambda q, k, v, st, p: kern2(q, k, v, st, q_offsets=p, ring_width=w,
-                                                  window=w),
-                     lambda q, k, v, st, p: masked_attention_ref(
-                         q, k, v, start=st, q_offsets=p, ring_width=w, window=w),
-                     (q, k, v, start, pos), faults)
-    if kern2.ring_launches - n0 != 4:   # 2 dtypes x (the check, the window fault)
-        raise AssertionError(f"{what}: {kern2.ring_launches - n0} ring launches, expected 4")
-    ms = timer(lambda: kern2(q, k, v, start, q_offsets=pos, ring_width=w, window=w))
-    plain_ms = timer(lambda: masked_attention_ref(q, k, v, start=start, q_offsets=pos,
-                                                  ring_width=w, window=w), reps=5)
+    rows_a_split, splits = ring_split_plan(b, hkv, w, sm_count(q.device))
     mask = ring_valid(pos, start, w, w)
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask[:, None, None, :], enable_gqa=True))
     live = int(mask.sum())   # ring rows a slot attends, summed over the slots
-    # q and the output once, the live K/V rows once, pos and start
-    nbytes = 2 * q.numel() * 2 + live * hkv * d * 2 * 2 + 8 * b
-    bnd, by = bound_ms(nbytes, live * hq * d * 4, BF16_FLOPS_S)
-    print(f"kernel {what} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-          f"bound_ms={bnd:.5f} ({by}) max_abs_err={err}", flush=True)
-    return [dict(case="ring tick", B=b, Hq=hq, Hkv=hkv, W=w, pos=list(RING_POS),
-                 start=list(RING_START), D=d, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                 bound_ms=bnd, bound_by=by, max_abs_err=err)]
+
+    def kernel(q, k, v, st, p, *sc, window=w, fault=0):
+        return ring_decode_kernel(q, k, v, p, st, *sc, window=window, fault=fault)
+
+    def plain(q, k, v, st, p, *sc):
+        return ring_decode_ref(q, k, v, p, st, *sc, window=w)
+
+    faults = {"positions read unrotated (fault 2)": lambda *a: kernel(*a, fault=2),
+              "window off by one": lambda *a: kernel(*a, window=w - 1),
+              "last split dropped (fault 1)": lambda *a: kernel(*a, fault=1)}
+    rows = []
+    for int8_kv in (False, True):
+        scales = ()
+        kp, vp = k, v
+        if int8_kv:
+            (kp, ks), (vp, vs) = quantize_kv(k), quantize_kv(v)
+            scales = (ks, vs)
+        name = "ring_decode_attention" + ("[int8_kv]" if int8_kv else "")
+        what = (f"{name} B={b} Hq={hq} Hkv={hkv} W={w} pos={list(RING_POS)} "
+                f"start={list(RING_START)} D={d}")
+        n0 = ring_decode_kernel.launches, ring_decode_kernel.int8_kv_launches
+        operands = (q, kp, vp, start, pos, *scales)
+        err = attn_check(torch, what, kernel, plain, operands, faults)
+        n = (ring_decode_kernel.launches - n0[0], ring_decode_kernel.int8_kv_launches - n0[1])
+        if n != (8, 8 * int8_kv):   # 2 dtypes x (the check, 3 faults)
+            raise AssertionError(f"{what}: launches {n}, expected 8, all int8-KV or none")
+        for dt in (torch.bfloat16, torch.float32):   # the same inputs, the same bits
+            ops = [t.to(dt) if t.is_floating_point() else t for t in (q, kp, vp)]
+            if not torch.equal(kernel(*ops, start, pos, *scales),
+                               kernel(*ops, start, pos, *scales)):
+                raise AssertionError(f"{what} {dt}: two calls on the same inputs differ")
+        ms = timer(lambda: kernel(*operands))
+        plain_ms = timer(lambda: plain(*operands), reps=5)
+        library_ms = None
+        if not int8_kv:   # SDPA over the rows in [B, Hkv, W, D], the bool mask
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+            library_ms = timer(lambda: F.scaled_dot_product_attention(
+                q, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True))
+            del kt, vt
+        # q (bf16) and the f32 output once, the live K/V rows (int8: with
+        # their bf16 scales) once, pos and start
+        row_bytes = (d + 2) if int8_kv else 2 * d
+        nbytes = q.numel() * 2 + q.numel() * 4 + live * hkv * row_bytes * 2 + 8 * b
+        bnd, by = bound_ms(nbytes, live * hq * d * 4, BF16_FLOPS_S)
+        print(f"kernel {what} split {rows_a_split} rows x {splits} ({b * hkv * splits} blocks) "
+              f"live_rows={live} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={'None' if library_ms is None else f'{library_ms:.4f}'} "
+              f"bound_ms={bnd:.5f} ({by}) max_abs_err={err}; two calls bit-identical",
+              flush=True)
+        rows.append(dict(case="ring tick", kv="int8" if int8_kv else "bf16", B=b, Hq=hq,
+                         Hkv=hkv, W=w, pos=list(RING_POS), start=list(RING_START), D=d,
+                         rows_a_split=rows_a_split, splits=splits, live_rows=live, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd, bound_by=by,
+                         max_abs_err=err))
+    return rows
 
 
 # The paged decode's checked calls (kernels 3 and 3b): name -> (B, Hq, Hkv,
@@ -1917,30 +1957,32 @@ def wrappers(torch):
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq)
     from repro_torch.kernels.paged_attention import ops as paged_ops
-    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.paged_attention.paged_attention import (paged_attention_kernel,
+                                                                     ring_decode_kernel)
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan, ssd_scan_bwd_chunk,
                                                        ssd_scan_bwd_state)
     kernels = (ent_matmul_packed_fused, flash_attention_masked, paged_attention_kernel,
-               int8_matmul, ent_matmul, ent_matmul_packed, flash_attention,
+               ring_decode_kernel, int8_matmul, ent_matmul, ent_matmul_packed, flash_attention,
                flash_attention_bwd_dkdv, flash_attention_bwd_dq, ssd_scan,
                ssd_scan_bwd_state, ssd_scan_bwd_chunk)
     plains = (ent_ops.ent_quantized_matmul_fused, ent_ops.ent_quantized_matmul,
               ent_ops.ent_quantized_matmul_packed, int8_ops.quantized_matmul,
-              attn_ops.masked_attention, paged_ops.paged_attention, attn_ops.attention,
-              ssd_ops.ssd)
-    return kernels, plains, paged_attention_kernel
+              attn_ops.masked_attention, paged_ops.paged_attention, paged_ops.ring_attention,
+              attn_ops.attention, ssd_ops.ssd)
+    return kernels, plains, (paged_attention_kernel, ring_decode_kernel)
 
 
 def reset_counts(torch):
-    kernels, plains, paged = wrappers(torch)
+    kernels, plains, decode = wrappers(torch)
     for f in kernels:
         f.launches = 0
-        for route in ("tc_launches", "stream_launches", "offset_launches", "ring_launches",
+        for route in ("tc_launches", "stream_launches", "offset_launches",
                       *(f"{part}_launches" for part in SSD_FWD_PARTS + SSD_BWD_STATE_PARTS)):
             if hasattr(f, route):
                 setattr(f, route, 0)
-    paged.int8_kv_launches = 0
+    for f in decode:
+        f.int8_kv_launches = 0
     for f in plains:
         f.plain_launches = 0
 
@@ -1948,12 +1990,16 @@ def reset_counts(torch):
 def read_counts(torch):
     """(kernel launches by JSON name, by ``ssd_scan[<part>]`` each of
     kernel 8's three launches and by ``ssd_scan_bwd_state[<part>]`` each of
-    8b's two; plain versions run by op name)."""
+    8b's two; the paged decode and its ring form (``ring_decode_attention``)
+    apart from their int8-KV launches; plain versions run by op name)."""
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd_state
-    kernels, plains, paged = wrappers(torch)
+    kernels, plains, (paged, ring) = wrappers(torch)
     launches = {f.__name__: f.launches for f in kernels}
+    del launches[ring.__name__]
     launches["paged_attention_kernel"] = paged.launches - paged.int8_kv_launches
     launches["paged_attention_kernel[int8_kv]"] = paged.int8_kv_launches
+    launches["ring_decode_attention"] = ring.launches - ring.int8_kv_launches
+    launches["ring_decode_attention[int8_kv]"] = ring.int8_kv_launches
     for part in SSD_FWD_PARTS:
         launches[f"ssd_scan[{part}]"] = getattr(ssd_scan, f"{part}_launches")
     for part in SSD_BWD_STATE_PARTS:
@@ -1968,9 +2014,10 @@ def read_offset_launches(torch):
 
 
 def read_ring_launches(torch):
-    """Kernel 2's launches in its ring form (``ring_width``)."""
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_masked
-    return flash_attention_masked.ring_launches
+    """The ring decode's launches (``ring_decode_kernel``, bf16 and int8
+    KV)."""
+    from repro_torch.kernels.paged_attention.paged_attention import ring_decode_kernel
+    return ring_decode_kernel.launches
 
 
 def read_tc_counts(torch):
@@ -1994,15 +2041,17 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention
 # the serving configurations chip_smoke runs at full width: name ->
 # (launch.build keyword arguments, kernels that must launch, kernels that
 # must not)
+RING_KERNELS = ("ring_decode_attention", "ring_decode_attention[int8_kv]")
 SERVE_CONFIGS = {
     "EN-T w8a8, bf16 KV": (
         dict(quantize=True),
         ("ent_matmul_packed_fused", "flash_attention_masked", "paged_attention_kernel"),
-        ("int8_matmul", "paged_attention_kernel[int8_kv]", *TRAIN_KERNELS, *SSD_KERNELS)),
+        ("int8_matmul", "paged_attention_kernel[int8_kv]", *RING_KERNELS, *TRAIN_KERNELS,
+         *SSD_KERNELS)),
     "w8a8 int8, int8 KV": (
         dict(quant="int8", kv_quant=True),
         ("int8_matmul", "flash_attention_masked", "paged_attention_kernel[int8_kv]"),
-        ("ent_matmul_packed_fused", "paged_attention_kernel", *TRAIN_KERNELS,
+        ("ent_matmul_packed_fused", "paged_attention_kernel", *RING_KERNELS, *TRAIN_KERNELS,
          *SSD_KERNELS)),
 }
 
@@ -2929,6 +2978,22 @@ def check_serve_routes(cfg, config, launches, routes, ticks):
           "all tensor-core", flush=True)
 
 
+def copy_ms(prof, per=1):
+    """The copies of a torch.profiler run, over ``per``: ``aten::copy_``'s
+    device time (op_ms), and the device time and launches of the kernels
+    named for a copy (kernels_ms, launches)."""
+    out = dict(op_ms=0.0, kernels_ms=0.0, launches=0.0)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if ev.key == "aten::copy_":
+            out["op_ms"] += us / 1e3 / per
+        elif str(getattr(ev, "device_type", "")).endswith("CUDA") and (
+                "copy" in ev.key.lower() or "memcpy" in ev.key.lower()):
+            out["kernels_ms"] += us / 1e3 / per
+            out["launches"] += ev.count / per
+    return out
+
+
 def device_ms_by_kernel(prof, per=1):
     """Device time in ms by kernel name from a torch.profiler run, over ``per``."""
     dev = {}
@@ -3439,12 +3504,14 @@ def ring_prompts(cfg):
 
 def step_counts(torch):
     """The serving kernels' counters: kernel 1 by route, kernel 2 (its
-    tensor-core, offset and ring launches), kernel 3, the plain versions."""
+    tensor-core and offset launches), kernel 3, the ring decode (and its
+    int8-KV launches), the plain versions."""
     launches, plain_runs = read_counts(torch)
     return {**read_matmul_routes(torch), "flash_attention_masked": launches[
         "flash_attention_masked"], "flash_attention_masked[tensor-core]": read_tc_counts(
         torch)["flash_attention_masked"], "flash_attention_masked[offsets]":
-        read_offset_launches(torch), "flash_attention_masked[ring]": read_ring_launches(torch),
+        read_offset_launches(torch), "ring_decode_attention": read_ring_launches(torch),
+        "ring_decode_attention[int8_kv]": launches["ring_decode_attention[int8_kv]"],
         "paged_attention_kernel": launches["paged_attention_kernel"]
         + launches["paged_attention_kernel[int8_kv]"], "plain": sum(plain_runs.values())}
 
@@ -3454,13 +3521,13 @@ def counted_steps(torch, model, calls):
     """Append ("tick", counter deltas) for each ``model.decode_step`` and
     ("chunk", deltas, kernel 2's windows) for each cache-writing
     ``model.apply`` (a prefill chunk) while inside; kernel 2's calls are
-    recorded through its ops-level name (window and ring width)."""
+    recorded through its ops-level name (their windows)."""
     from repro_torch.kernels.flash_attention import ops as attn_ops
     seen = []
 
     def record(f):
         def g(*a, **kw):
-            seen.append((kw.get("window"), kw.get("ring_width")))
+            seen.append(kw.get("window"))
             return f(*a, **kw)
         return g
 
@@ -3484,29 +3551,31 @@ def counted_steps(torch, model, calls):
         del model.decode_step, model.apply
 
 
-def check_ring_steps(cfg, calls):
+def check_ring_steps(cfg, calls, int8_kv=False):
     """Every decode tick: kernel 1 once per projection and layer, all on the
-    split-K stream, and kernel 2's ring form once per layer (ring width and
-    window 4096); every prefill chunk: kernel 1 once per projection and
-    layer on the tensor-core loop and kernel 2 once per layer with window
-    4096, not in ring form, all on the tensor-core route; kernel 3 and the
-    plain versions never."""
+    split-K stream, and the ring decode once per layer (``int8_kv``: its
+    int8-KV launches), kernel 2 never; every prefill chunk: kernel 1 once
+    per projection and layer on the tensor-core loop and kernel 2 once per
+    layer with window 4096, all on the tensor-core route, the ring decode
+    never; kernel 3 and the plain versions never."""
     per, nl, w = projections(cfg) * cfg.num_layers, cfg.num_layers, cfg.sliding_window
     want = {"tick": {"ent_matmul_packed_fused[stream]": per, "ent_matmul_packed_fused[tc]": 0,
-                     "flash_attention_masked": nl, "flash_attention_masked[tensor-core]": nl,
-                     "flash_attention_masked[offsets]": nl, "flash_attention_masked[ring]": nl,
+                     "flash_attention_masked": 0, "flash_attention_masked[tensor-core]": 0,
+                     "flash_attention_masked[offsets]": 0, "ring_decode_attention": nl,
+                     "ring_decode_attention[int8_kv]": nl * int8_kv,
                      "paged_attention_kernel": 0, "plain": 0},
             "chunk": {"ent_matmul_packed_fused[stream]": 0, "ent_matmul_packed_fused[tc]": per,
                       "flash_attention_masked": nl, "flash_attention_masked[tensor-core]": nl,
-                      "flash_attention_masked[offsets]": 0, "flash_attention_masked[ring]": 0,
-                      "paged_attention_kernel": 0, "plain": 0}}
-    args = {"tick": [(w, RING_W)] * nl, "chunk": [(w, None)] * nl}
+                      "flash_attention_masked[offsets]": 0, "ring_decode_attention": 0,
+                      "ring_decode_attention[int8_kv]": 0, "paged_attention_kernel": 0,
+                      "plain": 0}}
+    args = {"tick": [], "chunk": [w] * nl}
     for i, (kind, got, seen) in enumerate(calls):
         got = {k: got[k] for k in want[kind]}
         if got != want[kind] or seen != args[kind]:
-            raise AssertionError(f"ring {kind} {i}: launches {got}, kernel 2 (window, ring) "
+            raise AssertionError(f"ring {kind} {i}: launches {got}, kernel 2's windows "
                                  f"{sorted(set(seen))} x {len(seen)}; expected {want[kind]}, "
-                                 f"{args[kind][:1]} x {nl}")
+                                 f"{args[kind][:1]} x {len(args[kind])}")
     return {k: sum(kind == k for kind, _, _ in calls) for k in want}
 
 
@@ -3529,8 +3598,9 @@ def serve_ring(torch):
     ``check_leaks``.  Then the first wave's 8 prompts again, each admitted
     into a slot whose ring still holds a second-wave request's rows: their
     first 8 tokens must equal the run's; 3 full-batch decode ticks timed by
-    host clock, then 3 under torch.profiler (device busy, kernel 2's ring
-    share).  Returns the numbers."""
+    host clock, then 3 under torch.profiler (device busy, the ring decode's
+    share by its kernel's name, the copies: ``aten::copy_``'s device time
+    and the copy kernels').  Returns the numbers."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch
     from repro_torch.runtime.serve_loop import ServeEngine
@@ -3574,9 +3644,9 @@ def serve_ring(torch):
           f"{min(map(len, prompts))}..{max(map(len, prompts))} tokens) x 32 new tokens on 8 "
           f"slots: {toks} tokens in {dt:.3f}s = {toks / dt:.2f} tok/s; {n['tick']} decode "
           f"ticks, {n['chunk']} prefill chunks; per tick kernel 1 "
-          f"{projections(cfg) * cfg.num_layers} on the stream and kernel 2's ring form "
-          f"{cfg.num_layers}, per chunk kernel 1 {projections(cfg) * cfg.num_layers} on the "
-          f"tensor-core loop and kernel 2 {cfg.num_layers} "
+          f"{projections(cfg) * cfg.num_layers} on the stream and the ring decode "
+          f"{cfg.num_layers} (kernel 2 0), per chunk kernel 1 {projections(cfg) * cfg.num_layers} "
+          f"on the tensor-core loop and kernel 2 {cfg.num_layers} "
           f"(window {cfg.sliding_window}); kernel 3 and plain versions 0; peak "
           f"{peak / 2**30:.2f} GiB", flush=True)
 
@@ -3606,29 +3676,34 @@ def serve_ring(torch):
                              "the first admission's")
     dev = device_ms_by_kernel(prof, 3)
     busy = sum(dev.values())
-    ring_ms = sum(v for k, v in dev.items() if "flash_fwd_masked_tc" in k)
+    ring_ms = sum(v for k, v in dev.items() if "paged_decode_tc" in k)
+    copies = copy_ms(prof, 3)
     idle = "not measured" if not busy else f"{100 * (1 - busy / host):.1f}% idle"
     print(f"ring refill: the first wave's 8 prompts re-admitted over stale rings, 8 of 8 "
           f"streams equal; decode tick (8 slots, full width): {host:.3f} ms host-clock "
           f"({under:.3f} ms under the profiler); device busy {busy:.3f} ms/tick ({idle}); "
-          f"kernel 2's ring form {ring_ms:.3f} ms/tick"
-          + (f" ({100 * ring_ms / busy:.1f}% of busy)" if busy else ""), flush=True)
+          f"the ring decode (paged_decode_tc, ring form) {ring_ms:.3f} ms/tick"
+          + (f" ({100 * ring_ms / busy:.1f}% of busy)" if busy else "")
+          + f"; copies: aten::copy_ {copies['op_ms']:.3f} ms/tick on the device, copy "
+          f"kernels {copies['kernels_ms']:.3f} ms/tick ({copies['launches']:.0f} launches)",
+          flush=True)
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} ms/tick  {name[:90]}")
-    ring_launches = sum(c[1]["flash_attention_masked[ring]"] for c in calls)
+    ring_launches = sum(c[1]["ring_decode_attention"] for c in calls)
     del engine, params, model
     torch.cuda.empty_cache()
     return dict(tok_s=toks / dt, seconds=dt, ticks=n["tick"], chunks=n["chunk"],
                 peak_gib=peak / 2**30, weights_gib=weights / 2**30,
                 live_before_gib=before / 2**30, init_s=init_s,
                 tick_host_ms=host, tick_busy_ms=busy, tick_ring_ms=ring_ms,
-                ring_launches=ring_launches, by_kernel=dict(
+                tick_copies=copies, ring_launches=ring_launches, by_kernel=dict(
                     sorted(dev.items(), key=lambda kv: -kv[1])[:10]))
 
 
-def kernels_vs_plain_ring(torch, bound):
+def kernels_vs_plain_ring(torch, bound, kv_quant=False):
     """The ring's model-level path at 2 layers of full-width starcoder2-15b
-    (bf16, EN-T), with the kernels and with the plain versions: a
+    (bf16, EN-T; ``kv_quant``: an int8 KV ring, whose decode reads take the
+    ring decode's int8-KV form), with the kernels and with the plain versions: a
     RING_CHECK-token prompt in two chunks (4,096 rows, then 1,024 over the
     wrap), the logits of every row of the second chunk, and 4
     teacher-forced decode ticks.  Fails when the logits' relative L2
@@ -3644,8 +3719,8 @@ def kernels_vs_plain_ring(torch, bound):
     from repro_torch.models.transformer import Model
 
     cfg = dataclasses.replace(get_config("starcoder2-15b"), num_layers=2)
-    model, params = launch.build(cfg, seed=1, quantize=True)
-    plain_model = Model(cfg, use_kernels=False)
+    model, params = launch.build(cfg, seed=1, quantize=True, kv_quant=kv_quant)
+    plain_model = Model(cfg, use_kernels=False, kv_quant=kv_quant)
     rng = np.random.default_rng(3)
     dev = model.device
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, RING_CHECK[0]))).to(dev)
@@ -3670,7 +3745,9 @@ def kernels_vs_plain_ring(torch, bound):
     reset_counts(torch)
     a = run(model)
     counts = step_counts(torch)
-    if counts["plain"] or counts["flash_attention_masked[ring]"] != 4 * cfg.num_layers:
+    nl = cfg.num_layers
+    if counts["plain"] or counts["ring_decode_attention"] != 4 * nl or \
+            counts["ring_decode_attention[int8_kv]"] != 4 * nl * kv_quant:
         raise AssertionError(f"ring case: kernel run counts {counts}")
     t0 = time.perf_counter()
     b = run(plain_model)
@@ -3681,7 +3758,8 @@ def kernels_vs_plain_ring(torch, bound):
     sound = rel(a, b)
     with planted(attention, "prefill_step", context_after_write):
         fault = rel(run(model), b)
-    print(f"2-layer full width, bfloat16, EN-T weights, ring: a {RING_CHECK[0]}-token prompt "
+    print(f"2-layer full width, bfloat16, EN-T weights, {'int8' if kv_quant else 'bf16'} KV "
+          f"ring: a {RING_CHECK[0]}-token prompt "
           f"(chunks {w} + {RING_CHECK[0] - w} over the wrap, every row of the second compared) "
           f"and 4 decode ticks; kernels vs plain: relative L2 "
           f"{sound:.3e} (limit {bound}), max abs diff {float((a - b).abs().max()):.3e}, greedy "
@@ -4163,9 +4241,9 @@ def _build_label(fn):
     types = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "float", "a": "int8", "i": "int"}
     if (m := re.search(r"stream_kernelI(13__nv_bfloat16|a)Li(\d)ELi(\d)ELi(\d+)EfE", fn)):
         return f"stream_kernel<{types[m.group(1)]},{m.group(2)},{m.group(3)},{m.group(4)},float>"
-    if (m := re.search(r"(paged_decode_tc|paged_decode_f32)I(13__nv_bfloat16|f|a)Lb[01]ELi(\d+)E",
-                       fn)):
-        return f"{m.group(1)}<{types[m.group(2)]},{m.group(3)}>"
+    if (m := re.search(r"(paged_decode_tc|paged_decode_f32)I(13__nv_bfloat16|f|a)Lb[01]ELi(\d+)E"
+                       r"Lb([01])E", fn)):
+        return f"{m.group(1)}<{types[m.group(2)]},{m.group(3)}{',ring' * int(m.group(4))}>"
     if (m := re.search(r"tc_kernelI(13__nv_bfloat16|f|a)Li(\d)ELi(\d)E(13__nv_bfloat16|S1_|f|i)E",
                        fn)):
         x = {"float": "f32"}.get(types[m.group(1)], types[m.group(1)])
@@ -4266,9 +4344,14 @@ def tc_build_report():
     report.update(recs)
     # kernels 3 and 3b: the tensor-core kernel (bf16 q) and the CUDA-core one
     # (float32 q), each pool type, D 128 and 64; dynamic shared memory at the
-    # plans of PAGED_CASES' tick (D 128) and G12 (D 64) calls
-    from repro_torch.kernels.paged_attention.paged_attention import split_plan
+    # plans of PAGED_CASES' tick (D 128) and G12 (D 64) calls; and their ring
+    # form (the ring decode) at the starcoder2-15b tick's plan (D 128; D 64
+    # at the same plan)
+    from repro_torch.kernels.paged_attention.paged_attention import (ring_split_plan,
+                                                                     split_plan)
     paged_smem = _build.entry("paged_attention", "paged_attention_smem")
+    ring_smem = _build.entry("paged_attention", "ring_decode_smem")
+    ring_rows, ring_splits = ring_split_plan(SLOTS, 4, RING_W, sms)
     recs = {}
     for case in PAGED_CASES.values():
         b, hq, hkv, d, page, pps = case[:6]
@@ -4277,6 +4360,8 @@ def tc_build_report():
             for kv, int8 in (("int8", 1), ("bf16" if is_bf16 else "float", 0)):
                 recs[f"{kern}<{kv},{d}>"] = {"smem_bytes": paged_smem(
                     is_bf16, int8, d, pp, page, hq // hkv, splits)}
+                recs[f"{kern}<{kv},{d},ring>"] = {"smem_bytes": ring_smem(
+                    is_bf16, int8, d, ring_rows, 12, ring_splits)}
     _scan_build(recs, "paged_attention", ("HMMA",))
     report.update(recs)
     for lab, rec in report.items():
@@ -4331,7 +4416,7 @@ def main():
     cut = check_cut(torch, timer)
     k2 = check_flash(torch, timer)
     k2o = check_flash_offsets(torch, timer)
-    k2r = check_flash_ring(torch, timer)
+    k2r = check_ring_decode(torch, timer)
     k3 = check_paged(torch, timer)
     k3i = check_paged(torch, timer, int8_kv=True)
     del timer
@@ -4396,6 +4481,7 @@ def main():
     spec_2l = {w: kernels_vs_plain_spec(torch, w, 0.07, kv_quant=kvq)   # the spec path
                for w, kvq in (("EN-T", False), ("int8", True))}
     ring_2l = kernels_vs_plain_ring(torch, 0.07)   # the ring's path, as served
+    ring_2l_int8 = kernels_vs_plain_ring(torch, 0.07, kv_quant=True)   # its int8-KV form
     gen_2l = kernels_vs_plain_generate(torch, 0.07)   # generate's path, as served
     done(t, "kernels vs plain, 2 layers")
 
@@ -4464,7 +4550,8 @@ def main():
                                               else "paged_attention_kernel"]
                               for c in SERVE_CONFIGS},
             build={lab: rec for lab, rec in tc_build.items()
-                   if lab.startswith("paged_decode") and ("<int8," in lab) == int8_kv})
+                   if lab.startswith("paged_decode") and ("<int8," in lab) == int8_kv
+                   and not lab.endswith(",ring>")})
     config_of = dict(zip(MATMULS[:2], SERVE_CONFIGS))   # kernel 1: EN-T, kernel 6: int8
     signature = {"ent_matmul_packed_fused": ("<bf16,2,4,", "<f32,2,4,"),
                  "int8_matmul": ("<int8,1,0,",), "ent_matmul": ("<int8,4,2,",),
@@ -4528,20 +4615,37 @@ def main():
                   launches_2_layer_spec={w: r["flash_attention_masked[offsets]"]
                                          for w, r in spec_2l.items()}),
               build={lab: rec for lab, rec in tc_build.items() if "masked" in lab}),
-        entry("flash_attention_masked[ring]", "src/repro_torch/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention/flash_attention.py:145", k2r,
-              lambda rows: rows[0], ring["ring_launches"],
-              launches_from="the 16-request ring serve run of full-width starcoder2-15b "
-                            f"({ring['ticks']} decode ticks, 40 a tick)",
-              design=("kernel 2 (flash_fwd_masked_tc on bf16, the CUDA-core kernel on "
-                      "float32) with ring_width = W: each block reads its slot's pos, computes "
-                      "the seam r = pos mod W once, and row j's position as j + pos - r (less W "
-                      "past the seam); kv rows [0, min(W, pos + 1)); tiles across the seam or "
-                      "the mask's edge evaluate the mask per row"),
-              note=("the TPU reference's ring decode sends the explicit mask to the jnp core "
-                    "(src/repro/kernels/flash_attention/ops.py:57-59, 71) and reaches no "
-                    "Pallas kernel; this form of kernel 2 is the card's ring read"),
-              tick_ms=ring["tick_ring_ms"], kernels_vs_plain_2_layers=ring_2l["relative_l2"]),
+        *(entry(name, "src/repro_torch/csrc/paged_attention.cu",
+                "src/repro/kernels/flash_attention/flash_attention.py:145",
+                [r for r in k2r if (r["kv"] == "int8") == int8_kv], lambda rows: rows[0],
+                launches, launches_from=source,
+                design=("the paged decode's split-KV flash-decode (kernels 3 / 3b) in its ring "
+                        "form over the ring's pools as stored, [B, W, Hkv, D] (int8 with bf16 "
+                        "[B, W, Hkv, 1] scales), in place: one block per (run of ring rows "
+                        "from ring_split_plan, kv head, slot), the seam r = pos mod W once a "
+                        "block, each row's live flag from its position pos - ((pos - j) mod "
+                        "W), a split's range from its first and last live row (dead rows "
+                        "zero-filled without a read), the G q rows of a kv head on mma.sync "
+                        "tensor cores, the ticket combine in split order"),
+                note=("replaces kernel 2's ring form (PERF.md row 2r keeps its time); the "
+                      "TPU reference's ring decode sends the explicit mask to the jnp core "
+                      "(src/repro/kernels/flash_attention/ops.py:57-59, 71) and reaches no "
+                      "Pallas kernel; `replaces` names the Pallas kernel whose ring read this "
+                      "took over on the card"),
+                build={lab: rec for lab, rec in tc_build.items()
+                       if lab.endswith(",ring>") and ("<int8," in lab) == int8_kv},
+                **extra)
+          for name, int8_kv, launches, source, extra in (
+              ("ring_decode_attention", False, ring["ring_launches"],
+               "the 16-request ring serve run of full-width starcoder2-15b "
+               f"({ring['ticks']} decode ticks, 40 a tick)",
+               dict(tick_ms=ring["tick_ring_ms"], tick_copies=ring["tick_copies"],
+                    kernels_vs_plain_2_layers=ring_2l["relative_l2"])),
+              ("ring_decode_attention[int8_kv]", True,
+               ring_2l_int8["counts"]["ring_decode_attention[int8_kv]"],
+               "the 2-layer int8-KV ring case (4 decode ticks x 2 layers); the serve run "
+               "keeps bf16 KV",
+               dict(kernels_vs_plain_2_layers=ring_2l_int8["relative_l2"])))),
         entry("paged_attention_kernel", "src/repro_torch/csrc/paged_attention.cu",
               f"{paged}:109", k3, lambda rows: rows[0], ent_t["paged_attention_kernel"],
               **paged_extra(k3, False)),
@@ -4668,7 +4772,8 @@ def main():
     print(f"serve tokens/s [EN-T w8a8, bf16 KV, shared prefix] {shared[1]:.3f}")
     print(f"serve tokens/s [starcoder2-15b, EN-T w8a8, ring] {ring['tok_s']:.3f}; decode tick "
           f"{ring['tick_host_ms']:.3f} ms host-clock, {ring['tick_busy_ms']:.3f} ms device busy, "
-          f"kernel 2's ring form {ring['tick_ring_ms']:.3f} ms; peak {ring['peak_gib']:.2f} GiB")
+          f"the ring decode {ring['tick_ring_ms']:.3f} ms, copies (aten::copy_) "
+          f"{ring['tick_copies']['op_ms']:.3f} ms; peak {ring['peak_gib']:.2f} GiB")
     print(f"generate tokens/s [qwen2.5-3b, EN-T w8a8] {gen['tok_s']:.3f}; streams equal to the "
           f"engine's {gen['streams_equal_engine']} of 8, flips above twice the paths' ordinary "
           f"difference {gen['near_ties']['faults']} of {len(gen['near_ties']['flips'])}; prefill "

@@ -13,19 +13,8 @@
 // every block reads q_offset = q_offsets[b] once, before its band, so
 // sequence b's row t sits at q_offsets[b] + t (speculative decoding's
 // verify burst and the dense decode read, both the mask start_b <= j <=
-// pos_b + t).  The rest of the kernel is unchanged.
-// Ring form (ring = W > 0, with q_offsets = pos_b, Sq = 1, Skv = W): the
-// kv rows are a sliding-window ring in which position p lives in row p mod
-// W (models/kv_cache.py RingCache), so row j holds position p_j = pos_b -
-// ((pos_b - j) mod W), and it attends iff p_j >= max(start_b, 0), p_j <=
-// pos_b and (window <= 0 or p_j > pos_b - window).  With r = pos_b mod W
-// the positions rise by one a row on each side of the seam between rows r
-// and r + 1 (p_j = j + pos_b - r for j <= r, that minus W above), so each
-// block computes r once and a row's position with one compare; the kv
-// range is rows [0, min(W, pos_b + 1)), a tile that crosses the seam or
-// the mask's edge evaluates the mask per row, and a tile wholly inside it
-// skips the mask as before.  The TPU reference has no kernel for this
-// read: its ring decode sends the explicit mask to the jnp core.
+// pos_b + t).  The rest of the kernel is unchanged.  (A sliding-window
+// ring's decode read is the paged kernel's ring form, paged_attention.cu.)
 // Online softmax in f32; fully masked rows give exact zeros.  As in the
 // plain version (masked_attention_ref), scores are (q . k) * scale and the
 // probabilities are rounded to the value dtype before the value product.
@@ -198,17 +187,6 @@ __device__ __forceinline__ bool attends(int col, int qpos, int Skv, int causal,
   return col < Skv && (!causal || col <= qpos) && (window <= 0 || col > qpos - window);
 }
 
-// Kernel 2's ring form: the position ring row j holds for a read at pos
-// (r = pos mod W), and whether that row attends.
-__device__ __forceinline__ int ring_pos(int j, int pos, int r, int W) {
-  return j + pos - r - (j > r ? W : 0);
-}
-
-__device__ __forceinline__ bool ring_attends(int j, int pos, int r, int W, int st, int window) {
-  const int p = ring_pos(j, pos, r, W);
-  return p >= max(st, 0) && p <= pos && (window <= 0 || p > pos - window);
-}
-
 // Kernels 2 (TRAIN = false) and 7 on its float32 route (TRAIN = true).
 template <typename T, int D, bool TRAIN>
 __global__ void __launch_bounds__(NTHREADS)
@@ -216,7 +194,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ start,
                  const int* __restrict__ q_offsets, T* __restrict__ out,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int q_offset,
-                 int causal, int window, float scale, int ring) {
+                 int causal, int window, float scale) {
   constexpr int DT = D / 32;
   __shared__ float qs[BQ][D];
   __shared__ float ks[BKV][D + 1];
@@ -229,7 +207,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + static_cast<size_t>(b * Hkv + hk) * Skv * D;
   const int st = TRAIN ? 0 : start[b];
   if (!TRAIN && q_offsets) q_offset = q_offsets[b];   // kernel 2: per-sequence offset
-  const int ring_r = ring > 0 ? q_offset % ring : 0;   // kernel 2's ring form: the seam
 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
     const int r = i / D, d = i % D;
@@ -250,7 +227,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos_hi = q_offset + min(q0 + BQ, Sq) - 1;
   int kv_lo = max(st, 0);
   if (window > 0) kv_lo = max(kv_lo, qpos_lo - window + 1);
-  if (ring > 0) kv_lo = 0;   // ring rows are not in position order
   const int kv_hi = causal ? min(Skv - 1, qpos_hi) : Skv - 1;
 
   for (int j0 = (kv_lo / BKV) * BKV; j0 <= kv_hi; j0 += BKV) {
@@ -271,10 +247,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = 0.0f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) s = fmaf(qs[r][d], ks[lane][d], s);
-      const bool valid = qrow < Sq && col < Skv &&
-                         (ring > 0 ? ring_attends(col, qpos, ring_r, ring, st, window)
-                                   : col >= st && (!causal || col <= qpos) &&
-                                         (window <= 0 || col > qpos - window));
+      const bool valid = qrow < Sq && col < Skv && col >= st &&
+                         (!causal || col <= qpos) &&
+                         (window <= 0 || col > qpos - window);
       online_softmax_update<T, D, DT, !TRAIN>(s * scale, valid, BKV, &vs[0][0],
                                               m[rr], l[rr], acc[rr], lane);
     }
@@ -522,7 +497,7 @@ __device__ __forceinline__ void fwd_tc_body(const CUtensorMap* qmap, const CUten
                                             const int* __restrict__ start,
                                             const int* __restrict__ q_offsets, int Hq, int Hkv,
                                             int Sq, int Skv, int q_offset, int causal,
-                                            int window, float scale, int ring) {
+                                            int window, float scale) {
   using namespace sm90;
   constexpr int BQ = L::BQ, BKV = L::BKV, NSUB = L::NSUB, STAGES = L::STAGES;
   constexpr int CONS = L::CONSUMERS, D = 64 * NSUB;
@@ -542,15 +517,10 @@ __device__ __forceinline__ void fwd_tc_body(const CUtensorMap* qmap, const CUten
   const int qplane = b * Hq + hq, kvplane = b * Hkv + hq / (Hq / Hkv);
   const int st = MASKED ? start[b] : 0;   // kernel 2: columns before it never attend
   if (MASKED && q_offsets) q_offset = q_offsets[b];   // kernel 2: per-sequence offset
-  const bool rng = MASKED && ring > 0;                 // kernel 2's ring form (Sq = 1)
-  const int ring_r = rng ? q_offset % ring : 0;        // its seam: rows r | r + 1
   // kv tiles any row of this block attends to
   const int qpos_lo = q_offset + q0, qpos_hi = q_offset + min(q0 + BQ, Sq) - 1;
   int kv_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
   if (MASKED) kv_lo = max(kv_lo, st);
-  if (rng) kv_lo = 0;   // ring rows are not in position order
-  // the ring form's lowest attended position
-  const int ring_lo = max(max(st, 0), window > 0 ? q_offset - window + 1 : 0);
   const int kv_hi = causal ? min(Skv - 1, qpos_hi) : Skv - 1;
   const int j_first = (kv_lo / BKV) * BKV;
   const int ntiles = kv_hi >= j_first ? (kv_hi - j_first) / BKV + 1 : 0;
@@ -621,22 +591,15 @@ __device__ __forceinline__ void fwd_tc_body(const CUtensorMap* qmap, const CUten
       // which sets a masked score to -inf; p = 2^(s c - m c) with c = scale
       // log2(e) folded into one FFMA (a row with no column yet exponentiates
       // against 0, so a fully masked row keeps p = 0, l = 0 and O = 0)
-      // (the ring form: a tile on one side of the seam holds rising
-      // positions, whole when its first row's is >= ring_lo; only the
-      // block's row 0 is a query, so the other rows' masks do not matter)
-      const bool whole =
-          rng ? j0 + BKV <= Skv && (j0 + BKV - 1 <= ring_r || j0 > ring_r) &&
-                    ring_pos(j0, q_offset, ring_r, ring) >= ring_lo
-              : j0 + BKV <= Skv && (!causal || j0 + BKV - 1 <= wq) &&
-                    (window <= 0 || j0 > wq + 63 - window) && (!MASKED || j0 >= st);
+      const bool whole = j0 + BKV <= Skv && (!causal || j0 + BKV - 1 <= wq) &&
+                         (window <= 0 || j0 > wq + 63 - window) && (!MASKED || j0 >= st);
       if (!whole) {
 #pragma unroll
         for (int x = 0; x < BKV / 2; ++x) {
           const int col = j0 + 8 * (x / 4) + 2 * t + x % 2;
           const int qpos = wq + 16 * warp + g + 8 * ((x / 2) % 2);
-          const bool ok = rng ? col < Skv && ring_attends(col, q_offset, ring_r, ring, st, window)
-                              : attends(col, qpos, Skv, causal, window) && (!MASKED || col >= st);
-          s[x] = ok ? s[x] : -INFINITY;
+          s[x] = attends(col, qpos, Skv, causal, window) && (!MASKED || col >= st) ? s[x]
+                                                                                   : -INFINITY;
         }
       }
       float mx[2] = {m[0], m[1]};
@@ -729,7 +692,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
              float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int q_offset,
              int causal, int window, float scale) {
   fwd_tc_body<FwdTC<D>, false>(&qmap, &kmap, &vmap, &omap, lse, nullptr, nullptr, Hq, Hkv, Sq,
-                               Skv, q_offset, causal, window, scale, 0);
+                               Skv, q_offset, causal, window, scale);
 }
 
 // Kernel 2, tensor-core route (bf16 operands).
@@ -740,9 +703,9 @@ flash_fwd_masked_tc(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap omap, const int* __restrict__ start,
                     const int* __restrict__ q_offsets, int Hq, int Hkv, int Sq, int Skv,
-                    int q_offset, int causal, int window, float scale, int ring) {
+                    int q_offset, int causal, int window, float scale) {
   fwd_tc_body<MaskedTC<D>, true>(&qmap, &kmap, &vmap, &omap, nullptr, start, q_offsets, Hq, Hkv,
-                                 Sq, Skv, q_offset, causal, window, scale, ring);
+                                 Sq, Skv, q_offset, causal, window, scale);
 }
 
 // Kernel 7b shared memory: K, V [NSUB][BKV][64] | Q, dO [STAGES][NSUB][BQ][64]
@@ -1197,8 +1160,7 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, float*
 template <int D>
 int launch_masked_tc(const void* q, const void* k, const void* v, const int* start,
                      const int* q_offsets, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
-                     int q_offset, int causal, int window, float scale, int ring,
-                     cudaStream_t st) {
+                     int q_offset, int causal, int window, float scale, cudaStream_t st) {
   using L = MaskedTC<D>;
   CUtensorMap qm, km, vm, om;
   int e;
@@ -1210,7 +1172,7 @@ int launch_masked_tc(const void* q, const void* k, const void* v, const int* sta
     return e;
   const dim3 grid((Sq + L::BQ - 1) / L::BQ, Hq, B);
   flash_fwd_masked_tc<D><<<grid, L::THREADS, L::SMEM, st>>>(
-      qm, km, vm, om, start, q_offsets, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale, ring);
+      qm, km, vm, om, start, q_offsets, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1261,7 +1223,7 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, con
 template <typename T, bool TRAIN>
 int launch_fwd(const void* q, const void* k, const void* v, const int* start,
                const int* q_offsets, void* out, float* lse, int B, int Hq, int Hkv, int Sq,
-               int Skv, int D, int q_offset, int causal, int window, float scale, int ring,
+               int Skv, int D, int q_offset, int causal, int window, float scale,
                cudaStream_t st) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const T* qq = static_cast<const T*>(q);
@@ -1270,12 +1232,10 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* start,
   T* oo = static_cast<T*>(out);
   if (D == 128) {
     flash_fwd_kernel<T, 128, TRAIN><<<grid, NTHREADS, 0, st>>>(
-        qq, kk, vv, start, q_offsets, oo, lse, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale,
-        ring);
+        qq, kk, vv, start, q_offsets, oo, lse, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
   } else if (D == 64) {
     flash_fwd_kernel<T, 64, TRAIN><<<grid, NTHREADS, 0, st>>>(
-        qq, kk, vv, start, q_offsets, oo, lse, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale,
-        ring);
+        qq, kk, vv, start, q_offsets, oo, lse, Hq, Hkv, Sq, Skv, q_offset, causal, window, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1335,27 +1295,23 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// ring: the ring form's width W (0: off); it needs q_offsets, Sq = 1 and
-// Skv = W.
 extern "C" int flash_attention_masked(const void* q, const void* k,
                                       const void* v, const int* start,
                                       const int* q_offsets, void* out,
                                       int is_bf16, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D,
                                       int q_offset, int causal, int window,
-                                      float scale, int ring, void* stream) {
+                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ring < 0 || (ring > 0 && (q_offsets == nullptr || Sq != 1 || Skv != ring)))
-    return static_cast<int>(cudaErrorInvalidValue);
   if (!is_bf16)
     return launch_fwd<float, false>(q, k, v, start, q_offsets, out, nullptr, B, Hq, Hkv, Sq,
-                                    Skv, D, q_offset, causal, window, scale, ring, st);
+                                    Skv, D, q_offset, causal, window, scale, st);
   if (D == 64)
     return launch_masked_tc<64>(q, k, v, start, q_offsets, out, B, Hq, Hkv, Sq, Skv, q_offset,
-                                causal, window, scale, ring, st);
+                                causal, window, scale, st);
   if (D == 128)
     return launch_masked_tc<128>(q, k, v, start, q_offsets, out, B, Hq, Hkv, Sq, Skv, q_offset,
-                                 causal, window, scale, ring, st);
+                                 causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1367,7 +1323,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return launch_fwd<float, true>(q, k, v, nullptr, nullptr, out, lse, B, Hq, Hkv, Sq, Skv,
-                                   D, q_offset, causal, window, scale, 0, st);
+                                   D, q_offset, causal, window, scale, st);
   if (D == 64)
     return launch_fwd_tc<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, q_offset, causal,
                              window, scale, st);

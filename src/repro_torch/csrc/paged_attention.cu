@@ -72,16 +72,45 @@
 // float32 q rounds nothing; the sides differ only in the order of their
 // f32 sums (TOL_F32).
 //
+// The ring form (RING = true; C entry ring_decode_attention): the decode
+// read of a sliding-window ring (models/kv_cache.py RingCache), which the
+// reference sends to its jnp core with an explicit mask
+// (src/repro/models/attention.py:179, 203; kv_cache.py:377-385): it
+// reaches no Pallas kernel, and this form takes the place of kernel 2's
+// ring form.  The pools are the ring's as stored, [B, W, Hkv, D] (int8
+// with bf16 scale pools [B, W, Hkv, 1]), read in place: row j of slot b,
+// kv head h at ((b W + j) Hkv + h) D, the row stride Hkv D as a page's.
+// There is no table.  A split is a run of `pp` rows (a multiple of CH,
+// the wrapper's ring_split_plan: B Hkv splits >= 2 SMs where W allows,
+// the tick's 8 slots x 4 kv heads x 4096 rows in 10 runs of 448 rows, 320
+// blocks; at most 2048 rows, for the int8 rows' scales in shared memory).
+// Each block computes the seam r = pos mod W once; a row's live flag is
+// ring_attends (ring.cuh: its position pos - ((pos - j) mod W) written, in
+// [start, pos] and in the window).  The live rows are one or two runs
+// around the seam, so a split's liveness and its stages' range come from
+// the flags of its rows (first and last live row), not from a column
+// range; a split with none exits with the empty partial, and dead rows
+// inside the range are zero-filled without a read, as null pages are.
+// The rest is kernel 3's: the G rows on the tensor cores, the cp.async
+// ring, each warp's online softmax, the ticket combine in split order.
+// Its rounding is kernel 3's (above), bound and all.  What bounds it on
+// the H100 is the live rows' bytes: at the starcoder2-15b tick (8 slots,
+// 48 / 4 heads, D 128, a 4096-row ring) 51 MB of bf16 K/V, 15 us at 3.35
+// TB/s; each live row is read once per kv head, not once per q head.
+//
 // `fault` is a check hook, 0 on every path of the port: 1 makes the
-// combine drop the last live split (a planted fault of chip_smoke.py).
+// combine drop the last live split, 2 (ring form) reads rows as if row j
+// held position j (the ring unrotated); planted faults of chip_smoke.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 
 #include "online_softmax.cuh"
+#include "ring.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -96,6 +125,14 @@ constexpr int MAXPAGE = 32;         // CUDA-core kernel: one lane per page colum
 constexpr int CH = 32;              // tensor-core kernel: rows (S columns) a stage
 constexpr int NST = 3;              // its ring of stages
 constexpr size_t MAX_SMEM = 232448; // a block's shared memory on the H100
+
+// Whether row j of a slot's ring attends a read at pos p_b (seam r):
+// ring_attends, or with fault 2 the ring read unrotated (row j as position
+// j).
+__device__ __forceinline__ bool ring_row_live(int j, int p_b, int r, int W, int s_b, int window,
+                                              int fault) {
+  return fault == 2 ? pos_attends(j, p_b, s_b, window) : ring_attends(j, p_b, r, W, s_b, window);
+}
 
 // The split's columns that can attend: [c_lo, c_hi] (empty if c_lo > c_hi).
 __device__ __forceinline__ void split_cols(int s, int pp, int pps, int page, int p_b,
@@ -277,34 +314,41 @@ struct Stage {
 };
 
 // Dynamic shared memory of the tensor-core kernel: the ring, a live flag
-// per staged row, the run's table entries and (int8) its rows' K / V
-// scales; the warps' merge and the combine reuse it.  The launcher refuses
-// a plan past MAX_SMEM (split_plan's runs of <= 64 pages stay far below).
-template <typename KV, bool SCALED, int D>
+// per staged row, the run's table entries (none in the ring form, whose
+// run is pp rows: page 1) and (int8) its rows' K / V scales; the warps'
+// merge and the combine reuse it.  The launcher refuses a plan past
+// MAX_SMEM (split_plan's runs of <= 64 pages stay far below, as
+// ring_split_plan's of <= 2048 rows).
+template <typename KV, bool SCALED, int D, bool RING>
 size_t tc_smem(int pp, int page, int G, int S) {
-  const size_t ring = NST * (Stage<KV, D>::BYTES + CH) + 4 * static_cast<size_t>(pp) +
+  const size_t ring = NST * (Stage<KV, D>::BYTES + CH) +
+                      (RING ? 0 : 4 * static_cast<size_t>(pp)) +
                       (SCALED ? 4 * static_cast<size_t>(pp) * page : 0);
   const size_t merge = 4 * static_cast<size_t>(NWARPS) * G * (D + 2);
   const size_t comb = S > 1 ? 8 * static_cast<size_t>(G) * S : 0;
   return std::max(std::max(ring, merge), comb);
 }
 
-template <typename KV, bool SCALED, int D>
+// Paged (RING = false): pps table pages of `page` rows, runs of pp pages.
+// Ring (RING = true): no table, pps = W rows a slot, page = 1, runs of pp
+// rows, `window` the ring's attention window.
+template <typename KV, bool SCALED, int D, bool RING>
 __global__ void __launch_bounds__(NT)
 paged_decode_tc(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kpool,
                 const KV* __restrict__ vpool, const __nv_bfloat16* __restrict__ kscale,
                 const __nv_bfloat16* __restrict__ vscale, const int* __restrict__ table,
                 const int* __restrict__ pos, const int* __restrict__ start,
                 float* __restrict__ out, float* __restrict__ ws, int* __restrict__ tickets,
-                int Hq, int Hkv, int pps, int page, int pp, int S, float scale, int fault) {
+                int Hq, int Hkv, int pps, int page, int pp, int S, int window, float scale,
+                int fault) {
   using St = Stage<KV, D>;
   constexpr int KS = D / 16;            // k steps of S = Q K^T
   constexpr int NTD = D / 8;            // O's 8-column tiles
   extern __shared__ __align__(16) unsigned char smem[];
   KV* ring = reinterpret_cast<KV*>(smem);
   unsigned char* flags = smem + NST * St::BYTES;   // [NST][CH]: the staged row attends
-  int* spid = reinterpret_cast<int*>(flags + NST * CH);
-  __nv_bfloat16* kss = reinterpret_cast<__nv_bfloat16*>(spid + pp);
+  int* spid = reinterpret_cast<int*>(flags + NST * CH);   // the run's table entries
+  __nv_bfloat16* kss = reinterpret_cast<__nv_bfloat16*>(spid + (RING ? 0 : pp));
   __nv_bfloat16* vss = kss + pp * page;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -315,7 +359,9 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kpoo
   // once; the ticket's line into L2 for the combine
   const int p_b = pos[b], s_b = start[b];
   const int pg0 = s * pp, npg = min(pg0 + pp, pps) - pg0;
-  for (int i = tid; i < npg; i += NT) spid[i] = table[static_cast<size_t>(b) * pps + pg0 + i];
+  const int seam = RING ? (p_b % pps + pps) % pps : 0;   // the ring form: rows r | r + 1
+  if (!RING)
+    for (int i = tid; i < npg; i += NT) spid[i] = table[static_cast<size_t>(b) * pps + pg0 + i];
   if (S > 1 && tid == 0) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(tickets + bh));
   // q as A fragments, rows >= G zero: rows lane / 4 (+ 8), columns
   // 16 ks + 2 (lane % 4) (+ 8)
@@ -331,22 +377,63 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kpoo
     }
   }
   int c_lo, c_hi;
-  split_cols(s, pp, pps, page, p_b, s_b, c_lo, c_hi);
-  int live = 0;   // a non-null page meeting [c_lo, c_hi]
-  for (int i = tid; i < npg; i += NT) {
-    const int c0 = (pg0 + i) * page;
-    live |= spid[i] != 0 && c_lo <= c_hi && c0 <= c_hi && c0 + page - 1 >= c_lo;
-  }
-  if (!__syncthreads_or(live)) {
-    empty_split<D>(ws, tickets, ob, B, Hkv, bh, s, G, S, fault, reinterpret_cast<float*>(smem));
-    return;
+  if constexpr (RING) {   // the split's first and last live rows, from the rows' flags
+    __shared__ int live_lo, live_hi;
+    if (tid == 0) live_lo = INT_MAX, live_hi = -1;
+    __syncthreads();
+    int lo = INT_MAX, hi = -1;
+    for (int i = tid; i < npg; i += NT)
+      if (ring_row_live(pg0 + i, p_b, seam, pps, s_b, window, fault)) {
+        lo = min(lo, i);
+        hi = i;
+      }
+    lo = __reduce_min_sync(FULL, lo);
+    hi = __reduce_max_sync(FULL, hi);
+    if (lane == 0 && hi >= 0) {
+      atomicMin(&live_lo, lo);
+      atomicMax(&live_hi, hi);
+    }
+    __syncthreads();
+    c_lo = pg0 + live_lo;
+    c_hi = pg0 + live_hi;
+    if (live_hi < 0) {
+      empty_split<D>(ws, tickets, ob, B, Hkv, bh, s, G, S, fault, reinterpret_cast<float*>(smem));
+      return;
+    }
+  } else {
+    split_cols(s, pp, pps, page, p_b, s_b, c_lo, c_hi);
+    int live = 0;   // a non-null page meeting [c_lo, c_hi]
+    for (int i = tid; i < npg; i += NT) {
+      const int c0 = (pg0 + i) * page;
+      live |= spid[i] != 0 && c_lo <= c_hi && c0 <= c_hi && c0 + page - 1 >= c_lo;
+    }
+    if (!__syncthreads_or(live)) {
+      empty_split<D>(ws, tickets, ob, B, Hkv, bh, s, G, S, fault,
+                     reinterpret_cast<float*>(smem));
+      return;
+    }
   }
 
   const int nrows = c_hi - c_lo + 1;
   const int nch = (nrows + CH - 1) / CH;
   const size_t rstride = static_cast<size_t>(Hkv) * D;
+  // row `row` of [c_lo, c_hi]: whether it attends, and its row index `at`
+  // in the pools (its K / V elements at at Hkv D + h D, its scale at at Hkv
+  // + h)
+  auto locate = [&](int row, size_t& at) {
+    const int j = c_lo + row;
+    if constexpr (RING) {
+      at = static_cast<size_t>(b) * pps + j;
+      return row < nrows && ring_row_live(j, p_b, seam, pps, s_b, window, fault);
+    } else {
+      const int id = row < nrows ? spid[j / page - pg0] : 0;
+      at = static_cast<size_t>(id) * page + j % page;
+      return id != 0;
+    }
+  };
   // chunk c (rows 32 c .. of [c_lo, c_hi]) into stage c % NST, with its
-  // rows' live flags; one cp.async group a call
+  // rows' live flags; one cp.async group a call.  A dead row is zero-filled
+  // without a read.
   auto load_stage = [&](int c) {
     if (c < nch) {
       const int st = c % NST;
@@ -354,14 +441,12 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kpoo
       KV* vt = kt + CH * St::RS;
       for (int i = tid; i < CH * St::PIECES; i += NT) {
         const int r = i / St::PIECES, e = i % St::PIECES * St::EP;
-        const int row = c * CH + r, j = c_lo + row;
-        const int id = row < nrows ? spid[j / page - pg0] : 0;
-        const size_t at = id ? (static_cast<size_t>(id) * page + j % page) * rstride +
-                                   static_cast<size_t>(h) * D + e
-                             : 0;
-        cp_async16(kt + r * St::RS + e, kpool + at, id != 0);
-        cp_async16(vt + r * St::RS + e, vpool + at, id != 0);
-        if (e == 0) flags[st * CH + r] = id != 0;
+        size_t at;
+        const bool ok = locate(c * CH + r, at);
+        at = ok ? at * rstride + static_cast<size_t>(h) * D + e : 0;
+        cp_async16(kt + r * St::RS + e, kpool + at, ok);
+        cp_async16(vt + r * St::RS + e, vpool + at, ok);
+        if (e == 0) flags[st * CH + r] = ok;
       }
     }
     cp_async_commit();
@@ -371,10 +456,11 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kpoo
   if (SCALED) {   // the run's row scales, while the first stages are in flight
     const __nv_bfloat16 zero = __float2bfloat16(0.0f);
     for (int row = tid; row < nrows; row += NT) {
-      const int j = c_lo + row, id = spid[j / page - pg0];
-      const size_t at = (static_cast<size_t>(id) * page + j % page) * Hkv + h;
-      kss[row] = id ? kscale[at] : zero;
-      vss[row] = id ? vscale[at] : zero;
+      size_t at;
+      const bool ok = locate(row, at);
+      at = at * Hkv + h;
+      kss[row] = ok ? kscale[at] : zero;
+      vss[row] = ok ? vscale[at] : zero;
     }
   }
 
@@ -502,19 +588,21 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kpoo
 
 // ------------------------------------------- float32 q: CUDA cores
 
-// One block per (split, kv head, slot) walks its run page by page: each
-// live page's K and V rows are staged in shared memory as f32; lane j
-// scores column j of the page for each of its warp's q rows, the row max
-// and sum are warp shuffles, and each lane owns D/32 output columns.
-// Null pages and pages outside [start, pos] cost no loads.
-template <typename KV, bool SCALED, int D>
+// One block per (split, kv head, slot) walks its run page by page (the
+// ring form: tile by tile of up to 32 rows): each live tile's K and V rows
+// are staged in shared memory as f32; lane j scores column j of the tile
+// for each of its warp's q rows, the row max and sum are warp shuffles,
+// and each lane owns D/32 output columns.  Null pages, pages outside
+// [start, pos] and ring tiles without a live row cost no loads.
+template <typename KV, bool SCALED, int D, bool RING>
 __global__ void __launch_bounds__(NT)
 paged_decode_f32(const float* __restrict__ q, const KV* __restrict__ kpool,
                  const KV* __restrict__ vpool, const __nv_bfloat16* __restrict__ kscale,
                  const __nv_bfloat16* __restrict__ vscale, const int* __restrict__ table,
                  const int* __restrict__ pos, const int* __restrict__ start,
                  float* __restrict__ out, float* __restrict__ ws, int* __restrict__ tickets,
-                 int Hq, int Hkv, int pps, int page, int pp, int S, float scale, int fault) {
+                 int Hq, int Hkv, int pps, int page, int pp, int S, int window, float scale,
+                 int fault) {
   constexpr int DT = D / 32;
   __shared__ float qs[MAXG][D];
   __shared__ float ks[MAXPAGE][D + 1];
@@ -540,44 +628,59 @@ paged_decode_f32(const float* __restrict__ q, const KV* __restrict__ kpool,
     for (int t = 0; t < DT; ++t) acc[rr][t] = 0.0f;
   }
 
-  for (int pp_ = pg0; pp_ < pg1; ++pp_) {
-    const int c0 = pp_ * page;
-    if (c0 > p_b) break;                       // table order = position order
-    if (c0 + page - 1 < s_b) continue;         // wholly left padding
-    const int pid = table[static_cast<size_t>(b) * pps + pp_];
-    if (pid == 0) continue;                    // null page: no loads
-    __syncthreads();   // previous page consumed (and qs written)
-    for (int i = tid; i < page * D; i += NT) {
+  // one staged tile of n rows from row `at` of the pool (stride Hkv D):
+  // lane j's column attends iff `valid`
+  auto tile = [&](size_t at, int n, bool valid) {
+    for (int i = tid; i < n * D; i += NT) {
       const int o = i / D, d = i % D;
-      const size_t at = (static_cast<size_t>(pid) * page + o) * Hkv * D +
-                        static_cast<size_t>(h) * D + d;
-      ks[o][d] = to_f32(kpool[at]);
-      vs[o][d] = to_f32(vpool[at]);
+      const size_t e = (at + o) * Hkv * D + static_cast<size_t>(h) * D + d;
+      ks[o][d] = to_f32(kpool[e]);
+      vs[o][d] = to_f32(vpool[e]);
     }
-    if (SCALED && tid < page) {
-      const size_t at = (static_cast<size_t>(pid) * page + tid) * Hkv + h;
-      kss[tid] = to_f32(kscale[at]);
-      vss[tid] = to_f32(vscale[at]);
+    if (SCALED && tid < n) {
+      kss[tid] = to_f32(kscale[(at + tid) * Hkv + h]);
+      vss[tid] = to_f32(vscale[(at + tid) * Hkv + h]);
     }
     __syncthreads();
-    const int col = c0 + lane;
-    const bool valid = lane < page && col >= s_b && col <= p_b;
-    // lanes past the page hold no scale; their probability is 0 anyway
-    const float kcol = SCALED && lane < page ? kss[lane] : 1.0f;
-    const float vcol = SCALED && lane < page ? vss[lane] : 1.0f;
+    // lanes past the tile hold no scale; their probability is 0 anyway
+    const float kcol = SCALED && lane < n ? kss[lane] : 1.0f;
+    const float vcol = SCALED && lane < n ? vss[lane] : 1.0f;
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
       const int r = warp + NWARPS * rr;
       if (r >= G) break;                       // warp-uniform
       float sv = 0.0f;
-      if (lane < page) {
+      if (lane < n) {
 #pragma unroll 16
         for (int d = 0; d < D; ++d) sv = fmaf(qs[r][d], ks[lane][d], sv);
       }
       sv = sv * scale;
       if (SCALED) sv = sv * kcol;              // K scale after the dot
-      online_softmax_update<float, D>(sv, valid, page, &vs[0][0], m[rr], l[rr], acc[rr],
-                                      lane, vcol);
+      online_softmax_update<float, D>(sv, valid, n, &vs[0][0], m[rr], l[rr], acc[rr], lane,
+                                      vcol);
+    }
+  };
+  if constexpr (RING) {   // rows [pg0, pg1) of the slot's ring, 32 a tile
+    const int seam = (p_b % pps + pps) % pps;
+    for (int c0 = pg0; c0 < pg1; c0 += MAXPAGE) {
+      const int n = min(MAXPAGE, pg1 - c0);
+      // (the barrier: the previous tile consumed, and qs written)
+      if (!__syncthreads_or(tid < n && ring_row_live(c0 + tid, p_b, seam, pps, s_b, window,
+                                                     fault)))
+        continue;
+      tile(static_cast<size_t>(b) * pps + c0, n,
+           lane < n && ring_row_live(c0 + lane, p_b, seam, pps, s_b, window, fault));
+    }
+  } else {
+    for (int pp_ = pg0; pp_ < pg1; ++pp_) {
+      const int c0 = pp_ * page;
+      if (c0 > p_b) break;                       // table order = position order
+      if (c0 + page - 1 < s_b) continue;         // wholly left padding
+      const int pid = table[static_cast<size_t>(b) * pps + pp_];
+      if (pid == 0) continue;                    // null page: no loads
+      __syncthreads();   // previous page consumed (and qs written)
+      const int col = c0 + lane;
+      tile(static_cast<size_t>(pid) * page, page, lane < page && col >= s_b && col <= p_b);
     }
   }
 
@@ -611,7 +714,7 @@ struct Args {
   float* out;
   float* ws;
   int* tickets;
-  int B, Hq, Hkv, pps, page, pp, S, fault;
+  int B, Hq, Hkv, pps, page, pp, S, window, fault;
   float scale;
 };
 
@@ -626,43 +729,73 @@ int opt_in(K kernel, size_t bytes, size_t& opted) {
   return 0;
 }
 
-template <typename KV, bool SCALED, int D>
+template <typename KV, bool SCALED, int D, bool RING>
 int launch_tc(const Args& a, cudaStream_t st) {
   static size_t opted = 0;
-  const size_t smem = tc_smem<KV, SCALED, D>(a.pp, a.page, a.Hq / a.Hkv, a.S);
+  const size_t smem = tc_smem<KV, SCALED, D, RING>(a.pp, a.page, a.Hq / a.Hkv, a.S);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = paged_decode_tc<KV, SCALED, D>;
+  auto kernel = paged_decode_tc<KV, SCALED, D, RING>;
   if (const int e = opt_in(kernel, smem, opted)) return e;
   kernel<<<dim3(a.S, a.Hkv, a.B), NT, smem, st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), static_cast<const __nv_bfloat16*>(a.k_s),
       static_cast<const __nv_bfloat16*>(a.v_s), a.table, a.pos, a.start, a.out, a.ws,
-      a.tickets, a.Hq, a.Hkv, a.pps, a.page, a.pp, a.S, a.scale, a.fault);
+      a.tickets, a.Hq, a.Hkv, a.pps, a.page, a.pp, a.S, a.window, a.scale, a.fault);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Dynamic shared memory of the float32 kernel: the combine's.
 size_t f32_smem(int G, int S) { return S > 1 ? 8 * static_cast<size_t>(G) * S : 0; }
 
-template <typename KV, bool SCALED, int D>
+template <typename KV, bool SCALED, int D, bool RING>
 int launch_f32(const Args& a, cudaStream_t st) {
   static size_t opted = 0;
   const size_t smem = f32_smem(a.Hq / a.Hkv, a.S);
-  auto kernel = paged_decode_f32<KV, SCALED, D>;
+  auto kernel = paged_decode_f32<KV, SCALED, D, RING>;
   if (const int e = opt_in(kernel, smem, opted)) return e;
   kernel<<<dim3(a.S, a.Hkv, a.B), NT, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
       static_cast<const __nv_bfloat16*>(a.k_s), static_cast<const __nv_bfloat16*>(a.v_s),
       a.table, a.pos, a.start, a.out, a.ws, a.tickets, a.Hq, a.Hkv, a.pps, a.page, a.pp, a.S,
-      a.scale, a.fault);
+      a.window, a.scale, a.fault);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool RING>
 int launch_d(const Args& a, int is_bf16, int kv_int8, cudaStream_t st) {
   if (is_bf16)
-    return kv_int8 ? launch_tc<int8_t, true, D>(a, st) : launch_tc<__nv_bfloat16, false, D>(a, st);
-  return kv_int8 ? launch_f32<int8_t, true, D>(a, st) : launch_f32<float, false, D>(a, st);
+    return kv_int8 ? launch_tc<int8_t, true, D, RING>(a, st)
+                   : launch_tc<__nv_bfloat16, false, D, RING>(a, st);
+  return kv_int8 ? launch_f32<int8_t, true, D, RING>(a, st)
+                 : launch_f32<float, false, D, RING>(a, st);
+}
+
+template <bool RING>
+int launch(const Args& a, int D, int is_bf16, int kv_int8, cudaStream_t st) {
+  if (D == 128) return launch_d<128, RING>(a, is_bf16, kv_int8, st);
+  if (D == 64) return launch_d<64, RING>(a, is_bf16, kv_int8, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split workspace and the scale pools a launch needs.
+bool operands_fit(int B, int Hq, int Hkv, int D, int splits, const float* ws, long long ws_len,
+                  const int* tickets, int n_tickets, int kv_int8, const void* k_s,
+                  const void* v_s) {
+  if (splits > 1 &&
+      (ws == nullptr || tickets == nullptr || n_tickets < B * Hkv ||
+       ws_len < static_cast<long long>(B) * Hkv * splits * (Hq / Hkv) * (D + 2)))
+    return false;
+  return !kv_int8 || (k_s != nullptr && v_s != nullptr);
+}
+
+template <bool RING>
+int smem_of(int is_bf16, int kv_int8, int D, int pp, int page, int G, int S) {
+  if (!is_bf16) return static_cast<int>(f32_smem(G, S));
+  if (D == 128)
+    return static_cast<int>(kv_int8 ? tc_smem<int8_t, true, 128, RING>(pp, page, G, S)
+                                    : tc_smem<__nv_bfloat16, false, 128, RING>(pp, page, G, S));
+  return static_cast<int>(kv_int8 ? tc_smem<int8_t, true, 64, RING>(pp, page, G, S)
+                                  : tc_smem<__nv_bfloat16, false, 64, RING>(pp, page, G, S));
 }
 
 }  // namespace
@@ -684,26 +817,44 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v, cons
       pps < 0 || pp < 1 || splits < 1 || static_cast<long long>(splits) * pp < pps ||
       static_cast<long long>(splits - 1) * pp >= (pps > 0 ? pps : 1) || fault < 0 || fault > 1)
     return bad;
-  if (splits > 1 &&
-      (ws == nullptr || tickets == nullptr || n_tickets < B * Hkv ||
-       ws_len < static_cast<long long>(B) * Hkv * splits * (Hq / Hkv) * (D + 2)))
+  if (!operands_fit(B, Hq, Hkv, D, splits, ws, ws_len, tickets, n_tickets, kv_int8, k_s, v_s))
     return bad;
-  if (kv_int8 && (k_s == nullptr || v_s == nullptr)) return bad;
   const Args a{q, k, v, k_s, v_s, table, pos, start, out, ws, tickets,
-               B, Hq, Hkv, pps, page, pp, splits, fault, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch_d<128>(a, is_bf16, kv_int8, st);
-  if (D == 64) return launch_d<64>(a, is_bf16, kv_int8, st);
-  return bad;
+               B, Hq, Hkv, pps, page, pp, splits, 0, fault, scale};
+  return launch<false>(a, D, is_bf16, kv_int8, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of one launch (chip_smoke.py's build report).
+// The ring form: pools [B, W, Hkv, D] (k_s / v_s [B, W, Hkv, 1] with int8
+// pools, else null), pos / start int32 [B], window (0: none) -> out f32
+// [B, Hq, 1, D].  `rows` rows a split (a multiple of 32) and `splits`
+// splits (the wrapper's ring_split_plan) must cover the W rows; ws and
+// tickets as paged_attention's.  fault: 0, 1 to drop the last live split
+// in the combine, or 2 to read rows as if row j held position j.
+extern "C" int ring_decode_attention(const void* q, const void* k, const void* v,
+                                     const void* k_s, const void* v_s, const int* pos,
+                                     const int* start, float* out, float* ws, long long ws_len,
+                                     int* tickets, int n_tickets, int is_bf16, int kv_int8, int B,
+                                     int Hq, int Hkv, int W, int D, int rows, int splits,
+                                     int window, float scale, int fault, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || Hkv < 1 || Hq % Hkv || Hq / Hkv > MAXG || W < 1 || rows < CH || rows % CH ||
+      splits < 1 || static_cast<long long>(splits) * rows < W ||
+      static_cast<long long>(splits - 1) * rows >= W || fault < 0 || fault > 2)
+    return bad;
+  if (!operands_fit(B, Hq, Hkv, D, splits, ws, ws_len, tickets, n_tickets, kv_int8, k_s, v_s))
+    return bad;
+  const Args a{q, k, v, k_s, v_s, nullptr, pos, start, out, ws, tickets,
+               B, Hq, Hkv, W, 1, rows, splits, window, fault, scale};
+  return launch<true>(a, D, is_bf16, kv_int8, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one launch (chip_smoke.py's build report); the
+// ring form's with pp = rows a split and page = 1.
 extern "C" int paged_attention_smem(int is_bf16, int kv_int8, int D, int pp, int page, int G,
                                     int S) {
-  if (!is_bf16) return static_cast<int>(f32_smem(G, S));
-  if (D == 128)
-    return static_cast<int>(kv_int8 ? tc_smem<int8_t, true, 128>(pp, page, G, S)
-                                    : tc_smem<__nv_bfloat16, false, 128>(pp, page, G, S));
-  return static_cast<int>(kv_int8 ? tc_smem<int8_t, true, 64>(pp, page, G, S)
-                                  : tc_smem<__nv_bfloat16, false, 64>(pp, page, G, S));
+  return smem_of<false>(is_bf16, kv_int8, D, pp, page, G, S);
+}
+
+extern "C" int ring_decode_smem(int is_bf16, int kv_int8, int D, int rows, int G, int S) {
+  return smem_of<true>(is_bf16, kv_int8, D, rows, 1, G, S);
 }

@@ -58,14 +58,17 @@ ENTRY_POINTS = {
         "int8_matmul_stream_smem": [_I, _I],
         "int8_matmul_tc_smem": []},
     "flash_attention": {
-        "flash_attention_masked": [_P] * 6 + [_I] * 10 + [_F, _I, _P],
+        "flash_attention_masked": [_P] * 6 + [_I] * 10 + [_F, _P],
         "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
         "flash_attention_bwd_dkdv": [_P] * 9 + [_I] * 10 + [_F, _P],
         "flash_attention_bwd_dq": [_P] * 8 + [_I] * 10 + [_F, _P],
         "flash_attention_tc_smem": [_I, _I]},
     "paged_attention": {
         "paged_attention": [_P] * 10 + [ctypes.c_longlong, _P] + [_I] * 11 + [_F, _I, _P],
-        "paged_attention_smem": [_I] * 7},
+        "paged_attention_smem": [_I] * 7,
+        "ring_decode_attention": [_P] * 9 + [ctypes.c_longlong, _P] + [_I] * 11
+                                 + [_F, _I, _P],
+        "ring_decode_smem": [_I] * 6},
     "ssd_scan": {
         "ssd_fwd_states": [_P] * 6 + [_I] * 7 + [_P],
         "ssd_fwd_carry": [_P] * 2 + [_I] * 5 + [_P],
@@ -180,8 +183,9 @@ def stream_workspace(key, words: int, tickets: int):
     call leaves the tickets zero for the next one; calls on one CUDA stream
     run in turn, and each CUDA stream has its own.  Kernels 1 and 6 share
     the (device, CUDA stream) one, whose split-K sums every call also leaves
-    zero; the paged decode (kernels 3 and 3b) keeps its own under kind
-    "paged", with its f32 partials in the words, which need no zeroing."""
+    zero; the paged decode (kernels 3 and 3b, and its ring form) keeps its
+    own under kind "paged", with its f32 partials in the words, which need
+    no zeroing."""
     import torch
     ws, tk = _workspaces.get(key, (None, None))
     if ws is None or ws.numel() < words or tk.numel() < tickets:

@@ -19,9 +19,9 @@ Kernels 2, 7, 7b and 7c take one of two routes by the operands' dtype
 run) the tensor-core kernels (``wgmma`` + TMA), float32 the CUDA-core
 ones.  Each wrapper's ``.tc_launches`` counts the tensor-core launches
 among its ``.launches`` (and kernel 2's ``.offset_launches`` those with
-per-sequence offsets, ``.ring_launches`` those of its ring form).  On the
-tensor-core route kernel 7c also writes D_i = rowsum(dO * O), which
-``flash_attention_bwd`` hands to 7b (``delta=``).
+per-sequence offsets).  On the tensor-core route kernel 7c also writes
+D_i = rowsum(dO * O), which ``flash_attention_bwd`` hands to 7b
+(``delta=``).
 """
 
 from __future__ import annotations
@@ -81,20 +81,14 @@ def _mask_args(sq, skv, d, causal, window, scale, q_offset):
 
 def flash_attention_masked(q, k, v, start, *, q_offset: int = 0, q_offsets=None,
                            causal: bool = True, window: int | None = None,
-                           scale: float | None = None, ring_width: int | None = None):
+                           scale: float | None = None):
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (f32 or bf16, one dtype),
     start int32 [B] -> [B, Hq, Sq, D] in q's dtype (as the Pallas kernel;
     softmax and accumulation in f32).  Query row t of sequence b sits at
     kv position ``q_offset + t``, or ``q_offsets[b] + t`` when the int32
     [B] ``q_offsets`` is given (a verify burst, a dense decode read).  The
     bfloat16 (tensor-core) route rounds P to bf16 relative to the running
-    max after each 64-column kv tile (64-row q tiles).
-
-    ``ring_width=W`` is the ring form (a sliding-window ring's decode
-    read): Sq = 1, Skv = W, ``q_offsets`` the positions read at; kv row j
-    holds position ``pos - ((pos - j) mod W)`` and attends under
-    ``start`` and ``window`` by that position (``ref.ring_valid``, the
-    ring cache's own mask, is its plain version)."""
+    max after each 64-column kv tile (64-row q tiles)."""
     _check_qkv(q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -102,18 +96,12 @@ def flash_attention_masked(q, k, v, start, *, q_offset: int = 0, q_offsets=None,
         raise ValueError("start must be int32 [B]")
     if q_offsets is not None and (q_offsets.shape != (b,) or q_offsets.dtype != torch.int32):
         raise ValueError("q_offsets must be int32 [B]")
-    if ring_width is not None and (q_offsets is None or sq != 1 or skv != ring_width
-                                   or not causal or ring_width <= 0):
-        raise ValueError(f"the ring form reads one row per sequence at q_offsets over "
-                         f"Skv = ring_width causally; got Sq={sq}, Skv={skv}, "
-                         f"ring_width={ring_width}, q_offsets "
-                         f"{'given' if q_offsets is not None else 'None'}, causal={causal}")
     if scale is None:
         scale = d**-0.5
     if q.device.type == "cpu":
         return masked_attention_ref(q, k, v, start=start, q_offset=q_offset,
                                     q_offsets=q_offsets, causal=causal, window=window,
-                                    scale=scale, ring_width=ring_width).to(q.dtype)
+                                    scale=scale).to(q.dtype)
     _check_cuda(q, k, v)
     for t in (start, q_offsets):
         if t is not None and (t.device != q.device or not t.is_contiguous()):
@@ -126,13 +114,12 @@ def flash_attention_masked(q, k, v, start, *, q_offset: int = 0, q_offsets=None,
             None if q_offsets is None else q_offsets.data_ptr(),
             out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv, sq,
             skv, d, int(q_offset), int(causal),
-            0 if window is None else int(window), float(scale), int(ring_width or 0),
+            0 if window is None else int(window), float(scale),
             _build.stream_of(q))
     _build.check(rc, "flash_attention_masked")
     flash_attention_masked.launches += 1
     flash_attention_masked.tc_launches += route(q.dtype, d) == "tensor-core"
     flash_attention_masked.offset_launches += q_offsets is not None
-    flash_attention_masked.ring_launches += ring_width is not None
     return out
 
 
@@ -286,7 +273,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 flash_attention_masked.launches = 0
 flash_attention_masked.tc_launches = 0
 flash_attention_masked.offset_launches = 0
-flash_attention_masked.ring_launches = 0
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention_bwd_dkdv.launches = 0

@@ -22,11 +22,9 @@ version, which folds the scales exactly, as the reference's CPU route
 does.  ``q_offsets`` (int32 [B]) gives each sequence its own query
 offset (the kernel's per-sequence form): the dense decode read and the
 speculative verify burst, whose masks ``start_b <= j <= pos_b + t`` it
-computes from ``(start, q_offsets)``.  ``ring_width`` (with ``q_offsets``
-at Sq = 1) is the kernel's ring form, the decode read of a sliding-window
-ring cache: the kernel computes the ring's scattered mask itself.  The
-explicit ``valid`` mask (the plain path's decode reads) has no kernel: it
-runs the plain version on the CPU and raises on the card unless
+computes from ``(start, q_offsets)``.  The explicit ``valid`` mask (the
+plain path's decode reads, the ring's among them) has no kernel: it runs
+the plain version on the CPU and raises on the card unless
 ``use_kernel=False``, which asks for the plain version explicitly
 (counted in ``masked_attention.plain_launches`` on the card).
 """
@@ -94,8 +92,7 @@ def dequantize(t, t_scale, dtype):
 
 def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
                      window=None, scale=None, k_scale=None, v_scale=None,
-                     valid=None, use_kernel: bool = True, chunk=None, q_offsets=None,
-                     ring_width=None):
+                     valid=None, use_kernel: bool = True, chunk=None, q_offsets=None):
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D]: in q's
     dtype from the kernel (as the Pallas kernel writes it), float32 from
     the plain version.  The reference op upcasts the kernel's output to
@@ -117,7 +114,7 @@ def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
             q.contiguous(), k.contiguous(), v.contiguous(),
             start.to(torch.int32).contiguous(), q_offset=q_offset,
             q_offsets=None if q_offsets is None else q_offsets.to(torch.int32).contiguous(),
-            causal=causal, window=window, scale=scale, ring_width=ring_width)
+            causal=causal, window=window, scale=scale)
     if q.is_cuda:
         if valid is not None and use_kernel:
             raise NotImplementedError(
@@ -127,7 +124,7 @@ def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
     return masked_attention_ref(q, k, v, start=start, q_offset=q_offset,
                                 causal=causal, window=window, scale=scale,
                                 k_scale=k_scale, v_scale=v_scale, valid=valid,
-                                chunk=chunk, q_offsets=q_offsets, ring_width=ring_width)
+                                chunk=chunk, q_offsets=q_offsets)
 
 
 masked_attention.plain_launches = 0

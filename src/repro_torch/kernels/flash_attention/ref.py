@@ -25,9 +25,6 @@ column j and query row t (q row t sits at position ``q_offset + t``):
 ``q_offset``: sequence b's row t sits at ``q_offsets[b] + t``.  With
 causal, no window and ``start``, that is the verify burst's mask
 ``burst_valid(q_offsets, start, Sq, Skv)`` (``models/kv_cache.py``).
-``ring_width=W`` reads a sliding-window ring at positions ``q_offsets``
-(one query row, Skv = W): the mask is :func:`ring_valid`, the ring
-cache's own (``RingCache.token_view``).
 
 Scores are q.k dots accumulated in float32; the probabilities are cast
 to the value dtype before the value contraction, as the reference does.
@@ -199,17 +196,12 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
 
 def masked_attention_ref(q, k, v, *, start=None, q_offset=0, causal=True,
                          window=None, scale=None, k_scale=None, v_scale=None,
-                         valid=None, chunk=None, q_offsets=None, ring_width=None):
+                         valid=None, chunk=None, q_offsets=None):
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     group = hq // hkv
     if scale is None:
         scale = d**-0.5
-    if ring_width is not None:   # a ring's decode read: its mask, explicit
-        if q_offsets is None or sq != 1 or skv != ring_width:
-            raise ValueError("the ring form reads one row per sequence at q_offsets over "
-                             "Skv = ring_width")
-        valid = ring_valid(q_offsets, start, ring_width, window)[:, None, :]
     chunk = skv if chunk is None else min(chunk, skv)
     if skv % chunk:
         raise ValueError(f"chunk {chunk} does not divide Skv={skv}")

@@ -16,6 +16,17 @@ launches (one a call), and ``.int8_kv_launches`` those of the int8-KV
 branch among them.  ``fault`` (0 on every path of the port) plants a
 kernel fault for ``chip_smoke.py``'s checks (see the source); the plain
 version has none.
+
+``ring_decode_kernel`` is the same kernel's ring form (C entry
+``ring_decode_attention``): the decode read of a sliding-window ring,
+its pools ``[B, W, Hkv, D]`` as ``RingCache`` stores them, read in place
+(no table, no transposed or dequantized copy); ``ring_split_plan`` cuts
+each slot's W rows into runs, and each block masks its rows by the
+ring's own positions.  The reference has no kernel for this read (its
+ring decode sends an explicit mask to the jnp core); the plain version
+is ``ref.ring_decode_ref``.  ``ring_decode_kernel.launches`` and
+``.int8_kv_launches`` count its launches; its ``fault`` 2 reads the
+ring unrotated (row j as position j).
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref, ring_decode_ref
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16       # q heads per kv head the kernel holds
@@ -31,6 +42,10 @@ MAX_PAGE = 32        # one lane per page column (the float32 route)
 # pages a split at most: a block holds its run's table entries and (int8
 # pools) its rows' K / V scales in shared memory, 8.25 KB at 32-token pages
 MAX_RUN_PAGES = 64
+STAGE_ROWS = 32      # rows a cp.async stage of the tensor-core kernel
+# the ring form's rows a split at most (its int8 rows' K / V scales in
+# shared memory, as MAX_RUN_PAGES' pages of 32 rows)
+MAX_RING_ROWS = MAX_RUN_PAGES * MAX_PAGE
 
 
 def split_plan(b: int, hkv: int, pps: int, sms: int):
@@ -44,6 +59,52 @@ def split_plan(b: int, hkv: int, pps: int, sms: int):
     need = -(-2 * sms // max(1, b * hkv))
     pages = max(1, min(pps // need, MAX_RUN_PAGES))
     return pages, max(1, -(-pps // pages))
+
+
+def ring_split_plan(b: int, hkv: int, w: int, sms: int):
+    """The ring form's split of ``b`` slots' rings of ``w`` rows, for
+    ``hkv`` kv heads on a card of ``sms`` SMs: (rows a split, splits).
+    Split ``i`` covers rows ``[i * rows, (i + 1) * rows)`` (the last may be
+    shorter), so every row lies in exactly one; ``rows`` is a multiple of
+    the 32-row stage, ``b * hkv * splits >= 2 * sms`` blocks wherever ``w``
+    allows, and no split holds more than ``MAX_RING_ROWS`` rows.  Shapes
+    only: nothing of pos or start is read."""
+    need = -(-2 * sms // max(1, b * hkv))
+    rows = min(w // need // STAGE_ROWS * STAGE_ROWS, MAX_RING_ROWS)
+    rows = max(STAGE_ROWS, rows)
+    return rows, max(1, -(-w // rows))
+
+
+def _check_int8(pool, k_scales, v_scales):
+    """Whether the pools are int8; int8 pools need bf16 scale pools of the
+    pool's shape with a last dimension of 1, and float pools take none."""
+    int8_kv = pool.dtype == torch.int8
+    if not int8_kv and (k_scales is not None or v_scales is not None):
+        raise NotImplementedError("scale pools dequantize int8 pools; float "
+                                  "pools with scales have no kernel branch")
+    if int8_kv:
+        sshape = tuple(pool.shape[:3]) + (1,)
+        for t in (k_scales, v_scales):
+            if t is None or tuple(t.shape) != sshape or t.dtype != torch.bfloat16:
+                raise ValueError(f"int8 pools need bf16 scale pools {sshape}")
+    return int8_kv
+
+
+def _check_cuda(q, pools, group, operands):
+    """The kernel's dtypes, head dims, group size and one device."""
+    int8_kv = pools[0].dtype == torch.int8
+    pool_dtype = torch.int8 if int8_kv else q.dtype
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(p.dtype != pool_dtype
+                                                             for p in pools):
+        raise TypeError(f"q must be float32 or bfloat16 and the pools int8 or "
+                        f"q's dtype, got {q.dtype}, {pools[0].dtype}, {pools[1].dtype}")
+    d = q.shape[-1]
+    if d not in HEAD_DIMS or group > MAX_GROUP:
+        raise ValueError(f"kernel supports head_dim in {HEAD_DIMS} and <= {MAX_GROUP} "
+                         f"q heads per kv head; got D={d}, G={group}")
+    for t in operands:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("operands must be contiguous and on one device")
 
 
 def paged_attention_kernel(q, k_pages, v_pages, block_table, pos, start,
@@ -66,15 +127,7 @@ def paged_attention_kernel(q, k_pages, v_pages, block_table, pos, start,
             raise TypeError("block_table, pos and start must be int32")
     if pos.shape != (b,) or start.shape != (b,):
         raise ValueError("pos and start must be [B]")
-    int8_kv = k_pages.dtype == torch.int8
-    if not int8_kv and (k_scales is not None or v_scales is not None):
-        raise NotImplementedError("scale pools dequantize int8 pools; float "
-                                  "pools with scales have no kernel branch")
-    if int8_kv:
-        sshape = tuple(k_pages.shape[:3]) + (1,)
-        for t in (k_scales, v_scales):
-            if t is None or tuple(t.shape) != sshape or t.dtype != torch.bfloat16:
-                raise ValueError(f"int8 pools need bf16 scale pools {sshape}")
+    int8_kv = _check_int8(k_pages, k_scales, v_scales)
     if fault not in (0, 1):
         raise ValueError(f"fault must be 0 or 1, got {fault}")
     if scale is None:
@@ -85,22 +138,13 @@ def paged_attention_kernel(q, k_pages, v_pages, block_table, pos, start,
         return paged_attention_ref(q, k_pages, v_pages, block_table, pos,
                                    start, page_size=page_size, k_scales=k_scales,
                                    v_scales=v_scales, scale=scale)
-    pool_dtype = torch.int8 if int8_kv else q.dtype
-    if q.dtype not in (torch.float32, torch.bfloat16) or k_pages.dtype != pool_dtype \
-            or v_pages.dtype != pool_dtype:
-        raise TypeError(f"q must be float32 or bfloat16 and the pools int8 or "
-                        f"q's dtype, got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
     group = hq // hkv
-    if d not in HEAD_DIMS or group > MAX_GROUP or page > MAX_PAGE:
-        raise ValueError(f"kernel supports head_dim in {HEAD_DIMS}, <= {MAX_GROUP} "
-                         f"q heads per kv head and pages <= {MAX_PAGE}; got "
-                         f"D={d}, G={group}, page={page}")
+    if page > MAX_PAGE:
+        raise ValueError(f"kernel supports pages <= {MAX_PAGE}; got page={page}")
     operands = [q, k_pages, v_pages, block_table, pos, start]
     if int8_kv:
         operands += [k_scales, v_scales]
-    for t in operands:
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("operands must be contiguous and on one device")
+    _check_cuda(q, (k_pages, v_pages), group, operands)
     out = torch.empty((b, hq, 1, d), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
@@ -127,5 +171,62 @@ def paged_attention_kernel(q, k_pages, v_pages, block_table, pos, start,
     return out
 
 
+def ring_decode_kernel(q, k_ring, v_ring, pos, start, k_scales=None, v_scales=None, *,
+                       window: int | None, scale: float | None = None, fault: int = 0):
+    """q [B, Hq, 1, D]; ring pools [B, W, Hkv, D] as stored (row j of slot
+    b holds position ``pos_b - ((pos_b - j) mod W)``), float in q's dtype
+    or int8 with bf16 ``[B, W, Hkv, 1]`` scale pools; pos / start int32
+    [B]; ``window`` the ring's attention window (None or 0: none) -> f32
+    [B, Hq, 1, D].  ``fault`` (chip_smoke.py's checks): 1 drops the last
+    live split in the combine, 2 reads the ring unrotated."""
+    b, hq, sq, d = q.shape
+    if sq != 1 or k_ring.dim() != 4 or k_ring.shape[0] != b or k_ring.shape[3] != d \
+            or v_ring.shape != k_ring.shape or hq % k_ring.shape[2]:
+        raise ValueError(f"the ring decode reads one row per slot over [B, W, Hkv, D] "
+                         f"pools with Hkv dividing Hq; got q {tuple(q.shape)}, pools "
+                         f"{tuple(k_ring.shape)}, {tuple(v_ring.shape)}")
+    _, w, hkv, _ = k_ring.shape
+    for t in (pos, start):
+        if t.dtype != torch.int32 or t.shape != (b,):
+            raise ValueError("pos and start must be int32 [B]")
+    int8_kv = _check_int8(k_ring, k_scales, v_scales)
+    if fault not in (0, 1, 2):
+        raise ValueError(f"fault must be 0, 1 or 2, got {fault}")
+    if scale is None:
+        scale = d**-0.5
+    if q.device.type == "cpu":
+        if fault:
+            raise ValueError("fault plants a kernel fault; the plain version has none")
+        return ring_decode_ref(q, k_ring, v_ring, pos, start, k_scales, v_scales,
+                               window=window, scale=scale)
+    group = hq // hkv
+    operands = [q, k_ring, v_ring, pos, start] + ([k_scales, v_scales] if int8_kv else [])
+    _check_cuda(q, (k_ring, v_ring), group, operands)
+    out = torch.empty((b, hq, 1, d), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out
+    stream = _build.stream_of(q)
+    rows, splits = ring_split_plan(b, hkv, w, _build.sm_count(q.device))
+    ws = tk = None
+    if splits > 1:   # kernel 3's workspace: f32 partials, a ticket a (slot, kv head)
+        ws, tk = _build.stream_workspace((q.device, stream, "paged"),
+                                         b * hkv * splits * group * (d + 2), b * hkv)
+    fn = _build.entry("paged_attention", "ring_decode_attention")
+    rc = fn(q.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(),
+            k_scales.data_ptr() if int8_kv else None,
+            v_scales.data_ptr() if int8_kv else None,
+            pos.data_ptr(), start.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), 0 if ws is None else ws.numel(),
+            None if tk is None else tk.data_ptr(), 0 if tk is None else tk.numel(),
+            int(q.dtype == torch.bfloat16), int(int8_kv), b, hq, hkv, w, d, rows, splits,
+            int(window or 0), float(scale), int(fault), stream)
+    _build.check(rc, "ring_decode_kernel")
+    ring_decode_kernel.launches += 1
+    ring_decode_kernel.int8_kv_launches += int8_kv
+    return out
+
+
 paged_attention_kernel.launches = 0
 paged_attention_kernel.int8_kv_launches = 0
+ring_decode_kernel.launches = 0
+ring_decode_kernel.int8_kv_launches = 0

@@ -22,13 +22,22 @@ bit for bit unchanged.
 (``csrc/paged_attention.cu``) for the CPU tests: each run of pages forms
 its own partial, its probabilities rounded to q's dtype against its own
 max, and the partials combine in split order.
+
+``ring_decode_ref`` is the plain version of the ring form
+(``ring_decode_kernel``): the decode read of a sliding-window ring's
+pools as stored, ``[B, W, Hkv, D]``, under the ring cache's own mask
+(``ring_valid``, ``RingCache.token_view``'s), through the dense backend's
+``masked_attention_ref`` on ``transpose(1, 2)`` views, int8 codes cast
+to q's dtype and their scales folded as that backend's CPU read folds
+them: the ring's CPU decode read, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import rotate_to_first
+from repro_torch.kernels.flash_attention.ref import (masked_attention_ref, ring_valid,
+                                                     rotate_to_first)
 
 _NEG_INF = -1e30
 
@@ -122,17 +131,29 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_table, pos, start, *,
     if k_scales is not None:
         s = s * _scale_cols(k_scales, block_table)[:, :, None, :]
         vs = _scale_cols(v_scales, block_table)[:, :, None, :]
+    return _split_combine(s, valid, vb, vs, pages_per_split * page, q.dtype,
+                          fault).reshape(b, hq, 1, d)
+
+
+def _split_combine(s, valid, vb, vs, width, dtype, fault):
+    """The kernel's split-KV softmax over [B, Hkv, G, C] scores ``s`` (f32,
+    column mask ``valid`` [B, 1, 1, C], values ``vb`` [B, Hkv, C, D] f32, V
+    scales ``vs`` [B, Hkv, 1, C] or None): each run of ``width`` columns
+    forms its partial, probabilities rounded to ``dtype``, and the
+    partials combine in split order; ``fault = 1`` drops each row's last
+    live split.  Returns [B, Hkv, G, D] float32."""
+    if fault not in (0, 1):
+        raise ValueError(f"fault must be 0 or 1, got {fault}")
     s = torch.where(valid, s, _NEG_INF)
     parts = []
-    width = pages_per_split * page
-    for lo in range(0, pps * page, width):
+    for lo in range(0, s.shape[-1], width):
         sl, ok = s[..., lo:lo + width], valid[..., lo:lo + width]
         m = sl.amax(-1, keepdim=True)
         p = torch.where(ok, torch.exp(sl - m), 0.0)
         l = p.sum(-1, keepdim=True)
         if vs is not None:
             p = p * vs[..., lo:lo + width]
-        p = p.to(q.dtype).to(torch.float32)
+        p = p.to(dtype).to(torch.float32)
         parts.append((m, l, torch.einsum("bhgk,bhkd->bhgd", p, vb[:, :, lo:lo + width])))
     m = torch.stack([t[0] for t in parts])            # [S, B, Hkv, G, 1]
     l = torch.stack([t[1] for t in parts])
@@ -142,12 +163,74 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_table, pos, start, *,
         order = torch.arange(len(parts)).reshape(-1, 1, 1, 1, 1)
         last = torch.where(live, order, -1).amax(0)
         live = live & (order != last)
-    elif fault:
-        raise ValueError(f"fault must be 0 or 1, got {fault}")
     acc = torch.zeros_like(parts[0][2])
     den = torch.zeros_like(parts[0][1])
     for i, (ms, ls, a) in enumerate(parts):          # split order
         w = torch.where(live[i], torch.exp(ms - big), 0.0)
         den = den + w * ls
         acc = acc + w * a
-    return (acc / torch.clamp_min(den, 1e-30)).reshape(b, hq, 1, d)
+    return acc / torch.clamp_min(den, 1e-30)
+
+
+def ring_decode_ref(q, k_ring, v_ring, pos, start=None, k_scales=None, v_scales=None, *,
+                    window, scale=None):
+    """q [B, Hq, 1, D]; ring pools [B, W, Hkv, D] (int8 with bf16 [B, W,
+    Hkv, 1] scale pools); pos / start [B] -> f32 [B, Hq, 1, D]: row j of
+    slot b holds position ``pos_b - ((pos_b - j) mod W)`` and attends
+    under ``ring_valid(pos, start, W, window)``."""
+    valid = ring_valid(pos, start, k_ring.shape[1], window)
+    if k_ring.dtype == torch.int8:
+        k_ring, v_ring = k_ring.to(q.dtype), v_ring.to(q.dtype)
+    return masked_attention_ref(q, k_ring.transpose(1, 2), v_ring.transpose(1, 2), scale=scale,
+                                k_scale=_ring_cols(k_scales), v_scale=_ring_cols(v_scales),
+                                valid=valid[:, None, :])
+
+
+def _ring_cols(s):
+    """[B, W, Hkv, 1] ring scale pool -> [B, Hkv, W] f32 fold operand."""
+    return None if s is None else s[..., 0].transpose(1, 2).to(torch.float32)
+
+
+def unrotated_valid(pos, start, w: int, window):
+    """[B, W] mask of a ring read unrotated, row j taken as position j (the
+    kernel's planted fault 2): j <= pos, j >= start and, with a window, j
+    > pos - window."""
+    j = torch.arange(w, device=pos.device)[None, :]
+    p = pos.long()[:, None]
+    valid = (j <= p) & (j >= start.long()[:, None])
+    if window:
+        valid = valid & (j > p - window)
+    return valid
+
+
+def ring_decode_split_ref(q, k_ring, v_ring, pos, start, k_scales=None, v_scales=None, *,
+                          window, rows_per_split: int, scale=None, fault: int = 0):
+    """The ring form's split-KV flash-decode in plain PyTorch: split ``s``
+    covers ring rows ``[s * rows_per_split, (s + 1) * rows_per_split)``,
+    its rows masked by ``ring_valid`` (``fault = 2``: read unrotated),
+    each forming its partial with probabilities rounded to q's dtype
+    against its own max, combined in split order (``fault = 1`` drops
+    each row's last live split), as ``paged_attention_split_ref`` does for
+    the paged form.  Returns [B, Hq, 1, D] float32."""
+    if fault not in (0, 1, 2):
+        raise ValueError(f"fault must be 0, 1 or 2, got {fault}")
+    b, hq, _, d = q.shape
+    _, w, hkv, _ = k_ring.shape
+    group = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    mask = unrotated_valid if fault == 2 else ring_valid
+    valid = mask(pos, start, w, window)[:, None, None, :]
+    qg = q.reshape(b, hkv, group, d).to(torch.float32)
+
+    def rows(t):   # [B, W, Hkv, D] -> [B, Hkv, W, D] f32 (int8 through q's dtype)
+        return t.permute(0, 2, 1, 3).to(q.dtype).to(torch.float32)
+
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, rows(k_ring)) * scale
+    vs = None
+    if k_scales is not None:
+        s = s * _ring_cols(k_scales)[:, :, None, :]
+        vs = _ring_cols(v_scales)[:, :, None, :]
+    out = _split_combine(s, valid, rows(v_ring), vs, rows_per_split, q.dtype,
+                         int(fault == 1))
+    return out.reshape(b, hq, 1, d)

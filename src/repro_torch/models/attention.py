@@ -7,8 +7,8 @@ row and, for the paged backend, reads the pool in place through the
 paged decode kernel; dense rows (the dense engine backend, a
 speculative drafter) go through the masked flash kernel at Sq = 1 with
 per-sequence offsets ``q_offsets = pos_b``, and a sliding-window ring
-through the same kernel's ring form (``ring_width``), in place, never
-gathered into position order.  ``verify_step`` is
+through the paged kernel's ring form, its pools in place, never gathered
+into position order, transposed or dequantized.  ``verify_step`` is
 speculative decoding's burst: S rows per sequence written at ``pos_b ..
 pos_b+S-1`` and attended through the same kernel over the cache's
 position-ordered view with ``q_offsets = pos_b``.
@@ -29,8 +29,9 @@ context (``RingCache.context``, a copy) before the chunk's write.
 
 With an int8 KV cache the stored codes are cast to the compute dtype
 and the bf16 per-row scales fold into the attention (K after the q.k
-dot, V into the probabilities): the paged kernel dequantizes in the
-kernel, and the flash route takes operands dequantized to q's dtype.  The full-sequence ``apply`` (training)
+dot, V into the probabilities): the paged kernel (and its ring form)
+dequantizes in the kernel, and the flash route takes operands
+dequantized to q's dtype.  The full-sequence ``apply`` (training)
 attends through the flash kernel and its hand-written backward.
 """
 
@@ -159,23 +160,23 @@ def _token_attention(cfg: ModelConfig, q, cache, pos_b, start_b, use_kernel: boo
     over what ``cache.token_view`` gives: the paged pool in place through
     the paged decode op, or the dense rows through the masked op (the
     kernel with ``(start_b, q_offsets=pos_b)``, the plain path with the
-    view's [B, W] mask); a ring's rows as stored through the kernel's ring
-    form (``ring_width``), which masks them itself."""
+    view's [B, W] mask).  On the kernel path a ring's pools go as stored
+    (no transposed, contiguous or dequantized copy) to the paged kernel's
+    ring form (``paged_ops.ring_attention``), which masks them itself."""
     plain = plain_path(q, use_kernel)
     if isinstance(cache, kv_cache.RingCache) and not plain:
-        kop, vop, ks, vs = cache.k, cache.v, cache.k_s, cache.v_s
-        mask = dict(start=start_b, q_offsets=pos_b, ring_width=cache.width,
-                    window=cache.window)
-    else:
-        view = cache.token_view(pos_b, start_b)
-        if isinstance(view, kv_cache.PagedView):
-            return paged_ops.paged_attention(
-                q, view.k, view.v, view.block_table, pos_b, start_b,
-                page_size=view.page_size, k_scales=view.k_s, v_scales=view.v_s,
-                use_kernel=use_kernel)
-        kop, vop, ks, vs, valid = view
-        mask = (dict(valid=valid[:, None, :]) if plain
-                else dict(start=start_b, q_offsets=pos_b))
+        return paged_ops.ring_attention(
+            q, cache.k, cache.v, pos_b, start_b, window=cache.window, k_scales=cache.k_s,
+            v_scales=cache.v_s, use_kernel=use_kernel)
+    view = cache.token_view(pos_b, start_b)
+    if isinstance(view, kv_cache.PagedView):
+        return paged_ops.paged_attention(
+            q, view.k, view.v, view.block_table, pos_b, start_b,
+            page_size=view.page_size, k_scales=view.k_s, v_scales=view.v_s,
+            use_kernel=use_kernel)
+    kop, vop, ks, vs, valid = view
+    mask = (dict(valid=valid[:, None, :]) if plain
+            else dict(start=start_b, q_offsets=pos_b))
     dt = L.cdtype(cfg)
     if kop.dtype == torch.int8:
         kop, vop = kop.to(dt), vop.to(dt)

@@ -264,7 +264,8 @@ class DenseCache(_KV):
 class RingCache(DenseCache):
     """Sliding-window ring of W = min(max_len, window) rows per sequence;
     position p lives in row p mod W.  ``window`` is the attention window
-    the ring's reads mask (``token_view``, and the kernel's ring form)."""
+    the ring's reads mask (``token_view``, and the paged kernel's ring
+    form)."""
 
     def __init__(self, k, v, k_s=None, v_s=None, window: int = 0):
         super().__init__(k, v, k_s, v_s)

@@ -46,7 +46,7 @@ serve on the ring (``cache_kind="ring"``): W = min(max_len, window) rows
 a slot with positions absolute, admitted and refilled like the dense
 rows (``RingCache`` shares their slot protocol), a prompt longer than W
 prefilled in chunks of at most W rows; its decode tick reads the ring in
-place through kernel 2's ring form.  Parking and speculative decoding
+place through the paged kernel's ring form.  Parking and speculative decoding
 refuse the ring, as in the reference.
 
 Speculative decoding (``draft_model``, reference :558-643 and

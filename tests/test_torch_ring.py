@@ -9,14 +9,16 @@ reference, at reduced starcoder2-15b (window 8, float32).
 * Decode and chunked prefill logits against the reference's ring within
   the reference's own post-wrap bound (atol 1e-5,
   ``tests/test_chunked_prefill.py``), on the plain path and on the
-  kernel path's code (the pre-write context gather, kernel 2's ring form
+  kernel path's code (the pre-write context gather, the ring decode
   through its CPU route); greedy streams equal.  The planted fault
   "context read after the chunk's write" breaks the kernel path.
 * On the plain path, batched prefill ≡ sequential decode bit for bit,
   across the wrap (one shot, chunked, ragged, int8 KV).
-* Kernel 2's ring form on the CPU: its wrapper ≡ the plain version with
-  the ring cache's mask; the wrapper hands ``ring_width`` to the C entry
-  (meta tensors and a recorder) and refuses what the form does not take.
+* The ring decode (the paged kernel's ring form) on the CPU: its wrapper
+  ≡ the plain version with the ring cache's mask; the wrapper hands W and
+  the window to the C entry (meta tensors and a recorder) and refuses
+  what the form does not take (``tests/test_torch_ring_decode.py`` has
+  the rest).
 * The engine on the ring against the reference engine
   (``tests/test_cache_backends.py``'s prompts), float and int8 KV;
   ``PipelinedScheduler`` at depths 0 and 1 ≡ the synchronous engine;
@@ -45,8 +47,9 @@ from repro.runtime.serve_loop import generate as ref_generate  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config as port_get_config  # noqa: E402
 from repro_torch.configs import reduced_config as port_reduced  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import masked_attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention as pa  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import ring_decode_split_ref  # noqa: E402
 from repro_torch.models import attention, kv_cache  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.runtime.faults import Fault, FaultPlan  # noqa: E402
@@ -187,7 +190,7 @@ def test_prefill_and_decode_logits_equal_reference(monkeypatch, kernel_path, chu
     post-wrap bound, and the same greedy tokens.  ``kernel-path`` runs the
     card's code path on CPU tensors (the wrappers' plain versions): the
     context gathered before the chunk's write, kernel 2 over it with the
-    window, and the decode read through the ring form's route."""
+    window, and the decode read through the ring decode's route."""
     _, _, _, model, port_params = _setup()
     if kernel_path:
         monkeypatch.setattr(attention, "plain_path", lambda x, use_kernel: not use_kernel)
@@ -253,7 +256,7 @@ def test_greedy_streams_equal_reference_generate(prefill):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-# .. kernel 2's ring form ..
+# .. the ring decode (the paged kernel's ring form) ..
 
 def _ring_operands(seed, b, w, hq=4, hkv=2, d=16):
     g = torch.Generator().manual_seed(seed)
@@ -264,20 +267,23 @@ def _ring_operands(seed, b, w, hq=4, hkv=2, d=16):
 
 
 def test_ring_form_plain_version_is_the_ring_mask():
-    """The wrapper's CPU route ≡ ``masked_attention_ref`` with
-    ``RingCache.token_view``'s mask, before and after the wrap and with
-    starts on both sides of it; reading the ring unrotated (the mask as
-    if row = position) differs."""
+    """The ring decode wrapper's CPU route ≡ ``masked_attention_ref`` with
+    ``RingCache.token_view``'s mask over the ring's own views (the ring's
+    CPU decode read), before and after the wrap and with starts on both
+    sides of it; reading the ring unrotated (row j as position j, the
+    kernel's planted fault 2, emulated) differs."""
     w = 8
     pos = torch.tensor([3, 7, 8, 13, 20, 29], dtype=torch.int32)
     start = torch.tensor([0, 2, 0, 9, 15, 0], dtype=torch.int32)
     q, k, v = _ring_operands(5, 6, w)
     ring = kv_cache.RingCache(k.transpose(1, 2), v.transpose(1, 2), window=w)
     valid = ring.token_view(pos, start)[-1]
-    want = masked_attention_ref(q, k, v, valid=valid[:, None, :])
-    got = fa.flash_attention_masked(q, k, v, start, q_offsets=pos, ring_width=w, window=w)
+    want = masked_attention_ref(q, ring.k.transpose(1, 2), ring.v.transpose(1, 2),
+                                valid=valid[:, None, :])
+    got = pa.ring_decode_kernel(q, ring.k, ring.v, pos, start, window=w)
     assert torch.equal(got, want)
-    flat = fa.flash_attention_masked(q, k, v, start, q_offsets=pos, window=w)
+    flat = ring_decode_split_ref(q, ring.k, ring.v, pos, start, window=w, rows_per_split=32,
+                                 fault=2)
     assert not torch.allclose(flat[3:], want[3:])
 
 
@@ -293,29 +299,36 @@ class _Recorder:
 
 
 def test_wrapper_hands_the_ring_width_to_the_kernel(monkeypatch):
+    """The ring decode at the starcoder2-15b tick (meta tensors, a
+    recorder for the library): one launch of ``ring_decode_attention``
+    with W, the window and the plan, and what the form does not take
+    refused."""
     rec = _Recorder()
-    monkeypatch.setattr(fa._build, "entry", rec.entry)
-    monkeypatch.setattr(fa._build, "stream_of", lambda t: 0)
-    for name in ("launches", "tc_launches", "offset_launches", "ring_launches"):
-        monkeypatch.setattr(fa.flash_attention_masked, name, 0)
     meta = torch.device("meta")
+    monkeypatch.setattr(pa._build, "entry", rec.entry)
+    monkeypatch.setattr(pa._build, "stream_of", lambda t: 0)
+    monkeypatch.setitem(pa._build._sms, meta, 132)
+    monkeypatch.setattr(pa._build, "_workspaces", {})
+    for name in ("launches", "int8_kv_launches"):
+        monkeypatch.setattr(pa.ring_decode_kernel, name, 0)
     q = torch.empty((8, 48, 1, 128), dtype=torch.bfloat16, device=meta)
-    kv = torch.empty((8, 4, 4096, 128), dtype=torch.bfloat16, device=meta)
+    kv = torch.empty((8, 4096, 4, 128), dtype=torch.bfloat16, device=meta)
     pos = torch.empty((8,), dtype=torch.int32, device=meta)
-    fa.flash_attention_masked(q, kv, kv, pos, q_offsets=pos, ring_width=4096, window=4096)
+    pa.ring_decode_kernel(q, kv, kv, pos, pos, window=4096)
     (src, fname, args), = rec.calls
-    assert (src, fname) == ("flash_attention", "flash_attention_masked")
+    assert (src, fname) == ("paged_attention", "ring_decode_attention")
     # the C entry's declared signature takes exactly these arguments
-    assert len(args) == len(fa._build.ENTRY_POINTS[src][fname])
-    assert args[7:12] == (8, 48, 4, 1, 4096) and args[15] == 4096 and args[17] == 4096
-    assert fa.flash_attention_masked.ring_launches == 1 == fa.flash_attention_masked.launches
-    assert fa.flash_attention_masked.offset_launches == 1
+    assert len(args) == len(pa._build.ENTRY_POINTS[src][fname])
+    # is_bf16, kv_int8, B, Hq, Hkv, W, D, rows a split, splits, window
+    assert args[12:22] == (1, 0, 8, 48, 4, 4096, 128, 448, 10, 4096)
+    assert pa.ring_decode_kernel.launches == 1 and pa.ring_decode_kernel.int8_kv_launches == 0
     q5 = torch.empty((8, 48, 5, 128), dtype=torch.bfloat16, device=meta)
-    for bad in (dict(q=q5, q_offsets=pos, ring_width=4096),       # Sq != 1
-                dict(q=q, q_offsets=None, ring_width=4096),       # no positions
-                dict(q=q, q_offsets=pos, ring_width=2048)):       # Skv != W
-        with pytest.raises(ValueError, match="ring form"):
-            fa.flash_attention_masked(bad.pop("q"), kv, kv, pos, **bad)
+    for bad_q, bad_kv in ((q5, kv),                                  # Sq != 1
+                          (q, kv.transpose(1, 2)),                   # [B, Hkv, W, D]
+                          (q, kv[:4])):                              # B != the pools'
+        with pytest.raises(ValueError, match="ring decode"):
+            pa.ring_decode_kernel(bad_q, bad_kv, bad_kv, pos, pos, window=4096)
+    assert len(rec.calls) == 1
 
 
 # .. the engine on the ring ..

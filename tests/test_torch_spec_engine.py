@@ -358,7 +358,6 @@ def test_wrapper_hands_q_offsets_to_the_kernel(monkeypatch):
     monkeypatch.setattr(fa.flash_attention_masked, "launches", 0)
     monkeypatch.setattr(fa.flash_attention_masked, "tc_launches", 0)
     monkeypatch.setattr(fa.flash_attention_masked, "offset_launches", 0)
-    monkeypatch.setattr(fa.flash_attention_masked, "ring_launches", 0)
     meta = torch.device("meta")
     q = torch.empty((8, 16, 5, 128), dtype=torch.bfloat16, device=meta)
     kv = torch.empty((8, 2, 576, 128), dtype=torch.bfloat16, device=meta)
@@ -367,8 +366,8 @@ def test_wrapper_hands_q_offsets_to_the_kernel(monkeypatch):
     fa.flash_attention_masked(q, kv, kv, start, q_offset=3)
     (src, fname, with_offsets), (_, _, without) = rec.calls
     assert (src, fname) == ("flash_attention", "flash_attention_masked")
-    assert len(with_offsets) == 5 + 1 + 13     # 6 pointers, 10 ints, scale, ring, stream
-    assert with_offsets[17] == 0 == without[17]  # the ring form is off
+    assert len(with_offsets) == 6 + 10 + 2     # 6 pointers, 10 ints, scale, stream
+    assert len(with_offsets) == len(fa._build.ENTRY_POINTS[src][fname])
     assert isinstance(with_offsets[4], int) and without[4] is None
     assert with_offsets[7:12] == (8, 16, 2, 5, 576) and without[13] == 3
     assert fa.flash_attention_masked.launches == 2 == fa.flash_attention_masked.tc_launches
