@@ -40,7 +40,15 @@ Phases (each prints its seconds; any failure exits non-zero):
    ring in its stored [B, W, Hkv, D] layout read at positions on both
    sides of the wrap), bf16 and int8 pools, with the planted faults
    "positions read unrotated", "window off by one" and "last split
-   dropped", timed against SDPA with the same bool mask.
+   dropped", timed against SDPA with the same bool mask; row 8p (kernel
+   8's prefill form, ``ssd_prefill``) at mamba2-370m's serving shapes
+   (an admission of 512 rows with 37 left pads, a 128-row chunk, an
+   unpadded 300) from a non-zero entering state, y and the leaving state
+   within limits derived as ``ssd_units`` derives kernel 8's, with the
+   planted faults "entering state ignored", "leaving state of the
+   last-but-one chunk" and "pad rows decay the state", timed beside its
+   bytes bound; kernel 1 bit for bit at mamba2-370m's two projection
+   shapes at M = 8 and 512.
    Planted faults (a wrong weight or plane code, a wrong mask argument, a
    wrong scale pool, a combine that drops the last live split) must fail
    those checks.  Kernel, plain
@@ -113,6 +121,23 @@ Phases (each prints its seconds; any failure exits non-zero):
    first wave's prompts re-admitted over stale rings reproduce their
    streams; a full-batch tick timed and profiled (the ring decode's
    share, the copies);
+5c. SSM serving on full-width mamba2-370m (48 layers, EN-T, the paged
+   engine, prefix caching "auto" = off): the serve phase's 16 requests x
+   32 new tokens on 8 slots; every decode tick kernel 1 96 times on the
+   stream and nothing else of the port's kernels, every admission
+   prefill kernel 1 96 times on the tensor-core loop and 8p 48 times
+   (each of its three launches 48); a full-batch tick profiled (busy,
+   idle, CUDA kernels a tick), the SSM states' bytes; then speculative
+   decoding (k = 4, the target's layer 0 as the drafter) on the first 8
+   prompts: acceptance, tokens a tick, streams against plain decode's,
+   every flip a near-tie;
+5d. MoE serving on mixtral-8x7b at full width, 16 of its 32 layers
+   (bf16 params, the experts 2.8 GB a layer; EN-T attention, float
+   router and experts, bf16 KV on the ring): the same 16 requests; every
+   tick kernel 1 64 times on the stream and the ring decode 16, every
+   prefill kernel 1 64 times on the tensor-core loop and kernel 2 16
+   (window 4096); each tick's dropped expert assignments; a tick
+   profiled;
 6. one prefill + 4 decode ticks of the same widths at 2 layers with the
    kernels and with the plain versions, compared (bf16 and float32 with
    EN-T weights, float32 with float weights, bf16 with int8 weights and
@@ -131,7 +156,11 @@ Phases (each prints its seconds; any failure exits non-zero):
    and the ring's path (a 5,120-token prompt in chunks of 4,096 and
    1,024 rows, the second over the wrap, then 4 decode ticks; bf16 KV,
    then int8 KV through the ring decode's int8 form), whose planted fault
-   "context read after the chunk's write" the limit must reject;
+   "context read after the chunk's write" the limit must reject; and 2
+   full-width layers each of mamba2-370m and mixtral-8x7b (bf16
+   params), a 300-token prompt with 20 left pads in chunks of 256 rows
+   and 4 decode ticks, the logits (and mamba2's leaving SSD states)
+   within 0.07 relative L2, 8p's planted faults 5 and 6 over it;
 7. the training kernels: the flash forward (kernel 7) against
    ``attention_ref`` and its two backward kernels (7b dK/dV, 7c dQ)
    against ``flash_attention_bwd_ref``, at the training shape (B=1,
@@ -409,30 +438,40 @@ RING_SHAPES = [(6144, 6144), (6144, 512), (6144, 24576), (24576, 6144)]
 RING_MATMUL_M = (8, 497, 4096)
 
 
-def check_ring_matmuls(torch, timer):
-    """Kernel 1 (``ent_matmul_packed_fused``) at RING_SHAPES x RING_MATMUL_M
-    through its public wrapper, each call one launch on the route its cut
-    gives that M: bit for bit against its plain version in f32 and bf16
-    outputs, its int32 accumulator equal to X @ W (the EN-T identity); one
-    plane code off by one must fail the exact check at every M; timed
-    against the plain version and ``torch._int_mm``.  Returns rows."""
+# mamba2-370m's projections (d_model 1024, d_inner 2048, 32 heads, N 128,
+# one group): in_proj 1024 -> 4384 (z, x, B, C, dt) and out_proj 2048 ->
+# 1024; at a decode tick's 8 slots and a 512-token admission
+MAMBA_SHAPES = [(1024, 4384), (2048, 1024)]
+MAMBA_MATMUL_M = (8, 512)
+
+
+def check_ring_matmuls(torch, timer, shapes=RING_SHAPES, m_values=RING_MATMUL_M,
+                       model="starcoder2-15b", seed=16):
+    """Kernel 1 (``ent_matmul_packed_fused``) at ``shapes`` x ``m_values`` (by
+    default starcoder2-15b's RING_SHAPES x RING_MATMUL_M; mamba2-370m's are
+    MAMBA_SHAPES x MAMBA_MATMUL_M) through its public wrapper, each call
+    one launch on the route its cut gives that M: bit for bit against its
+    plain version in f32 and bf16 outputs, its int32 accumulator equal to X
+    @ W (the EN-T identity); one plane code off by one must fail the exact
+    check at every M; timed against the plain version and
+    ``torch._int_mm``.  Returns rows."""
     from repro_torch.core.multiplier import ent_packed_planes
     from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul_packed_fused as kern1
     from repro_torch.kernels.ent_matmul.ops import row_scale
     from repro_torch.kernels.ent_matmul.ref import ent_packed_matmul_ref, quantize_with_scale
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref
-    g = torch.Generator(device=DEV).manual_seed(16)
+    g = torch.Generator(device=DEV).manual_seed(seed)
     rows = []
-    for k, n in RING_SHAPES:
+    for k, n in shapes:
         w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
         packed = ent_packed_planes(w8).contiguous()
         sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
-        for m in RING_MATMUL_M:
+        for m in m_values:
             x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
             sx = row_scale(x)
             xq = quantize_with_scale(x, sx)
             route = matmul_route("ent_matmul_packed_fused", m)
-            what = f"ent_matmul_packed_fused (starcoder2-15b) M={m} K={k} N={n}"
+            what = f"ent_matmul_packed_fused ({model}) M={m} K={k} N={n}"
             acc = int8_matmul_int32_ref(xq, w8)
             for o in (torch.int32, torch.float32, torch.bfloat16):
                 want = acc if o == torch.int32 else ent_packed_matmul_ref(xq, packed, sx, sw, o)
@@ -1896,6 +1935,100 @@ def check_ssd(torch, timer):
     return rows
 
 
+# row 8p at mamba2-370m's serving shapes (B, H, P, G, N, chunk) with (L,
+# left pads): a 512-token admission of a 475-token prompt, a chunked
+# admission's 128-row chunk entered from a non-zero state, and an unpadded
+# 300-token prompt (a drafter's shadow prefill), which 8p left-pads to 384
+SSD_PREFILL_SHAPE = (1, 32, 64, 1, 128, 128)
+SSD_PREFILL_CASES = ((512, 37), (128, 0), (300, 0))
+SSD_PREFILL_OUT = ("y", "h_final")
+SSD_PREFILL_FAULTS = {5: "entering state ignored", 6: "leaving state of the last-but-one chunk",
+                      7: "pad rows decay the state (the wrapper's dt mask off)"}
+
+
+def check_ssd_prefill(torch, timer):
+    """Row 8p (``ssd_prefill``, kernel 8's prefill form) at SSD_PREFILL_CASES,
+    float32, from a random non-zero entering state: y and the leaving state
+    against the plain version (``ssd_prefill_ref`` on the operands the
+    wrapper prepares, ``prefill_operands``), per element within (TOL_F32 +
+    E) units, the units and E derived as ``ssd_units`` derives kernel 8's:
+    the plain version on |x|, |B|, |C|, |h_init| is each output's unit, E
+    = 8 Q 2^-24 |cum|max per (row, head).  The planted faults (5 and 6 in
+    the carry, 7 the wrapper's pad mask, at the padded case) must read
+    above 1.  Each case timed (the wrapper as the model calls it, CUDA
+    events, L2 flushed) beside its plain version and its bound: bytes
+    (x, dt, a, B, C, h_init read once, y and h_final written once) at the
+    HBM rate against its flops as three bf16 passes at the tensor-core
+    peak.  No PyTorch call computes it: library_ms is None.  Returns
+    rows."""
+    from repro_torch.kernels.ssd_scan.ref import _chunk_operands, ssd_prefill_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import prefill_operands, ssd_prefill
+    gen = torch.Generator(device=DEV).manual_seed(28)
+    bsz, h, p, g, n, chunk = SSD_PREFILL_SHAPE
+    card = card_line()
+    rows = []
+    for l, pads in SSD_PREFILL_CASES:
+        tag = f"B={bsz} L={l} H={h} P={p} G={g} N={n} chunk={chunk} left pads={pads}"
+        x, dt, a, bm, cm, _ = ssd_inputs(torch, gen, (bsz, l, h, p, g, n, chunk))
+        h0 = torch.randn((bsz, h, p, n), generator=gen, device=DEV)
+        mask = (torch.arange(l, device=DEV) >= pads)[None].expand(bsz, l).contiguous() \
+            if pads else None
+        xp, dtp, bp, cp, pad, q = prefill_operands(x, dt, bm, cm, mask, chunk)
+
+        def plain():
+            y, hf = ssd_prefill_ref(xp, dtp, a, bp, cp, h0, q)
+            return y[:, pad:], hf
+
+        want = plain()
+        uy, uh = ssd_prefill_ref(xp.abs(), dtp, a, bp.abs(), cp.abs(), h0.abs(), q)
+        units = dict(y=uy[:, pad:], h_final=uh)
+        cum = _chunk_operands(xp, dtp, a, bp, cp, q)[4]                  # [B, nc, Q, H]
+        e = 8 * q * 2.0**-24 * cum.abs().amax(dim=(1, 2))                  # [B, H]
+        slack = dict(y=e[:, None, :, None], h_final=e[:, :, None, None])
+
+        def call(fault=0):
+            return ssd_prefill(x, dt, a, bm, cm, h0, mask=mask, chunk=chunk, fault=fault)
+
+        before = (ssd_prefill.launches, *(getattr(ssd_prefill, f"{part}_launches")
+                                          for part in SSD_FWD_PARTS))
+        got = call()
+        torch.cuda.synchronize()
+        after = (ssd_prefill.launches, *(getattr(ssd_prefill, f"{part}_launches")
+                                         for part in SSD_FWD_PARTS))
+        if tuple(b - a for a, b in zip(before, after)) != (1, 1, 1, 1):
+            raise AssertionError(f"ssd_prefill {tag}: not one call of three launches")
+        if not all(torch.isfinite(t).all() for t in got) or got[1].shape != h0.shape:
+            raise AssertionError(f"ssd_prefill {tag}: non-finite output or a wrong shape")
+        reading = ssd_reading(got, want, units, slack, SSD_PREFILL_OUT)
+        err = max(float((u - v).abs().max()) for u, v in zip(got, want))
+        faults = {SSD_PREFILL_FAULTS[f]: ssd_reading(call(f), want, units, slack, SSD_PREFILL_OUT)
+                  for f in ((5, 6, 7) if pads else (5, 6))}
+        ms = timer(call)
+        plain_ms = timer(plain, reps=3)
+        nc = (l + pad) // q
+        pairs = q * (q + 1) // 2
+        nbytes = 4 * (2 * bsz * l * h * p + bsz * l * h + h + 2 * bsz * l * g * n
+                      + 2 * bsz * h * p * n)
+        flops = bsz * h * nc * (2 * pairs * (n + p) + 4 * q * p * n)
+        bnd, by = bound_ms(nbytes, 3 * flops, BF16_FLOPS_S)
+        print(f"kernel ssd_prefill {tag} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+              f"bound_ms={bnd:.5f} ({by}; {nbytes:.4e} bytes, {flops:.4e} flops x3 bf16 passes) "
+              f"max_abs_err={err:.3e}; err/limit {reading:.3f} (y and the leaving state); "
+              + "; ".join(f"planted fault '{k}': {v:.1f}" for k, v in faults.items())
+              + f" [{card}]", flush=True)
+        if reading > 1:
+            raise AssertionError(f"ssd_prefill {tag}: the kernel disagrees with its plain "
+                                 f"version ({reading} of the limit)")
+        missed = [k for k, v in faults.items() if v <= 1]
+        if missed:
+            raise AssertionError(f"ssd_prefill {tag}: the limits miss planted faults {missed}")
+        rows.append(dict(shape=tag, reading=reading, faults=faults, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by))
+        del x, dt, bm, cm, h0, xp, dtp, bp, cp, want, units, got
+    torch.cuda.empty_cache()
+    return rows
+
+
 def ssd_train_faults():
     """Planted faults for the SSM training comparison: the forward kernel
     with a fault planted, or the backward as ``SSDScan`` calls it
@@ -1960,12 +2093,12 @@ def wrappers(torch):
     from repro_torch.kernels.paged_attention.paged_attention import (paged_attention_kernel,
                                                                      ring_decode_kernel)
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan, ssd_scan_bwd_chunk,
-                                                       ssd_scan_bwd_state)
+    from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_prefill, ssd_scan,
+                                                       ssd_scan_bwd_chunk, ssd_scan_bwd_state)
     kernels = (ent_matmul_packed_fused, flash_attention_masked, paged_attention_kernel,
                ring_decode_kernel, int8_matmul, ent_matmul, ent_matmul_packed, flash_attention,
                flash_attention_bwd_dkdv, flash_attention_bwd_dq, ssd_scan,
-               ssd_scan_bwd_state, ssd_scan_bwd_chunk)
+               ssd_scan_bwd_state, ssd_scan_bwd_chunk, ssd_prefill)
     plains = (ent_ops.ent_quantized_matmul_fused, ent_ops.ent_quantized_matmul,
               ent_ops.ent_quantized_matmul_packed, int8_ops.quantized_matmul,
               attn_ops.masked_attention, paged_ops.paged_attention, paged_ops.ring_attention,
@@ -1988,11 +2121,12 @@ def reset_counts(torch):
 
 
 def read_counts(torch):
-    """(kernel launches by JSON name, by ``ssd_scan[<part>]`` each of
-    kernel 8's three launches and by ``ssd_scan_bwd_state[<part>]`` each of
-    8b's two; the paged decode and its ring form (``ring_decode_attention``)
+    """(kernel launches by JSON name, by ``ssd_scan[<part>]`` and
+    ``ssd_prefill[<part>]`` each of the three launches of kernel 8 and of
+    its prefill form 8p and by ``ssd_scan_bwd_state[<part>]`` each of 8b's
+    two; the paged decode and its ring form (``ring_decode_attention``)
     apart from their int8-KV launches; plain versions run by op name)."""
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd_state
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_prefill, ssd_scan, ssd_scan_bwd_state
     kernels, plains, (paged, ring) = wrappers(torch)
     launches = {f.__name__: f.launches for f in kernels}
     del launches[ring.__name__]
@@ -2002,6 +2136,7 @@ def read_counts(torch):
     launches["ring_decode_attention[int8_kv]"] = ring.int8_kv_launches
     for part in SSD_FWD_PARTS:
         launches[f"ssd_scan[{part}]"] = getattr(ssd_scan, f"{part}_launches")
+        launches[f"ssd_prefill[{part}]"] = getattr(ssd_prefill, f"{part}_launches")
     for part in SSD_BWD_STATE_PARTS:
         launches[f"ssd_scan_bwd_state[{part}]"] = getattr(ssd_scan_bwd_state, f"{part}_launches")
     return launches, {f.__name__: f.plain_launches for f in plains}
@@ -2047,12 +2182,12 @@ SERVE_CONFIGS = {
         dict(quantize=True),
         ("ent_matmul_packed_fused", "flash_attention_masked", "paged_attention_kernel"),
         ("int8_matmul", "paged_attention_kernel[int8_kv]", *RING_KERNELS, *TRAIN_KERNELS,
-         *SSD_KERNELS)),
+         *SSD_KERNELS, "ssd_prefill")),
     "w8a8 int8, int8 KV": (
         dict(quant="int8", kv_quant=True),
         ("int8_matmul", "flash_attention_masked", "paged_attention_kernel[int8_kv]"),
         ("ent_matmul_packed_fused", "paged_attention_kernel", *RING_KERNELS, *TRAIN_KERNELS,
-         *SSD_KERNELS)),
+         *SSD_KERNELS, "ssd_prefill")),
 }
 
 
@@ -2093,6 +2228,7 @@ def emitted_rows(engine, rows):
         return real_emit(slot, tok)
 
     names = ("prefill", "decode_step", "verify_step")
+    saved = {n: model.__dict__[n] for n in names if n in model.__dict__}
     for name in names:
         setattr(model, name, wrap(name))
     engine._emit = emit
@@ -2101,6 +2237,7 @@ def emitted_rows(engine, rows):
     finally:
         for name in names:
             delattr(model, name)
+        model.__dict__.update(saved)   # an enclosing wrapper's, when there is one
         del engine._emit
 
 
@@ -3505,7 +3642,8 @@ def ring_prompts(cfg):
 def step_counts(torch):
     """The serving kernels' counters: kernel 1 by route, kernel 2 (its
     tensor-core and offset launches), kernel 3, the ring decode (and its
-    int8-KV launches), the plain versions."""
+    int8-KV launches), 8p (and each of its three launches), training's
+    kernel 8, the plain versions."""
     launches, plain_runs = read_counts(torch)
     return {**read_matmul_routes(torch), "flash_attention_masked": launches[
         "flash_attention_masked"], "flash_attention_masked[tensor-core]": read_tc_counts(
@@ -3513,7 +3651,10 @@ def step_counts(torch):
         read_offset_launches(torch), "ring_decode_attention": read_ring_launches(torch),
         "ring_decode_attention[int8_kv]": launches["ring_decode_attention[int8_kv]"],
         "paged_attention_kernel": launches["paged_attention_kernel"]
-        + launches["paged_attention_kernel[int8_kv]"], "plain": sum(plain_runs.values())}
+        + launches["paged_attention_kernel[int8_kv]"],
+        **{k: launches[k] for k in ("ssd_prefill", *(f"ssd_prefill[{part}]"
+                                                     for part in SSD_FWD_PARTS), "ssd_scan")},
+        "plain": sum(plain_runs.values())}
 
 
 @contextlib.contextmanager
@@ -3542,6 +3683,7 @@ def counted_steps(torch, model, calls):
             return out
         return f
 
+    saved = {n: model.__dict__[n] for n in ("decode_step", "apply") if n in model.__dict__}
     model.decode_step = wrap("decode_step", "tick")
     model.apply = wrap("apply", "chunk")
     try:
@@ -3549,6 +3691,7 @@ def counted_steps(torch, model, calls):
             yield
     finally:
         del model.decode_step, model.apply
+        model.__dict__.update(saved)   # an enclosing wrapper's, when there is one
 
 
 def check_ring_steps(cfg, calls, int8_kv=False):
@@ -3773,6 +3916,386 @@ def kernels_vs_plain_ring(torch, bound, kv_quant=False):
     if fault <= bound:
         raise AssertionError(f"ring case: the limit {bound} misses the planted fault")
     return dict(relative_l2=sound, fault=fault, counts=counts)
+
+
+SERVE_MAX_LEN = 576   # the 256..512-token serve phases' engine width: prompt bucket + 32 new
+MIXTRAL_LAYERS = 16   # of mixtral-8x7b's 32: its bf16 experts are 2.8 GB a layer
+
+
+def check_steps(label, calls, want, windows=None):
+    """Every recorded step (``counted_steps``) launched what ``want[kind]``
+    says (the keys it names), kernel 2 with ``windows[kind]`` when given.
+    Returns the steps by kind."""
+    for i, (kind, got, seen) in enumerate(calls):
+        got = {k: got[k] for k in want[kind]}
+        if got != want[kind] or (windows is not None and seen != windows[kind]):
+            raise AssertionError(f"{label} {kind} {i}: launches {got}, kernel 2's windows "
+                                 f"{sorted(set(seen))} x {len(seen)}; expected {want[kind]}")
+    return {k: sum(kind == k for kind, _, _ in calls) for k in want}
+
+
+def serving_want(cfg, tick, chunk):
+    """The counters of ``step_counts`` at 0 for every serving kernel but
+    those ``tick`` and ``chunk`` name (their counts a decode tick and a
+    prefill chunk)."""
+    keys = ("ent_matmul_packed_fused[stream]", "ent_matmul_packed_fused[tc]",
+            "flash_attention_masked", "flash_attention_masked[tensor-core]",
+            "flash_attention_masked[offsets]", "ring_decode_attention",
+            "ring_decode_attention[int8_kv]", "paged_attention_kernel", "ssd_prefill",
+            *(f"ssd_prefill[{part}]" for part in SSD_FWD_PARTS), "ssd_scan", "plain")
+    return {kind: {k: want.get(k, 0) for k in keys}
+            for kind, want in (("tick", tick), ("chunk", chunk))}
+
+
+def profile_full_ticks(torch, engine, prompts, what, ticks=3):
+    """Fill the engine's slots with ``prompts`` (8 new tokens each), then
+    ``ticks`` decode ticks by host clock and ``ticks`` more under
+    torch.profiler: device busy a tick, its idle share, the CUDA kernels
+    launched a tick, device ms by kernel.  Drains the engine."""
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts:
+        engine.submit(p, max_new_tokens=8)
+    engine.step()                       # the admissions + 1 tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        engine.step()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / ticks
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+        under = (time.perf_counter() - t0) * 1e3 / ticks
+    engine.run()
+    engine.check_leaks()
+    dev = device_ms_by_kernel(prof, ticks)
+    busy = sum(dev.values())
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if getattr(ev, "device_type", None) is not None
+                  and str(ev.device_type).endswith("CUDA")) / ticks
+    idle = None if not busy else 1 - busy / host
+    print(f"{what}: decode tick (8 slots, full width) {host:.3f} ms host-clock ({under:.3f} ms "
+          f"under the profiler); device busy {busy:.3f} ms/tick ("
+          + ("idle not measured" if idle is None else f"{100 * idle:.1f}% idle")
+          + f"); {kernels:.0f} CUDA kernels launched a tick", flush=True)
+    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:9.3f} ms/tick  {name[:90]}")
+    return dict(host_ms=host, under_ms=under, busy_ms=busy, idle=idle, kernels_a_tick=kernels,
+                by_kernel=dict(sorted(dev.items(), key=lambda kv: -kv[1])[:10]))
+
+
+def serve_mamba2(torch):
+    """SSM serving on full-width mamba2-370m (48 layers, d_model 1024, 32
+    SSD heads of P 64, N 128, conv width 4, vocab 50280; EN-T weights from
+    seed 0, quantized layer by layer on the card): the paged engine, 8
+    slots, prefix caching "auto" (off: SSM layers), 16 greedy requests of
+    256..512 prompt tokens (``ragged_prompts``, seed 0), 32 new tokens
+    each.  Every decode tick must launch kernel 1 twice a layer (in_proj,
+    out_proj) on the split-K stream and nothing else of the port's kernels;
+    every admission prefill kernel 1 twice a layer on the tensor-core loop
+    and 8p once a layer (each of its three launches once); no attention
+    kernel, no plain version.  Then 3 full-batch ticks timed and profiled.
+    Then speculative decoding (k = SPEC_K, the target's own layer 0 as the
+    drafter) on the first 8 prompts: its launches, acceptance and tokens a
+    tick, its streams against the plain run's under ``flip_margins``
+    (every flip must sit on a near-tie).  Returns the numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    cfg = get_config("mamba2-370m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params = launch.build(cfg, seed=0, quantize=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(model, params, slots=SLOTS, max_len=SERVE_MAX_LEN, page_size=16, seed=0)
+    if engine.cache_kind != "paged" or engine.prefix_stats is not None:
+        raise AssertionError(f"mamba2 serve: backend {engine.cache_kind}, prefix cache "
+                             f"{engine.prefix_stats}")
+    print(f"mamba2-370m full width ({cfg.num_layers} layers, d_model {cfg.d_model}, SSD "
+          f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} heads x P {cfg.ssm.head_dim}, N "
+          f"{cfg.ssm.state_dim}, conv width {cfg.ssm.conv_width}, vocab {cfg.vocab_size}), EN-T "
+          f"w8a8: init + quantize {init_s:.2f}s, params {param_bytes(params) / 2**30:.3f} GiB; "
+          f"SSM states {engine.ssm_bytes} bytes ({engine.ssm_bytes / 2**20:.1f} MiB) for 8 "
+          f"slots, KV pools {engine.pool_bytes - engine.ssm_bytes} bytes", flush=True)
+    prompts = launch.ragged_prompts(np.random.default_rng(0), 16, 256, 512, cfg.vocab_size)
+    nl = cfg.num_layers
+    want = serving_want(cfg, {"ent_matmul_packed_fused[stream]": 2 * nl},
+                        {"ent_matmul_packed_fused[tc]": 2 * nl, "ssd_prefill": nl,
+                         **{f"ssd_prefill[{part}]": nl for part in SSD_FWD_PARTS}})
+    calls, rows = [], {}
+    reset_counts(torch)
+    with emitted_rows(engine, rows), counted_steps(torch, model, calls):
+        results, dt = launch.serve(engine, prompts, max_new_tokens=32)
+    engine.check_leaks()
+    if sorted(results) != list(range(16)) or any(len(v) != 32 for v in results.values()):
+        raise AssertionError(f"mamba2 serve: {len(results)} results, lengths "
+                             f"{sorted(len(v) for v in results.values())}")
+    n = check_steps("mamba2 serve", calls, want)
+    if n["chunk"] != 16:
+        raise AssertionError(f"mamba2 serve: {n['chunk']} prefills for 16 admissions")
+    toks = sum(len(v) for v in results.values())
+    peak = torch.cuda.max_memory_allocated()
+    prefill_launches = sum(c[1]["ssd_prefill"] for c in calls)
+    print(f"serve [mamba2-370m, EN-T w8a8]: 16 requests (prompts {min(map(len, prompts))}.."
+          f"{max(map(len, prompts))} tokens) x 32 new tokens on 8 slots: {toks} tokens in "
+          f"{dt:.3f}s = {toks / dt:.2f} tok/s; {n['tick']} decode ticks, {n['chunk']} prefills; "
+          f"per tick kernel 1 {2 * nl} on the stream, per prefill kernel 1 {2 * nl} on the "
+          f"tensor-core loop and 8p {nl} (x3 launches); attention kernels and plain versions "
+          f"0; peak {peak / 2**30:.2f} GiB", flush=True)
+    ssm_bytes = engine.ssm_bytes
+    tick = profile_full_ticks(torch, engine, prompts[:SLOTS], "mamba2-370m")
+    del engine
+    spec = serve_mamba2_spec(torch, cfg, model, params, prompts[:SLOTS],
+                             {u: results[u] for u in range(SLOTS)}, rows)
+    rows.clear()
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(tok_s=toks / dt, seconds=dt, ticks=n["tick"], prefills=n["chunk"],
+                ssd_prefill_launches=prefill_launches, peak_gib=peak / 2**30, init_s=init_s,
+                ssm_bytes=ssm_bytes, tick=tick, spec=spec,
+                launches_by_part={part: sum(c[1][f"ssd_prefill[{part}]"] for c in calls)
+                                  for part in SSD_FWD_PARTS},
+                kernel1={r: sum(c[1][f"ent_matmul_packed_fused[{r}]"] for c in calls)
+                         for r in ("stream", "tc")})
+
+
+def serve_mamba2_spec(torch, cfg, model, params, prompts, plain_streams, plain_rows):
+    """Speculative decoding on full-width mamba2-370m: the 8 ``prompts``
+    (uids 0..7 of the plain run), 32 new tokens each, k = SPEC_K, the
+    target's own layer 0 as the drafter (``spec_drafters``).  Its launches,
+    counted over the run, must be per spec tick T and admission A: kernel
+    1 on the split-K stream 2 a layer for each of the drafter's K + 1
+    steps, on the tensor-core loop 2 a layer for the verify burst (M = 8
+    (K + 1)) and for both prefills of each admission, 8p a layer of both
+    prefills, nothing else of the port's kernels and no plain version.
+    Reports acceptance and tokens a tick; the streams against the plain
+    run's, every flip at a near-tie (``flip_margins``).  Returns the
+    numbers."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.serve_loop import ServeEngine
+    dm, dp = spec_drafters(cfg, model, params)["truncated (layer 0)"]
+    engine = ServeEngine(model, params, slots=SLOTS, max_len=SERVE_MAX_LEN, page_size=16,
+                         seed=0, draft_model=dm, draft_params=dp, spec_k=SPEC_K)
+    rows = {}
+    reset_counts(torch)
+    with emitted_rows(engine, rows):
+        results, dt = launch.serve(engine, prompts, max_new_tokens=32)
+    got = step_counts(torch)
+    engine.check_leaks()
+    if sorted(results) != list(range(SLOTS)) or any(len(v) != 32 for v in results.values()):
+        raise AssertionError(f"mamba2 spec: {len(results)} results")
+    st, rate = dict(engine.spec_stats), engine.acceptance_rate
+    ticks, adm, nl, dl = st["ticks"], len(prompts), cfg.num_layers, dm.cfg.num_layers
+    want = serving_want(cfg, {"ent_matmul_packed_fused[stream]": (SPEC_K + 1) * 2 * dl * ticks,
+                              "ent_matmul_packed_fused[tc]": 2 * nl * ticks
+                              + 2 * (nl + dl) * adm, "ssd_prefill": (nl + dl) * adm,
+                              **{f"ssd_prefill[{part}]": (nl + dl) * adm
+                                 for part in SSD_FWD_PARTS}}, {})["tick"]
+    seen = {k: got[k] for k in want}
+    if seen != want:
+        raise AssertionError(f"mamba2 spec: launches {seen}, expected {want} ({ticks} spec "
+                             f"ticks, {adm} admissions)")
+    flips, ordinary = flip_margins(plain_rows, rows, plain_streams, results)
+    faults = [f for f in flips if f["fault"]]
+    same = sum(results[u] == plain_streams[u] for u in results)
+    toks = sum(len(v) for v in results.values())
+    print(f"serve [mamba2-370m, EN-T w8a8, speculative k={SPEC_K}, truncated (layer 0) "
+          f"drafter]: 8 requests x 32 new tokens: {toks} tokens in {dt:.3f}s = {toks / dt:.2f} "
+          f"tok/s; acceptance {rate:.4f}; {st['emitted'] / ticks:.3f} tokens a tick; spec stats "
+          f"{st}; streams equal to plain decode's {same} of 8; at each first divergence plain "
+          "top-1 minus top-2 / plain gap to the emitted token / |logit difference|: "
+          + ("; ".join(f"uid {f['uid']} token {f['index']}: {f['top1_minus_top2']:.4f} / "
+                       f"{f['gap']:.4f} / {f['delta']:.4f}" for f in flips) or "none")
+          + f"; the paths' largest |logit difference| before any divergence {ordinary:.4f}; "
+          f"flips above twice it (faults) {len(faults)} of {len(flips)}; launches {seen}",
+          flush=True)
+    if faults:
+        raise AssertionError(f"mamba2 spec: flips off the near-ties {faults}")
+    rows.clear()
+    return dict(tok_s=toks / dt, acceptance=rate, tokens_per_tick=st["emitted"] / ticks,
+                stats=st, streams_equal_plain=same, flips=flips, ordinary_delta=ordinary,
+                launches=seen)
+
+
+def serve_mixtral(torch):
+    """MoE serving on mixtral-8x7b at full width, MIXTRAL_LAYERS of its 32
+    layers (d_model 4096, 32 / 8 heads of 128, d_ff 14336, 8 experts top-2,
+    vocab 32000, window 4096, rope theta 1e6; ``param_dtype`` bfloat16:
+    the reference casts every expert to the compute dtype before its
+    product, so bf16 storage changes no product; weights from seed 0, the
+    attention projections EN-T, the router and the experts float, bf16 KV
+    on the ring, the cache "auto"): 8 slots, the same 16 requests x 32 new
+    tokens.  Every decode tick must launch kernel 1 four times a layer (q,
+    k, v, o) on the split-K stream and the ring decode once a layer; every
+    admission prefill kernel 1 four times a layer on the tensor-core loop
+    and kernel 2 once a layer (window 4096, tensor-core); nothing else of
+    the port's kernels, no plain version.  Prints each tick's dropped
+    expert assignments (the capacity at T = 8 tokens is 3).  Then 3
+    full-batch ticks timed and profiled.  Returns the numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import moe
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS,
+                              param_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params = launch.build(cfg, seed=0, quantize=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    experts = sum(param_bytes({k: v for k, v in layer["ffn"].items() if k != "router"})
+                  for layer in params["layers"])
+    engine = ServeEngine(model, params, slots=SLOTS, max_len=SERVE_MAX_LEN, seed=0)
+    ring = engine.cache["layers"][0]
+    print(f"mixtral-8x7b full width, {cfg.num_layers} of 32 layers (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, capacity factor "
+          f"{cfg.moe.capacity_factor}, vocab {cfg.vocab_size}, window {cfg.sliding_window}), "
+          f"EN-T attention, float router and experts, param_dtype {cfg.param_dtype}: init + "
+          f"quantize {init_s:.2f}s, params {param_bytes(params) / 2**30:.2f} GiB (experts "
+          f"{experts / 2**30:.2f} GiB); {engine.cache_kind} of {ring.width} rows x {SLOTS} slots, "
+          f"KV {engine.pool_bytes / 2**20:.1f} MiB", flush=True)
+    if engine.cache_kind != "ring":
+        raise AssertionError(f"mixtral serve: backend {engine.cache_kind}")
+    prompts = launch.ragged_prompts(np.random.default_rng(0), 16, 256, 512, cfg.vocab_size)
+    nl = cfg.num_layers
+    want = serving_want(cfg, {"ent_matmul_packed_fused[stream]": 4 * nl,
+                              "ring_decode_attention": nl},
+                        {"ent_matmul_packed_fused[tc]": 4 * nl, "flash_attention_masked": nl,
+                         "flash_attention_masked[tensor-core]": nl})
+    calls, dropped = [], []
+
+    def count_drops(f):
+        def dispatch(cfg_, idx):
+            flat, pos, keep = f(cfg_, idx)
+            dropped.append((len(calls), idx.shape[0], (~keep).sum()))
+            return flat, pos, keep
+        return dispatch
+
+    reset_counts(torch)
+    with counted_steps(torch, model, calls), planted(moe, "dispatch", count_drops):
+        results, dt = launch.serve(engine, prompts, max_new_tokens=32)
+    engine.check_leaks()
+    if sorted(results) != list(range(16)) or any(len(v) != 32 for v in results.values()):
+        raise AssertionError(f"mixtral serve: {len(results)} results, lengths "
+                             f"{sorted(len(v) for v in results.values())}")
+    n = check_steps("mixtral serve", calls, want,
+                    {"tick": [], "chunk": [cfg.sliding_window] * nl})
+    by_call = [0] * len(calls)
+    for i, _, d in dropped:
+        by_call[i] += int(d)
+    tick_drops = [d for (kind, _, _), d in zip(calls, by_call) if kind == "tick"]
+    prefill_drops = [d for (kind, _, _), d in zip(calls, by_call) if kind == "chunk"]
+    toks = sum(len(v) for v in results.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve [mixtral-8x7b {nl} layers, EN-T attention, float experts, ring]: 16 requests "
+          f"(prompts {min(map(len, prompts))}..{max(map(len, prompts))} tokens) x 32 new tokens "
+          f"on 8 slots: {toks} tokens in {dt:.3f}s = {toks / dt:.2f} tok/s; {n['tick']} decode "
+          f"ticks, {n['chunk']} prefills; per tick kernel 1 {4 * nl} on the stream and the ring "
+          f"decode {nl}, per prefill kernel 1 {4 * nl} on the tensor-core loop and kernel 2 {nl} "
+          f"(window {cfg.sliding_window}); plain versions 0; dropped expert assignments a tick "
+          f"(of {2 * SLOTS * nl}, capacity {moe.capacity(cfg, SLOTS)} a layer) {tick_drops}, a "
+          f"prefill {prefill_drops}; peak {peak / 2**30:.2f} GiB", flush=True)
+    tick = profile_full_ticks(torch, engine, prompts[:SLOTS], "mixtral-8x7b")
+    del engine, params, model
+    torch.cuda.empty_cache()
+    return dict(tok_s=toks / dt, seconds=dt, ticks=n["tick"], prefills=n["chunk"],
+                tick_drops=tick_drops, prefill_drops=prefill_drops, peak_gib=peak / 2**30,
+                init_s=init_s, experts_gib=experts / 2**30, tick=tick,
+                ring_launches=sum(c[1]["ring_decode_attention"] for c in calls),
+                flash_launches=sum(c[1]["flash_attention_masked"] for c in calls),
+                kernel1={r: sum(c[1][f"ent_matmul_packed_fused[{r}]"] for c in calls)
+                         for r in ("stream", "tc")})
+
+
+def kernels_vs_plain_serving(torch, arch, bound):
+    """The serving path of 2 full-width layers of ``arch`` (mamba2-370m, or
+    mixtral-8x7b with bf16 params), bf16, EN-T, with the kernels and with
+    the plain versions: a 300-token prompt with 20 left pads prefilled in
+    chunks of 256 rows (the second chunk enters from the first one's
+    state), then 4 teacher-forced decode ticks.  Readings: the relative L2
+    of the 5 logits rows and, for mamba2, of each SSM layer's SSD state
+    after the prefill (the larger); both must stay within ``bound``.  For
+    mamba2 the planted faults "entering state ignored" and "leaving state
+    of the last-but-one chunk" (8p's faults 5 and 6, at the model's call)
+    must read over it.  Returns the readings."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.kv_cache import SSMCache
+    from repro_torch.models.transformer import Model
+
+    extra = {"param_dtype": "bfloat16"} if arch == "mixtral-8x7b" else {}
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, **extra)
+    model, params = launch.build(cfg, seed=1, quantize=True)
+    plain_model = Model(cfg, use_kernels=False)
+    rng = np.random.default_rng(5)
+    dev = model.device
+    n, pads = 300, 20
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(dev)
+    mask = (torch.arange(n, device=dev) >= pads)[None]
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1))).to(dev)
+
+    def run(m):
+        cache = m.init_cache(1, 512, kind="auto")
+        logits, cache = m.prefill(params, cache, toks, pad_mask=mask, chunk=256)
+        states = [c.ssd.clone() for c in cache["layers"] if isinstance(c, SSMCache)]
+        seq = [logits]
+        for i in range(4):
+            logits, cache = m.decode_step(params, cache, forced[i])
+            seq.append(logits)
+        return torch.cat(seq), states
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def readings(run_a, run_b):
+        (la, sa), (lb, sb) = run_a, run_b
+        return rel(la, lb), max((rel(x, y) for x, y in zip(sa, sb)), default=0.0)
+
+    reset_counts(torch)
+    a = run(model)
+    counts = step_counts(torch)
+    if counts["plain"] or not torch.isfinite(a[0]).all() or a[0].shape != (5, cfg.padded_vocab):
+        raise AssertionError(f"{arch} 2-layer case: counts {counts}, logits "
+                             f"{tuple(a[0].shape)}, finite {bool(torch.isfinite(a[0]).all())}")
+    b = run(plain_model)
+    sound = readings(a, b)
+    faults = {}
+    if cfg.ssm is not None:
+        for f in (5, 6):
+            with planted(ssd_ops, "ssd_prefill",
+                         lambda real, f=f: lambda *x, **kw: real(*x, fault=f, **kw)):
+                faults[SSD_PREFILL_FAULTS[f]] = max(readings(run(model), b))
+    print(f"2-layer {arch} full width, bfloat16, EN-T weights: a {n}-token prompt ({pads} left "
+          f"pads, chunks of 256) and 4 decode ticks; kernels vs plain: relative L2 of the "
+          f"logits {sound[0]:.3e}"
+          + (f", of the leaving SSD states {sound[1]:.3e}" if cfg.ssm is not None else "")
+          + f" (limit {bound}); greedy agreement "
+          f"{float((a[0].argmax(-1) == b[0].argmax(-1)).float().mean()):.3f}; "
+          + "".join(f"planted fault '{k}': {v:.3e}; " for k, v in faults.items())
+          + f"kernel counts {counts}", flush=True)
+    if max(sound) > bound:
+        raise AssertionError(f"{arch} 2-layer case: the kernel path disagrees with the plain "
+                             f"path ({sound} > {bound})")
+    if any(v <= bound for v in faults.values()):
+        raise AssertionError(f"{arch} 2-layer case: the limit {bound} misses a planted fault "
+                             f"{faults}")
+    del model, params, plain_model
+    torch.cuda.empty_cache()
+    return dict(relative_l2=sound[0], state_relative_l2=sound[1], faults=faults, counts=counts)
 
 
 def generate_ent(torch, model, params, engine_streams, engine_rows):
@@ -4419,6 +4942,8 @@ def main():
     k2r = check_ring_decode(torch, timer)
     k3 = check_paged(torch, timer)
     k3i = check_paged(torch, timer, int8_kv=True)
+    k8p = check_ssd_prefill(torch, timer)
+    mamba_mm = check_ring_matmuls(torch, timer, MAMBA_SHAPES, MAMBA_MATMUL_M, "mamba2-370m", 17)
     del timer
     done(t, "kernel checks")
 
@@ -4452,6 +4977,13 @@ def main():
     t = phase("serve starcoder2-15b full width, EN-T, ring")
     ring = serve_ring(torch)
     done(t, "serve starcoder2-15b full width, EN-T, ring")
+    t = phase("serve mamba2-370m full width, EN-T")
+    mamba = serve_mamba2(torch)
+    done(t, "serve mamba2-370m full width, EN-T")
+    what = f"serve mixtral-8x7b full width, {MIXTRAL_LAYERS} of 32 layers, EN-T, ring"
+    t = phase(what)
+    mixtral = serve_mixtral(torch)
+    done(t, what)
 
     t = phase("kernels vs plain, 2 layers")
     # Limits between the sound readings and the planted faults' on the
@@ -4483,6 +5015,9 @@ def main():
     ring_2l = kernels_vs_plain_ring(torch, 0.07)   # the ring's path, as served
     ring_2l_int8 = kernels_vs_plain_ring(torch, 0.07, kv_quant=True)   # its int8-KV form
     gen_2l = kernels_vs_plain_generate(torch, 0.07)   # generate's path, as served
+    # SSM and MoE serving, as served (limits: PERF.md's readings)
+    serving_2l = {arch: kernels_vs_plain_serving(torch, arch, 0.07)
+                  for arch in ("mamba2-370m", "mixtral-8x7b")}
     done(t, "kernels vs plain, 2 layers")
 
     t = phase("training kernel checks")
@@ -4592,7 +5127,9 @@ def main():
     kernels = [
         entry("ent_matmul_packed_fused", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:227",
               mm["ent_matmul_packed_fused"], at_decode, ent_t["ent_matmul_packed_fused"],
-              starcoder2_checks=ring_mm, **served("ent_matmul_packed_fused")),
+              starcoder2_checks=ring_mm, mamba2_checks=mamba_mm,
+              launches_mamba2=mamba["kernel1"], launches_mixtral=mixtral["kernel1"],
+              **served("ent_matmul_packed_fused")),
         entry("flash_attention_masked", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/flash_attention.py:145", k2,
               lambda rows: next(r for r in rows if r["S"] == 512 and r["window"] is None),
@@ -4614,6 +5151,7 @@ def main():
                                  for arm, r in spec.items()},
                   launches_2_layer_spec={w: r["flash_attention_masked[offsets]"]
                                          for w, r in spec_2l.items()}),
+              launches_mixtral=mixtral["flash_launches"],
               build={lab: rec for lab, rec in tc_build.items() if "masked" in lab}),
         *(entry(name, "src/repro_torch/csrc/paged_attention.cu",
                 "src/repro/kernels/flash_attention/flash_attention.py:145",
@@ -4640,7 +5178,8 @@ def main():
                "the 16-request ring serve run of full-width starcoder2-15b "
                f"({ring['ticks']} decode ticks, 40 a tick)",
                dict(tick_ms=ring["tick_ring_ms"], tick_copies=ring["tick_copies"],
-                    kernels_vs_plain_2_layers=ring_2l["relative_l2"])),
+                    kernels_vs_plain_2_layers=ring_2l["relative_l2"],
+                    launches_mixtral=mixtral["ring_launches"])),
               ("ring_decode_attention[int8_kv]", True,
                ring_2l_int8["counts"]["ring_decode_attention[int8_kv]"],
                "the 2-layer int8-KV ring case (4 decode ticks x 2 layers); the serve run "
@@ -4762,6 +5301,21 @@ def main():
                              "(src/repro/kernels/ssd_scan/ref.py:56)")
         kernels.append(entry(name, "src/repro_torch/csrc/ssd_scan.cu", f"{ssd}:72",
                              k8[name], lambda rows: rows[-1], tm["launches"][name], **extra))
+    kernels.append(entry(
+        "ssd_prefill", "src/repro_torch/csrc/ssd_scan.cu", f"{ssd}:72", k8p,
+        lambda rows: rows[0], mamba["ssd_prefill_launches"],
+        launches_from=f"the 16-request serve run of full-width mamba2-370m ({mamba['prefills']} "
+                      f"admission prefills, {get_config('mamba2-370m').num_layers} a prefill)",
+        launches_by_part=mamba["launches_by_part"],
+        design=("kernel 8's three launches over nc + 1 state slots: slot 0 the slot's entering "
+                "state h_init (kernel 8: zero), the states launch also runs the last chunk, the "
+                "carry runs to nc and writes h0s[nc], the state leaving the prompt, to h_final "
+                "[B, H, P, N] as the SSM cache holds it; pads get dt = 0 from the wrapper, a "
+                "length the chunk does not divide is left-padded with zero rows"),
+        note=("row 8p: the TPU reference's prompt recurrence is a lax.scan of the one-token "
+              "update (src/repro/models/ssm.py:202-261) and reaches no Pallas kernel; "
+              "`replaces` names the Pallas kernel whose body 8p runs on"),
+        kernels_vs_plain_2_layers=serving_2l["mamba2-370m"]))
     for arch, run in (("minicpm-2b", tr), ("mamba2-370m", tm)):
         steps = run["steps"]
         print(f"train {arch}: step seconds {[round(r['seconds'], 4) for r in steps]}, "
@@ -4774,6 +5328,20 @@ def main():
           f"{ring['tick_host_ms']:.3f} ms host-clock, {ring['tick_busy_ms']:.3f} ms device busy, "
           f"the ring decode {ring['tick_ring_ms']:.3f} ms, copies (aten::copy_) "
           f"{ring['tick_copies']['op_ms']:.3f} ms; peak {ring['peak_gib']:.2f} GiB")
+    mt, xt = mamba["tick"], mixtral["tick"]
+    print(f"serve tokens/s [mamba2-370m, EN-T w8a8] {mamba['tok_s']:.3f}; decode tick "
+          f"{mt['host_ms']:.3f} ms host-clock, {mt['busy_ms']:.3f} ms device busy, "
+          f"{mt['kernels_a_tick']:.0f} kernels; SSM states {mamba['ssm_bytes']} bytes; peak "
+          f"{mamba['peak_gib']:.2f} GiB; speculative k={SPEC_K} (layer 0 drafter) "
+          f"{mamba['spec']['tok_s']:.3f} tok/s, acceptance {mamba['spec']['acceptance']:.4f}, "
+          f"{mamba['spec']['tokens_per_tick']:.3f} tokens a tick; 2-layer kernels vs plain "
+          f"{serving_2l['mamba2-370m']['relative_l2']:.3e} (logits), "
+          f"{serving_2l['mamba2-370m']['state_relative_l2']:.3e} (SSD states)")
+    print(f"serve tokens/s [mixtral-8x7b {MIXTRAL_LAYERS} layers, EN-T w8a8 attention, ring] "
+          f"{mixtral['tok_s']:.3f}; decode tick {xt['host_ms']:.3f} ms host-clock, "
+          f"{xt['busy_ms']:.3f} ms device busy; dropped assignments a tick "
+          f"{mixtral['tick_drops']}; peak {mixtral['peak_gib']:.2f} GiB; 2-layer kernels vs "
+          f"plain {serving_2l['mixtral-8x7b']['relative_l2']:.3e}")
     print(f"generate tokens/s [qwen2.5-3b, EN-T w8a8] {gen['tok_s']:.3f}; streams equal to the "
           f"engine's {gen['streams_equal_engine']} of 8, flips above twice the paths' ordinary "
           f"difference {gen['near_ties']['faults']} of {len(gen['near_ties']['flips'])}; prefill "

@@ -12,6 +12,13 @@ keeps one dict per layer under ``"layers"`` (layer ``g * len(group) + i``
 is group ``g``'s position ``i``), so :func:`params_from_numpy` unstacks
 the groups and moves every leaf onto ``device`` as a torch tensor.
 
+MoE layers need nothing of their own: the reference stacks each group
+position's expert tensors [G, E, in, out], and unstacking the groups
+gives the port's per-layer [E, in, out] stacks (and back).
+:func:`ssm_cache_from_numpy` and :func:`ssm_cache_to_numpy` carry one
+SSM layer's serving state (the reference's ``SSMCache``: conv window and
+SSD state) across, bfloat16 leaves included.
+
 Callers convert the reference tree to numpy first
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX.
 :func:`params_to_numpy` goes back: it re-stacks ``"layers"`` into the
@@ -96,3 +103,30 @@ def params_to_numpy(state, like):
                 for g, layer in enumerate(layers[i::n])])
         for i in range(n))
     return out
+
+
+def _tensor(a, device):
+    """numpy -> torch on ``device``; a bfloat16 array (numpy's extension
+    dtype) crosses bit for bit through its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def ssm_cache_from_numpy(conv, ssd, device=None):
+    """The reference ``SSMCache``'s leaves (numpy: conv [B, W-1, C], ssd
+    [B, H, P, N]) -> the port's ``SSMCache`` on ``device``."""
+    from repro_torch.models.kv_cache import SSMCache
+    device = resolve_device(device)
+    return SSMCache(_tensor(conv, device), _tensor(ssd, device))
+
+
+def ssm_cache_to_numpy(cache):
+    """The port's ``SSMCache`` -> (conv, ssd) numpy arrays in the
+    reference's layout (bfloat16 widened to float32, exactly)."""
+    def out(t):
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+    return out(cache.conv), out(cache.ssd)

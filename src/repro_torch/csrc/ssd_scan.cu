@@ -66,6 +66,23 @@
 // time at 989 TFLOP/s).  The three launches move ~0.94 GB: h0s is written
 // twice and read twice.
 //
+// Row 8p is kernel 8's prefill form, the SSM prompt recurrence of
+// serving (ssm.prefill_step): the same three launches over nc + 1 state
+// slots instead of nc.  It enters from the slot's state h_init [B, H, P,
+// N] (h0s[0] = h_init, not 0), its states launch also writes the last
+// chunk's own state (into h0s[nc]), and its carry runs to nc, so that
+// h0s[nc] is the state leaving the prompt, which the carry also writes to
+// h_final [B, H, P, N], the SSM cache's own layout.  The TPU reference
+// runs the prompt as a lax.scan of the one-token update
+// (src/repro/models/ssm.py:202-261) and reaches no Pallas kernel: 8p has
+// no TPU kernel of its own and runs on kernel 8's body.  Pads (left pads
+// of a ragged admission, or the rows that pad a length to a multiple of
+// the chunk) come with dt = 0 from the wrapper, which leaves the state
+// exactly as it was: exp(0 a) = 1 and dt x B^T = 0.  Bound at
+// mamba2-370m's admission (B=1, L=512, H=32, G=1): ~11.1 MB (x and y 4.2
+// MB each, h_init and h_final 1 MB each) against ~9.4e8 flops, 2.8e9 as
+// three bf16 passes: bytes, 0.0033 ms.
+//
 // Kernels 8b and 8c are the backward.  The JAX package has no backward
 // kernel (no custom_vjp around ssd_scan): the reference differentiates
 // its jnp chunk algorithm (ssd_scan_chunked, ref.py:56).  They stand in
@@ -124,8 +141,10 @@
 // `fault` is a check hook, 0 on every path of the port: chip_smoke.py
 // plants 1 (8, the carry kernel: the state not decayed), 2 (8, the output
 // kernel: the intra-chunk mask off by one, j < i), 3 (8b, the carry
-// kernel: dh not carried across chunks) and 4 (8b, the own kernel: row i
-// weighted by exp(cum_{i+1})) to show that its limits reject them.
+// kernel: dh not carried across chunks), 4 (8b, the own kernel: row i
+// weighted by exp(cum_{i+1})), 5 (8p, the carry: the entering state
+// ignored) and 6 (8p, the carry: the state entering the last chunk handed
+// out as the leaving state) to show that its limits reject them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -339,7 +358,7 @@ __global__ void __launch_bounds__(NT, 2)
 ssd_states_kernel(const float* __restrict__ v, const float* __restrict__ dt,
                   const float* __restrict__ a, const float* __restrict__ km,
                   float* __restrict__ states, float* __restrict__ cumq, int L, int H, int G,
-                  int Q, int fault) {
+                  int Q, int ns, int fault) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* vw = align1024(smem_raw);        // v w: hi, lo (+T128)
   uint8_t* kt = vw + 2 * T128;              // k, tile t (columns 64 t ..) at 2 t T128
@@ -348,8 +367,10 @@ ssd_states_kernel(const float* __restrict__ v, const float* __restrict__ dt,
   float* wv = dts + QM;
   const int tid = threadIdx.x, c = blockIdx.x + REV, h = blockIdx.y, b = blockIdx.z;
   const int nc = L / Q;
-  // the last chunk's own state enters no chunk; the first's gradient leaves none
-  if (REV ? c >= nc : c >= nc - 1) return;
+  // the last chunk's own state enters no chunk (but leaves the prompt in
+  // the prefill form, whose ns = nc + 1 slots hold it); the first's
+  // gradient leaves none
+  if (REV ? c >= nc : c >= ns - 1) return;
   const int g = h / (H / G);
   const size_t row0 = static_cast<size_t>(b) * L + c * Q;
   chunk_cum(dts, cum, dt + h, a[h], row0, H, Q);
@@ -384,41 +405,54 @@ ssd_states_kernel(const float* __restrict__ v, const float* __restrict__ dt,
   wgmma_wait();
   fence_regs(acc);
   const Frag f;
-  float* out = states + state_at(b, h, REV ? c - 1 : c + 1, H, nc) + 64 * wg;
+  float* out = states + state_at(b, h, REV ? c - 1 : c + 1, H, ns) + 64 * wg;
 #pragma unroll
   for (int x2 = 0; x2 < 32; x2 += 2)
     *reinterpret_cast<float2*>(out + f.row(x2) * N + f.col(x2)) =
         make_float2(acc[x2], acc[x2 + 1]);
 }
 
-// The carry, in place over the states of one (batch, head), each slot
-// holding a chunk's own state: forward (rev 0), h0s[0] = 0 and for c = 1
-// .. nc - 1 h0s[c] <- h0s[c - 1] exp(cumq[c - 1]) + h0s[c]; in reverse
-// (rev 1), dhs[nc - 1] = 0 and for c = nc - 2 .. 0 dhs[c] <- dhs[c + 1]
-// exp(cumq[c + 1]) + dhs[c].  Fault 1: no decay; fault 3: nothing carried.
-// Thread: four consecutive floats of every state.
+// The carry, in place over the ns state slots of one (batch, head), each
+// slot past the first holding a chunk's own state: forward (rev 0),
+// h0s[0] = h_init (0 when h_init is null) and for c = 1 .. ns - 1 h0s[c]
+// <- h0s[c - 1] exp(cumq[c - 1]) + h0s[c]; in reverse (rev 1), dhs[ns -
+// 1] = 0 and for c = ns - 2 .. 0 dhs[c] <- dhs[c + 1] exp(cumq[c + 1]) +
+// dhs[c].  Training has ns = nc slots, each chunk's entering state; the
+// prefill form (row 8p) ns = nc + 1, the last the state leaving the
+// prompt, which also goes to h_out when given ([B, H, P, N], as the SSM
+// cache holds it; h_out may be h_init: a thread reads its four floats of
+// h_init before it writes the same four of h_out).  Fault 1: no decay;
+// fault 3: nothing carried; fault 5: h_init ignored; fault 6: h_out gets
+// the state entering the last chunk.  Thread: four consecutive floats of
+// every state.
 __global__ void __launch_bounds__(NT)
-ssd_carry_kernel(const float* __restrict__ cumq, float* states, int nc, int rev, int fault) {
+ssd_carry_kernel(const float* __restrict__ cumq, float* states, const float* h_init,
+                 float* h_out, int nc, int ns, int rev, int fault) {
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  float4* st = reinterpret_cast<float4*>(states + state_at(b, h, 0, H, nc)) +
-               blockIdx.x * NT + threadIdx.x;
+  const size_t at = blockIdx.x * NT + threadIdx.x;
+  float4* st = reinterpret_cast<float4*>(states + state_at(b, h, 0, H, ns)) + at;
+  const size_t own_state = (static_cast<size_t>(b) * H + h) * (P * N / 4) + at;
   const float* cq = cumq + (static_cast<size_t>(b) * H + h) * nc;
   constexpr int STRIDE = P * N / 4;   // float4s a state
-  const int step = rev ? -1 : 1, first = rev ? nc - 1 : 0;
+  const int step = rev ? -1 : 1, first = rev ? ns - 1 : 0;
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 next = nc > 1 ? st[(first + step) * STRIDE] : s;
+  if (h_init != nullptr && fault != 5) s = reinterpret_cast<const float4*>(h_init)[own_state];
+  float4 next = ns > 1 ? st[(first + step) * STRIDE] : s;
+  float4 before = s;
   st[first * STRIDE] = s;
-  for (int k = 1; k < nc; ++k) {
+  for (int k = 1; k < ns; ++k) {
     const int c = first + step * k;
     const float4 own = next;
-    if (k + 1 < nc) next = st[(c + step) * STRIDE];
+    if (k + 1 < ns) next = st[(c + step) * STRIDE];
     const float d = fault == 1 ? 1.0f : fault == 3 ? 0.0f : expf(cq[c - step]);
+    before = s;
     s.x = __fadd_rn(__fmul_rn(s.x, d), own.x);
     s.y = __fadd_rn(__fmul_rn(s.y, d), own.y);
     s.z = __fadd_rn(__fmul_rn(s.z, d), own.z);
     s.w = __fadd_rn(__fmul_rn(s.w, d), own.w);
     st[c * STRIDE] = s;
   }
+  if (h_out != nullptr) reinterpret_cast<float4*>(h_out)[own_state] = fault == 6 ? before : s;
 }
 
 // Shared memory of the output kernel (bytes from the aligned base).
@@ -491,17 +525,17 @@ __global__ void __launch_bounds__(NT, 1)
 ssd_fwd_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ a, const float* __restrict__ bm,
                    const float* __restrict__ cm, const float* __restrict__ h0s,
-                   float* __restrict__ y, int L, int H, int G, int Q, int fault) {
+                   float* __restrict__ y, int L, int H, int G, int Q, int ns, int fault) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   float* cum = reinterpret_cast<float*>(sm + OUT_F);
   float* dts = cum + QM;
   float* ecum = dts + QM;
   const int tid = threadIdx.x, c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / G), nc = L / Q;
+  const int g = h / (H / G);
   const size_t row0 = static_cast<size_t>(b) * L + c * Q;
   chunk_cum(dts, cum, dt + h, a[h], row0, H, Q);
-  const float* h0 = h0s + state_at(b, h, c, H, nc);
+  const float* h0 = h0s + state_at(b, h, c, H, ns);
   for (int t = 0; t < 2; ++t) {
     stage<QM>(sm + OUT_C + 2 * t * T128, T128, cm + (row0 * G + g) * N + 64 * t,
               static_cast<size_t>(G) * N, Q);
@@ -936,24 +970,35 @@ bool bad_shape(int B, int L, int H, int G, int p, int n, int Q) {
 }
 
 
+// ns: the state slots, nc for training (each chunk's entering state),
+// nc + 1 for the prefill form (and the state leaving the prompt).
 template <bool REV>
 int launch_states(const float* v, const float* dt, const float* a, const float* k, float* states,
-                  float* cumq, int B, int L, int H, int G, int p, int n, int Q, int fault,
-                  void* stream) {
+                  float* cumq, int B, int L, int H, int G, int p, int n, int Q, int ns,
+                  int fault, void* stream) {
   if (bad_shape(B, L, H, G, p, n, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const int nc = L / Q;
-  return launch_dyn(ssd_states_kernel<REV>, dim3(nc > 1 ? nc - 1 : 1, H, B), STATES_SMEM,
+  const int blocks = REV ? L / Q - 1 : ns - 1;
+  return launch_dyn(ssd_states_kernel<REV>, dim3(blocks > 0 ? blocks : 1, H, B), STATES_SMEM,
                     static_cast<cudaStream_t>(stream), v, dt, a, k, states, cumq, L, H, G, Q,
-                    fault);
+                    ns, fault);
 }
 
-int launch_carry(const float* cumq, float* states, int B, int L, int H, int Q, int rev,
-                 int fault, void* stream) {
+int launch_carry(const float* cumq, float* states, const float* h_init, float* h_out, int B,
+                 int L, int H, int Q, int ns, int rev, int fault, void* stream) {
   if (B <= 0 || H <= 0 || Q <= 0 || Q > QM || L % Q != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   ssd_carry_kernel<<<dim3(P * N / (4 * NT), H, B), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      cumq, states, L / Q, rev, fault);
+      cumq, states, h_init, h_out, L / Q, ns, rev, fault);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_out(const float* x, const float* dt, const float* a, const float* b, const float* c,
+               const float* h0s, float* y, int B, int L, int H, int G, int p, int n, int Q,
+               int ns, int fault, void* stream) {
+  if (bad_shape(B, L, H, G, p, n, Q)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dyn(ssd_fwd_out_kernel, dim3(L / Q, H, B), OUT_SMEM,
+                    static_cast<cudaStream_t>(stream), x, dt, a, b, c, h0s, y, L, H, G, Q, ns,
+                    fault);
 }
 
 }  // namespace
@@ -963,21 +1008,43 @@ int launch_carry(const float* cumq, float* states, int B, int L, int H, int Q, i
 extern "C" int ssd_fwd_states(const float* x, const float* dt, const float* a, const float* b,
                               float* h0s, float* cumq, int B, int L, int H, int G, int p,
                               int n, int Q, void* stream) {
-  return launch_states<false>(x, dt, a, b, h0s, cumq, B, L, H, G, p, n, Q, 0, stream);
+  return launch_states<false>(x, dt, a, b, h0s, cumq, B, L, H, G, p, n, Q, L / Q, 0, stream);
 }
 
 extern "C" int ssd_fwd_carry(const float* cumq, float* h0s, int B, int L, int H, int Q,
                              int fault, void* stream) {
-  return launch_carry(cumq, h0s, B, L, H, Q, 0, fault, stream);
+  return launch_carry(cumq, h0s, nullptr, nullptr, B, L, H, Q, L / Q, 0, fault, stream);
 }
 
 extern "C" int ssd_fwd_out(const float* x, const float* dt, const float* a, const float* b,
                            const float* c, const float* h0s, float* y, int B, int L, int H,
                            int G, int p, int n, int Q, int fault, void* stream) {
-  if (bad_shape(B, L, H, G, p, n, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_dyn(ssd_fwd_out_kernel, dim3(L / Q, H, B), OUT_SMEM,
-                    static_cast<cudaStream_t>(stream), x, dt, a, b, c, h0s, y, L, H, G, Q,
-                    fault);
+  return launch_out(x, dt, a, b, c, h0s, y, B, L, H, G, p, n, Q, L / Q, fault, stream);
+}
+
+// Row 8p, kernel 8's prefill form, in the same three launches: h0s [B, H,
+// nc + 1, P, N] (slot 0 the entering state h_init [B, H, P, N], slot nc
+// the leaving state, also written to h_final [B, H, P, N], which may be
+// h_init) and the scratch cumq [B, H, nc] are the caller's.  The states
+// launch runs every chunk (the last one's own state too), the carry all
+// nc + 1 slots.  Faults 5 and 6 (the carry): see ssd_carry_kernel.
+extern "C" int ssd_prefill_states(const float* x, const float* dt, const float* a,
+                                  const float* b, float* h0s, float* cumq, int B, int L, int H,
+                                  int G, int p, int n, int Q, void* stream) {
+  return launch_states<false>(x, dt, a, b, h0s, cumq, B, L, H, G, p, n, Q, L / Q + 1, 0,
+                              stream);
+}
+
+extern "C" int ssd_prefill_carry(const float* cumq, float* h0s, const float* h_init,
+                                 float* h_final, int B, int L, int H, int Q, int fault,
+                                 void* stream) {
+  return launch_carry(cumq, h0s, h_init, h_final, B, L, H, Q, L / Q + 1, 0, fault, stream);
+}
+
+extern "C" int ssd_prefill_out(const float* x, const float* dt, const float* a, const float* b,
+                               const float* c, const float* h0s, float* y, int B, int L, int H,
+                               int G, int p, int n, int Q, void* stream) {
+  return launch_out(x, dt, a, b, c, h0s, y, B, L, H, G, p, n, Q, L / Q + 1, 0, stream);
 }
 
 // Kernel 8b, in two launches on one stream: dhs [B, H, nc, P, N] and the
@@ -985,12 +1052,13 @@ extern "C" int ssd_fwd_out(const float* x, const float* dt, const float* a, cons
 extern "C" int ssd_bwd_own(const float* dt, const float* a, const float* c, const float* dy,
                            float* dhs, float* cumq, int B, int L, int H, int G, int p, int n,
                            int Q, int fault, void* stream) {
-  return launch_states<true>(dy, dt, a, c, dhs, cumq, B, L, H, G, p, n, Q, fault, stream);
+  return launch_states<true>(dy, dt, a, c, dhs, cumq, B, L, H, G, p, n, Q, L / Q, fault,
+                             stream);
 }
 
 extern "C" int ssd_bwd_carry(const float* cumq, float* dhs, int B, int L, int H, int Q,
                              int fault, void* stream) {
-  return launch_carry(cumq, dhs, B, L, H, Q, 1, fault, stream);
+  return launch_carry(cumq, dhs, nullptr, nullptr, B, L, H, Q, L / Q, 1, fault, stream);
 }
 
 extern "C" int ssd_scan_bwd_chunk(const float* x, const float* dt, const float* a,

@@ -73,6 +73,9 @@ ENTRY_POINTS = {
         "ssd_fwd_states": [_P] * 6 + [_I] * 7 + [_P],
         "ssd_fwd_carry": [_P] * 2 + [_I] * 5 + [_P],
         "ssd_fwd_out": [_P] * 7 + [_I] * 8 + [_P],
+        "ssd_prefill_states": [_P] * 6 + [_I] * 7 + [_P],
+        "ssd_prefill_carry": [_P] * 4 + [_I] * 5 + [_P],
+        "ssd_prefill_out": [_P] * 7 + [_I] * 7 + [_P],
         "ssd_bwd_own": [_P] * 6 + [_I] * 8 + [_P],
         "ssd_bwd_carry": [_P] * 2 + [_I] * 5 + [_P],
         "ssd_scan_bwd_chunk": [_P] * 13 + [_I] * 7 + [_P],

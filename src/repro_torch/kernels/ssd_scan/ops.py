@@ -8,7 +8,9 @@ the forward is the reference's CPU route (``ssd_scan_ref`` when L <=
 chunk, ``ssd_scan_chunked`` otherwise, reference :12-23) and the
 backward ``ssd_scan_bwd_ref``.  ``use_kernel=False`` runs that route
 under autograd, the only way to reach it on the card (counted in
-``ssd.plain_launches`` there).
+``ssd.plain_launches`` there).  ``ssd_prefill`` (row 8p, serving's
+prompt recurrence) is the wrapper itself, looked up here so that a
+check can plant a fault in the model's call.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: F401
     ssd_decode_step_ref, ssd_scan_chunked, ssd_scan_ref)
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd
+from repro_torch.kernels.ssd_scan.ssd_scan import (  # noqa: F401
+    ssd_prefill, ssd_scan, ssd_scan_bwd)
 
 
 class SSDScan(torch.autograd.Function):

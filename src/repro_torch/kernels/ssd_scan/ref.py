@@ -21,6 +21,11 @@ group; y [B, L, H, P].  Per head the recurrence over a [P, N] state is
 * ``ssd_scan_fwd_ref``: ``ssd_scan_chunked`` that also returns each
   chunk's entering state h0s, f32 [B, H, nc, P, N] (h0s[:, :, 0] = 0):
   the plain version of the forward kernel with ``save_states``.
+* ``ssd_prefill_ref``: the chunk algorithm entered from a state h_init
+  [B, H, P, N] (the SSM cache's), returning y and the state leaving the
+  last chunk: the plain version of kernel 8's prefill form (row 8p);
+  ``ssd_prefill_steps_ref``, the per-step recurrence from h_init, is its
+  oracle.
 * ``ssd_scan_bwd_state_ref``, ``ssd_scan_bwd_chunk_ref`` and their
   composition ``ssd_scan_bwd_ref``: the backward, written as explicit
   formulas (the plain versions of the two backward kernels; the
@@ -153,9 +158,10 @@ def _chunk_operands(x, dt, a, b, c, chunk):
     return xf, dtf, bf, cf, cum, torch.exp(ldecay)
 
 
-def ssd_scan_fwd_ref(x, dt, a, b, c, chunk: int = 128, einsum=torch.einsum):
-    """The chunk algorithm: (y f32 [B, L, H, P], h0s f32 [B, H, nc, P, N],
-    each chunk's entering state; the first is zeros).  Differentiable."""
+def _fwd_chunks(x, dt, a, b, c, chunk, einsum, h_init=None):
+    """(y f32 [B, L, H, P], every state slot f32 [B, H, nc + 1, P, N]:
+    slot c enters chunk c, slot nc leaves the last; slot 0 is ``h_init``,
+    zeros when None)."""
     xf, dtf, bf, cf, cum, decay = _chunk_operands(x, dt, a, b, c, chunk)
     bsz, nc, q, h, p = xf.shape
     scores = (einsum("bcihn,bcjhn->bchij", cf, bf) * decay
@@ -165,15 +171,40 @@ def ssd_scan_fwd_ref(x, dt, a, b, c, chunk: int = 128, einsum=torch.einsum):
     wj = torch.exp(cum[:, :, -1:, :] - cum) * dtf                # [B, nc, Q, H]
     own = einsum("bcjhp,bcjhn->bchpn", xf * wj[..., None], bf)
     carry = torch.exp(cum[:, :, -1])                             # [B, nc, H]
-    state = torch.zeros_like(own[:, 0])
-    h0s = []
+    state = torch.zeros_like(own[:, 0]) if h_init is None else _wide(h_init)
+    states = [state]
     for ci in range(nc):
-        h0s.append(state)
         state = state * carry[:, ci, :, None, None] + own[:, ci]
-    h0s = torch.stack(h0s, dim=2)                                # [B, H, nc, P, N]
-    y = y + (einsum("bcihn,bhcpn->bcihp", cf, h0s)
+        states.append(state)
+    states = torch.stack(states, dim=2)                          # [B, H, nc + 1, P, N]
+    y = y + (einsum("bcihn,bhcpn->bcihp", cf, states[:, :, :nc])
              * torch.exp(cum)[..., None])
-    return y.reshape(bsz, nc * q, h, p), h0s
+    return y.reshape(bsz, nc * q, h, p), states
+
+
+def ssd_scan_fwd_ref(x, dt, a, b, c, chunk: int = 128, einsum=torch.einsum):
+    """The chunk algorithm: (y f32 [B, L, H, P], h0s f32 [B, H, nc, P, N],
+    each chunk's entering state; the first is zeros).  Differentiable."""
+    y, states = _fwd_chunks(x, dt, a, b, c, chunk, einsum)
+    return y, states[:, :, :-1]
+
+
+def ssd_prefill_ref(x, dt, a, b, c, h_init, chunk: int = 128, einsum=torch.einsum):
+    """The chunk algorithm entered from ``h_init`` f32 [B, H, P, N]: (y f32
+    [B, L, H, P], the state leaving the last chunk f32 [B, H, P, N])."""
+    y, states = _fwd_chunks(x, dt, a, b, c, chunk, einsum, h_init)
+    return y, states[:, :, -1]
+
+
+def ssd_prefill_steps_ref(x, dt, a, b, c, h_init):
+    """The per-step recurrence from ``h_init`` (``ssd_decode_step_ref`` step
+    by step): (y f32 [B, L, H, P], the final state f32 [B, H, P, N])."""
+    state, ys = _wide(h_init), []
+    for t in range(x.shape[1]):
+        state, yt = ssd_decode_step_ref(state, _wide(x[:, t]), _wide(dt[:, t]), _wide(a),
+                                        _wide(b[:, t]), _wide(c[:, t]))
+        ys.append(yt)
+    return torch.stack(ys, dim=1), state
 
 
 def ssd_scan_chunked(x, dt, a, b, c, chunk: int = 128):

@@ -5,6 +5,12 @@
   ``save_states`` also returns each chunk's entering state.  One call is
   three launches: each chunk's own state (``states``), the carry from
   chunk to chunk (``carry``) and the outputs (``out``);
+* ``ssd_prefill``: kernel 8's prefill form (row 8p), the SSM prompt
+  recurrence of serving: the same three launches entered from the slot's
+  state ``h_init`` [B, H, P, N] and returning the state leaving the
+  prompt beside y.  Pads (``mask`` False) get dt = 0, which leaves the
+  state as it was; a length past one chunk that the chunk does not divide
+  is left-padded with zero rows (dt = 0 too) to the next multiple;
 * ``ssd_scan_bwd_state`` and ``ssd_scan_bwd_chunk``: its backward
   (kernels 8b and 8c; the reference has no backward kernel), run
   together by ``ssd_scan_bwd``.  Kernel 8b is two launches in kernel 8's
@@ -17,11 +23,12 @@ operands, P = 64, N = 128 and chunks of at most 128 steps; kernels 8, 8b
 and 8c run their chunk products on the tensor cores in split-bf16
 three-pass form (``csrc/ssd_scan.cu`` has the error budget;
 ``ref.split_bf16_einsum`` emulates it).  Each kernel wrapper's
-``.launches`` counts its calls, ``ssd_scan.<part>_launches`` each of
-kernel 8's three launches and ``ssd_scan_bwd_state.<part>_launches``
-each of 8b's two.
+``.launches`` counts its calls, ``ssd_scan.<part>_launches`` and
+``ssd_prefill.<part>_launches`` each of the three launches of kernel 8
+and of 8p, and ``ssd_scan_bwd_state.<part>_launches`` each of 8b's two.
 ``fault`` (0 on every path of the port) plants a kernel fault for
-``chip_smoke.py``'s checks (see ``csrc/ssd_scan.cu``); it has no plain
+``chip_smoke.py``'s checks (see ``csrc/ssd_scan.cu``; 8p's 7 is the
+wrapper's: pads keep their dt, so they decay the state); it has no plain
 version.
 """
 
@@ -31,8 +38,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import (
-    _check, ssd_scan_bwd_chunk_ref, ssd_scan_bwd_state_ref, ssd_scan_fwd_ref,
-    ssd_scan_ref)
+    _check, ssd_prefill_ref, ssd_scan_bwd_chunk_ref, ssd_scan_bwd_state_ref,
+    ssd_scan_fwd_ref, ssd_scan_ref)
 
 HEAD_DIM, STATE_DIM, MAX_CHUNK = 64, 128, 128
 
@@ -93,6 +100,66 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, save_states: bool = False,
     ssd_scan.out_launches += 1
     ssd_scan.launches += 1
     return (y, h0s) if save_states else y
+
+
+def prefill_operands(x, dt, b, c, mask=None, chunk: int = 128, fault: int = 0):
+    """The operands 8p runs on: dt zeroed at the pads (``mask`` False;
+    not under ``fault`` 7), and, when L passes one chunk and the chunk does
+    not divide it, ``pad`` zero rows in front up to the next multiple.
+    Returns (x, dt, b, c, pad, the chunk)."""
+    bsz, l = x.shape[:2]
+    if mask is not None and fault != 7:
+        dt = torch.where(mask[..., None], dt, torch.zeros((), dtype=dt.dtype,
+                                                          device=dt.device))
+    pad = 0 if l <= chunk else -l % chunk
+    if pad:
+        def lpad(t):
+            return torch.cat([t.new_zeros((bsz, pad) + tuple(t.shape[2:])), t], dim=1)
+        x, dt, b, c = lpad(x), lpad(dt), lpad(b), lpad(c)
+    return x, dt, b, c, pad, min(chunk, l + pad)
+
+
+def ssd_prefill(x, dt, a, b, c, h_init, *, mask=None, chunk: int = 128, fault: int = 0):
+    """x [B, L, H, P], dt [B, L, H], a [H], b / c [B, L, G, N], h_init f32
+    [B, H, P, N] (the state the prompt enters from), ``mask`` [B, L] bool
+    (False: a pad, given dt = 0) -> (y f32 [B, L, H, P], the state leaving
+    the prompt f32 [B, H, P, N]).  On CPU tensors the plain version,
+    ``ssd_prefill_ref``; on CUDA tensors kernel 8's prefill form, three
+    launches, the leaving state written by the carry."""
+    bsz, l, h, p, g, n, _ = _check(x, dt, a, b, c)
+    if tuple(h_init.shape) != (bsz, h, p, n):
+        raise ValueError(f"h_init {tuple(h_init.shape)} must be {(bsz, h, p, n)}")
+    x, dt, b, c, pad, q = prefill_operands(x, dt, b, c, mask, chunk, fault)
+    if x.device.type == "cpu":
+        _no_fault(fault)
+        y, h_final = ssd_prefill_ref(x, dt, a, b, c, h_init, q)
+        return y[:, pad:], h_final
+    x, dt, a, b, c = (t.contiguous() for t in (x, dt, a, b, c))
+    _check_cuda(x, dt, a, b, c, h_init, p=p, n=n, chunk=q)
+    lp = l + pad
+    nc = lp // q
+    y = torch.empty_like(x)
+    h0s = torch.empty((bsz, h, nc + 1, p, n), dtype=torch.float32, device=x.device)
+    cumq = torch.empty((bsz, h, nc), dtype=torch.float32, device=x.device)
+    h_final = torch.empty_like(h_init)
+    stream = _build.stream_of(x)
+    rc = _build.entry("ssd_scan", "ssd_prefill_states")(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), h0s.data_ptr(),
+        cumq.data_ptr(), bsz, lp, h, g, p, n, q, stream)
+    _build.check(rc, "ssd_prefill_states")
+    ssd_prefill.states_launches += 1
+    rc = _build.entry("ssd_scan", "ssd_prefill_carry")(
+        cumq.data_ptr(), h0s.data_ptr(), h_init.data_ptr(), h_final.data_ptr(), bsz, lp, h, q,
+        fault if fault != 7 else 0, stream)
+    _build.check(rc, "ssd_prefill_carry")
+    ssd_prefill.carry_launches += 1
+    rc = _build.entry("ssd_scan", "ssd_prefill_out")(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        h0s.data_ptr(), y.data_ptr(), bsz, lp, h, g, p, n, q, stream)
+    _build.check(rc, "ssd_prefill_out")
+    ssd_prefill.out_launches += 1
+    ssd_prefill.launches += 1
+    return y[:, pad:], h_final
 
 
 def ssd_scan_bwd_state(dt, a, c, dy, *, chunk: int = 128, fault: int = 0):
@@ -161,6 +228,8 @@ def ssd_scan_bwd(x, dt, a, b, c, h0s, dy, *, chunk: int = 128):
 
 ssd_scan.launches = 0
 ssd_scan.states_launches = ssd_scan.carry_launches = ssd_scan.out_launches = 0
+ssd_prefill.launches = 0
+ssd_prefill.states_launches = ssd_prefill.carry_launches = ssd_prefill.out_launches = 0
 ssd_scan_bwd_state.launches = 0
 ssd_scan_bwd_state.own_launches = ssd_scan_bwd_state.carry_launches = 0
 ssd_scan_bwd_chunk.launches = 0

@@ -5,6 +5,7 @@
         [--cache-kind auto|dense|ring|paged] [--prefill-chunk N] \\
         [--draft-arch ARCH --spec-k K \\
         --spec-mode match|rejection] [--smoke] [--device cuda|cpu] \\
+        [--num-layers N] [--param-dtype float32|bfloat16] \\
         [--http [--port P] [--host H] [--pipeline-depth D] [--max-queue Q] \\
          [--http-smoke] [--fault-plan NAME|seeded:N] [--max-retries R] \\
          [--watchdog S]]
@@ -24,8 +25,15 @@ puts one seeded N-token prefix in front of every request (a system
 prompt).  ``--draft-arch`` turns speculative decoding on with ``--spec-k``
 drafts a tick: the same arch as ``--arch`` is a weight-shared drafter
 (the target's own model and params), another arch a float drafter with
-random weights from ``--seed + 1``.  Runs on the CUDA
-card unless ``--device cpu``.
+random weights from ``--seed + 1``.  SSM and hybrid archs (mamba2-370m,
+jamba-1.5-large) serve with their SSM layers' states beside the
+attention caches (prefix caching off), MoE archs (mixtral-8x7b,
+dbrx-132b) with float routers and experts.  ``--num-layers`` cuts the
+depth and ``--param-dtype bfloat16`` stores the float weights in bf16
+(the experts are cast to the compute dtype before every product, so a
+bf16 model computes the same): all 32 layers of mixtral-8x7b need ~96
+GB in bf16, so one card serves it with ``--num-layers 16 --param-dtype
+bfloat16``.  Runs on the CUDA card unless ``--device cpu``.
 
 ``--http`` puts the async front end on top (implies ``--engine``): a
 ``PipelinedScheduler`` at ``--pipeline-depth`` driving the engine and the
@@ -48,6 +56,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -245,6 +254,11 @@ def main(argv=None):
                     help="prepend one common N-token prefix (seeded) to every "
                          "request (exercises prefix sharing)")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the depth to N layers (a multiple of the layer group; "
+                         "default: the config's)")
+    ap.add_argument("--param-dtype", default="", choices=["", "float32", "bfloat16"],
+                    help="dtype of the float weights (default: the config's)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda")
     ap.add_argument("--steps", type=int, default=32)
@@ -291,6 +305,13 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_config(cfg)
+    if args.num_layers:
+        if args.num_layers % len(cfg.group):
+            ap.error(f"--num-layers must be a multiple of {cfg.name}'s layer group "
+                     f"({len(cfg.group)})")
+        cfg = replace(cfg, num_layers=args.num_layers)
+    if args.param_dtype:
+        cfg = replace(cfg, param_dtype=args.param_dtype)
     t0 = time.perf_counter()
     model, params = build(cfg, quantize=args.quantize, seed=args.seed,
                           device=args.device)
@@ -344,7 +365,9 @@ def main(argv=None):
     if ps is not None:
         print(f"pages: {ps['total']} total, {ps['free']} free, {ps['resident']} resident, "
               f"{ps['shared']} shared, {ps.get('cached', 0)} cached")
-    print(f"KV {'pools' if ps is not None else 'rows'} {engine.pool_bytes / 2**20:.2f} MiB")
+    kv = engine.pool_bytes - engine.ssm_bytes
+    print(f"KV {'pools' if ps is not None else 'rows'} {kv / 2**20:.2f} MiB"
+          + (f", SSM states {engine.ssm_bytes / 2**20:.2f} MiB" if engine.ssm_bytes else ""))
     fs = engine.prefix_stats
     if fs is not None:
         print(f"prefix cache: {fs['hits']}/{fs['lookups']} hits ({fs['hit_rate']:.0%}), "

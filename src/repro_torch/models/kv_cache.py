@@ -46,6 +46,9 @@ gathers the retained rows into a copy, which the caller takes BEFORE the
 chunk's write (as every backend's context is taken).  A verify burst over
 the ring raises, as in the reference.
 
+:class:`SSMCache` is a Mamba-2 layer's per-slot state (the conv window
+and the SSD state), on the same slot protocol as the dense rows.
+
 int8 KV (``quantized=True``): the pools hold int8 codes and every write
 quantizes on the way in (:func:`quantize_kv`), with bf16 per-(row, head)
 scales in ``[..., H, 1]`` scale pools beside them (``k_s``/``v_s``,
@@ -476,6 +479,73 @@ class PagedCache(_KV):
     def with_table(self, table):
         """Adopt the engine's block-table mirror wholesale."""
         self.block_table = table
+        return self
+
+
+class SSMCache:
+    """A Mamba-2 layer's per-slot state (port of the reference's
+    ``SSMCache``): the conv window ``conv`` [B, W-1, C] in the compute
+    dtype and the SSD state ``ssd`` [B, H, P, N] float32.  It joins the
+    slot protocol of the row backends, so the engine moves SSM and
+    attention state through one code path: ``prefill_view`` (zeroed
+    single-slot state), ``admit`` (written in place at the slot),
+    ``free_slot`` (a no-op: the next admission overwrites the slot),
+    ``clone`` / ``copy_from`` (the engine's snapshot and restore, copied
+    back into this cache's tensors in place), ``fork`` / ``rollback``
+    (nothing: an SSM burst rolls back by ``select``ing a per-step state)
+    and ``nbytes``.  A serving step hands its new state in with
+    ``update``, which rebinds the two tensors of this object (every
+    holder of the cache sees it); a speculative drafter keeps the
+    tensors of each step as that step's snapshot.  No pool, table or
+    window: ``with_table`` and ``copy_pages`` are no-ops."""
+
+    window = None
+
+    def __init__(self, conv, ssd):
+        self.conv, self.ssd = conv, ssd
+
+    def update(self, conv, ssd):
+        self.conv, self.ssd = conv, ssd
+        return self
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.conv, self.ssd))
+
+    def prefill_view(self, slot: int):
+        del slot
+        return SSMCache(self.conv.new_zeros((1,) + tuple(self.conv.shape[1:])),
+                        self.ssd.new_zeros((1,) + tuple(self.ssd.shape[1:])))
+
+    def admit(self, one, slot: int):
+        self.conv[slot] = one.conv[0]
+        self.ssd[slot] = one.ssd[0]
+        return self
+
+    def free_slot(self, slot: int):
+        del slot
+        return self
+
+    def clone(self):
+        return SSMCache(self.conv.clone(), self.ssd.clone())
+
+    def copy_from(self, other) -> None:
+        self.conv.copy_(other.conv)
+        self.ssd.copy_(other.ssd)
+
+    def fork(self):
+        return None
+
+    def rollback(self, snap):
+        del snap
+        return self
+
+    def with_table(self, table):
+        del table
+        return self
+
+    def copy_pages(self, src, dst):
+        del src, dst
         return self
 
 

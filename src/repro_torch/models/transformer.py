@@ -5,12 +5,13 @@ The reference stacks each group position's params ``[G, ...]`` and
 traverses them with ``jax.lax.scan``; the port keeps one param dict per
 layer under ``params["layers"]`` (layer ``g * len(group) + i`` has spec
 ``cfg.group[i]``) and loops over the layers.  The port runs attention
-and SSM (Mamba-2) mixers with dense or no FFN; ``moe`` layer specs
-raise ``NotImplementedError``, and so do the serving entry points
-(``init_cache``, ``prefill``, ``decode_step``,
-``apply(write_cache=True)``) of a model with SSM layers.
+and SSM (Mamba-2) mixers with dense, MoE or no FFN, in training and in
+serving: an SSM layer serves from an ``SSMCache`` (its conv window and
+SSD state), an MoE layer returns its Switch auxiliary loss, which the
+full-sequence forward sums into ``aux_loss`` (and the training loss).
 ``Model.verify_step`` runs speculative decoding's verify burst (S tokens
-per sequence at per-sequence depths in one pass).
+per sequence at per-sequence depths in one pass), with each SSM layer's
+per-step states for ``select_ssm_states``.
 ``Model.apply`` without a cache is the full-sequence (training)
 forward, with the reference's remat policies: ``remat="full"``
 recomputes each layer group in the backward
@@ -43,16 +44,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers as L, ssm
+from repro_torch.models import attention, layers as L, moe, ssm
 from repro_torch.quant.quantize import quantize_params
 
 
 def _check_spec(spec):
     mixer, ffn = spec
-    if mixer not in ("attn", "ssm") or ffn not in ("dense", "none"):
+    if mixer not in ("attn", "ssm") or ffn not in ("dense", "moe", "none"):
         raise NotImplementedError(
-            f"layer spec {spec} is not ported yet: the port runs attention "
-            "and SSM mixers with dense or no FFN (MoE layers are not ported)")
+            f"layer spec {spec} is not ported: the port runs attention and SSM "
+            "mixers with dense, MoE or no FFN")
 
 
 # remat="dots": the 2-D projection products whose outputs are kept
@@ -77,9 +78,15 @@ class Model:
         self.use_kernels = use_kernels
         self.kv_quant = kv_quant    # int8 KV cache (decode)
 
-    def _check_serving(self):
-        if any(mixer == "ssm" for mixer, _ in self.cfg.group):
-            raise NotImplementedError(ssm.SERVING_UNPORTED)
+    def _ffn(self, spec, p, x, rows: bool = False):
+        """The layer's FFN residual: (x, the MoE auxiliary loss or None)."""
+        if spec[1] == "none":
+            return x, None
+        h = L.norm_apply(self.cfg, p["ffn_norm"], x)
+        if spec[1] == "moe":
+            y, aux = moe.apply(self.cfg, p["ffn"], h, rows)
+            return x + y, aux
+        return x + L.mlp_apply(self.cfg, p["ffn"], h, self.use_kernels, rows), None
 
     def _specs(self):
         return [self.cfg.group[i % len(self.cfg.group)]
@@ -92,9 +99,9 @@ class Model:
         mod = ssm if mixer == "ssm" else attention
         p = {"mixer_norm": L.norm_init(cfg, cfg.d_model, generator.device),
              "mixer": mod.init(generator, cfg)}
-        if ffn == "dense":
+        if ffn in ("dense", "moe"):
             p["ffn_norm"] = L.norm_init(cfg, cfg.d_model, generator.device)
-            p["ffn"] = L.mlp_init(generator, cfg)
+            p["ffn"] = L.mlp_init(generator, cfg) if ffn == "dense" else moe.init(generator, cfg)
         return p
 
     def init(self, generator: torch.Generator, quant: QuantConfig | None = None):
@@ -123,15 +130,17 @@ class Model:
 
     # .. full-sequence forward (train) ..
     def _group_apply(self, layers, specs, x):
+        """One group's layers: (x, the sum of their MoE auxiliary losses)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, spec in zip(layers, specs):
             h = L.norm_apply(cfg, p["mixer_norm"], x)
             mod = ssm if spec[0] == "ssm" else attention
             x = x + mod.apply(cfg, p["mixer"], h, use_kernel=self.use_kernels)
-            if spec[1] == "dense":
-                h = L.norm_apply(cfg, p["ffn_norm"], x)
-                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels)
-        return x
+            x, a = self._ffn(spec, p, x)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _embed(self, params, tokens, embeds):
         """The layer stack's input: ``tokens`` embedded, or ``embeds`` in the
@@ -142,25 +151,28 @@ class Model:
 
     def _forward(self, params, tokens, remat: str, embeds=None):
         """Embedding and the layer stack, each group of ``len(cfg.group)``
-        layers under the remat policy.  The layers draw no random numbers,
-        so recomputation keeps no RNG state."""
+        layers under the remat policy: (x, the MoE auxiliary losses summed
+        over the groups).  The layers draw no random numbers, so
+        recomputation keeps no RNG state."""
         cfg = self.cfg
         if remat not in ("none", "full", "dots"):
             raise ValueError(f"remat must be none | full | dots, got {remat!r}")
         x = self._embed(params, tokens, embeds)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         n = len(cfg.group)
         for g in range(cfg.num_groups):
             body = functools.partial(self._group_apply,
                                      params["layers"][g * n:(g + 1) * n], cfg.group)
             if remat == "none":
-                x = body(x)
+                x, a = body(x)
             elif remat == "full":
-                x = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
             else:
-                x = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False,
-                               context_fn=functools.partial(
-                                   create_selective_checkpoint_contexts, _save_dots))
-        return x
+                x, a = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False,
+                                  context_fn=functools.partial(
+                                      create_selective_checkpoint_contexts, _save_dots))
+            aux = aux + a
+        return x, aux
 
     def apply(self, params, tokens=None, *, embeds=None, labels=None, remat: str = "none",
               fused_loss: bool = False, cache=None, write_cache: bool = False,
@@ -188,7 +200,9 @@ class Model:
         if not write_cache:
             return self._apply_full(params, tokens, labels, remat, fused_loss,
                                     last_only, embeds)
-        self._check_serving()
+        if peek and any(m == "ssm" for m, _ in cfg.group):
+            raise ValueError("peek prefill is attention-only: an SSM layer must write "
+                             "its recurrent state through")
         if cache is None:
             raise ValueError("write_cache=True requires a cache from init_cache")
         cpos = torch.as_tensor(cache["pos"]).cpu()
@@ -202,17 +216,22 @@ class Model:
         if start is not None:
             start = start.to(torch.int32)
         rows = attention.plain_path(x, self.use_kernels)
+        # an SSM layer's pads: the positions before each row's start
+        ssm_mask = None
+        if start is not None and any(m == "ssm" for m, _ in cfg.group):
+            ssm_mask = (pos0 + torch.arange(s, device=x.device))[None, :] >= start[:, None]
         layers = list(cache["layers"])
         for i, spec in enumerate(self._specs()):
             p = params["layers"][i]
             h = L.norm_apply(cfg, p["mixer_norm"], x)
-            y, layers[i] = attention.prefill_step(
-                cfg, p["mixer"], h, layers[i], start=start, pos0=pos0,
-                use_kernel=self.use_kernels, write=not peek)
-            x = x + y
-            if spec[1] == "dense":
-                h = L.norm_apply(cfg, p["ffn_norm"], x)
-                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels, rows)
+            if spec[0] == "ssm":
+                y, layers[i] = ssm.prefill_step(cfg, p["mixer"], h, layers[i], mask=ssm_mask,
+                                                use_kernel=self.use_kernels)
+            else:
+                y, layers[i] = attention.prefill_step(
+                    cfg, p["mixer"], h, layers[i], start=start, pos0=pos0,
+                    use_kernel=self.use_kernels, write=not peek)
+            x, _ = self._ffn(spec, p, x + y, rows)
         new_cache = dict(cache)
         new_cache["layers"] = layers
         new_cache["pos"] = cache["pos"] + (0 if peek else s)
@@ -236,10 +255,8 @@ class Model:
     def _apply_full(self, params, tokens, labels, remat, fused_loss, last_only,
                     embeds=None):
         cfg = self.cfg
-        x = self._forward(params, tokens, remat, embeds)
-        # attention, SSM and dense layers carry no auxiliary loss (MoE's is
-        # unported)
-        out = {"aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+        x, aux = self._forward(params, tokens, remat, embeds)
+        out = {"aux_loss": aux}
         if last_only:
             x = x[:, -1:, :]
         x = L.norm_apply(cfg, params["final_norm"], x)
@@ -262,16 +279,18 @@ class Model:
     # .. decode ..
     def init_cache(self, batch: int, max_len: int, kind: str = "paged",
                    **cache_kw):
-        """One KV backend per layer: ``"paged"``, ``"dense"``, ``"ring"`` or
-        ``"auto"`` (the ring for sliding-window models, dense rows
-        otherwise; ``attention.init_cache``); ``cache_kw`` (page_size,
-        pages, mapped) configures the paged pool."""
-        self._check_serving()
+        """One cache per layer: for an attention layer a KV backend,
+        ``"paged"``, ``"dense"``, ``"ring"`` or ``"auto"`` (the ring for
+        sliding-window models, dense rows otherwise;
+        ``attention.init_cache``), ``cache_kw`` (page_size, pages, mapped)
+        configuring the paged pool; for an SSM layer its ``SSMCache``."""
         cfg = self.cfg
-        layers = [attention.init_cache(cfg, batch, max_len, L.cdtype(cfg),
+        layers = [ssm.init_cache(cfg, batch, L.cdtype(cfg), device=self.device)
+                  if spec[0] == "ssm" else
+                  attention.init_cache(cfg, batch, max_len, L.cdtype(cfg),
                                        quantized=self.kv_quant, kind=kind,
                                        device=self.device, **cache_kw)
-                  for _ in range(cfg.num_layers)]
+                  for spec in self._specs()]
         return {"layers": layers, "pos": 0}
 
     def decode_step(self, params, cache, tokens=None, token_mask=None, embeds=None):
@@ -281,10 +300,9 @@ class Model:
         left-pad slots.  ``token_mask`` ([B] bool, as the reference's)
         marks the current token as a pad (sequential prefill of a ragged
         batch): attention layers keep it out of every later query through
-        ``start`` alone, so the step is the same with or without it (the
-        reference's SSM layers carry their state through on a pad; SSM
-        serving is not ported).  Returns (logits [B, V], cache)."""
-        self._check_serving()
+        ``start`` alone, so the step is the same with or without it; SSM
+        layers zero its conv input and carry their state through.  Returns
+        (logits [B, V], cache)."""
         x = self._embed(params, None if tokens is None else tokens[:, None], embeds)
         if token_mask is not None and (token_mask.shape != x.shape[:1]
                                        or token_mask.dtype != torch.bool):
@@ -298,13 +316,15 @@ class Model:
         for i, spec in enumerate(self._specs()):
             p = params["layers"][i]
             h = L.norm_apply(cfg, p["mixer_norm"], x)
-            y, layers[i] = attention.decode_step(
-                cfg, p["mixer"], h, layers[i], pos, start=start,
-                use_kernel=self.use_kernels)
-            x = x + y
-            if spec[1] == "dense":
-                h = L.norm_apply(cfg, p["ffn_norm"], x)
-                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels, rows)
+            if spec[0] == "ssm":
+                y, layers[i] = ssm.decode_step(cfg, p["mixer"], h, layers[i],
+                                               token_mask=token_mask,
+                                               use_kernel=self.use_kernels)
+            else:
+                y, layers[i] = attention.decode_step(
+                    cfg, p["mixer"], h, layers[i], pos, start=start,
+                    use_kernel=self.use_kernels)
+            x, _ = self._ffn(spec, p, x + y, rows)
         x = L.norm_apply(cfg, params["final_norm"], x)
         logits = L.lm_head_apply(cfg, params.get("lm_head"), params["embed"], x, rows)
         new_cache = dict(cache)
@@ -318,38 +338,53 @@ class Model:
         already sampled next token, then the drafts).  Returns (logits
         [B, S, V], cache at pos + S, states): position t's logits are what
         decode at ``pos + t`` gives after the same prefix (bit for bit on
-        the plain path).  ``states`` has one entry per layer, None for
-        every attention layer (SSM serving is not ported)."""
-        self._check_serving()
+        the plain path).  ``states`` has one entry per layer: None for an
+        attention layer, whose rollback is the caller's ``pos`` reset; for
+        an SSM layer its per-step states (an ``SSMCache`` of [B, S, ...]
+        leaves) for ``select_ssm_states``."""
         cfg = self.cfg
         pos = cache["pos"]
         start = cache.get("start")
         x = L.embed_apply(cfg, params["embed"], tokens)
         rows = attention.plain_path(x, self.use_kernels)
         layers = list(cache["layers"])
+        states = [None] * len(layers)
         for i, spec in enumerate(self._specs()):
             p = params["layers"][i]
             h = L.norm_apply(cfg, p["mixer_norm"], x)
-            y, layers[i] = attention.verify_step(
-                cfg, p["mixer"], h, layers[i], pos, start=start,
-                use_kernel=self.use_kernels)
-            x = x + y
-            if spec[1] == "dense":
-                h = L.norm_apply(cfg, p["ffn_norm"], x)
-                x = x + L.mlp_apply(cfg, p["ffn"], h, self.use_kernels, rows)
+            if spec[0] == "ssm":
+                y, layers[i], states[i] = ssm.verify_step(cfg, p["mixer"], h, layers[i],
+                                                          use_kernel=self.use_kernels)
+            else:
+                y, layers[i] = attention.verify_step(
+                    cfg, p["mixer"], h, layers[i], pos, start=start,
+                    use_kernel=self.use_kernels)
+            x, _ = self._ffn(spec, p, x + y, rows)
         x = L.norm_apply(cfg, params["final_norm"], x)
         logits = L.lm_head_apply(cfg, params.get("lm_head"), params["embed"], x, rows)
         new_cache = dict(cache)
         new_cache["layers"] = layers
         new_cache["pos"] = pos + tokens.shape[1]
-        return logits, new_cache, [None] * len(layers)
+        return logits, new_cache, states
 
     def select_ssm_states(self, layers, states, sel):
-        """Roll SSM layer caches back to the post-state at step ``sel[b]``
-        of a verify burst: SSM serving is not ported."""
-        raise NotImplementedError(
-            "select_ssm_states rolls SSM layer states back after a verify burst; "
-            "SSM serving is not ported yet")
+        """Roll every SSM layer cache back to its state after step ``sel[b]``
+        of a burst (``states``: ``verify_step``'s, or a drafter's per-step
+        snapshots stacked the same way); the other layers' caches pass
+        through.  Returns the layers, updated in place."""
+        for c, st in zip(layers, states):
+            if st is not None:
+                one = ssm.select_state(st, sel)
+                c.update(one.conv, one.ssd)
+        return layers
+
+    def _attn_width(self, cache) -> int | None:
+        """Rows per sequence of the attention cache (None: attention-free),
+        the per-chunk prefill bound."""
+        for c, spec in zip(cache["layers"], self._specs()):
+            if spec[0] == "attn":
+                return c.width
+        return None
 
     def prefill(self, params, cache, tokens=None, pad_mask=None,
                 chunk: int | None = None, pos0: int = 0, embeds=None):
@@ -358,18 +393,20 @@ class Model:
         (or ``cfg.prefill_chunk``) splits the prompt into cache-write-through
         chunks, and so does a prompt past the cache's width (a ring it would
         wrap: chunks of at most W rows)."""
-        self._check_serving()
         s0 = (tokens if tokens is not None else embeds).shape[1]
         if pos0 and pad_mask is not None:
             raise ValueError("pos0 > 0 resumes an unpadded prompt; pad_mask "
                              "is unsupported on the resumed-suffix path")
         chunk = chunk if chunk is not None else self.cfg.prefill_chunk
-        width = cache["layers"][0].width
-        if chunk is None and pos0 + s0 <= width:
+        width = self._attn_width(cache)
+        if chunk is None and (width is None or pos0 + s0 <= width):
             out = self.apply(params, tokens, embeds=embeds, cache=cache, write_cache=True,
                              last_only=True, pad_mask=pad_mask, pos0=pos0)
             return out["logits"][:, 0], out["cache"]
-        c = max(int(min(chunk or width, width)), 1)
+        c = chunk or width
+        if width is not None:
+            c = min(c, width)
+        c = max(int(c), 1)
         start = None
         if pad_mask is not None:
             start = s0 - pad_mask.to(torch.int32).sum(dim=1)

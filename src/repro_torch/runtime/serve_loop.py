@@ -76,8 +76,19 @@ The tick uploads its host arrays (block table, tokens, positions) with
 :func:`repro_torch.device.upload`, a pinned non-blocking copy, so that
 dispatching a tick never waits for the one before it.
 
-Not ported (each raises ``NotImplementedError``): SSM targets and
-drafters.
+SSM and hybrid models serve on every backend (their SSM layers keep an
+``SSMCache`` a layer, admitted and restored like the dense rows; the
+paged accounting covers their attention layers, none for an SSM-only
+model), with prefix caching off ("auto" resolves to off, True raises).
+A speculative tick rolls an SSM layer back by selecting its state after
+the accepted tokens: the target's from the verify burst's per-step
+states, the drafter's from a snapshot after each of its decode steps
+(reference :604-640, :1085-1095); an SSM drafter's shadow prefill on
+the prefix route stays unpadded (:929-935), so that its state ends on the
+prompt's last token.  Parking refuses SSM layers: the reference's parked
+record keeps pages only, and the next occupant of the slot overwrites an
+SSM layer's state (the reference's parked stream then differs from the
+unparked one).
 """
 
 from __future__ import annotations
@@ -90,6 +101,7 @@ import torch
 
 from repro_torch.device import upload
 from repro_torch.models import kv_cache
+from repro_torch.models.kv_cache import SSMCache
 from repro_torch.models.transformer import Model
 from repro_torch.runtime import sampling
 from repro_torch.runtime.faults import InjectedFault, fault_point
@@ -103,8 +115,7 @@ def _has_ssm(model: Model) -> bool:
 
 def _check_spec(model: Model, draft: Model, cache_kind: str, spec_k: int,
                 spec_mode: str) -> None:
-    """The reference's guards on a speculative pair (ValueError), then what
-    the port does not serve yet (NotImplementedError)."""
+    """The reference's guards on a speculative pair (ValueError)."""
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
     if spec_mode not in ("match", "rejection"):
@@ -121,10 +132,6 @@ def _check_spec(model: Model, draft: Model, cache_kind: str, spec_k: int,
         raise ValueError(
             f"drafter vocab ({draft.cfg.vocab_size}) != target vocab "
             f"({model.cfg.vocab_size}): speculative pairs must share a tokenizer")
-    if _has_ssm(model) or _has_ssm(draft):
-        raise NotImplementedError(
-            "speculative decoding with SSM layers rolls recurrent state back "
-            "(select_ssm_states); SSM serving is not ported yet")
 
 
 def make_prefill_step(model: Model):
@@ -446,6 +453,7 @@ class ServeEngine:
         dcache["start"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self._dcache = dcache
         self._verifier = sampling.make_spec_verifier(top_k, top_p, spec_mode)
+        self._t_has_ssm, self._d_has_ssm = _has_ssm(model), _has_ssm(draft_model)
 
     @property
     def _paged(self) -> bool:
@@ -551,8 +559,14 @@ class ServeEngine:
 
     @property
     def pool_bytes(self) -> int:
-        """Bytes of every layer's K/V pools (or rows) and int8-KV scales."""
+        """Bytes of every layer's K/V pools (or rows) and int8-KV scales, and
+        of its SSM states (``ssm_bytes``)."""
         return sum(c.nbytes for c in self.cache["layers"])
+
+    @property
+    def ssm_bytes(self) -> int:
+        """Bytes of the SSM layers' states (conv windows and SSD states)."""
+        return sum(c.nbytes for c in self.cache["layers"] if isinstance(c, SSMCache))
 
     @property
     def page_stats(self) -> dict | None:
@@ -737,8 +751,10 @@ class ServeEngine:
             # their pages)
             self._prefix.insert(req.tokens,
                                 [int(p) for p in self._table[slot, :n // self.page_size]])
-            # the drafter shadow-prefills the whole prompt, tail-padded
-            spd = min(_bucket(n, self.prefill_bucket), self.max_len)
+            # the drafter shadow-prefills the whole prompt, tail-padded; an
+            # SSM drafter's state must end on the last real token: unpadded
+            spd = (n if self._spec and self._d_has_ssm
+                   else min(_bucket(n, self.prefill_bucket), self.max_len))
             dtoks = upload([req.tokens + [self.pad_id] * (spd - n)], dev, np.int64)
             dmask, pos, start = None, n, 0
         else:
@@ -850,18 +866,30 @@ class ServeEngine:
         tick_k = min(self.spec_k, self.max_len - 1 - max(int(self._pos[s]) for s in active))
         self._map_tick_pages(tick_k)
         tok0 = upload(self._next_tok, self.device, np.int64)
-        dc, tok, drafts = dict(self._dcache), tok0, []
+        dc, tok, drafts, snaps = dict(self._dcache), tok0, [], []
         for _ in range(tick_k + 1):   # the last step writes the last draft's row
             logits, dc = self.draft_model.decode_step(self.draft_params, dc, tok)
             tok = sampling.greedy(logits).long()
             drafts.append(tok)
+            if self._d_has_ssm:      # each step's SSM states, for the rollback
+                snaps.append([(c.conv, c.ssd) if isinstance(c, SSMCache) else None
+                              for c in dc["layers"]])
         drafts = torch.stack(drafts[:tick_k], dim=1)            # [B, K]
         burst = torch.cat([tok0[:, None], drafts], dim=1)       # [B, K+1]
-        vlogits, self.cache, _ = self.model.verify_step(self.params, self.cache, burst)
+        vlogits, self.cache, states = self.model.verify_step(self.params, self.cache, burst)
         if self._temp.any() or self._truncates:
             toks, n_acc, _ = self._verifier(vlogits, drafts, self._keys, self._temp)
         else:              # all-greedy tick: argmax matching, no generator
             toks, n_acc = sampling.greedy_verify(vlogits, drafts)
+        # SSM rollback: each layer's state after the accepted tokens
+        if self._t_has_ssm:
+            self.model.select_ssm_states(self.cache["layers"], states, n_acc)
+        if self._d_has_ssm:
+            stacked = [None if per is None else SSMCache(
+                torch.stack([s[i][0] for s in snaps], dim=1),
+                torch.stack([s[i][1] for s in snaps], dim=1))
+                for i, per in enumerate(snaps[0])]
+            self.draft_model.select_ssm_states(self._dcache["layers"], stacked, n_acc)
         toks_h, acc_h = toks.cpu().numpy(), n_acc.cpu().numpy()   # the only pulls
         self.spec_stats["ticks"] += 1
         for slot in active:
@@ -989,6 +1017,11 @@ class ServeEngine:
             raise ValueError(
                 "parking speculative engines is unsupported: the drafter's dense "
                 "cache rows cannot survive slot reuse")
+        if _has_ssm(self.model):
+            raise ValueError(
+                "parking SSM / hybrid engines is unsupported: an SSM layer's state "
+                "sits in the slot's rows, which the next occupant overwrites (the "
+                "parked record keeps pages only)")
         st = self._active.pop(slot)
         uid = st.req.uid
         self._parked[uid] = _Parked(

@@ -105,11 +105,22 @@ def test_model_init_quantizes_layer_by_layer():
 
 
 def test_unported_layer_specs_raise():
-    # SSM layers are ported (mamba2-370m builds); MoE layers are not
-    Model(port_reduced(port_get_config("mamba2-370m")), device="cpu")
-    for arch in ("mixtral-8x7b", "jamba-1.5-large"):
-        with pytest.raises(NotImplementedError):
-            Model(port_reduced(port_get_config(arch)), device="cpu")
+    """Every layer spec of the reference's configs is ported: SSM and MoE
+    models build (mamba2-370m, mixtral-8x7b, the hybrid jamba-1.5-large)
+    and run a forward with their auxiliary loss; a spec outside (mixer
+    attn / ssm, FFN dense / moe / none) still raises."""
+    import dataclasses
+    for arch in ("mamba2-370m", "mixtral-8x7b", "jamba-1.5-large"):
+        cfg = port_reduced(port_get_config(arch))
+        model = Model(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        out = model.apply(params, torch.ones((1, 6), dtype=torch.long))
+        assert out["logits"].shape == (1, 6, cfg.padded_vocab)
+        assert (float(out["aux_loss"]) > 0) == (cfg.moe is not None)
+    bad = dataclasses.replace(port_reduced(port_get_config("qwen2.5-3b")),
+                              group=(("attn", "conv"),))
+    with pytest.raises(NotImplementedError):
+        Model(bad, device="cpu")
 
 
 def test_paged_cache_slot_management_moves_indices_only():

@@ -374,9 +374,12 @@ def test_ssm_models_refuse_prefix_sharing():
     model = Model(cfg, device="cpu")
     with pytest.raises(ValueError, match="SSM"):
         ServeEngine(model, {}, slots=2, max_len=32, prefix_cache=True)
-    # "auto" resolves to off; SSM serving itself is not ported yet
-    with pytest.raises(NotImplementedError):
-        ServeEngine(model, {}, slots=2, max_len=32)
+    # "auto" resolves to off, and the engine serves
+    eng = ServeEngine(model, model.init(torch.Generator().manual_seed(0)), slots=2,
+                      max_len=32)
+    assert eng.prefix_stats is None and eng.cache_kind == "paged"
+    eng.submit([3, 1, 4, 1, 5], max_new_tokens=3)
+    assert len(eng.run()[0]) == 3
     dense = Model(port_reduced(port_get_config("qwen2.5-3b")), device="cpu")
     with pytest.raises(ValueError, match="paged backend"):
         ServeEngine(dense, {}, slots=2, max_len=32, cache_kind="dense", prefix_cache=True)

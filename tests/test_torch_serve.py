@@ -117,22 +117,27 @@ def test_temperature_streams_replay_identically(setup):
 
 
 def test_unported_options_raise(setup):
-    """SSM targets are refused (not ported), and so is the ring backend
-    on a model without a sliding window (the reference's ValueError: the
-    ring carries a window mask; windowed models serve on it,
-    tests/test_torch_ring.py); a drafter and the dense backend are
-    accepted and serve the plain paged engine's streams; prefix sharing
-    is accepted: "auto" (the default, as in the reference) and True both
-    serve through the prefix cache on this paged attention-only model, and
-    False bypasses it."""
+    """The ring backend on a model without a sliding window is refused (the
+    reference's ValueError: the ring carries a window mask; windowed
+    models serve on it, tests/test_torch_ring.py); SSM targets, refused
+    until SSM serving was ported, serve (their streams against the
+    reference's: tests/test_torch_ssm_engine.py); a drafter and the dense
+    backend are accepted and serve the plain paged engine's streams;
+    prefix sharing is accepted: "auto" (the default, as in the reference)
+    and True both serve through the prefix cache on this paged
+    attention-only model, and False bypasses it."""
     _, params, prompts = setup
     port_params = bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     model = Model(port_reduced(port_get_config("qwen2.5-3b")), device="cpu")
     ssm = Model(port_reduced(port_get_config("mamba2-370m")), device="cpu")
     with pytest.raises(ValueError, match="sliding_window"):
         ServeEngine(model, port_params, prefix_cache=False, cache_kind="ring")
-    with pytest.raises(NotImplementedError):
-        ServeEngine(ssm, port_params, prefix_cache=False)
+    ssm_engine = ServeEngine(ssm, ssm.init(torch.Generator().manual_seed(0)),
+                             slots=SLOTS, max_len=MAX_LEN, prefix_cache=False)
+    ssm_out = _submit_all(ssm_engine, prompts)
+    assert sorted(ssm_out) == list(range(len(prompts)))
+    assert all(len(v) == NEW for v in ssm_out.values())
+    ssm_engine.check_leaks()
     streams = []
     for kw in ({}, {"prefix_cache": "auto"}, {"prefix_cache": True}, {"prefix_cache": False},
                {"cache_kind": "dense"}, {"draft_model": model, "draft_params": port_params}):

@@ -307,13 +307,16 @@ def test_guards_raise():
         ServeEngine(model, params, **base, draft_model=windowed, draft_params=None)
     with pytest.raises(ValueError, match="ring"):
         ServeEngine(windowed, params, **base, draft_model=windowed, draft_params=None)
+    # SSM targets and drafters, refused until SSM serving was ported, pass
+    # the guards (their streams: tests/test_torch_ssm_serve.py); the
+    # rollback of a model without SSM layers passes every cache through
     ssm = Model(port_reduced(port_get_config("mamba2-370m")), device="cpu")
-    with pytest.raises(NotImplementedError, match="SSM"):
-        ServeEngine(ssm, {}, **base, prefix_cache=False, draft_model=ssm, draft_params={})
-    with pytest.raises(NotImplementedError, match="SSM"):
-        ServeEngine(model, params, **base, draft_model=ssm, draft_params={})
-    with pytest.raises(NotImplementedError, match="SSM serving is not ported"):
-        model.select_ssm_states([], [], None)
+    eng = ServeEngine(ssm, {}, **base, prefix_cache=False, draft_model=ssm, draft_params={})
+    assert eng._t_has_ssm and eng._d_has_ssm
+    eng = ServeEngine(model, params, **base, draft_model=ssm, draft_params={})
+    assert not eng._t_has_ssm and eng._d_has_ssm
+    layers = [object(), object()]
+    assert model.select_ssm_states(layers, [None, None], None) == layers
 
 
 # .. kernel 2 with per-sequence offsets ..

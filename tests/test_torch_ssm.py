@@ -221,13 +221,26 @@ def test_train_cli_runs_on_cpu(capsys):
 
 
 def test_serving_entry_points_raise_for_ssm_models(ref):
+    """SSM serving is ported: the entry points that raised serve.
+    init_cache gives an SSMCache a layer; prefill, decode_step and the
+    cache-writing apply run, the prefill's last logits equal the
+    cache-writing apply's and its decode step's logits are finite; only a
+    read-only peek raises (an SSM layer must write its state through)."""
     model, params, batch = _port(ref)
     toks = batch["tokens"][:, :8]
-    for call in (lambda: model.init_cache(2, 16),
-                 lambda: model.prefill(params, {"layers": [], "pos": 0}, toks),
-                 lambda: model.decode_step(params, {"layers": [], "pos": 0}, toks[:, 0]),
-                 lambda: model.apply(params, toks, cache={"layers": [], "pos": 0},
-                                     write_cache=True),
-                 lambda: ssm.decode_step(None, None, None, None, 0)):
-        with pytest.raises(NotImplementedError, match="SSM serving .* is not ported yet"):
-            call()
+    cache = model.init_cache(2, 16)
+    assert all(isinstance(c, transformer.ssm.SSMCache) for c in cache["layers"])
+    logits, cache = model.prefill(params, cache, toks)
+    assert logits.shape == (2, model.cfg.padded_vocab)
+    step, cache = model.decode_step(params, cache, toks[:, 0])
+    assert cache["pos"] == 9 and torch.isfinite(step).all()
+    out = model.apply(params, toks, cache=model.init_cache(2, 16), write_cache=True,
+                      last_only=True)
+    assert torch.equal(out["logits"][:, 0], logits)
+    with pytest.raises(ValueError, match="peek"):
+        model.apply(params, toks, cache=model.init_cache(2, 16), write_cache=True,
+                    peek=True)
+    one = ssm.init_cache(model.cfg, 2, torch.float32)
+    y, one = ssm.decode_step(model.cfg, params["layers"][0]["mixer"],
+                             torch.zeros((2, 1, model.cfg.d_model)), one)
+    assert y.shape == (2, 1, model.cfg.d_model)
