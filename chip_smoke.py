@@ -206,9 +206,30 @@ Phases (each prints its seconds; any failure exits non-zero):
    global batch 8, microbatch 4, remat full), each step's launches of
    kernels 8 / 8b / 8c checked against 192 / 96 / 96, of each of kernel
    8's three launches (states, carry, outputs) against 192 and of each of
-   8b's two (own, carry) against 96, then
-   one more step under ``torch.profiler``;
-13. a ``kernels`` JSON line, the card line, and the final result line.
+   8b's two (own, carry) against 96; with checkpointing
+   (``repro_torch.checkpoint``): ``train`` saves params, m, v and step
+   after step 2 (~5.0 GB, into ``_ckpt_smoke/`` beside this script; the
+   free disk printed), the host snapshot's and the background write's
+   seconds and the bytes printed, the write running beside step 3; a
+   restore into a fresh build bit-identical to the state saved; step 3
+   again from the in-memory state after step 2 (the repeat) and from the
+   restored state, the stream seeked to 2, each step's launches checked
+   as above: the repeat must equal the uninterrupted step 3 or the resumed
+   step must stay within twice the repeat's difference, and if the repeat
+   is bit-identical the resumed step must be too; the directory is
+   removed; then one more step under ``torch.profiler``;
+13. the paper's encoders and multipliers on the card (``core/encoding``,
+   ``core/multiplier``): every encoding function equal to its CPU
+   result over all int8 / uint8 and 16-bit values, ``ent_multiply`` and
+   ``mbe_multiply`` equal to a * b for all 65,536 int8 pairs, the 16-bit
+   round trip, ``ent_plane_matmul`` (kernel 5) and ``ent_packed_matmul``
+   (kernel 4) equal to the CPU's int32 product at quickstart's shape and
+   at M = 8 / 512, K = 2048, N = 11008 (their launches counted), the
+   planted fault "carry into the next digit ignored" caught; then
+   ``examples/torch_quickstart.py`` (kernels 5 and 4 once each);
+14. the paper tables (``core/paper_tables.ALL_TABLES``) against a fresh
+   CPU process's run of the same module (pure Python: a sanity line);
+15. a ``kernels`` JSON line, the card line, and the final result line.
 
 Without a CUDA card it prints nothing but an error and exits 2.
 """
@@ -221,6 +242,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4620,6 +4642,351 @@ def profile_train_step(torch, step_fn, params, opt, batch, step_wall):
                 top=[(n[:90], sec) for n, sec in top], kernels_ms=ours)
 
 
+def check_train_step(rec, names, expected, tc_names):
+    """One training step's record against its path: each kernel of the
+    path launched its ``expected`` count, the ``tc_names`` all on the
+    tensor-core route, nothing else of the port's kernels, no plain
+    version or plain D_i pass, a finite loss and grad-norm."""
+    got = {n: rec["launches"][n] for n in names}
+    if got != expected:
+        raise AssertionError(f"step {rec['step']}: launches {got}, expected {expected}")
+    routed = {n: rec["tc_launches"][n] for n in tc_names}
+    if routed != {n: expected[n] for n in tc_names}:
+        raise AssertionError(f"step {rec['step']}: tensor-core launches {routed}, "
+                             f"expected all of {expected} (none on the CUDA-core route)")
+    others = {n: c for n, c in rec["launches"].items() if n not in names and c}
+    if others or any(rec["plain_runs"].values()):
+        raise AssertionError(f"step {rec['step']}: other kernels {others} or plain "
+                             f"versions {rec['plain_runs']} ran")
+    if rec["delta_passes"]:
+        raise AssertionError(f"step {rec['step']}: {rec['delta_passes']} plain D_i "
+                             f"passes (bwd_delta) ran on the training path")
+    if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+        raise AssertionError(f"step {rec['step']}: non-finite loss or grad-norm")
+
+
+# the checkpoint phase's directory, inside the checkout (~5 GB for
+# mamba2-370m's params, m and v in float32), removed when the phase ends
+CKPT_DIR = os.path.join(HERE, "_ckpt_smoke")
+
+
+class KeepingCheckpointer:
+    """The port's checkpointer, keeping a device copy of the last tree it
+    saved (the in-memory state the restore is held against, which the
+    training step then overwrites in place)."""
+
+    def __init__(self, torch, directory):
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        self.torch, self.inner = torch, Checkpointer(directory)
+        self.kept = self.saved_step = None
+
+    def save(self, step, tree, **kw):
+        self.kept, self.saved_step = clone_tree(self.torch, tree), step
+        self.inner.save(step, tree, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def clone_tree(torch, tree):
+    from repro_torch.tree import map_tree
+    return map_tree(lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def named_leaves(tree, prefix=""):
+    """(path, leaf) pairs of a param / optimizer tree."""
+    if isinstance(tree, dict):
+        return [p for k in tree for p in named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def tree_difference(torch, a, b):
+    """(max |a - b| over every tensor leaf, the paths of the leaves that
+    differ, whether the non-tensor leaves (the step) agree)."""
+    worst, differ, same_ints = 0.0, [], True
+    for (path, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+        if not isinstance(x, torch.Tensor):
+            same_ints &= x == y
+            continue
+        if not torch.equal(x, y):
+            differ.append(path)
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst, differ, same_ints
+
+
+def checkpoint_resume(torch, ck, cfg, tcfg, ocfg, step_fn, params, opt, stream, read, check,
+                      device):
+    """The checkpoint phase on a training run that has saved step 2 (``ck``,
+    a KeepingCheckpointer) and run step 3 in place into ``params`` /
+    ``opt`` (the uninterrupted step 3): the save's snapshot and write
+    seconds and bytes; a restore into a fresh ``build`` bit-identical to
+    the state saved; step 3 run again from the in-memory state after step
+    2 (the repeat) and from the restored one, each on the stream seeked to
+    2, each step's launches read into its record by ``read`` and held by
+    ``check``.  The repeat is held against
+    the uninterrupted step: if bit-identical, the resumed step must be too,
+    else it must stay within twice the repeat's difference."""
+    from repro_torch.launch import train as launch
+
+    t0 = time.perf_counter()
+    ck.wait()
+    save = dict(ck.last_save, wait_after_step_3_s=time.perf_counter() - t0)
+    shard = os.path.join(ck._step_dir(2), "shard_00000.npz")
+    save["file_bytes"] = os.path.getsize(shard)
+    save["free_gib_after"] = shutil.disk_usage(HERE).free / 2**30
+    print(f"checkpoint of step 2: {save['bytes']} bytes ({save['bytes'] / 2**30:.3f} GiB; "
+          f"file {save['file_bytes']} bytes); host snapshot {save['snapshot_s']:.3f} s, write "
+          f"(npz + sha256, beside step 3) {save['write_s']:.3f} s, waited "
+          f"{save['wait_after_step_3_s']:.3f} s after step 3; {save['free_gib_after']:.2f} GiB "
+          f"free", flush=True)
+    kept = ck.kept
+    t0 = time.perf_counter()
+    _, fresh_p, fresh_o, _ = launch.build(cfg, tcfg, ocfg, seed=1)
+    latest, restored = ck.restore_latest({"params": fresh_p, "opt": fresh_o})
+    del fresh_p, fresh_o
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    worst, differ, same_ints = tree_difference(torch, restored, kept)
+    print(f"restore of step {latest} into a fresh build (sha256 verified): {restore_s:.3f} s; "
+          f"{len(differ)} of {len(named_leaves(kept))} leaves differ from the saved state, step "
+          f"{restored['opt']['adam']['step']} ({'equal' if same_ints else 'DIFFERS'})",
+          flush=True)
+    if latest != 2 or differ or not same_ints:
+        raise AssertionError(f"restored state is not the saved one: step {latest}, leaves "
+                             f"{differ[:5]}, max |diff| {worst}, step counter equal {same_ints}")
+
+    def step3(p, o):
+        stream.seek(2)
+        reset_counts(torch)
+        t = time.perf_counter()
+        p, o, m = step_fn(p, o, launch.to_device(stream.next(), device))
+        rec = dict(step=3, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   lr=m["lr"], seconds=time.perf_counter() - t)
+        read(rec)
+        check(rec)
+        return {"params": p, "opt": o}, rec
+
+    uninterrupted = {"params": params, "opt": opt}
+    repeat, rec_r = step3(*clone_tree(torch, (kept["params"], kept["opt"])))
+    rep_worst, rep_differ, rep_ints = tree_difference(torch, repeat, uninterrupted)
+    del repeat
+    torch.cuda.empty_cache()
+    resumed, rec_s = step3(restored["params"], restored["opt"])
+    res_worst, res_differ, res_ints = tree_difference(torch, resumed, uninterrupted)
+    del resumed, restored, kept
+    ck.kept = None
+    torch.cuda.empty_cache()
+    deterministic = not rep_differ and rep_ints
+    print(f"step 3 again from the in-memory state after step 2: "
+          + ("bit-identical to the uninterrupted step 3" if deterministic else
+             f"differs from the uninterrupted step 3 in {len(rep_differ)} leaves, max |diff| "
+             f"{rep_worst:.3e} (first: {rep_differ[:6]})")
+          + f"; loss {rec_r['loss']:.6f}", flush=True)
+    print(f"step 3 resumed from the restored checkpoint: "
+          + ("bit-identical to the uninterrupted step 3" if not res_differ and res_ints else
+             f"differs in {len(res_differ)} leaves, max |diff| {res_worst:.3e} (first: "
+             f"{res_differ[:6]})")
+          + f"; loss {rec_s['loss']:.6f}", flush=True)
+    if not res_ints:
+        raise AssertionError("resumed step 3: the step counter differs")
+    if deterministic and res_differ:
+        raise AssertionError(f"the step is deterministic but the resumed step 3 differs in "
+                             f"{res_differ[:5]} (max |diff| {res_worst})")
+    if not deterministic and res_worst > 2 * rep_worst:
+        raise AssertionError(f"resumed step 3 differs by {res_worst}, over twice the repeat's "
+                             f"{rep_worst}")
+    return dict(save=save, restore_s=restore_s, deterministic=deterministic,
+                repeat=dict(max_abs=rep_worst, leaves=rep_differ, loss=rec_r["loss"],
+                            seconds=rec_r["seconds"]),
+                resumed=dict(max_abs=res_worst, leaves=res_differ, loss=rec_s["loss"],
+                             launches=rec_s["launches"]))
+
+
+# the multiplier phase's matmul shapes (M, K, N): quickstart's, then the
+# decode tick's and a prefill's row count at qwen2.5-3b's widest projection
+ENC_MATMUL_SHAPES = ((8, 64, 32), (8, 2048, 11008), (512, 2048, 11008))
+
+
+def carry_dropped(real):
+    """Planted fault for the encoder checks: ``ent_encode_unsigned`` with
+    the carry into the next digit ignored (digit 3 still becomes -1), which
+    changes every value with a radix-4 digit 3."""
+    def ent_encode_unsigned(x, n_bits):
+        import torch
+        from repro_torch.core import encoding
+        a = encoding.radix4_digits(x, n_bits)
+        w = torch.where(a >= 3, a - 4, a)
+        return w, torch.zeros(a.shape[:-1], dtype=torch.int32, device=a.device)
+    return ent_encode_unsigned
+
+
+def encoder_products(torch, dev, shapes=ENC_MATMUL_SHAPES, seed=23):
+    """The checks that hold the encoders against integer ground truth on
+    ``dev``: ``ent_multiply`` and ``mbe_multiply`` against a * b for all
+    65,536 int8 pairs, decode(encode(x)) against x for every 16-bit value,
+    and ``ent_plane_matmul`` / ``ent_packed_matmul`` (kernels 5 / 4 on the
+    card) of planes encoded on ``dev`` against the CPU's int32 product at
+    ``shapes``.  Returns {check: number of wrong values}."""
+    from repro_torch.core import encoding, multiplier
+    a = torch.arange(-128, 128, dtype=torch.int32)
+    aa, bb = torch.meshgrid(a, a, indexing="ij")
+    want = aa * bb
+    bad = {}
+    for name in ("ent_multiply", "mbe_multiply"):
+        got = getattr(multiplier, name)(aa.to(dev), bb.to(dev), 8).cpu()
+        bad[name] = int((got != want).sum())
+    u16 = torch.arange(2**16, dtype=torch.int32)
+    w, carry = encoding.ent_encode_unsigned(u16.to(dev), 16)
+    bad["ent decode(encode(x)), 16-bit"] = int(
+        (torch.from_numpy(encoding.ent_decode_unsigned(w, carry)) != u16.long()).sum())
+    gen = torch.Generator().manual_seed(seed)
+    for m, k, n in shapes:
+        x = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8)
+        wt = torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int8)
+        ref = x.to(torch.int32) @ wt.to(torch.int32)
+        planes = multiplier.ent_digit_planes(wt.to(dev))
+        xd = x.to(dev)
+        for name, out in (("ent_plane_matmul", multiplier.ent_plane_matmul(xd, planes)),
+                          ("ent_packed_matmul", multiplier.ent_packed_matmul(
+                              xd, multiplier.pack_planes(planes)))):
+            bad[f"{name} M={m} K={k} N={n}"] = int((out.cpu() != ref).sum())
+    return bad
+
+
+def encoder_functions(torch, dev):
+    """Every ``encoding`` function on ``dev`` against its CPU result over
+    all 256 int8 / uint8 values and all 65,536 16-bit values; returns the
+    names of those that differ."""
+    from repro_torch.core import encoding as E
+    wrong = []
+    for n_bits, lo, hi in ((8, -128, 128), (16, -2**15, 2**15)):
+        s = torch.arange(lo, hi, dtype=torch.int32)
+        u = s - lo
+        digits, _ = E.ent_encode_unsigned(u, n_bits)
+        codes = E.pack_ent_digits(digits)
+        cases = {"radix4_digits": (E.radix4_digits, u, n_bits),
+                 "ent_encode_unsigned": (E.ent_encode_unsigned, u, n_bits),
+                 "ent_encode_signed": (E.ent_encode_signed, s, n_bits),
+                 "ent_encode_bitlevel": (E.ent_encode_bitlevel, u, n_bits),
+                 "mbe_encode": (E.mbe_encode, s, n_bits),
+                 "mbe_control_lines": (E.mbe_control_lines, s, n_bits),
+                 "pack_ent_digits": (E.pack_ent_digits, digits),
+                 "unpack_ent_digits": (E.unpack_ent_digits, codes)}
+        for name, (fn, x, *rest) in cases.items():
+            cpu, card = fn(x, *rest), fn(x.to(dev), *rest)
+            cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+            card = card if isinstance(card, tuple) else (card,)
+            on_dev = all(c.device.type == torch.device(dev).type for c in card)
+            if not on_dev or not all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card)):
+                wrong.append(f"{name} ({n_bits}-bit)")
+        signed = E.ent_encode_signed(s.to(dev), n_bits)
+        if not (E.ent_decode_signed(*signed) == s.numpy()).all():
+            wrong.append(f"ent_decode_signed ({n_bits}-bit)")
+        if not (E.mbe_decode(E.mbe_encode(s.to(dev), n_bits)) == s.numpy()).all():
+            wrong.append(f"mbe_decode ({n_bits}-bit)")
+    return wrong
+
+
+def check_encoders(torch):
+    """The paper's encoders and multipliers on the card (``core/encoding``,
+    ``core/multiplier``): every encoding function equal to its CPU result
+    over all int8 / uint8 and 16-bit values; ``encoder_products`` with no
+    wrong value, kernels 5 and 4 launched through ``ent_plane_matmul`` /
+    ``ent_packed_matmul`` once per shape each (counted, on the routes
+    their cuts give); the planted fault "carry into the next digit ignored"
+    must break the EN-T products (exactly the int8 pairs whose |a| has a
+    radix-4 digit 3 and b != 0; MBE's stay right), the 16-bit round trip
+    and the matmuls."""
+    from repro_torch.core import encoding
+    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul, ent_matmul_packed
+    t0 = time.perf_counter()
+    wrong = encoder_functions(torch, DEV)
+    print(f"encoding on the card vs the CPU (int8, uint8, all 16-bit values): "
+          f"{len(wrong)} functions differ {wrong}", flush=True)
+    if wrong:
+        raise AssertionError(f"encoding functions differ on the card: {wrong}")
+    reset_counts(torch)
+    bad = encoder_products(torch, DEV)
+    launches = {"ent_matmul": ent_matmul.launches, "ent_matmul_packed": ent_matmul_packed.launches,
+                **{k: v for k, v in read_matmul_routes(torch).items()
+                   if k.startswith(("ent_matmul[", "ent_matmul_packed["))}}
+    reset_counts(torch)
+    print(f"multipliers and digit-plane matmuls on the card: wrong values {bad}; kernel "
+          f"launches {launches}", flush=True)
+    if any(bad.values()):
+        raise AssertionError(f"encoder products wrong on the card: {bad}")
+    want = {"ent_matmul": len(ENC_MATMUL_SHAPES), "ent_matmul_packed": len(ENC_MATMUL_SHAPES)}
+    for name in list(want):
+        for m, _, _ in ENC_MATMUL_SHAPES:
+            key = f"{name}[{matmul_route(name, m)}]"
+            want[key] = want.get(key, 0) + 1
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"multiplier matmul launches {launches}, expected {want}")
+    with planted(encoding, "ent_encode_unsigned", carry_dropped):
+        faulty = encoder_products(torch, DEV, ENC_MATMUL_SHAPES[:1])
+    reset_counts(torch)
+    rows_with_3 = sum(any((v >> (2 * j)) & 3 == 3 for j in range(4))
+                      for v in (abs(a) for a in range(-128, 128)))
+    want_bad = rows_with_3 * 255   # a * 0 stays right
+    print(f"planted fault 'carry into the next digit ignored': wrong values {faulty} "
+          f"({rows_with_3} of 256 int8 values have a radix-4 digit 3 in |a|: {want_bad} wrong "
+          f"EN-T products expected, none of MBE's)", flush=True)
+    missed = [k for k, v in faulty.items()
+              if (k == "ent_multiply" and v != want_bad) or (k == "mbe_multiply" and v)
+              or (not k.endswith("multiply") and not v)]
+    if missed:
+        raise AssertionError(f"the planted encoder fault passed checks {missed}")
+    print(f"encoder checks: {time.perf_counter() - t0:.2f}s", flush=True)
+    return dict(launches=launches, wrong=bad, fault=faulty)
+
+
+def check_paper_tables(torch):
+    """``core/paper_tables``' ALL_TABLES on this host, against the same
+    module run in a fresh process without the card (pure Python: a
+    sanity line, not a check of the device); prints the Fig 7 headline."""
+    from repro_torch.core import hwmodel, paper_tables
+    rows = [fn() for fn in paper_tables.ALL_TABLES]
+    script = ("import json; from repro_torch.core.paper_tables import ALL_TABLES; "
+              "print(json.dumps([fn() for fn in ALL_TABLES]))")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=300, check=True,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                                  CUDA_VISIBLE_DEVICES=""))
+    other = json.loads(out.stdout.strip().splitlines()[-1])
+    same = json.loads(json.dumps(rows)) == other
+    heads = {s: hwmodel.scale_average(s) for s in ("256GOPS", "1TOPS", "4TOPS")}
+    print(f"paper tables: {len(rows)} tables, {sum(len(r[0]) for r in rows)} rows, "
+          f"{'equal to' if same else 'DIFFERENT FROM'} a fresh CPU process's; model "
+          "area / energy efficiency gains (paper 8.7 / 12.2 / 11.0%, 13.0 / 17.5 / 15.5%): "
+          + ", ".join(f"{k} +{100 * v['area_eff']:.1f}% / +{100 * v['energy_eff']:.1f}%"
+                      for k, v in heads.items()), flush=True)
+    if not same:
+        raise AssertionError("paper tables differ between this process and a fresh one")
+    return heads
+
+
+def run_quickstart(torch):
+    """``examples/torch_quickstart.py`` on the card: its digit-plane and
+    packed matmuls must launch kernels 5 and 4 (once each)."""
+    import importlib.util
+    path = os.path.join(HERE, "examples", "torch_quickstart.py")
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    from repro_torch.kernels.ent_matmul.ent_matmul import ent_matmul, ent_matmul_packed
+    reset_counts(torch)
+    loss = mod.main([])
+    got = {"ent_matmul": ent_matmul.launches, "ent_matmul_packed": ent_matmul_packed.launches}
+    reset_counts(torch)
+    print(f"examples/torch_quickstart.py on the card: loss {loss:.4f}; launches {got}",
+          flush=True)
+    if got != {"ent_matmul": 1, "ent_matmul_packed": 1} or not math.isfinite(loss):
+        raise AssertionError(f"quickstart: launches {got}, loss {loss}")
+    return got
+
+
 # kernels with a tensor-core route (bf16 operands) beside the CUDA-core one
 TC_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 # the full-width training runs: arch -> (TrainConfig keyword arguments,
@@ -4636,7 +5003,7 @@ TRAIN_RUNS = {
 }
 
 
-def train_full_width(torch, arch):
+def train_full_width(torch, arch, checkpoint=False):
     """Three training steps of full-width ``arch`` (all its layers, random
     float32 master weights from seed 0) in its TRAIN_RUNS configuration
     on ``SyntheticSource(seed=1234)``, through ``repro_torch.launch.train``'s
@@ -4647,8 +5014,11 @@ def train_full_width(torch, arch):
     nothing else of the port's kernels or plain versions, nor the plain D_i
     pass ``bwd_delta`` (kernel 7c writes D_i for 7b); every loss and
     grad-norm must be finite, and the first loss within 2 of ln(vocab)
-    (random weights: the head's unit-variance logits add ~0.5).  Then one
-    more step under the profiler.  Returns the run's record."""
+    (random weights: the head's unit-variance logits add ~0.5).  With
+    ``checkpoint``, the run saves {"params", "opt"} after step 2 through
+    ``train``'s checkpointer (non-blocking: the write runs beside step 3)
+    and ``checkpoint_resume`` checks the restore and the resumed step 3.
+    Then one more step under the profiler.  Returns the run's record."""
     from repro_torch.configs import get_config, get_optim
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticSource, TokenStream
@@ -4661,7 +5031,8 @@ def train_full_width(torch, arch):
     tcfg = TrainConfig(**tkw)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, params, opt, step_fn = launch.build(cfg, tcfg, get_optim(arch), seed=0)
+    ocfg = get_optim(arch)
+    model, params, opt, step_fn = launch.build(cfg, tcfg, ocfg, seed=0)
     torch.cuda.synchronize()
     widths = (f"SSD heads {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} x P "
               f"{cfg.ssm.head_dim}, N {cfg.ssm.state_dim}, groups {cfg.ssm.ngroups}"
@@ -4686,7 +5057,7 @@ def train_full_width(torch, arch):
             return f(*a, **kw)
         return bwd_delta
 
-    def on_step(rec):
+    def read(rec):
         launches, plain_runs = read_counts(torch)
         tc = read_tc_counts(torch)
         reset_counts(torch)
@@ -4694,40 +5065,52 @@ def train_full_width(torch, arch):
                    delta_passes=delta_passes[0],
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         delta_passes[0] = 0
+
+    def on_step(rec):
+        read(rec)
+        # the step right after a non-blocking save runs beside its write
+        rec["beside_write"] = ck is not None and ck.saved_step == rec["step"] - 1
+        launches, tc = rec["launches"], rec["tc_launches"]
         steps.append(rec)
         print(f"  step {rec['step']}: loss {rec['loss']:.4f} grad-norm "
               f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e} time {rec['seconds']:.3f}s "
-              f"tokens/s {rec['tokens_per_s']:.1f} peak {rec['peak_gib']:.2f} GiB; "
+              f"tokens/s {rec['tokens_per_s']:.1f}"
+              f"{' (beside the checkpoint write)' if rec['beside_write'] else ''} peak "
+              f"{rec['peak_gib']:.2f} GiB; "
               f"launches {({n: launches[n] for n in names})}; tensor-core route "
               f"{({n: tc[n] for n in tc_names})}; bwd_delta passes "
               f"{rec['delta_passes']}", flush=True)
 
+    ck = None
+    if checkpoint:
+        free = shutil.disk_usage(HERE).free
+        print(f"checkpoint directory {CKPT_DIR}: {free / 2**30:.2f} GiB free on its disk "
+              f"before the save", flush=True)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        ck = KeepingCheckpointer(torch, CKPT_DIR)
     reset_counts(torch)
-    with planted(fa_mod, "bwd_delta", counted):
-        params, opt, _ = launch.train(step_fn, params, opt, stream, 3, device=model.device,
-                                      log_every=1, on_step=on_step)
-    for rec in steps:
-        got = {n: rec["launches"][n] for n in names}
-        if got != expected:
-            raise AssertionError(f"step {rec['step']}: launches {got}, expected {expected}")
-        routed = {n: rec["tc_launches"][n] for n in tc_names}
-        if routed != {n: expected[n] for n in tc_names}:
-            raise AssertionError(f"step {rec['step']}: tensor-core launches {routed}, "
-                                 f"expected all of {expected} (none on the CUDA-core route)")
-        others = {n: c for n, c in rec["launches"].items() if n not in names and c}
-        if others or any(rec["plain_runs"].values()):
-            raise AssertionError(f"step {rec['step']}: other kernels {others} or plain "
-                                 f"versions {rec['plain_runs']} ran")
-        if rec["delta_passes"]:
-            raise AssertionError(f"step {rec['step']}: {rec['delta_passes']} plain D_i "
-                                 f"passes (bwd_delta) ran on the training path")
-        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
-            raise AssertionError(f"step {rec['step']}: non-finite loss or grad-norm")
+    try:
+        with planted(fa_mod, "bwd_delta", counted):
+            params, opt, _ = launch.train(step_fn, params, opt, stream, 3,
+                                          device=model.device, log_every=1, on_step=on_step,
+                                          ckpt=ck, checkpoint_every=2)
+        for rec in steps:
+            check_train_step(rec, names, expected, tc_names)
+        ckpt = None
+        if checkpoint:
+            with planted(fa_mod, "bwd_delta", counted):
+                ckpt = checkpoint_resume(
+                    torch, ck, cfg, tcfg, ocfg, step_fn, params, opt, stream, read,
+                    lambda rec: check_train_step(rec, names, expected, tc_names), model.device)
+    finally:
+        if checkpoint:
+            ck.wait()
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
     print(f"first step's loss {steps[0]['loss']:.4f} beside ln(vocab) = "
           f"{math.log(cfg.vocab_size):.4f} (limit: within 2)", flush=True)
     if abs(steps[0]["loss"] - math.log(cfg.vocab_size)) > 2:
         raise AssertionError(f"{arch}: first loss {steps[0]['loss']} is not near ln(vocab)")
-    step_wall = statistics.mean(r["seconds"] for r in steps[1:])
+    step_wall = statistics.mean(r["seconds"] for r in steps[1:] if not r["beside_write"])
     with planted(fa_mod, "bwd_delta", counted):
         prof = profile_train_step(torch, step_fn, params, opt,
                                   launch.to_device(stream.next(), model.device), step_wall)
@@ -4736,7 +5119,7 @@ def train_full_width(torch, arch):
     peak = torch.cuda.max_memory_allocated() / 2**30
     del model, params, opt, step_fn
     torch.cuda.empty_cache()
-    return dict(steps=steps, expected=expected, profile=prof, peak_gib=peak,
+    return dict(steps=steps, expected=expected, profile=prof, peak_gib=peak, checkpoint=ckpt,
                 launches={n: sum(r["launches"][n] for r in steps) for n in names},
                 tc_launches={n: sum(r["tc_launches"][n] for r in steps) for n in tc_names},
                 tokens=tcfg.global_batch * tcfg.seq_len)
@@ -5049,9 +5432,18 @@ def main():
                                faults=ssd_train_faults, names=SSD_KERNELS)
     done(t, "SSM training kernels vs plain, mamba2-370m 2 layers")
 
-    t = phase("train mamba2-370m full width")
-    tm = train_full_width(torch, "mamba2-370m")
-    done(t, "train mamba2-370m full width")
+    t = phase("train mamba2-370m full width, checkpoint and resume")
+    tm = train_full_width(torch, "mamba2-370m", checkpoint=True)
+    done(t, "train mamba2-370m full width, checkpoint and resume")
+
+    t = phase("encoders and multipliers")
+    enc = check_encoders(torch)
+    quick = run_quickstart(torch)
+    done(t, "encoders and multipliers")
+
+    t = phase("paper tables")
+    tables = check_paper_tables(torch)
+    done(t, "paper tables")
 
     ent_t, int8 = (serves[c][0] for c in SERVE_CONFIGS)
     at_decode = lambda rows: next(r for r in rows if r["M"] == 8 and r["N"] == 11008)  # noqa: E731
@@ -5198,10 +5590,19 @@ def main():
         entry("ent_matmul", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:75",
               mm["ent_matmul"], at_decode, legacy["ent_matmul"],
               launches_from="2-layer run with legacy 4-plane records",
+              launches_multiplier={k: v for k, v in enc["launches"].items()
+                                   if k.startswith("ent_matmul") and "packed" not in k},
+              launches_quickstart=quick["ent_matmul"],
               **routed("ent_matmul", legacy, legacy)),
         entry("ent_matmul_packed", "src/repro_torch/csrc/ent_matmul.cu", f"{ent}:205",
-              mm["ent_matmul_packed"], at_decode, ent_t["ent_matmul_packed"],
-              launches_from="no serving path; run by the kernel checks only",
+              mm["ent_matmul_packed"], at_decode,
+              enc["launches"]["ent_matmul_packed"] + quick["ent_matmul_packed"],
+              launches_from=("core/multiplier.ent_packed_matmul: the multiplier phase (M, K, N "
+                             f"= {ENC_MATMUL_SHAPES}) and examples/torch_quickstart.py; no "
+                             "serving path"),
+              launches_multiplier={k: v for k, v in enc["launches"].items()
+                                   if k.startswith("ent_matmul_packed")},
+              launches_quickstart=quick["ent_matmul_packed"],
               **routed("ent_matmul_packed", ent_t, serves[config_of["ent_matmul_packed_fused"]][2])),
     ]
     sched_launches = sched["a"]["runs"][1]["launches"]
@@ -5318,9 +5719,22 @@ def main():
         kernels_vs_plain_2_layers=serving_2l["mamba2-370m"]))
     for arch, run in (("minicpm-2b", tr), ("mamba2-370m", tm)):
         steps = run["steps"]
+        beside = [r["step"] for r in steps if r["beside_write"]]
+        note = (f" (step {beside[0]} beside the checkpoint write; step 3 alone, the repeat "
+                f"from memory, {run['checkpoint']['repeat']['seconds']:.4f} s)" if beside else "")
         print(f"train {arch}: step seconds {[round(r['seconds'], 4) for r in steps]}, "
-              f"tokens/s {[round(r['tokens_per_s'], 2) for r in steps]}, peak "
+              f"tokens/s {[round(r['tokens_per_s'], 2) for r in steps]}{note}, peak "
               f"{run['peak_gib']:.2f} GiB")
+    ckr = tm["checkpoint"]
+    print(f"checkpoint mamba2-370m: {ckr['save']['bytes']} bytes, snapshot "
+          f"{ckr['save']['snapshot_s']:.3f} s, write {ckr['save']['write_s']:.3f} s, restore "
+          f"{ckr['restore_s']:.3f} s; training step deterministic on the card: "
+          f"{ckr['deterministic']}; resumed step 3 max |diff| {ckr['resumed']['max_abs']:.3e} "
+          f"(repeat {ckr['repeat']['max_abs']:.3e})")
+    print(f"encoders: kernel 5 / 4 launches through core/multiplier {enc['launches']}; "
+          f"quickstart {quick}; Fig 7 model gains "
+          + ", ".join(f"{k} +{100 * v['area_eff']:.1f}% / +{100 * v['energy_eff']:.1f}%"
+                      for k, v in tables.items()))
     for config in SERVE_CONFIGS:
         print(f"serve tokens/s [{config}] {serves[config][1]:.3f}")
     print(f"serve tokens/s [EN-T w8a8, bf16 KV, shared prefix] {shared[1]:.3f}")

@@ -1,7 +1,7 @@
 """EN-T quantized serving on the PyTorch port: encode the weights once
 into packed digit planes, then generate with the float and the w8a8
-params and compare the greedy tokens.  (The reference example's modeled
-TCU savings come from ``core/hwmodel.py``, which the port does not carry.)
+params and compare the greedy tokens, then print what the EN-T encoding
+buys a serving TCU in the paper's hardware model (``core/hwmodel.py``).
 
     PYTHONPATH=src python examples/torch_serve_quantized.py [--device cpu]
 """
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.configs.base import QuantConfig
+from repro_torch.core import hwmodel
 from repro_torch.models.transformer import Model
 from repro_torch.quant.quantize import quantize_params
 from repro_torch.runtime.serve_loop import generate
@@ -51,3 +52,10 @@ q_out = generate(model, qparams, prompt, steps=8).cpu().numpy()
 print("float tokens :", f_out[0].tolist())
 print("w8a8  tokens :", q_out[0].tolist())
 print(f"greedy agreement: {np.mean(f_out == q_out) * 100:.0f}%")
+
+# What the EN-T TCU serving this model saves (paper Fig 7 @ 1 TOPS):
+for arch in ("systolic_ws", "2d_matrix"):
+    imp = hwmodel.improvement(arch, 32)
+    print(f"  serving TCU {arch}: area-eff +{imp['area_eff'] * 100:.1f}% "
+          f"energy-eff +{imp['energy_eff'] * 100:.1f}% "
+          f"({imp['encoders_saved']} encoders removed)")

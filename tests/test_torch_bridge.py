@@ -45,7 +45,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        assert len(names) >= 67, names
+        assert len(names) >= 77, names
+        for n in ("checkpoint.checkpointer", "core.encoding", "core.gates", "core.hwmodel",
+                  "core.networks", "core.soc", "core.paper_tables", "core.fit_hwmodel"):
+            assert "repro_torch." + n in names, names
         assert "repro_torch.kernels.int8_matmul.int8_matmul" in names, names
         assert "repro_torch.launch.train" in names, names
         assert "repro_torch.runtime.server" in names, names
@@ -56,6 +59,30 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                                          "OMP_NUM_THREADS": "1"},
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_scripts_import_no_jax_and_nothing_of_repro():
+    """chip_smoke.py and the port's examples (examples/torch_*.py) name no
+    module of JAX or of the reference in any import."""
+    import ast
+    import glob
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    paths = [os.path.join(root, "chip_smoke.py"),
+             *sorted(glob.glob(os.path.join(root, "examples", "torch_*.py")))]
+    assert len(paths) >= 5
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "jaxlib", "repro", "benchmarks"), \
+                    (path, m)
 
 
 def test_configs_are_copies_of_the_reference():

@@ -18,9 +18,6 @@ element."""
 import dataclasses
 import functools
 import json
-import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -32,6 +29,7 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import _torch_ref_proc as ref_proc  # noqa: E402
 from repro.configs import QuantConfig as RefQuantConfig  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import reduced_config as ref_reduced  # noqa: E402
@@ -287,7 +285,7 @@ _REF_SCRIPT = textwrap.dedent("""
         for n in lens:
             eng.submit(rng.integers(1, cfg.vocab_size, n).tolist(), max_new_tokens=new)
         out[name] = {str(u): v for u, v in eng.run().items()}
-    print(json.dumps(out))
+    print("RESULT " + json.dumps(out))
 """)
 
 
@@ -297,17 +295,11 @@ def _ref_engine_streams():
     one a case, side by side (its chunked admission, which the ring's
     prompts past the window take, has been seen to depend on what ran
     before it in a test worker)."""
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
-    env = dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _REF_SCRIPT, json.dumps([{k: v}, PROMPT_LENS, NEW])],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for k, v in ENGINE_CASES.items()]
+    procs = [ref_proc.start(_REF_SCRIPT, [json.dumps([{k: v}, PROMPT_LENS, NEW])])
+             for k, v in ENGINE_CASES.items()]
     out = {}
     for proc in procs:
-        stdout, stderr = proc.communicate(timeout=300)
-        assert proc.returncode == 0, stderr
-        out.update(json.loads(stdout.strip().splitlines()[-1]))
+        out.update(ref_proc.finish(proc))
     return out
 
 
@@ -324,6 +316,7 @@ def test_greedy_streams_equal_reference_engine(case):
     for n in PROMPT_LENS:
         eng.submit(rng.integers(1, cfg.vocab_size, n).tolist(), max_new_tokens=NEW)
     got = eng.run()
-    assert got == want
+    diff = ref_proc.first_difference(got, want, f"{case}: ")
+    assert diff is None, diff
     assert all(len(v) == NEW for v in got.values())
     eng.check_leaks()

@@ -18,9 +18,6 @@
 
 import functools
 import json
-import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -31,6 +28,7 @@ torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
+import _torch_ref_proc as ref_proc  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import reduced_config as ref_reduced  # noqa: E402
 from repro.models.transformer import build_model as ref_build  # noqa: E402
@@ -145,7 +143,7 @@ _REF_SCRIPT = textwrap.dedent("""
         for toks, mx, temp in reqs:
             sched.submit(toks, max_new_tokens=mx, temperature=temp)
         out[name] = {str(u): v for u, v in sched.run().items()}
-    print(json.dumps(out))
+    print("RESULT " + json.dumps(out))
 """)
 
 
@@ -153,13 +151,7 @@ _REF_SCRIPT = textwrap.dedent("""
 def _ref_scheduler_streams():
     """The reference scheduler's greedy streams for every REF_CASES entry,
     computed in a fresh process."""
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
-    env = dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _REF_SCRIPT], capture_output=True, text=True,
-                         env=env, timeout=300,
-                         input=json.dumps([REF_CASES, _requests(4, temps=(0.0,))]))
-    assert out.returncode == 0, out.stderr
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return ref_proc.run(_REF_SCRIPT, stdin=json.dumps([REF_CASES, _requests(4, temps=(0.0,))]))
 
 
 @pytest.mark.parametrize("case", sorted(REF_CASES))
@@ -171,7 +163,8 @@ def test_greedy_streams_equal_reference_scheduler(case):
     model = Model(CFG, device="cpu")
     port_params = bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     got, _ = _scheduled(model, port_params, _requests(4, temps=(0.0,)), sched_kw, **engine_kw)
-    assert got == want
+    diff = ref_proc.first_difference(got, want, f"{case}: ")
+    assert diff is None, diff
     assert len(got) == 4 and all(len(v) == 6 for v in got.values())
 
 

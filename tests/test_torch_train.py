@@ -266,7 +266,7 @@ def test_config_dataclasses_have_the_reference_fields_and_defaults():
             [(k, v.replace("repro_torch.", "")) for k, v in port], n
 
 
-def test_train_cli_runs_on_cpu_and_needs_a_card_by_default(capsys):
+def test_train_cli_runs_on_cpu_and_needs_a_card_by_default(capsys, tmp_path):
     records = port_train.main(["--arch", "minicpm-2b", "--smoke", "--steps", "3",
                                "--device", "cpu", "--log-every", "1"])
     out = capsys.readouterr().out
@@ -276,9 +276,13 @@ def test_train_cli_runs_on_cpu_and_needs_a_card_by_default(capsys):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         port_train.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu",
                          "--mesh", "2x2"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_train.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu",
-                         "--ckpt", "ck"])
+    # --ckpt is ported: with no checkpoint there the run starts at step 0
+    # (and saves none before TrainConfig.checkpoint_every, 500 steps)
+    ck = tmp_path / "ck"
+    again = port_train.main(["--arch", "minicpm-2b", "--smoke", "--steps", "3",
+                             "--device", "cpu", "--log-every", "1", "--ckpt", str(ck)])
+    assert [(r["step"], r["loss"]) for r in again] == [(r["step"], r["loss"]) for r in records]
+    assert ck.is_dir() and not any(ck.iterdir())
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
