@@ -229,7 +229,20 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``examples/torch_quickstart.py`` (kernels 5 and 4 once each);
 14. the paper tables (``core/paper_tables.ALL_TABLES``) against a fresh
    CPU process's run of the same module (pure Python: a sanity line);
-15. a ``kernels`` JSON line, the card line, and the final result line.
+15. multi-device under an NCCL process group of world 1 (a ``FileStore``
+   in a temporary directory) on a 1x1 ("data", "model") mesh: (a)
+   full-width mamba2-370m in phase 12's configuration, one plain step and
+   one through the sharded step (``make_train_step(..., data_axes="data",
+   grad_shardings=...)``) from two copies of one seeded state: loss,
+   grad-norm and every leaf of params, m and v bit-identical, kernels 8 /
+   8b / 8c launched 192 / 96 / 96 by each, both steps' times and peaks;
+   (b) one full-width mixtral-8x7b MoE layer (bf16) through
+   ``moe.apply_sharded`` and ``moe.apply`` at T = 8 and T = 4096: outputs
+   and, at T = 4096, the input and expert gradients within the relative
+   L2 limit ``tests/test_torch_moe_sharded.py`` derives, the planted
+   fault "one expert's gate dropped from the combine" over it, both
+   paths timed; (c) the process group destroyed;
+16. a ``kernels`` JSON line, the card line, and the final result line.
 
 Without a CUDA card it prints nothing but an error and exits 2.
 """
@@ -4712,7 +4725,7 @@ def tree_difference(torch, a, b):
             continue
         if not torch.equal(x, y):
             differ.append(path)
-            worst = max(worst, float((x.double() - y.double()).abs().max()))
+            worst = max(worst, float((x.detach().double() - y.detach().double()).abs().max()))
     return worst, differ, same_ints
 
 
@@ -5125,6 +5138,223 @@ def train_full_width(torch, arch, checkpoint=False):
                 tokens=tcfg.global_batch * tcfg.seq_len)
 
 
+# --- phase 15: multi-device under an NCCL world of 1 ---------------------------
+# The card's machine has one H100, and NCCL puts no two ranks of a
+# communicator on one card: the partitioning across ranks is checked on
+# the CPU with gloo worlds of 2..8 (tests/test_torch_{sharding,
+# distributed,moe_sharded,pipeline}.py); here the sharded path runs on a
+# 1x1 (data, model) mesh over NCCL: its wiring, the kernels under it, its
+# memory at full width.
+
+# relative L2 limit of apply_sharded against moe.apply in bf16 (outputs and
+# gradients), derived in tests/test_torch_moe_sharded.py (MOE_BF16_RTOL):
+# the paths' expert products may round 1 bf16 ulp apart (2^-8 relative)
+MOE_SHARDED_RTOL = 2.0**-6
+MOE_SHARDED_T = (8, 4096)   # a decode tick's slots, one 4,096-token row
+
+
+@contextlib.contextmanager
+def nccl_world(torch):
+    """An NCCL process group of world 1 on cuda:0, rendezvous through a
+    FileStore in a temporary directory, and a 1x1 ("data", "model") mesh
+    over it; destroyed on the way out, so later phases run as before."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, device_id=torch.device(DEV, 0))
+        try:
+            yield make_mesh((1, 1), ("data", "model"))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sharded_train_step(torch, mesh):
+    """(a) Full-width mamba2-370m in phase 12's configuration: two copies of
+    one seeded state (AdamW updates in place), one plain step and one
+    through ``make_train_step(..., data_axes="data", grad_shardings=...)``
+    on the 1x1 mesh, on the same batch.  Loss, grad-norm and every leaf of
+    params, m and v must be bit-identical, and each step must launch
+    kernels 8 / 8b / 8c as phase 12's steps do and nothing else.  Returns
+    each step's time, peak, transient and launches."""
+    from repro_torch import sharding
+    from repro_torch.configs import get_config, get_optim
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticSource, TokenStream
+    from repro_torch.launch import train as launch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.train_loop import init_opt_state, make_train_step
+
+    arch = "mamba2-370m"
+    tkw, per_layer, _ = TRAIN_RUNS[arch]
+    cfg, tcfg, ocfg = get_config(arch), TrainConfig(**tkw), get_optim(arch)
+    model, params, opt, plain_step = launch.build(cfg, tcfg, ocfg, seed=0)
+    specs = sharding.params_shardings(params, mesh)
+    copies = {"plain": (plain_step, params, opt)}
+    local = sharding.local_shard_tree(params, specs, mesh)
+    sharded = make_train_step(build_model(cfg, dist=(mesh, "data")), ocfg, tcfg,
+                              data_axes="data", grad_shardings=specs)
+    copies["sharded"] = (sharded, local, init_opt_state(tcfg, local))
+    stream = TokenStream(SyntheticSource(cfg.vocab_size, seed=1234),
+                         global_batch=tcfg.global_batch, seq_len=tcfg.seq_len)
+    batch = launch.to_device(stream.next(), model.device)
+    n_micro = tcfg.global_batch // tcfg.microbatch
+    expected = {n: k * cfg.num_layers * n_micro for n, k in per_layer.items()}
+    names = tuple(per_layer)
+    runs = {}
+    for label, (step, p, o) in copies.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(torch)
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, batch)
+        loss = float(m["loss"])
+        seconds = time.perf_counter() - t0
+        launches, plain_runs = read_counts(torch)
+        rec = dict(step=label, loss=loss, grad_norm=float(m["grad_norm"]), seconds=seconds,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   transient_gib=(torch.cuda.max_memory_allocated() - before) / 2**30,
+                   launches=launches, plain_runs=plain_runs, tc_launches=read_tc_counts(torch),
+                   delta_passes=0, metrics=m, state=(p, o))
+        check_train_step(rec, names, expected, ())
+        runs[label] = rec
+        print(f"  {label} step: loss {loss:.6f} grad-norm {rec['grad_norm']:.6f} time "
+              f"{seconds:.3f}s peak {rec['peak_gib']:.2f} GiB (the step's own "
+              f"{rec['transient_gib']:.2f} GiB); launches {({n: launches[n] for n in names})}",
+              flush=True)
+    a, b = runs["plain"], runs["sharded"]
+    same = {k: bool(torch.equal(a["metrics"][k], b["metrics"][k])) for k in ("loss", "grad_norm")}
+    (pa, oa), (pb, ob) = a["state"], b["state"]
+    diffs = {}
+    for k, x, y in (("params", pa, pb), ("m", oa["adam"]["m"], ob["adam"]["m"]),
+                    ("v", oa["adam"]["v"], ob["adam"]["v"])):
+        worst, differ, _ = tree_difference(torch, x, y)
+        diffs[k] = dict(leaves=len(named_leaves(x)), differ=len(differ), max_abs=worst)
+    differing = {k: f"{d['differ']} of {d['leaves']}" for k, d in diffs.items()}
+    print(f"  sharded vs plain: loss / grad-norm bit-identical {same}; leaves differing "
+          f"{differing}", flush=True)
+    if not all(same.values()) or any(d["differ"] for d in diffs.values()):
+        raise AssertionError(f"sharded step at world 1 differs from the plain step: {same}, "
+                             f"{diffs}")
+    for r in runs.values():
+        del r["metrics"], r["state"]
+    del copies, params, opt, local, model, a, b, pa, oa, pb, ob
+    torch.cuda.empty_cache()
+    return dict(runs=runs, expected=expected, leaves=diffs)
+
+
+def rel_l2(torch, a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def drop_expert0_gate(real):
+    """The planted fault "one expert's gate dropped from the combine":
+    ``moe.route`` with every gate of expert 0 zeroed."""
+    def route(cfg, p, xt, rows=False):
+        probs, gates, idx = real(cfg, p, xt, rows)
+        return probs, gates.masked_fill(idx == 0, 0.0), idx
+    return route
+
+
+def moe_layer_sharded(torch, mesh, timer):
+    """(b) One full-width mixtral-8x7b MoE layer (d_model 4096, 8 experts of
+    d_ff 14336, top-2, capacity factor 1.25, bf16), seeded, through
+    ``apply_sharded`` on the 1x1 mesh and through ``moe.apply``, at T = 8
+    and T = 4096 tokens: outputs within MOE_SHARDED_RTOL (relative L2); at
+    T = 4096 the input gradient and the three expert-stack gradients under
+    one seeded cotangent within the same limit; the planted fault "one
+    expert's gate dropped from the combine" must read over it.  Both paths
+    timed (forward; forward + backward at T = 4096)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    g = torch.Generator(device=DEV).manual_seed(31)
+    p = moe.init(g, cfg)
+    experts = ("wi_gate", "wi_up", "wo")
+    sharded = lambda x: moe.apply_sharded(cfg, p, x, mesh, "data")   # noqa: E731
+    plain = lambda x: moe.apply(cfg, p, x)                            # noqa: E731
+    rows = []
+    for t in MOE_SHARDED_T:
+        x = torch.randn((t, 1, cfg.d_model) if t <= 8 else (1, t, cfg.d_model), generator=g,
+                        device=DEV).to(torch.bfloat16)
+        with torch.no_grad():
+            ys, aux_s = sharded(x)
+            yp, aux_p = plain(x)
+            with planted(moe, "route", drop_expert0_gate):
+                yf, _ = sharded(x)
+            row = dict(T=t, capacity=moe.capacity(cfg, t), y=rel_l2(torch, ys, yp),
+                       aux_abs=abs(float(aux_s) - float(aux_p)), fault=rel_l2(torch, yf, yp),
+                       ms=timer(lambda: sharded(x), reps=5), plain_ms=timer(lambda: plain(x),
+                                                                              reps=5))
+        if t == MOE_SHARDED_T[-1]:
+            dy = torch.randn(yp.shape, generator=g, device=DEV).to(torch.bfloat16)
+
+            def fwd_bwd(fn):
+                """x's and the expert stacks' gradients under the cotangent dy."""
+                xg = x.detach().clone().requires_grad_(True)
+                for n in experts:
+                    p[n].grad = None
+                y, _ = fn(xg)
+                y.backward(dy)
+                return {"x": xg.grad, **{n: p[n].grad for n in experts}}
+
+            for n in experts:
+                p[n].requires_grad_(True)
+            grads = {label: fwd_bwd(fn) for label, fn in (("sharded", sharded),
+                                                            ("plain", plain))}
+            row["grads"] = {k: rel_l2(torch, grads["sharded"][k], grads["plain"][k])
+                            for k in grads["plain"]}
+            del grads
+            row["fwd_bwd_ms"] = timer(lambda: fwd_bwd(sharded), reps=3)
+            row["fwd_bwd_plain_ms"] = timer(lambda: fwd_bwd(plain), reps=3)
+            for n in experts:
+                p[n].requires_grad_(False)
+                p[n].grad = None
+        rows.append(row)
+        print(f"  T {t} (capacity {row['capacity']}): y relative L2 {row['y']:.3e}, aux |diff| "
+              f"{row['aux_abs']:.3e}, fault {row['fault']:.3e} (limit {MOE_SHARDED_RTOL:.3e}); "
+              f"apply_sharded {row['ms']:.4f} ms, moe.apply {row['plain_ms']:.4f} ms"
+              + (f"; gradients {({k: f'{v:.3e}' for k, v in row['grads'].items()})}; fwd+bwd "
+                 f"{row['fwd_bwd_ms']:.4f} / {row['fwd_bwd_plain_ms']:.4f} ms"
+                 if "grads" in row else ""), flush=True)
+        worst = max([row["y"]] + list(row.get("grads", {}).values()))
+        if not worst <= MOE_SHARDED_RTOL:
+            raise AssertionError(f"apply_sharded vs moe.apply at T {t}: {worst:.3e} > "
+                                 f"{MOE_SHARDED_RTOL:.3e}")
+        if not row["fault"] > MOE_SHARDED_RTOL:
+            raise AssertionError(f"planted fault (expert 0's gate dropped) not caught at T {t}: "
+                                 f"{row['fault']:.3e}")
+    del p
+    torch.cuda.empty_cache()
+    return rows
+
+
+def multi_device(torch):
+    """Phase 15: (a) and (b) under an NCCL world of 1, then (c) the group
+    destroyed."""
+    import torch.distributed as dist
+    with nccl_world(torch) as mesh:
+        print(f"NCCL world of {dist.get_world_size()} (backend {dist.get_backend()}), mesh "
+              f"{mesh.shape}", flush=True)
+        step = sharded_train_step(torch, mesh)
+        timer = Timer(torch)
+        layer = moe_layer_sharded(torch, mesh, timer)
+        del timer
+    if dist.is_initialized():
+        raise AssertionError("the NCCL process group outlived the phase")
+    torch.cuda.empty_cache()
+    return dict(step=step, moe=layer)
+
+
 # the tensor-core kernels by wrapper name, and their kind index of
 # flash_attention_tc_smem
 TC_SOURCES = {"flash_attention_masked": ("flash_fwd_masked_tc", 3),
@@ -5445,6 +5675,10 @@ def main():
     tables = check_paper_tables(torch)
     done(t, "paper tables")
 
+    t = phase("multi-device, NCCL world of 1")
+    multi = multi_device(torch)
+    done(t, "multi-device, NCCL world of 1")
+
     ent_t, int8 = (serves[c][0] for c in SERVE_CONFIGS)
     at_decode = lambda rows: next(r for r in rows if r["M"] == 8 and r["N"] == 11008)  # noqa: E731
 
@@ -5700,6 +5934,8 @@ def main():
             extra["note"] = ("backward of ssd_scan (:72); the reference has no backward "
                              "kernel and differentiates ssd_scan_chunked "
                              "(src/repro/kernels/ssd_scan/ref.py:56)")
+        extra["launches_sharded_step"] = {
+            label: r["launches"][name] for label, r in multi["step"]["runs"].items()}
         kernels.append(entry(name, "src/repro_torch/csrc/ssd_scan.cu", f"{ssd}:72",
                              k8[name], lambda rows: rows[-1], tm["launches"][name], **extra))
     kernels.append(entry(
@@ -5781,6 +6017,15 @@ def main():
           + "; ".join(f"{k}: ttft p50 {v['ttft']['p50_us']} us, itl p50 / p99 "
                       f"{v['inter_token']['p50_us']} / {v['inter_token']['p99_us']} us"
                       for k, v in sched["d"].items()))
+    runs = multi["step"]["runs"]
+    print("multi-device (NCCL world of 1, 1x1 mesh), mamba2-370m step: "
+          + "; ".join(f"{k} {r['seconds']:.4f} s, peak {r['peak_gib']:.2f} GiB (the step's own "
+                      f"{r['transient_gib']:.2f})" for k, r in runs.items())
+          + "; bit-identical; mixtral-8x7b MoE layer apply_sharded / moe.apply: "
+          + "; ".join(f"T {r['T']} {r['ms']:.4f} / {r['plain_ms']:.4f} ms (y {r['y']:.3e}, "
+                      f"fault {r['fault']:.3e})" for r in multi["moe"])
+          + f"; fwd+bwd at T {multi['moe'][-1]['T']} {multi['moe'][-1]['fwd_bwd_ms']:.4f} / "
+          f"{multi['moe'][-1]['fwd_bwd_plain_ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

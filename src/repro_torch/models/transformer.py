@@ -26,6 +26,12 @@ reference: the audio and VLM configs' stub frontends hand the backbone
 frame or patch embeddings.  ``init_cache(kind="auto")`` resolves to the
 sliding-window ring for windowed models and dense rows otherwise.
 
+``Model(..., dist=(mesh, data_axes))`` sends every MoE FFN through
+``moe.apply_sharded`` (the training forward, prefill, decode and
+verify), as the reference's ``_moe_apply`` does; every tensor a layer
+sees is then the rank's own rows (``sharding.batch_pspec``) and the
+params are whole (the train step gathers them).
+
 ``Model(..., kv_quant=True)`` serves from an int8 KV cache with bf16
 per-(row, head) scales, as the reference's ``Model(kv_quant=True)``.
 ``Model(..., use_kernels=False)`` runs every kernel's plain PyTorch
@@ -70,13 +76,14 @@ class Model:
     write-through prefill) / init_cache / prefill / decode_step."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 use_kernels: bool = True, kv_quant: bool = False):
+                 use_kernels: bool = True, kv_quant: bool = False, dist=None):
         for spec in cfg.group:
             _check_spec(spec)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernels = use_kernels
         self.kv_quant = kv_quant    # int8 KV cache (decode)
+        self.dist = dist            # (mesh, data axes): MoE FFNs expert-parallel
 
     def _ffn(self, spec, p, x, rows: bool = False):
         """The layer's FFN residual: (x, the MoE auxiliary loss or None)."""
@@ -84,7 +91,11 @@ class Model:
             return x, None
         h = L.norm_apply(self.cfg, p["ffn_norm"], x)
         if spec[1] == "moe":
-            y, aux = moe.apply(self.cfg, p["ffn"], h, rows)
+            if self.dist is not None:
+                mesh, data_axes = self.dist
+                y, aux = moe.apply_sharded(self.cfg, p["ffn"], h, mesh, data_axes)
+            else:
+                y, aux = moe.apply(self.cfg, p["ffn"], h, rows)
             return x + y, aux
         return x + L.mlp_apply(self.cfg, p["ffn"], h, self.use_kernels, rows), None
 

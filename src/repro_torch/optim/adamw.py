@@ -29,10 +29,12 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scales ``grads`` in place to a global norm of at most ``max_norm``;
-    returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    returns (grads, the norm before clipping).  ``norm``: the norm to clip
+    by, when ``grads`` are a rank's shards of a larger gradient."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
     for g in leaves(grads):
         g.mul_(scale)
@@ -40,15 +42,18 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def update(cfg: OptimConfig, grads, state, params):
+def update(cfg: OptimConfig, grads, state, params, norm=None):
     """One AdamW step, in place: ``params``, ``state["m"]`` and
     ``state["v"]`` are overwritten (and float32 ``grads`` clipped in
-    place).  Returns (params, new state, {"grad_norm", "lr"})."""
+    place).  ``norm``: the global norm of the whole gradient, when
+    ``grads``, ``state`` and ``params`` are a rank's shards (the norm of
+    the shards alone differs on every rank).  Returns (params, new state,
+    {"grad_norm", "lr"})."""
     grads = map_tree(lambda g: g.to(torch.float32), grads)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if norm is None else norm
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     f = np.float32

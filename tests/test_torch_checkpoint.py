@@ -272,5 +272,6 @@ def test_cli_resume_records_equal_uninterrupted(tmp_path, monkeypatch):
 
 
 def test_mesh_still_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh of more than one rank runs only under torchrun; outside it, refused
+    with pytest.raises(RuntimeError, match="mesh 2x1 .* torchrun"):
         launch.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu", "--mesh", "2x1"])
