@@ -354,9 +354,33 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in evs)
 
 
-def bound_ms(nbytes, ops, peak_ops):
-    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / peak_ops * 1e3
+PEAK_OPS_S = {"bf16": BF16_FLOPS_S, "int8": INT8_OPS_S, "f32": F32_FLOPS_S}
+
+
+def bound_ms(nbytes, flops):
+    """(ms, bound_by) of work that moves ``nbytes`` HBM bytes and does
+    ``flops`` ({operand type: operations}), each type at its peak."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    to = sum(f / PEAK_OPS_S[t] for t, f in flops.items()) * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def cost_bounds(ops, wrapper, *args, **kwargs):
+    """{kernel: (bound ms, bound_by, flops, bytes)} of one call of ``ops``'
+    ``wrapper`` on these arguments, from the kernel package's own count
+    (``ops.cost``, ``src/repro_torch/kernels/cost.py``: each input read
+    once, each output written once, the work this call's data needs),
+    which the planner (``launch/dryrun.py``) charges too."""
+    return {kernel: (*bound_ms(nbytes, flops), flops, nbytes)
+            for kernel, flops, nbytes in ops.cost(wrapper, *args, **kwargs)}
+
+
+def matmul_bound(name, x, w, sx, sw, out_dtype):
+    """(bound ms, bound_by) of one call of kernel 1, 6, 5 or 4 (``name``)."""
+    from repro_torch.kernels.ent_matmul import ops as ent_ops
+    from repro_torch.kernels.int8_matmul import ops as int8_ops
+    ops = int8_ops if name == "int8_matmul" else ent_ops
+    return cost_bounds(ops, name, x, w, sx, sw, out_dtype)[name][:2]
 
 
 def check_matmuls(torch, timer):
@@ -446,9 +470,8 @@ def check_matmuls(torch, timer):
                                              f"code")
                 ms = timer(lambda: kern(w))
                 plain_ms = timer(plain, reps=5)
-                nplanes, x_bytes = PLANES_X_BYTES[name]
-                nbytes = m * k * x_bytes + nplanes * k * n + 4 * m + 4 * n + 4 * m * n
-                b, by = bound_ms(nbytes, nplanes * 2 * m * k * n, INT8_OPS_S)
+                b, by = matmul_bound(name, x if name == "ent_matmul_packed_fused" else xq,
+                                     w, sx, sw, torch.float32)
                 extra = dict(route=matmul_route(name, m))
                 print(f"kernel {name} M={m} K={k} N={n} ms={ms:.4f} "
                       f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
@@ -531,9 +554,7 @@ def check_ring_matmuls(torch, timer, shapes=RING_SHAPES, m_values=RING_MATMUL_M,
             ms = timer(lambda: kern1(x, packed, sx, sw, torch.bfloat16))
             plain_ms = timer(lambda: ent_packed_matmul_ref(xq, packed, sx, sw, torch.bfloat16),
                              reps=3)
-            # bf16 X, the two planes, sx and sw read once, bf16 out written once
-            nbytes = m * k * 2 + 2 * k * n + 4 * m + 4 * n + 2 * m * n
-            b, by = bound_ms(nbytes, 2 * 2 * m * k * n, INT8_OPS_S)
+            b, by = matmul_bound("ent_matmul_packed_fused", x, packed, sx, sw, torch.bfloat16)
             print(f"kernel {what} route={route} ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={library_ms:.4f} bound_ms={b:.4f} ({by}) max_abs_err=0.0 "
                   f"bit_exact=True (int32 / f32 / bf16); planted fault 'one code off by one': "
@@ -558,9 +579,6 @@ TC_CHECK_M = (128, 129, 260, 505, 512)
 CUT_M = (8, 16, 32, 64, 96, 128)   # where check_cut times the two routes
 # kernels 1, 6, 5 and 4: the matmuls routed by M, each by its own cut
 MATMULS = ("ent_matmul_packed_fused", "int8_matmul", "ent_matmul", "ent_matmul_packed")
-# each matmul's weight planes and bytes an X element (kernel 1 reads bf16 X)
-PLANES_X_BYTES = {"ent_matmul_packed_fused": (2, 2), "int8_matmul": (1, 1),
-                  "ent_matmul": (4, 1), "ent_matmul_packed": (2, 1)}
 
 
 def matmul_cuts():
@@ -761,7 +779,9 @@ def time_routes(torch, timer, ms, routes, seed, names=MATMULS):
     g = torch.Generator(device=DEV).manual_seed(seed)
     rows = []
     for k, n in STREAM_SHAPES[:4]:
-        w8, _, _, kernels = _routed(torch, g, k, n)
+        w8, (packed, digits), sw, kernels = _routed(torch, g, k, n)
+        weights = {"ent_matmul_packed_fused": packed, "int8_matmul": w8, "ent_matmul": digits,
+                   "ent_matmul_packed": packed}
         for m in ms:
             x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
             sx = row_scale(x)
@@ -771,9 +791,8 @@ def time_routes(torch, timer, ms, routes, seed, names=MATMULS):
             for name in names:
                 call = kernels[name][0]
                 t = {r: timer(lambda: call(x, sx, xq, r, torch.float32)) for r in routes}
-                nplanes, x_bytes = PLANES_X_BYTES[name]
-                nbytes = m * k * x_bytes + nplanes * k * n + 4 * m + 4 * n + 4 * m * n
-                b, by = bound_ms(nbytes, nplanes * 2 * m * k * n, INT8_OPS_S)
+                b, by = matmul_bound(name, x if name == "ent_matmul_packed_fused" else xq,
+                                     weights[name], sx, sw, torch.float32)
                 print(f"kernel {name} M={m} K={k} N={n}: "
                       + " ".join(f"{r} ms={v:.4f}" for r, v in t.items())
                       + f" bound_ms={b:.4f} ({by}) library_ms={library_ms:.4f}", flush=True)
@@ -967,6 +986,7 @@ def check_flash(torch, timer):
     Returns rows."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention.ref import masked_attention_ref
     kern2 = fa.flash_attention_masked
     g = torch.Generator(device=DEV).manual_seed(12)
@@ -1015,13 +1035,8 @@ def check_flash(torch, timer):
             mask &= (kp > qp - window)[None]
         library_ms = timer(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask[:, None], enable_gqa=True))
-        pairs = int(mask.sum())
-        live = int(mask.any(1).sum())   # K/V columns some query row attends
-        # q, start and the live K/V columns read once, the output (q's
-        # dtype) written once
-        nbytes = q.numel() * q.element_size() + 2 * live * hkv * d * k.element_size() \
-            + 4 * b + got.numel() * got.element_size()
-        bnd, by = bound_ms(nbytes, pairs * hq * d * 4, BF16_FLOPS_S)
+        bnd, by = cost_bounds(attn_ops, "flash_attention_masked", q, k, v, start,
+                              **kw)["flash_attention_masked"][:2]
         print(f"kernel {what} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} bound_ms={bnd:.5f} ({by}) max_abs_err={err}",
               flush=True)
@@ -1096,11 +1111,8 @@ def check_flash_offsets(torch, timer):
                          reps=5)
         library_ms = timer(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask[:, None], enable_gqa=True))
-        pairs = int(mask.sum())
-        live = sum(p + sq - st for p, st in zip(poss, starts))   # keys a sequence attends
-        # q and the output once, the live K/V rows once, pos and start
-        nbytes = 2 * q.numel() * 2 + live * hkv * d * 2 * 2 + 8 * b
-        bnd, by = bound_ms(nbytes, pairs * hq * d * 4, BF16_FLOPS_S)
+        bnd, by = cost_bounds(attn_ops, "flash_attention_masked", q, k, v, start,
+                              q_offsets=pos)["flash_attention_masked"][:2]
         print(f"kernel {what} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
               f"bound_ms={bnd:.5f} ({by}) max_abs_err={err}", flush=True)
         rows.append(dict(case=name, B=b, S=sq, Skv=w, pos=list(poss), start=list(starts), D=d,
@@ -1141,6 +1153,7 @@ def check_ring_decode(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels._build import sm_count
     from repro_torch.kernels.flash_attention.ref import ring_valid
+    from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.paged_attention import (ring_decode_kernel,
                                                                      ring_split_plan)
     from repro_torch.kernels.paged_attention.ref import ring_decode_ref
@@ -1196,11 +1209,8 @@ def check_ring_decode(torch, timer):
             library_ms = timer(lambda: F.scaled_dot_product_attention(
                 q, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True))
             del kt, vt
-        # q (bf16) and the f32 output once, the live K/V rows (int8: with
-        # their bf16 scales) once, pos and start
-        row_bytes = (d + 2) if int8_kv else 2 * d
-        nbytes = q.numel() * 2 + q.numel() * 4 + live * hkv * row_bytes * 2 + 8 * b
-        bnd, by = bound_ms(nbytes, live * hq * d * 4, BF16_FLOPS_S)
+        bnd, by = cost_bounds(paged_ops, "ring_decode_kernel", q, kp, vp, pos, start, *scales,
+                              window=w)["ring_decode_attention"][:2]
         print(f"kernel {what} split {rows_a_split} rows x {splits} ({b * hkv * splits} blocks) "
               f"live_rows={live} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={'None' if library_ms is None else f'{library_ms:.4f}'} "
@@ -1267,25 +1277,13 @@ def paged_case(torch, spec, int8_kv, seed=13):
     return q, kp, vp, table.to(DEV), pos.to(DEV), start.to(DEV), scales
 
 
-def paged_bound(torch, q, table, pos, start, page, hkv, int8_kv):
-    """(bound ms, bound_by, live pages) of one call: q, the K and V rows of
-    the valid columns (mapped, start <= j <= pos) with their bf16 row
-    scales when int8, the table, pos and start read once, the f32 output
-    written once; the score and value products of the valid columns at the
-    bf16 peak.  Live pages (non-null, meeting [start, pos]) are counted
-    for the report."""
-    b, hq, _, d = q.shape
-    pps = table.shape[1]
+def live_pages(torch, table, pos, start, page):
+    """Pages of one call that are non-null and meet [start, pos]."""
+    b, pps = table.shape
     cols = torch.arange(pps * page, device=DEV)[None, :]
     mapped = torch.repeat_interleave(table != 0, page, dim=1)
     valid = mapped & (cols <= pos[:, None]) & (cols >= start[:, None])
-    live_pages = int(valid.reshape(b, pps, page).any(-1).sum())
-    row_bytes = (d + 2) if int8_kv else 2 * d
-    cols_valid = int(valid.sum())
-    nbytes = (q.numel() * 2 + cols_valid * hkv * row_bytes * 2
-              + table.numel() * 4 + 8 * b + q.numel() * 4)
-    bnd, by = bound_ms(nbytes, cols_valid * hq * d * 4, BF16_FLOPS_S)
-    return bnd, by, live_pages
+    return int(valid.reshape(b, pps, page).any(-1).sum())
 
 
 def check_paged(torch, timer, int8_kv=False):
@@ -1307,6 +1305,7 @@ def check_paged(torch, timer, int8_kv=False):
     from repro_torch.kernels.paged_attention.paged_attention import (MAX_RUN_PAGES,
                                                                      paged_attention_kernel,
                                                                      split_plan)
+    from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     name = "paged_attention_kernel[int8_kv]" if int8_kv else "paged_attention_kernel"
     rows = []
@@ -1350,14 +1349,16 @@ def check_paged(torch, timer, int8_kv=False):
         args = (q, kp, vp, pos, *scales)
         ms = timer(lambda: kernel(*args))
         plain_ms = timer(lambda: plain_fn(*args), reps=5)
-        bnd, by, live_pages = paged_bound(torch, q, table, pos, start, page, hkv, int8_kv)
+        bnd, by = cost_bounds(paged_ops, "paged_attention_kernel", q, kp, vp, table, pos, start,
+                              *scales, page_size=page)["paged_attention_kernel"][:2]
+        n_live = live_pages(torch, table, pos, start, page)
         print(f"kernel {name} [{case}] B={b} Hq={hq} Hkv={hkv} D={d} page={page} pps={pps} "
               f"split {pages} pages x {splits} ({b * hkv * splits} blocks) "
-              f"live_pages={live_pages} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+              f"live_pages={n_live} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
               f"bound_ms={bnd:.5f} ({by}) max_abs_err={err}; two calls bit-identical",
               flush=True)
         rows.append(dict(case=case, B=b, Hq=hq, Hkv=hkv, D=d, page=page, pps=pps,
-                         pages_a_split=pages, splits=splits, live_pages=live_pages, ms=ms,
+                         pages_a_split=pages, splits=splits, live_pages=n_live, ms=ms,
                          plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by,
                          max_abs_err=err))
     return rows
@@ -1496,6 +1497,7 @@ def check_flash_train(torch, timer):
     from repro_torch.kernels.flash_attention.flash_attention import (
         bwd_delta, flash_attention, flash_attention_bwd, flash_attention_bwd_dkdv,
         flash_attention_bwd_dq)
+    from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                          flash_attention_bwd_ref,
                                                          flash_attention_ref)
@@ -1567,7 +1569,6 @@ def check_flash_train(torch, timer):
         del q, k, v, do
         o, lse = flash_attention(qb, kb, vb, window=window)
         mask = band_mask(torch, s, s, 0, True, window)
-        pairs = int(mask.sum())
         fw = dict(window=window)
         lib_mask = None if window is None else mask[None, None]
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qb, kb, vb))
@@ -1588,29 +1589,23 @@ def check_flash_train(torch, timer):
         print(f"  bwd_delta (D_i = rowsum(dO * O) in torch, off the training path) "
               f"{shape}: {delta_ms:.4f} ms; flash_attention_bwd (7c, then 7b with 7c's "
               f"D_i): {both_ms:.4f} ms", flush=True)
-        e = 2   # bf16 bytes
-        io = qb.numel() * e                       # one [B, Hq, S, D] tensor
-        kv = kb.numel() * e
-        lse_b = lse.numel() * 4                   # one f32 [B, Hq, S] row term
-        cases = {   # name -> (kernel, plain, library, bytes, flops)
+        bounds = {**cost_bounds(attn_ops, "flash_attention", qb, kb, vb, **fw),
+                  **cost_bounds(attn_ops, "flash_attention_bwd", qb, kb, vb, o, lse, dob, **fw)}
+        cases = {   # name -> (kernel, plain, library)
             "flash_attention": (lambda: flash_attention(qb, kb, vb, **fw),
                                 lambda: flash_attention_ref(qb, kb, vb, **fw), lib_fwd,
-                                io + 2 * kv + io + lse_b, 4 * pairs * hq * d,
                                 err_f),
-            # q, dO, K, V, lse and D_i read; dK, dV written
             "flash_attention_bwd_dkdv": (
                 lambda: flash_attention_bwd_dkdv(qb, kb, vb, o, lse, dob, delta=delta,
-                                                 **fw), None,
-                lib_bwd, 2 * io + 2 * kv + 2 * lse_b + 2 * kv, 8 * pairs * hq * d, err_b),
-            # q, O, dO, K, V and lse read; dQ and D_i written
+                                                 **fw), None, lib_bwd, err_b),
             "flash_attention_bwd_dq": (
                 lambda: flash_attention_bwd_dq(qb, kb, vb, o, lse, dob, **fw), None,
-                lib_bwd, 3 * io + 2 * kv + lse_b + io + lse_b, 6 * pairs * hq * d, err_b),
+                lib_bwd, err_b),
         }
-        for name, (kern, plain, lib_ms, nbytes, flops, err) in cases.items():
+        for name, (kern, plain, lib_ms, err) in cases.items():
             ms = timer(kern)
             plain_ms = timer(plain, reps=3) if plain is not None else plain_bwd
-            bnd, by = bound_ms(nbytes, flops, BF16_FLOPS_S)
+            bnd, by = bounds[name][:2]
             print(f"kernel {name} {shape} causal ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={lib_ms:.4f} bound_ms={bnd:.5f} ({by}) "
                   f"max_abs_err={err}", flush=True)
@@ -1758,24 +1753,6 @@ def ssd_reading(got, want, units, slack, names, sigma=None):
     return r
 
 
-def ssd_bounds(shape):
-    """(bytes, flops) per kernel at ``shape``: each input read once, each
-    output written once, float32; flops on the causal half of the [Q, Q]
-    chunk products (the pairs j <= i this run's data needs) plus the
-    [Q, P, N] state products."""
-    b, l, h, p, g, n, q = shape
-    nc, e, pairs = l // q, 4, q * (q + 1) // 2
-    xb, dtb, bcb, st = b * l * h * p, b * l * h, b * l * g * n, b * h * nc * p * n
-    return {
-        "ssd_scan": (e * (2 * xb + dtb + h + 2 * bcb + st),
-                     b * h * nc * (2 * pairs * (n + p) + 4 * q * p * n)),
-        "ssd_scan_bwd_state": (e * (dtb + h + bcb + xb + st),
-                               b * h * (nc - 1) * 2 * q * p * n),
-        "ssd_scan_bwd_chunk": (e * (3 * xb + 2 * dtb + 2 * h + 4 * bcb + 2 * st),
-                               b * h * nc * (2 * pairs * (2 * p + 3 * n) + 6 * q * p * n)),
-    }
-
-
 def check_ssd(torch, timer):
     """Kernels 8, 8b and 8c at SSD_SHAPES, float32: the forward's y and
     h0s against ``ssd_scan_fwd_ref`` (``ssd_scan_chunked`` with its
@@ -1793,6 +1770,7 @@ def check_ssd(torch, timer):
     two).  No single
     PyTorch call computes the SSD scan: library_ms is None.  Returns
     {kernel: [row per shape]}."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import (ssd_scan_bwd_chunk_ref,
                                                   ssd_scan_bwd_state_ref, ssd_scan_fwd_ref)
     from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan, ssd_scan_bwd,
@@ -1930,14 +1908,18 @@ def check_ssd(torch, timer):
             lambda: ssd_scan_bwd_chunk(x, dt, a, bm, cm, h0s, dhs, dy, chunk=q),
             lambda: ssd_scan_bwd_chunk_ref(x, dt, a, bm, cm, h0s, dhs, dy, q)),
     }
-    bounds = ssd_bounds(SSD_TIME_SHAPE)
+    # each input read once, each output written once, float32; the causal
+    # half of the [Q, Q] chunk products (the pairs j <= i this run's data
+    # needs) plus the [Q, P, N] state products
+    bounds = {**cost_bounds(ssd_ops, "ssd_scan", x, dt, a, bm, cm, chunk=q),
+              **cost_bounds(ssd_ops, "ssd_scan_bwd", x, dt, a, bm, cm, h0s, dy, chunk=q)}
     card = card_line()
     for name, (kern, plain) in cases.items():
         ms = timer(kern)
         plain_ms = timer(plain, reps=3)
-        nbytes, flops = bounds[name]
-        f32_bnd, f32_by = bound_ms(nbytes, flops, F32_FLOPS_S)
-        bnd, by = bound_ms(nbytes, 3 * flops, BF16_FLOPS_S)
+        bnd, by, passes, nbytes = bounds[name]
+        flops = passes["bf16"] // ssd_ops.SPLIT_PASSES
+        f32_bnd, f32_by = bound_ms(nbytes, {"f32": flops})
         print(f"kernel {name} {tag} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
               f"bound_ms={bnd:.5f} ({by}; {flops:.4e} flops, x3 bf16 passes, {nbytes:.4e} "
               f"bytes; bytes alone {nbytes / HBM_BYTES_S * 1e3:.5f}, three passes alone "
@@ -1996,6 +1978,7 @@ def check_ssd_prefill(torch, timer):
     HBM rate against its flops as three bf16 passes at the tensor-core
     peak.  No PyTorch call computes it: library_ms is None.  Returns
     rows."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import _chunk_operands, ssd_prefill_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import prefill_operands, ssd_prefill
     gen = torch.Generator(device=DEV).manual_seed(28)
@@ -2040,12 +2023,9 @@ def check_ssd_prefill(torch, timer):
                   for f in ((5, 6, 7) if pads else (5, 6))}
         ms = timer(call)
         plain_ms = timer(plain, reps=3)
-        nc = (l + pad) // q
-        pairs = q * (q + 1) // 2
-        nbytes = 4 * (2 * bsz * l * h * p + bsz * l * h + h + 2 * bsz * l * g * n
-                      + 2 * bsz * h * p * n)
-        flops = bsz * h * nc * (2 * pairs * (n + p) + 4 * q * p * n)
-        bnd, by = bound_ms(nbytes, 3 * flops, BF16_FLOPS_S)
+        bnd, by, passes, nbytes = cost_bounds(ssd_ops, "ssd_prefill", x, dt, a, bm, cm, h0,
+                                              mask=mask, chunk=chunk)["ssd_prefill"]
+        flops = passes["bf16"] // ssd_ops.SPLIT_PASSES
         print(f"kernel ssd_prefill {tag} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
               f"bound_ms={bnd:.5f} ({by}; {nbytes:.4e} bytes, {flops:.4e} flops x3 bf16 passes) "
               f"max_abs_err={err:.3e}; err/limit {reading:.3f} (y and the leaving state); "
@@ -2282,7 +2262,8 @@ def serve_full_width(torch, config):
     just before the run and read just after), no other serving kernel
     and no plain version may; then profile decode ticks and one admission
     prefill.  Returns (launches, tokens/s, launches by route, the prefill's
-    profile, the decode tick's matmul ms by route)."""
+    profile, the decode tick's matmul ms by route, the streams, the emitted
+    rows, the decode tick's host-clock and busy ms)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch
@@ -2334,11 +2315,11 @@ def serve_full_width(torch, config):
           f"plain versions run {plain_runs}; KV pools {pool} bytes ({pool / 2**20:.1f} MiB, "
           f"{pool / bf16_pool:.4f} of the {bf16_pool} bytes of bf16 pools); peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    tick_routes = profile_decode_ticks(torch, engine, prompts[:SLOTS], cfg, config)
+    tick_routes, tick = profile_decode_ticks(torch, engine, prompts[:SLOTS], cfg, config)
     prefill = profile_prefill(torch, engine, max(prompts, key=len), cfg, config)
     del engine, params, model
     torch.cuda.empty_cache()
-    return launches, toks / dt, routes, prefill, tick_routes, results, rows
+    return launches, toks / dt, routes, prefill, tick_routes, results, rows, tick
 
 
 def projections(cfg):
@@ -3231,7 +3212,8 @@ def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
     routes in the same process, the wrapper's and the other (its cut set
     to 0 or to the tick's M for the run), in the order A B B A, ``ticks``
     profiled ticks each: its device ms a tick on each route, the decode
-    tick's measure of the cut.  Returns {route: [ms a tick, ms a tick]}."""
+    tick's measure of the cut.  Returns ({route: [ms a tick, ms a tick]},
+    {"host_ms", "busy_ms"} of the unprofiled / profiled ticks)."""
     from torch.profiler import ProfilerActivity, profile
 
     def profiled():
@@ -3284,7 +3266,7 @@ def profile_decode_ticks(torch, engine, prompts, cfg, config, ticks=3):
           + f"; the wrapper takes {own} at M = {SLOTS}", flush=True)
     engine.run()
     engine.check_leaks()
-    return by_route
+    return by_route, {"host_ms": plain_wall, "busy_ms": busy}
 
 
 def e2e_faults(torch, kv_quant):
@@ -5047,6 +5029,9 @@ def train_full_width(torch, arch, checkpoint=False):
     ocfg = get_optim(arch)
     model, params, opt, step_fn = launch.build(cfg, tcfg, ocfg, seed=0)
     torch.cuda.synchronize()
+    # what the build holds (the planning phase holds its planner to these)
+    state = dict(params=param_bytes(params), m=param_bytes(opt["adam"]["m"]),
+                 v=param_bytes(opt["adam"]["v"]), allocated=torch.cuda.memory_allocated())
     widths = (f"SSD heads {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} x P "
               f"{cfg.ssm.head_dim}, N {cfg.ssm.state_dim}, groups {cfg.ssm.ngroups}"
               if cfg.ssm else f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
@@ -5133,6 +5118,7 @@ def train_full_width(torch, arch, checkpoint=False):
     del model, params, opt, step_fn
     torch.cuda.empty_cache()
     return dict(steps=steps, expected=expected, profile=prof, peak_gib=peak, checkpoint=ckpt,
+                state=state, tcfg=tkw,
                 launches={n: sum(r["launches"][n] for r in steps) for n in names},
                 tc_launches={n: sum(r["tc_launches"][n] for r in steps) for n in tc_names},
                 tokens=tcfg.global_batch * tcfg.seq_len)
@@ -5353,6 +5339,90 @@ def multi_device(torch):
         raise AssertionError("the NCCL process group outlived the phase")
     torch.cuda.empty_cache()
     return dict(step=step, moe=layer)
+
+
+# --- phase 16: the planning tools -----------------------------------------------
+# The planner (repro_torch/launch/dryrun.py) on meta tensors beside what the
+# earlier phases measured on the card: it builds no model and launches no
+# kernel.  (a) is a gate (the planner's params, m and v bytes are the
+# build's, exactly); (b)-(d) are reported.
+
+def planning_tools(torch, trains, int8_tick):
+    """``trains``: {arch: train_full_width's record}; ``int8_tick``: the
+    int8 serve phase's decode tick {"host_ms", "busy_ms"}.  Plans each
+    training cell on a 1x1 mesh at the phase's own TrainConfig (its state
+    bytes against the build's, its peak against the steps'
+    ``max_memory_allocated``, its roofline and MFU against the median step
+    after the first), then the int8 serving tick (qwen2.5-3b w8a8 + int8
+    KV, 8 slots of the paged cache at max_len 576, one token)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core import roofline as rl
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.specs import input_specs
+
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    out = {}
+    for arch, rec in trains.items():
+        tcfg = TrainConfig(**rec["tcfg"])
+        shape = ShapeConfig(f"train_{tcfg.seq_len}x{tcfg.global_batch}", "train",
+                            tcfg.seq_len, tcfg.global_batch)
+        _, args, kind = input_specs(arch, shape, tcfg=tcfg, dist=(mesh, "data"))
+        parts = dryrun.argument_parts(kind, args, mesh)
+        del args
+        built = rec["state"]
+        planned = {k: parts[k] for k in ("params", "m", "v")}
+        cell = dryrun.run_cell(arch, shape, mesh=mesh, tcfg=tcfg, verbose=False)
+        roof = cell["roofline"]
+        total_s = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+        steady = [r["seconds"] for r in rec["steps"][1:] if not r["beside_write"]]
+        step_s = statistics.median(steady)
+        mf = rl.model_flops(get_config(arch), shape)
+        peak_gib = cell["memory"]["peak_per_device_gb"] * 1e9 / 2**30
+        # the steps' own peak (the phase's whole peak also holds the checkpoint
+        # phase's second state; the step beside the write its snapshot)
+        measured = max(r["peak_gib"] for r in rec["steps"] if not r["beside_write"])
+        r = dict(planned=planned, built={k: built[k] for k in planned},
+                 allocated=built["allocated"], peak_gib=peak_gib, measured_gib=measured,
+                 model_flops=mf, traced_flops=roof["flops_per_dev"], step_s=step_s,
+                 mfu=mf / (step_s * rl.PEAK_FLOPS), total_s=total_s,
+                 terms={k: roof[k] for k in ("compute_s", "memory_s", "collective_s")},
+                 bottleneck=roof["bottleneck"], trace_s=cell["trace_s"])
+        print(f"planner [{arch} train, seq {tcfg.seq_len}, batch {tcfg.global_batch} as "
+              f"{tcfg.global_batch // tcfg.microbatch} x {tcfg.microbatch}, remat {tcfg.remat}, "
+              f"1x1 mesh]: params + m + v planned {planned} = "
+              f"{sum(planned.values())} bytes, built {r['built']} = "
+              f"{sum(r['built'].values())} bytes; memory_allocated after the build "
+              f"{r['allocated']} bytes; peak planned {peak_gib:.2f} GiB, measured "
+              f"{r['measured_gib']:.2f} GiB (ratio {peak_gib / r['measured_gib']:.3f}); "
+              f"model FLOPs {mf:.4e}, traced {r['traced_flops']:.4e} a step; median step "
+              f"{step_s:.4f} s of {len(steady)}: mfu {r['mfu']:.4f}; roofline compute "
+              f"{roof['compute_s'] * 1e3:.2f} / memory {roof['memory_s'] * 1e3:.2f} / "
+              f"collective {roof['collective_s'] * 1e3:.2f} ms -> {roof['bottleneck']}, "
+              f"total {total_s * 1e3:.2f} ms = {total_s / step_s:.3f} of the step; trace "
+              f"{cell['trace_s']} s", flush=True)
+        if planned != r["built"]:
+            raise AssertionError(f"{arch}: the planner's state bytes {planned} are not the "
+                                 f"build's {r['built']}")
+        out[arch] = r
+    cfg = replace(get_config("qwen2.5-3b"), cache_kind="paged")
+    shape = ShapeConfig("serve_tick", "decode", SERVE_MAX_LEN, SLOTS)
+    cell = dryrun.run_cell("qwen2.5-3b", shape, mesh=mesh, cfg=cfg, quantized=True,
+                           kv_quant=True, verbose=False)
+    roof = cell["roofline"]
+    out["int8_tick"] = dict(terms={k: roof[k] for k in ("compute_s", "memory_s",
+                                                        "collective_s")},
+                            bottleneck=roof["bottleneck"], **int8_tick)
+    print(f"planner [qwen2.5-3b w8a8 + int8 KV decode tick, {SLOTS} slots of a paged cache "
+          f"at max_len {SERVE_MAX_LEN}, 1x1 mesh]: compute {roof['compute_s'] * 1e3:.4f} / "
+          f"memory {roof['memory_s'] * 1e3:.4f} / collective "
+          f"{roof['collective_s'] * 1e3:.4f} ms -> {roof['bottleneck']}; the int8 serve "
+          f"phase's tick {int8_tick['busy_ms']:.3f} ms busy, {int8_tick['host_ms']:.3f} ms "
+          f"host-clock", flush=True)
+    return out
 
 
 # the tensor-core kernels by wrapper name, and their kind index of
@@ -5678,6 +5748,11 @@ def main():
     t = phase("multi-device, NCCL world of 1")
     multi = multi_device(torch)
     done(t, "multi-device, NCCL world of 1")
+
+    t = phase("planning tools")
+    plan = planning_tools(torch, {"minicpm-2b": tr, "mamba2-370m": tm},
+                          serves["w8a8 int8, int8 KV"][7])
+    done(t, "planning tools")
 
     ent_t, int8 = (serves[c][0] for c in SERVE_CONFIGS)
     at_decode = lambda rows: next(r for r in rows if r["M"] == 8 and r["N"] == 11008)  # noqa: E731
@@ -6026,6 +6101,15 @@ def main():
                       f"fault {r['fault']:.3e})" for r in multi["moe"])
           + f"; fwd+bwd at T {multi['moe'][-1]['T']} {multi['moe'][-1]['fwd_bwd_ms']:.4f} / "
           f"{multi['moe'][-1]['fwd_bwd_plain_ms']:.4f} ms")
+    print("planning tools: " + "; ".join(
+        f"{arch} mfu {r['mfu']:.4f}, roofline total {r['total_s'] * 1e3:.2f} ms = "
+        f"{r['total_s'] / r['step_s']:.3f} of the {r['step_s']:.4f} s step, peak planned / "
+        f"measured {r['peak_gib']:.2f} / {r['measured_gib']:.2f} GiB"
+        for arch, r in plan.items() if arch != "int8_tick")
+        + "; int8 tick compute / memory / collective "
+        + " / ".join(f"{plan['int8_tick']['terms'][k] * 1e3:.4f}"
+                     for k in ("compute_s", "memory_s", "collective_s"))
+        + f" ms against {plan['int8_tick']['busy_ms']:.3f} ms busy")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

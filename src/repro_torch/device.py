@@ -3,7 +3,9 @@
 Entry points take ``device=None`` and run on the CUDA card; a caller
 that wants the CPU (the tests) says so with ``device="cpu"``.  Asking
 for CUDA on a machine without a card raises instead of quietly running
-the plain PyTorch versions on the CPU.
+the plain PyTorch versions on the CPU.  ``device="meta"`` builds shapes
+without storage, for the planner (``launch/specs.py``): nothing runs
+there, so it is no fallback.
 """
 
 from __future__ import annotations
@@ -13,14 +15,15 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raises when CUDA is asked for and absent."""
+    """``None`` -> ``cuda``; raises when CUDA is asked for and absent.
+    ``meta`` passes (planning only)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA card by default and none is "
             "available; pass device='cpu' to run the plain PyTorch "
             "versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.multiplier import ent_digit_planes, ent_packed_planes
+from repro_torch.kernels import cost as C
 from repro_torch.kernels.ent_matmul.ent_matmul import (ent_matmul, ent_matmul_packed,
                                                        ent_matmul_packed_fused)
 from repro_torch.kernels.ent_matmul.ref import (ent_matmul_ref, ent_packed_fused_ref,
@@ -87,3 +88,15 @@ def ent_quantized_matmul_fused(x, packed, scale_w, *, out_dtype=torch.float32,
 ent_quantized_matmul.plain_launches = 0
 ent_quantized_matmul_packed.plain_launches = 0
 ent_quantized_matmul_fused.plain_launches = 0
+
+
+# --- what a call costs (``kernels/cost.py``) ------------------------------------
+
+_PLANES = {"ent_matmul_packed_fused": 2, "ent_matmul_packed": 2, "ent_matmul": 4}
+COSTED = tuple(_PLANES)
+
+
+def cost(name, x, w, scale_x, scale_w, out_dtype=torch.float32):
+    """The launch wrapper ``name`` (of ``COSTED``) makes on these
+    arguments: [(kernel, {operand type: FLOPs}, bytes)]."""
+    return [C.plane_matmul(name, _PLANES[name], x, w, scale_x, scale_w, out_dtype)]

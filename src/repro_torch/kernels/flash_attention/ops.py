@@ -19,7 +19,8 @@ oracle" route, because the kernel masks ragged tiles itself.  int8-KV dequant sc
 K and V are dequantized to q's dtype before the kernel (``ops.py:75-78``,
 :func:`dequantize`).  On CPU tensors a scaled call takes the plain
 version, which folds the scales exactly, as the reference's CPU route
-does.  ``q_offsets`` (int32 [B]) gives each sequence its own query
+does (every other device takes the card's route: ``meta``, the
+planner's).  ``q_offsets`` (int32 [B]) gives each sequence its own query
 offset (the kernel's per-sequence form): the dense decode read and the
 speculative verify burst, whose masks ``start_b <= j <= pos_b + t`` it
 computes from ``(start, q_offsets)``.  The explicit ``valid`` mask (the
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost as C
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_masked)
 from repro_torch.kernels.flash_attention.ref import (
@@ -103,7 +105,7 @@ def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
             raise ValueError(f"{name} {tuple(s.shape)} must be [B, Hkv, Skv] = "
                              f"{tuple(t.shape[:3])}")
     scaled = k_scale is not None or v_scale is not None
-    if valid is None and use_kernel and (q.is_cuda or not scaled):
+    if valid is None and use_kernel and (q.device.type != "cpu" or not scaled):
         if k_scale is not None:   # the kernel takes dequantized operands
             k = dequantize(k, k_scale, q.dtype)
         if v_scale is not None:
@@ -128,3 +130,73 @@ def masked_attention(q, k, v, *, start=None, q_offset=0, causal=True,
 
 
 masked_attention.plain_launches = 0
+
+
+# --- what a call costs (``kernels/cost.py``) ------------------------------------
+
+def _band(q, k, causal, window, q_offset):
+    b, _, sq, _ = q.shape
+    skv = k.shape[2]
+    off = skv - sq if q_offset is None else int(q_offset)
+    return b * C.band_pairs(sq, skv, off, causal, window)
+
+
+def _attention_cost(q, k, v, *, causal=True, window=None, scale=None, q_offset=None):
+    """Kernel 7: q, k, v read, the output and the f32 lse written."""
+    b, hq, sq, d = q.shape
+    pairs = _band(q, k, causal, window, q_offset)
+    return [("flash_attention", {C.op_type(q.dtype): 4 * pairs * hq * d},
+             C.nbytes(q, k, v, q) + 4 * b * hq * sq)]
+
+
+def _attention_bwd_cost(q, k, v, o, lse, do, *, causal=True, window=None, scale=None,
+                        q_offset=None):
+    """Kernel 7c (q, O, dO, K, V and lse read; dQ and D_i written), then 7b
+    (q, dO, K, V, lse and D_i read; dK and dV written)."""
+    hq, d = q.shape[1], q.shape[3]
+    pairs = _band(q, k, causal, window, q_offset)
+    io, kv, lb = C.nbytes(q), C.nbytes(k), C.nbytes(lse)
+    t = C.op_type(q.dtype)
+    return [("flash_attention_bwd_dq", {t: 6 * pairs * hq * d}, 3 * io + 2 * kv + lb + io + lb),
+            ("flash_attention_bwd_dkdv", {t: 8 * pairs * hq * d},
+             2 * io + 2 * kv + 2 * lb + 2 * kv)]
+
+
+def _masked_cost(q, k, v, start, *, q_offset=0, q_offsets=None, causal=True, window=None,
+                 scale=None):
+    """Kernel 2: q, start (and the offsets) read, the K / V columns some
+    query row of a sequence attends read once, the output (q's dtype)
+    written; the products of the pairs the mask keeps.  On ``meta`` every
+    sequence starts at 0 and, with per-sequence offsets, sits at the
+    cache's last row."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if C.known(start, q_offsets):
+        t = torch.arange(sq, device=q.device)[None, :]
+        qp = (t + q_offsets.long()[:, None] if q_offsets is not None else t + int(q_offset))
+        qp = qp[..., None]
+        col = torch.arange(skv, device=q.device)[None, None, :]
+        mask = (col >= start.long()[:, None, None]).expand(b, sq, skv)
+        if causal:
+            mask = mask & (col <= qp)
+        if window:
+            mask = mask & (col > qp - window)
+        pairs, live = int(mask.sum()), int(mask.any(1).sum())
+    else:
+        off = skv - sq if q_offsets is not None else int(q_offset)
+        pairs = b * C.band_pairs(sq, skv, off, causal, window)
+        live = b * C.band_columns(sq, skv, off, causal, window)
+    return [("flash_attention_masked", {C.op_type(q.dtype): 4 * pairs * hq * d},
+             2 * C.nbytes(q) + 2 * live * hkv * d * k.element_size()
+             + C.nbytes(start, q_offsets))]
+
+
+_COSTS = {"flash_attention": _attention_cost, "flash_attention_bwd": _attention_bwd_cost,
+          "flash_attention_masked": _masked_cost}
+COSTED = tuple(_COSTS)
+
+
+def cost(name, *args, **kwargs):
+    """The launches wrapper ``name`` (of ``COSTED``) makes on these
+    arguments: [(kernel, {operand type: FLOPs}, bytes)]."""
+    return _COSTS[name](*args, **kwargs)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost as C
 from repro_torch.kernels.int8_matmul.int8_matmul import int8_matmul
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
@@ -26,3 +27,12 @@ def quantized_matmul(x, w, scale_x, scale_w, *, out_dtype=torch.bfloat16,
 
 
 quantized_matmul.plain_launches = 0
+
+
+COSTED = ("int8_matmul",)
+
+
+def cost(name, x, w, scale_x, scale_w, out_dtype=torch.bfloat16):
+    """The launch ``int8_matmul`` makes on these arguments: [(kernel,
+    {operand type: FLOPs}, bytes)] (``kernels/cost.py``)."""
+    return [C.plane_matmul(name, 1, x, w, scale_x, scale_w, out_dtype)]

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost as C
+from repro_torch.kernels.flash_attention.ref import ring_valid
 from repro_torch.kernels.paged_attention.paged_attention import (
     paged_attention_kernel, ring_decode_kernel)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref, ring_decode_ref
@@ -65,3 +67,51 @@ def ring_attention(q, k_ring, v_ring, pos, start, *, window, k_scales=None,
 
 
 ring_attention.plain_launches = 0
+
+
+# --- what a call costs (``kernels/cost.py``) ------------------------------------
+
+def _decode_cost(kernel, q, k, live, k_scales, index_bytes):
+    """q (bf16) and the f32 output once, the ``live`` K and V rows (int8:
+    with their bf16 row scales) once, the index tensors; the score and
+    value products of the live rows."""
+    b, hq, _, d = q.shape
+    hkv = k.shape[2]
+    row = hkv * d * k.element_size() + (hkv * k_scales.element_size()
+                                        if k_scales is not None else 0)
+    return [(kernel, {"bf16": 4 * live * hq * d},
+             C.nbytes(q) + 4 * b * hq * d + 2 * live * row + index_bytes)]
+
+
+def _paged_cost(q, k_pages, v_pages, block_table, pos, start, k_scales=None, v_scales=None,
+                *, page_size, scale=None, fault=0):
+    """Kernels 3 / 3b: the valid columns (mapped, start <= j <= pos); on
+    ``meta`` every column of the table."""
+    b, pps = block_table.shape
+    if C.known(block_table, pos, start):
+        cols = torch.arange(pps * page_size, device=q.device)[None, :]
+        mapped = torch.repeat_interleave(block_table != 0, page_size, dim=1)
+        live = int((mapped & (cols <= pos[:, None]) & (cols >= start[:, None])).sum())
+    else:
+        live = b * pps * page_size
+    return _decode_cost("paged_attention_kernel", q, k_pages, live, k_scales,
+                        C.nbytes(block_table, pos, start))
+
+
+def _ring_cost(q, k_ring, v_ring, pos, start, k_scales=None, v_scales=None, *, window,
+               scale=None, fault=0):
+    """The ring decode: the ring rows a slot attends; on ``meta`` all W."""
+    b, w = k_ring.shape[:2]
+    live = (int(ring_valid(pos, start, w, window).sum()) if C.known(pos, start) else b * w)
+    return _decode_cost("ring_decode_attention", q, k_ring, live, k_scales,
+                        C.nbytes(pos, start))
+
+
+_COSTS = {"paged_attention_kernel": _paged_cost, "ring_decode_kernel": _ring_cost}
+COSTED = tuple(_COSTS)
+
+
+def cost(name, *args, **kwargs):
+    """The launches wrapper ``name`` (of ``COSTED``) makes on these
+    arguments: [(kernel, {operand type: FLOPs}, bytes)]."""
+    return _COSTS[name](*args, **kwargs)

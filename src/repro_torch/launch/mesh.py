@@ -17,6 +17,7 @@ the reference's rule tests).
 
     make_mesh((2, 2), ("data", "model"))     # needs a world of 4
     make_production_mesh(multi_pod=True)     # 2 x 16 x 16, a world of 512
+    abstract_production_mesh()               # 16 x 16, no world
 """
 
 from __future__ import annotations
@@ -28,46 +29,23 @@ import torch.distributed as dist
 
 
 class AbstractMesh:
-    """Axis names and sizes, no ranks: what the sharding rules read."""
+    """Axis names and sizes, no process groups: what the sharding rules
+    read, and the planner's stand-in for a world (``launch/dryrun.py``).
+    ``rank`` (default 0) picks the coordinates :meth:`index` reads; the
+    rank arithmetic is :class:`Mesh`'s, which adds the groups."""
 
-    def __init__(self, sizes, names):
+    def __init__(self, sizes, names, rank: int = 0):
         sizes, names = tuple(int(s) for s in sizes), tuple(names)
         if len(sizes) != len(names) or len(set(names)) != len(names):
             raise ValueError(f"mesh sizes {sizes} and names {names} do not pair up")
         self.axis_names = names
         self.shape = dict(zip(names, sizes))      # ordered name -> size
         self.size = math.prod(sizes)
+        self.rank = rank
+        self.coords = self.coords_of(rank)
 
     def __repr__(self):
         return f"{type(self).__name__}({self.shape})"
-
-
-def axes_of(entry) -> tuple:
-    """A spec entry (None, an axis name, or a tuple of names) as a tuple."""
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
-
-
-class Mesh(AbstractMesh):
-    """The world's ranks as a named mesh.  ``coords``: this rank's index on
-    each axis; :meth:`group` the process group of a subset of axes."""
-
-    def __init__(self, sizes, names):
-        super().__init__(sizes, names)
-        world = dist.get_world_size()
-        if world != self.size:
-            raise ValueError(f"mesh {self.shape} needs a world of {self.size} ranks, "
-                             f"this one has {world}")
-        self.rank = dist.get_rank()
-        self.coords = self.coords_of(self.rank)
-        self._groups = {}
-        for n in range(1, len(names) + 1):
-            for subset in itertools.combinations(names, n):
-                for ranks in self._partition(subset):
-                    g = dist.new_group(ranks)
-                    if self.rank in ranks:
-                        self._groups[subset] = (g, ranks)
 
     def coords_of(self, rank: int) -> dict:
         """Row-major coordinates of global ``rank``, the last axis fastest."""
@@ -101,13 +79,11 @@ class Mesh(AbstractMesh):
             raise ValueError(f"axes {axes} do not name distinct axes of {self.axis_names}")
         return tuple(a for a in self.axis_names if a in axes)
 
-    def group(self, entry):
-        """The process group over ``entry``'s axes that holds this rank."""
-        return self._groups[self._key(entry)][0]
-
     def group_ranks(self, entry) -> list:
-        """Global ranks of :meth:`group` in its own rank order."""
-        return self._groups[self._key(entry)][1]
+        """Global ranks of the group over ``entry``'s axes that holds this
+        rank, in the group's rank order (global-rank order)."""
+        key = self._key(entry)
+        return next(r for r in self._partition(key) if self.rank in r)
 
     def index(self, entry, rank: int | None = None) -> int:
         """``rank``'s (default: this rank's) block index along ``entry``: a
@@ -123,15 +99,60 @@ class Mesh(AbstractMesh):
         return math.prod(self.shape[a] for a in axes_of(entry))
 
 
+def axes_of(entry) -> tuple:
+    """A spec entry (None, an axis name, or a tuple of names) as a tuple."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+class Mesh(AbstractMesh):
+    """The world's ranks as a named mesh.  ``coords``: this rank's index on
+    each axis; :meth:`group` the process group of a subset of axes."""
+
+    def __init__(self, sizes, names):
+        super().__init__(sizes, names)
+        world = dist.get_world_size()
+        if world != self.size:
+            raise ValueError(f"mesh {self.shape} needs a world of {self.size} ranks, "
+                             f"this one has {world}")
+        self.rank = dist.get_rank()
+        self.coords = self.coords_of(self.rank)
+        self._groups = {}
+        for n in range(1, len(names) + 1):
+            for subset in itertools.combinations(self.axis_names, n):
+                for ranks in self._partition(subset):
+                    g = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[subset] = (g, ranks)
+
+    def group(self, entry):
+        """The process group over ``entry``'s axes that holds this rank."""
+        return self._groups[self._key(entry)][0]
+
+    def group_ranks(self, entry) -> list:
+        return self._groups[self._key(entry)][1]
+
+
 def make_mesh(shape, axes) -> Mesh:
     """A mesh over the whole world: the product of ``shape`` must equal
     ``dist.get_world_size()``."""
     return Mesh(tuple(shape), tuple(axes))
 
 
+def production_shape(multi_pod: bool = False):
+    """(sizes, names) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16 x 16 (data, model), or 2 x 16 x 16 (pod, data, model): a world of
     256 or 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(*production_shape(multi_pod))
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh's shape without a world (the planner's)."""
+    return AbstractMesh(*production_shape(multi_pod))

@@ -46,13 +46,13 @@ from repro_torch.models import kv_cache
 from repro_torch.models import layers as L
 
 
-def init(generator, cfg: ModelConfig):
+def init(generator, cfg: ModelConfig, device=None):
     hd, h, hkv, d = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
     return {
-        "wq": L.dense_init(generator, cfg, d, h * hd, bias=cfg.qkv_bias),
-        "wk": L.dense_init(generator, cfg, d, hkv * hd, bias=cfg.qkv_bias),
-        "wv": L.dense_init(generator, cfg, d, hkv * hd, bias=cfg.qkv_bias),
-        "wo": L.dense_init(generator, cfg, h * hd, d, scale=(h * hd) ** -0.5),
+        "wq": L.dense_init(generator, cfg, d, h * hd, bias=cfg.qkv_bias, device=device),
+        "wk": L.dense_init(generator, cfg, d, hkv * hd, bias=cfg.qkv_bias, device=device),
+        "wv": L.dense_init(generator, cfg, d, hkv * hd, bias=cfg.qkv_bias, device=device),
+        "wo": L.dense_init(generator, cfg, h * hd, d, scale=(h * hd) ** -0.5, device=device),
     }
 
 

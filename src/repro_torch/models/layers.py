@@ -78,9 +78,11 @@ def rope(x, positions, theta: float):
 # --- Dense projections -------------------------------------------------------
 
 def dense_init(generator, cfg: ModelConfig, d_in: int, d_out: int, *,
-               bias=False, scale: float | None = None):
+               bias=False, scale: float | None = None, device=None):
+    """``device``: where the weights are made (default the generator's; a
+    CPU generator draws for ``meta`` too, which makes shapes only)."""
     scale = scale if scale is not None else d_in**-0.5
-    dev = generator.device
+    dev = generator.device if device is None else device
     w = torch.randn((d_in, d_out), generator=generator, device=dev) * scale
     p = {"kernel": w.to(pdtype(cfg))}
     if bias:
@@ -118,19 +120,18 @@ def dense_apply(p, x, compute_dtype, use_kernel: bool = True, rows: bool = False
 
 # --- MLP (swiglu / gelu) -----------------------------------------------------
 
-def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None):
+def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None, device=None):
     d_ff = d_ff or cfg.d_ff
+    kw = dict(bias=cfg.mlp_bias, device=device)
     if cfg.mlp_type == "swiglu":
         return {
-            "wi_gate": dense_init(generator, cfg, cfg.d_model, d_ff, bias=cfg.mlp_bias),
-            "wi_up": dense_init(generator, cfg, cfg.d_model, d_ff, bias=cfg.mlp_bias),
-            "wo": dense_init(generator, cfg, d_ff, cfg.d_model, bias=cfg.mlp_bias,
-                             scale=d_ff**-0.5),
+            "wi_gate": dense_init(generator, cfg, cfg.d_model, d_ff, **kw),
+            "wi_up": dense_init(generator, cfg, cfg.d_model, d_ff, **kw),
+            "wo": dense_init(generator, cfg, d_ff, cfg.d_model, scale=d_ff**-0.5, **kw),
         }
     return {
-        "wi": dense_init(generator, cfg, cfg.d_model, d_ff, bias=cfg.mlp_bias),
-        "wo": dense_init(generator, cfg, d_ff, cfg.d_model, bias=cfg.mlp_bias,
-                         scale=d_ff**-0.5),
+        "wi": dense_init(generator, cfg, cfg.d_model, d_ff, **kw),
+        "wo": dense_init(generator, cfg, d_ff, cfg.d_model, scale=d_ff**-0.5, **kw),
     }
 
 
@@ -148,9 +149,9 @@ def mlp_apply(cfg: ModelConfig, p, x, use_kernel: bool = True, rows: bool = Fals
 
 # --- Embeddings / LM head ----------------------------------------------------
 
-def embed_init(generator, cfg: ModelConfig):
+def embed_init(generator, cfg: ModelConfig, device=None):
     w = torch.randn((cfg.padded_vocab, cfg.d_model), generator=generator,
-                    device=generator.device) * 0.02
+                    device=generator.device if device is None else device) * 0.02
     return {"embedding": w.to(pdtype(cfg))}
 
 

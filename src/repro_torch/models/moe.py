@@ -54,15 +54,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 
-def init(generator, cfg: ModelConfig):
+def init(generator, cfg: ModelConfig, device=None):
     e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
-    pd, dev = L.pdtype(cfg), generator.device
+    pd, dev = L.pdtype(cfg), generator.device if device is None else device
 
     def ek(din, dout, scale):
         w = torch.randn((e, din, dout), generator=generator, device=dev) * scale
         return w.to(pd)
 
-    p = {"router": L.dense_init(generator, cfg, d, e, scale=d**-0.5)}
+    p = {"router": L.dense_init(generator, cfg, d, e, scale=d**-0.5, device=dev)}
     if cfg.mlp_type == "swiglu":
         p["wi_gate"] = ek(d, f, d**-0.5)
         p["wi_up"] = ek(d, f, d**-0.5)

@@ -56,12 +56,12 @@ def dims(cfg: ModelConfig):
     return d_inner, nheads, conv_dim
 
 
-def init(generator, cfg: ModelConfig):
+def init(generator, cfg: ModelConfig, device=None):
     s = cfg.ssm
     d_inner, nheads, conv_dim = dims(cfg)
-    pd, dev = L.pdtype(cfg), generator.device
+    pd, dev = L.pdtype(cfg), generator.device if device is None else device
     d_in_proj = 2 * d_inner + 2 * s.ngroups * s.state_dim + nheads
-    in_proj = L.dense_init(generator, cfg, cfg.d_model, d_in_proj)
+    in_proj = L.dense_init(generator, cfg, cfg.d_model, d_in_proj, device=dev)
     conv = torch.randn((s.conv_width, conv_dim), generator=generator,
                        device=dev) * s.conv_width**-0.5
     lo, hi = math.log(s.dt_min), math.log(s.dt_max)
@@ -77,7 +77,7 @@ def init(generator, cfg: ModelConfig):
         "d_skip": torch.ones((nheads,), dtype=pd, device=dev),
         "gate_norm": {"scale": torch.ones((d_inner,), dtype=pd, device=dev)},
         "out_proj": L.dense_init(generator, cfg, d_inner, cfg.d_model,
-                                 scale=d_inner**-0.5),
+                                 scale=d_inner**-0.5, device=dev),
     }
 
 

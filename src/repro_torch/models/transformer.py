@@ -105,14 +105,15 @@ class Model:
 
     # .. params ..
     def init_layer(self, generator, spec):
-        cfg = self.cfg
+        cfg, dev = self.cfg, self.device
         mixer, ffn = spec
         mod = ssm if mixer == "ssm" else attention
-        p = {"mixer_norm": L.norm_init(cfg, cfg.d_model, generator.device),
-             "mixer": mod.init(generator, cfg)}
+        p = {"mixer_norm": L.norm_init(cfg, cfg.d_model, dev),
+             "mixer": mod.init(generator, cfg, device=dev)}
         if ffn in ("dense", "moe"):
-            p["ffn_norm"] = L.norm_init(cfg, cfg.d_model, generator.device)
-            p["ffn"] = L.mlp_init(generator, cfg) if ffn == "dense" else moe.init(generator, cfg)
+            p["ffn_norm"] = L.norm_init(cfg, cfg.d_model, dev)
+            p["ffn"] = (L.mlp_init(generator, cfg, device=dev) if ffn == "dense"
+                        else moe.init(generator, cfg, device=dev))
         return p
 
     def init(self, generator: torch.Generator, quant: QuantConfig | None = None):
@@ -121,15 +122,17 @@ class Model:
         float weights of all layers never sit on the device at once.
         Without it every leaf is a float tensor in ``cfg.param_dtype``
         (float32 by default): the master weights that training makes
-        leaves with ``requires_grad``."""
-        cfg = self.cfg
-        if generator.device.type != self.device.type:
-            raise ValueError(f"generator on {generator.device}, model on {self.device}")
-        params = {"embed": L.embed_init(generator, cfg),
-                  "final_norm": L.norm_init(cfg, cfg.d_model, self.device)}
+        leaves with ``requires_grad``.  A model on ``meta`` takes a CPU
+        generator and makes shapes only (the planner's)."""
+        cfg, dev = self.cfg, self.device
+        want = "cpu" if dev.type == "meta" else dev.type
+        if generator.device.type != want:
+            raise ValueError(f"generator on {generator.device}, model on {dev}")
+        params = {"embed": L.embed_init(generator, cfg, device=dev),
+                  "final_norm": L.norm_init(cfg, cfg.d_model, dev)}
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(generator, cfg, cfg.d_model,
-                                             cfg.padded_vocab)
+                                             cfg.padded_vocab, device=dev)
         layers = []
         for i, spec in enumerate(self._specs()):
             layer = self.init_layer(generator, spec)

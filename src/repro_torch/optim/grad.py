@@ -39,7 +39,8 @@ def accumulate(loss_of, params, microbatches, grad_dtype=None):
         total = loss.detach().float() if total is None else total + loss.detach().float()
         n += 1
         if not direct:
-            gs = [p.grad.to(acc_dt) for p in flat]
+            gs = [p.grad.to(acc_dt) if p.grad is not None   # a leaf the loss never read
+                  else torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in flat]
             acc = gs if acc is None else [a.add_(g) for a, g in zip(acc, gs)]
             for p in flat:
                 p.grad = None

@@ -57,7 +57,7 @@ def make_loss(model: Model, remat: str = "none"):
 def _microbatches(batch, mb: int):
     if not mb:
         return [batch]
-    rows = batch["tokens"].shape[0]
+    rows = batch["labels"].shape[0]
     if rows % mb:
         raise ValueError(f"batch of {rows} rows does not split into microbatches of {mb}")
     return [{k: v[i:i + mb] for k, v in batch.items()} for i in range(0, rows, mb)]
@@ -114,8 +114,8 @@ def _sharded_step(model, ocfg, tcfg, data_axes, specs, gdt, loss_of):
 
     def train_step(params, opt_state, batch):
         """``params`` and ``opt_state``: this rank's shards; ``batch``: this
-        rank's rows, {"tokens", "labels"} [B_loc, S]."""
-        rows = batch["tokens"].shape[0]
+        rank's rows, {"tokens" (or "embeds"), "labels"} [B_loc, S]."""
+        rows = batch["labels"].shape[0]
         want = tcfg.global_batch // nd if split else tcfg.global_batch
         if rows != want:
             raise ValueError(f"{rows} rows on this rank; a global batch of "

@@ -269,8 +269,42 @@ def case_pipeline(inputs, micros):
             for m in micros}
 
 
+def case_collectives(shape, runs, rows, seq):
+    """One sharded step of each {name: (arch, microbatch, remat)} of
+    ``runs`` on ``shape`` (data, model), from ``init_params``: the bytes
+    this rank's collectives moved (``collectives.moved``) as
+    ``<name>/<kind>/<group size>``."""
+    import torch
+    from repro_torch import collectives, sharding
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import shard_batch
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime.train_loop import init_opt_state, make_train_step
+
+    mesh = make_mesh(shape, ("data", "model"))
+    da = sharding.data_axes(mesh)
+    out = {}
+    for name, (arch, mb, remat) in runs.items():
+        cfg = step_config(arch)
+        full = init_params(cfg)
+        specs = sharding.params_shardings(full, mesh)
+        tcfg = TrainConfig(seq_len=seq, global_batch=rows, microbatch=mb, remat=remat)
+        params = sharding.local_shard_tree(full, specs, mesh)
+        opt = init_opt_state(tcfg, params)
+        batch = {k: torch.from_numpy(v) for k, v in
+                 shard_batch(token_batch(cfg.vocab_size, rows, seq), mesh).items()}
+        step = make_train_step(Model(cfg, device="cpu", dist=(mesh, da)), OptimConfig(), tcfg,
+                               data_axes=da, grad_shardings=specs)
+        collectives.reset_counts()
+        step(params, opt, batch)
+        for (kind, n), nbytes in collectives.moved.items():
+            out[f"{name}/{kind}/{n}"] = np.asarray(nbytes)
+    return out
+
+
 CASES = {"steps": case_steps, "moe": case_moe, "layout": case_layout,
-         "pipeline": case_pipeline}
+         "pipeline": case_pipeline, "collectives": case_collectives}
 
 
 def _train_main(argv):
