@@ -53,7 +53,17 @@ Phases (each prints its seconds; any failure exits non-zero):
    wrong scale pool, a combine that drops the last live split) must fail
    those checks.  Kernel, plain
    version and a library yardstick are timed with CUDA events (L2 flushed
-   by a read before every launch);
+   by a read before every launch).  A failed exact matmul check prints
+   ``diagnose_exact``'s three-way reading first (kernel, the card's
+   reference, a CPU int64 product; where the wrong places fall on the
+   plan; the split workspaces), and after every check group, and after
+   every serving phase below, the split-K workspaces must hold zero words
+   and tickets (``check_workspace_zero``); then the tuning phase
+   (``tuning_phase``): ``kernels/tuning``'s autotune of kernel 1 and of
+   kernel 3 into a temporary cache, every candidate held against the
+   default plan, the winners reloaded and timed beside the defaults; the
+   table is empty again after it (the run isolates the cache from this
+   host's: ``REPRO_TORCH_TUNING_CACHE`` in a temporary directory);
 4. serve 16 ragged greedy requests (prompts 256..512 tokens, 32 new
    tokens each) on qwen2.5-3b at full width (36 layers, random weights
    from a seed) through ``repro_torch.launch.serve``'s code, in two
@@ -227,8 +237,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    at M = 8 / 512, K = 2048, N = 11008 (their launches counted), the
    planted fault "carry into the next digit ignored" caught; then
    ``examples/torch_quickstart.py`` (kernels 5 and 4 once each);
-14. the paper tables (``core/paper_tables.ALL_TABLES``) against a fresh
-   CPU process's run of the same module (pure Python: a sanity line);
+14. the paper tables (``core/paper_tables.ALL_TABLES``) in this process,
+   and the Fig 7 headline (pure Python: a sanity line);
 15. multi-device under an NCCL process group of world 1 (a ``FileStore``
    in a temporary directory) on a 1x1 ("data", "model") mesh: (a)
    full-width mamba2-370m in phase 12's configuration, one plain step and
@@ -259,6 +269,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -383,6 +394,131 @@ def matmul_bound(name, x, w, sx, sw, out_dtype):
     return cost_bounds(ops, name, x, w, sx, sw, out_dtype)[name][:2]
 
 
+def workspace_state(torch):
+    """{key: (nonzero words, nonzero tickets)} of every split workspace
+    that ``_build.stream_workspace`` holds, after the card is idle.  The
+    paged kind's words are f32 partials that no call zeroes: None."""
+    from repro_torch.kernels import _build
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {key: (None if len(key) > 2 else int(torch.count_nonzero(ws)),
+                  int(torch.count_nonzero(tk)))
+            for key, (ws, tk) in _build._workspaces.items()}
+
+
+def _ws_key(key):
+    return "/".join(str(p) for p in key)
+
+
+def check_workspace_zero(torch, where):
+    """The invariant every split call keeps: the split-K workspaces of
+    kernels 1, 4, 5 and 6 (one per device and CUDA stream, both routes)
+    hold zero words and zero tickets, and the paged kind's tickets are
+    zero.  A nonzero word is a partial sum an earlier call left behind,
+    which the next split call would add to its own."""
+    state = workspace_state(torch)
+    bad = {k: v for k, v in state.items() if v[0] or v[1]}
+    if bad:
+        raise AssertionError(f"after {where}: split workspaces not zero: "
+                             + "; ".join(f"{_ws_key(k)} {w} nonzero words, {t} nonzero tickets"
+                                         for k, (w, t) in bad.items()))
+    print(f"  workspace invariant after {where}: "
+          + (", ".join(_ws_key(k) for k in state) or "no workspace") + " all zero", flush=True)
+
+
+DIAG_POSITIONS = 4096   # differing places a failed exact check recomputes on the CPU
+DIAG_SHOWN = 5          # of which it prints the first
+
+
+def diagnose_exact(torch, what, got, want, x, sx, sw, w8, route, tc_bm=128, sms=None):
+    """The three-way reading of a failed exact check of kernel 1, 4, 5 or
+    6 (``got``) against the card's plain version (``want``), for the
+    caller's AssertionError.  At up to DIAG_POSITIONS of the differing
+    places (evenly strided), the product is recomputed on the CPU in int64
+    from the operands copied to the host (X quantized there from X and sx
+    when the kernel quantizes it; the int8 weights ``w8``, whose product
+    all four kernels' accumulators equal), with the plain epilogue for a
+    float output.  Returns the text: how many places differ; how many of
+    the recomputed ones the kernel, the card's reference, or both get
+    wrong; the first DIAG_SHOWN (row, column, kernel, card ref, CPU ref);
+    where the differing places fall on ``route``'s plan (strips of 64
+    columns and M chunks of the stream, 128-column tiles of the tensor-core
+    loop, and for an int32 output each wrong kernel value read as one K
+    split's partial sum missing or counted twice); and the split
+    workspaces' nonzero words and tickets after the call."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    from repro_torch.kernels.ent_matmul.ref import quantize_with_scale
+    m, k = x.shape
+    n = w8.shape[1]
+    sms = _build.sm_count(got.device) if sms is None else sms
+    if route == "stream":
+        mb, kslice, splits, _ = em.stream_plan(m, n, k, sms)
+        where = f"stream plan mb {mb}, kslice {kslice}, {splits} splits"
+    else:
+        kslice, splits, _ = em.tc_plan(m, n, k, sms, tc_bm)
+        mb = tc_bm
+        where = f"tensor-core plan {tc_bm}-row tiles, kslice {kslice}, {splits} splits"
+    bad = (got != want).nonzero().cpu()
+    n_bad = bad.shape[0]
+    pick = bad[::max(1, -(-n_bad // DIAG_POSITIONS))]
+    rows, cols = pick[:, 0], pick[:, 1]
+    xh = x.cpu()
+    xq = xh if xh.dtype == torch.int8 else quantize_with_scale(xh.float(), sx.cpu())
+    wh, sxh, swh = w8.cpu(), sx.cpu().float(), sw.cpu().float()
+    ends = [min((s + 1) * kslice, k) - 1 for s in range(splits)]
+    accs, parts = [], []
+    for lo in range(0, rows.numel(), 256):
+        r, c = rows[lo:lo + 256], cols[lo:lo + 256]
+        run = (xq[r].long() * wh[:, c].t().long()).cumsum(1)[:, ends]
+        accs.append(run[:, -1])
+        parts.append(torch.diff(run, dim=1, prepend=torch.zeros_like(run[:, :1])))
+    acc = torch.cat(accs) if accs else torch.zeros(0, dtype=torch.long)
+    part = torch.cat(parts) if parts else torch.zeros((0, splits), dtype=torch.long)
+    if got.dtype == torch.int32:
+        cpu = acc.to(torch.int32)
+    else:
+        cpu = (acc.to(torch.float32) * sxh[rows, 0] * swh[0, cols]).to(got.dtype)
+    kv, rv = got[rows, cols].cpu(), want[rows, cols].cpu()
+    k_ok, r_ok = kv == cpu, rv == cpu
+    lines = [f"{what}: {n_bad} of {got.numel()} places differ from the card's plain version; "
+             f"recomputed on the CPU in int64 at {rows.numel()}: the kernel wrong at "
+             f"{int((~k_ok & r_ok).sum())}, the card's reference wrong at "
+             f"{int((k_ok & ~r_ok).sum())}, both wrong at {int((~k_ok & ~r_ok).sum())}"]
+    lines.append("  first (row, column, kernel, card ref, CPU ref): " + "; ".join(
+        f"({int(rows[i])}, {int(cols[i])}, {kv[i].item()}, {rv[i].item()}, {cpu[i].item()})"
+        for i in range(min(DIAG_SHOWN, rows.numel()))))
+    cw = 64 if route == "stream" else 128
+    strips = sorted({int(c) // cw for c in bad[:, 1]})
+    chunks = sorted({int(r) // mb for r in bad[:, 0]})
+    lines.append(f"  where ({where}): {len(strips)} of {-(-n // cw)} {cw}-column "
+                 f"{'strips' if route == 'stream' else 'tiles'} {strips[:16]}, "
+                 f"{len(chunks)} of {-(-m // mb)} M chunks of {mb} rows {chunks[:16]}")
+    if got.dtype == torch.int32 and rows.numel():
+        delta = (kv.long() - acc)[:, None]
+        missing, twice = (delta == -part), (delta == part) & (part != 0)
+        wrong = ~k_ok
+        lines.append("  a wrong kernel value as one split's partial sum: missing "
+                     + str({s: int((missing[:, s] & wrong).sum()) for s in range(splits)
+                            if (missing[:, s] & wrong).any()})
+                     + ", twice " + str({s: int((twice[:, s] & wrong).sum()) for s in range(splits)
+                                         if (twice[:, s] & wrong).any()})
+                     + f", neither {int((wrong & ~(missing | twice).any(1)).sum())}")
+    lines.append("  split workspaces after the call (nonzero words, tickets): " + (", ".join(
+        f"{_ws_key(key)} {v}" for key, v in workspace_state(torch).items()) or "none"))
+    text = "\n".join(lines)
+    print(text, flush=True)
+    return text
+
+
+def assert_exact(torch, what, got, want, x, sx, sw, w8, route, tc_bm=128, sms=None):
+    """``torch.equal(got, want)``, else the three-way reading of
+    ``diagnose_exact`` and an AssertionError."""
+    if not torch.equal(got, want):
+        raise AssertionError(diagnose_exact(torch, what, got, want, x, sx, sw, w8, route,
+                                            tc_bm, sms))
+
+
 def check_matmuls(torch, timer):
     """The four serving matmuls at the full-width projection shapes:
     kernel 1 (``ent_matmul_packed_fused``) and kernels 6 / A
@@ -396,6 +532,7 @@ def check_matmuls(torch, timer):
     versions and ``torch._int_mm`` are timed, each on the route its
     wrapper takes at that M.  Returns {kernel name: [row per shape]}."""
     from repro_torch.core.multiplier import ent_packed_planes
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
     from repro_torch.kernels.ent_matmul.ent_matmul import (ent_matmul, ent_matmul_packed,
                                                            ent_matmul_packed_fused)
     from repro_torch.kernels.ent_matmul.ops import encode_weights, row_scale
@@ -431,15 +568,15 @@ def check_matmuls(torch, timer):
                     lambda w, o=torch.float32: ent_matmul_packed(xq, w, sx, sw, o),
                     packed, lambda: ent_packed_matmul_ref(xq, packed, sx, sw)),
             }
+            x_of = lambda name: x if name == "ent_matmul_packed_fused" else xq  # noqa: E731
             # the EN-T identity: one int32 accumulator for all four
             acc = int8_matmul_int32_ref(xq, w8)
             for name, (kern, w, _) in cases.items():
                 got = kern(w, torch.int32)
                 torch.cuda.synchronize()
-                if not torch.equal(got, acc):
-                    raise AssertionError(f"EN-T identity: {name} M={m} K={k} N={n}: int32 "
-                                         f"accumulator differs from X @ W in "
-                                         f"{int((got != acc).sum())} places")
+                assert_exact(torch, f"EN-T identity: {name} M={m} K={k} N={n}: int32 "
+                             f"accumulator against X @ W", got, acc, x_of(name), sx, sw, w8,
+                             matmul_route(name, m), em.tc_bm(name))
             xq_lib = torch.cat([xq, xq.new_zeros((max(0, 32 - m), k))]) if m < 32 else xq
             try:   # w8a8 yardstick: one int8 GEMM (M padded to 32 rows)
                 library_ms = timer(lambda: torch._int_mm(xq_lib, w8))
@@ -450,14 +587,14 @@ def check_matmuls(torch, timer):
                 got, want = kern(w), plain()
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} M={m} K={k} N={n}: not bit-identical "
-                                         f"to the plain version (max abs err {err})")
-                if name == "int8_matmul" and not torch.equal(
-                        kern(w, torch.bfloat16),
-                        int8_matmul_ref(xq, w8, sx, sw, torch.bfloat16)):
-                    raise AssertionError(f"int8_matmul M={m} K={k} N={n}: bf16 output "
-                                         f"not bit-identical")
+                assert_exact(torch, f"{name} M={m} K={k} N={n}: f32 output against the plain "
+                             f"version (max abs err {err})", got, want, x_of(name), sx, sw, w8,
+                             matmul_route(name, m), em.tc_bm(name))
+                if name == "int8_matmul":
+                    assert_exact(torch, f"int8_matmul M={m} K={k} N={n}: bf16 output",
+                                 kern(w, torch.bfloat16),
+                                 int8_matmul_ref(xq, w8, sx, sw, torch.bfloat16), xq, sx, sw, w8,
+                                 matmul_route(name, m))
                 if n == k:   # planted fault: one weight/plane code off by one
                     bad = w.clone()
                     flat = bad.view(-1)
@@ -539,9 +676,8 @@ def check_ring_matmuls(torch, timer, shapes=RING_SHAPES, m_values=RING_MATMUL_M,
                 if (kern1.launches - before[0],
                         getattr(kern1, f"{route}_launches") - before[1]) != (1, 1):
                     raise AssertionError(f"{what}: not one launch on the {route} route")
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{what} out {o}: not bit-identical "
-                                         f"({int((got != want).sum())} of {m * n} differ)")
+                assert_exact(torch, f"{what} out {o}: against the plain version", got, want,
+                             x, sx, sw, w8, route)
             bad = packed.clone()
             flat = bad.view(-1)
             flat[k * n // 2] += 1 if int(flat[k * n // 2]) < 1 else -1
@@ -689,11 +825,10 @@ def check_routes_exact(torch, what, ms, route, x_dtypes, seed):
                                     getattr(wrapper, counter) - before[1]) != (1, 1):
                                 raise AssertionError(f"{what} {name} M={m} K={k} N={n}: not "
                                                      f"one launch on the {route} route")
-                            if not torch.equal(got, want):
-                                raise AssertionError(
-                                    f"{what} {name} M={m} K={k} N={n} X {xdt} out {o}: not "
-                                    f"bit-identical ({int((got != want).sum())} of {m * n} "
-                                    f"differ)")
+                            assert_exact(torch, f"{what} {name} M={m} K={k} N={n} X {xdt} out "
+                                         f"{o}: against the plain version", got, want,
+                                         x if name == "ent_matmul_packed_fused" else xq, sx, sw,
+                                         w8, route, em.tc_bm(name))
                             n_checked += 1
                     if m == max(ms[name]) and xdt == x_dtypes[0]:   # planted fault
                         bad = {"ent_matmul_packed_fused": packed, "int8_matmul": w8,
@@ -862,11 +997,10 @@ def _quantizer_case(torch, em, x, sx, packed, w8, what):
     want = int8_matmul_int32_ref(quantize_with_scale(x, sx), w8)
     sw = torch.ones((1, w8.shape[1]), device=DEV)
     for route, rows in (("tc", x.shape[0]), ("stream", 8)):
-        got = em._launch_fused(x[:rows].contiguous(), packed, sx[:rows].contiguous(), sw,
-                               torch.int32, route)
-        if not torch.equal(got, want[:rows]):
-            raise AssertionError(f"{route} K={x.shape[1]} N={w8.shape[1]}: {what}, X {x.dtype}: "
-                                 f"not bit-identical ({int((got != want[:rows]).sum())} differ)")
+        xr, sxr = x[:rows].contiguous(), sx[:rows].contiguous()
+        got = em._launch_fused(xr, packed, sxr, sw, torch.int32, route)
+        assert_exact(torch, f"{route} K={x.shape[1]} N={w8.shape[1]}: {what}, X {x.dtype}",
+                     got, want[:rows], xr, sxr, sw, w8, route)
     return 2
 
 
@@ -893,6 +1027,142 @@ def check_cut(torch, timer):
               + f"; the stream is the faster up to M = {last}; its cut = {matmul_cut(name)}",
               flush=True)
     return rows
+
+
+# the tuning phase's two shapes: kernel 1 at a decode tick's gate / up
+# projection (m, k, n), over the stream's K slices; kernel 3 at the serving
+# tick's paged read, over pages a split
+TUNE_MATMUL = (8, 2048, 11008)
+TUNE_PAGED = "tick"
+
+
+def tuning_phase(torch, timer):
+    """``kernels/tuning`` on the card, with its cache in a temporary
+    directory: ``autotune`` (CUDA events, the L2 flushed by a read) of
+    kernel 1 at TUNE_MATMUL over the stream's K slices at the default
+    plan's rows a block, and of kernel 3 (bf16 pools) at PAGED_CASES'
+    serving tick over pages a split.  Every candidate's output is held
+    against the default plan's: kernel 1's int32 accumulator bit for bit
+    (the default's equal to X @ W), kernel 3's within 2 TOL_BF16 att|v| of
+    it and TOL_BF16 of the plain version (a split changes the sum order;
+    each plan is within TOL_BF16 of the plain version).  Then the cache is
+    reloaded in-process, each wrapper must resolve its winner from it, and
+    each winner's time through the wrapper is printed beside the default
+    plan's, with the host microseconds of one memoised plan lookup beside
+    a direct ``stream_plan`` call.  The table is emptied at the end: the
+    later phases run on the heuristics.  Returns the figures."""
+    from repro_torch.core.multiplier import ent_packed_planes
+    from repro_torch.kernels import _build, tuning
+    from repro_torch.kernels.ent_matmul import ent_matmul as em
+    from repro_torch.kernels.ent_matmul.ops import row_scale
+    from repro_torch.kernels.ent_matmul.ref import quantize_with_scale
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref
+    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    sms = _build.sm_count(torch.device(DEV, 0))
+    fam, (m, k, n) = "ent_matmul_packed_fused", TUNE_MATMUL
+    g = torch.Generator(device=DEV).manual_seed(31)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=DEV, dtype=torch.int8)
+    packed = ent_packed_planes(w8).contiguous()
+    sw = torch.rand((1, n), generator=g, device=DEV) * 1e-2 + 1e-4
+    x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
+    sx = row_scale(x)
+    default_mm = dict(tuning.get_block_config(fam, (m, k, n), sms=sms))
+    if default_mm != dict(tuning._heuristic(fam, (m, k, n), sms)) or default_mm["route"] != "stream":
+        raise AssertionError(f"tuning: kernel 1's plan at {TUNE_MATMUL} on an empty table is "
+                             f"{default_mm}, not the stream's heuristic")
+    mm_cands = [c for c in tuning.matmul_candidates(fam, m, k, n, sms=sms, route="stream")
+                if c["mb"] == default_mm["mb"]]
+    base = em._launch_fused(x, packed, sx, sw, torch.int32, "stream", plan=default_mm)
+    assert_exact(torch, f"tuning: kernel 1 {TUNE_MATMUL} default plan {default_mm}", base,
+                 int8_matmul_int32_ref(quantize_with_scale(x, sx), w8), x, sx, sw, w8, "stream")
+    for c in mm_cands:
+        if not torch.equal(em._launch_fused(x, packed, sx, sw, torch.int32, "stream", plan=c),
+                           base):
+            raise AssertionError(f"tuning: kernel 1 {TUNE_MATMUL} plan {c} differs from the "
+                                 f"default plan's int32 accumulator")
+
+    b, hq, hkv, d, page, pps = PAGED_CASES[TUNE_PAGED][:6]
+    q, kp, vp, table, pos, start, _ = paged_case(torch, PAGED_CASES[TUNE_PAGED], False)
+    default_pa = dict(tuning.get_block_config("paged_attention", (b, hkv, pps), sms=sms))
+    pa_cands = tuning.paged_attention_candidates(b, hkv, pps, sms=sms)
+
+    def paged(plan=None):
+        return paged_attention_kernel(q, kp, vp, table, pos, start, page_size=page, plan=plan)
+    att = paged_attention_ref(q.float(), kp.float(), vp.float().abs(), table, pos, start,
+                              page_size=page)
+    plain = paged_attention_ref(q, kp, vp, table, pos, start, page_size=page)
+    base_pa = paged(default_pa)
+    reads = {}
+    for c in pa_cands:
+        got = paged(c)
+        reads[c["pages"]] = (excess(got, base_pa, att, 2 * TOL_BF16),
+                             excess(got, plain, att, TOL_BF16))
+        if max(reads[c["pages"]]) > 1:
+            raise AssertionError(f"tuning: kernel 3 plan {c} reads {reads[c['pages']]} against "
+                                 f"the default plan's output (2 TOL_BF16) and the plain "
+                                 f"version's (TOL_BF16)")
+
+    old = os.environ.get("REPRO_TORCH_TUNING_CACHE")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tuning_") as tmp:
+        os.environ["REPRO_TORCH_TUNING_CACHE"] = os.path.join(tmp, "tuning.json")
+        try:
+            tuning.reload()
+            t0 = time.perf_counter()
+            win_mm = tuning.autotune(fam, (m, k, n), lambda c: em._launch_fused(
+                x, packed, sx, sw, torch.bfloat16, "stream", plan=c), mm_cands, sms=sms)
+            win_pa = tuning.autotune("paged_attention", (b, hkv, pps), paged, pa_cands, sms=sms)
+            tune_s = time.perf_counter() - t0
+            with open(tuning.cache_path()) as f:
+                saved = json.load(f)
+            tuning.reload()   # the winners from the file, in this process
+            for fam_, shape, win in ((fam, (m, k, n), win_mm),
+                                     ("paged_attention", (b, hkv, pps), win_pa)):
+                got = dict(tuning.get_block_config(fam_, shape, sms=sms))
+                if got != {**tuning._heuristic(fam_, shape, sms), **win}:
+                    raise AssertionError(f"tuning: {fam_} {shape} resolves {got} after the "
+                                         f"reload, not the winner {win} (file {saved})")
+            wrap = lambda: em.ent_matmul_packed_fused(x, packed, sx, sw, torch.bfloat16)  # noqa: E731
+            out["ent_matmul_packed_fused"] = dict(
+                shape=TUNE_MATMUL, candidates=mm_cands, default=default_mm, winner=win_mm,
+                winner_ms=timer(wrap),
+                default_ms=timer(lambda: em._launch_fused(x, packed, sx, sw, torch.bfloat16,
+                                                          "stream", plan=default_mm)))
+            out["paged_attention"] = dict(
+                shape=(b, hkv, pps), candidates=pa_cands, default=default_pa, winner=win_pa,
+                winner_ms=timer(paged), default_ms=timer(lambda: paged(default_pa)),
+                err_over_limit=reads)
+            reps = 100_000
+            args = (fam, (m, k, n))
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                tuning.get_block_config(*args, sms=sms, route="stream")
+            lookup_us = (time.perf_counter() - t0) / reps * 1e6
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                em.stream_plan(m, n, k, sms)
+            plan_us = (time.perf_counter() - t0) / reps * 1e6
+        finally:
+            tuning.clear()
+            if old is None:
+                os.environ.pop("REPRO_TORCH_TUNING_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_TUNING_CACHE"] = old
+    if not tuning.empty():
+        raise AssertionError("tuning: the table is not empty after the phase")
+    for name, r in out.items():
+        print(f"tuning {name} {r['shape']} ({len(r['candidates'])} candidates "
+              f"{[dict(c) for c in r['candidates']]}): winner {r['winner']} {r['winner_ms']:.4f} "
+              f"ms through the wrapper after the reload, default {r['default']} "
+              f"{r['default_ms']:.4f} ms", flush=True)
+    print(f"tuning: every kernel 1 candidate's int32 accumulator equal to the default plan's; "
+          f"kernel 3 err/limit (vs default at 2 TOL_BF16, vs plain at TOL_BF16) by pages a split "
+          + ", ".join(f"{p}: {a:.3f} / {c:.3f}" for p, (a, c) in reads.items())
+          + f"; autotune {tune_s:.2f} s; cache {sorted(saved)}; a memoised plan lookup "
+          f"{lookup_us:.3f} us, stream_plan {plan_us:.3f} us (host)", flush=True)
+    out.update(autotune_s=tune_s, lookup_us=lookup_us, stream_plan_us=plan_us)
+    return out
 
 
 def excess(got, want, att_abs_v, tol):
@@ -4937,28 +5207,17 @@ def check_encoders(torch):
     return dict(launches=launches, wrong=bad, fault=faulty)
 
 
-def check_paper_tables(torch):
-    """``core/paper_tables``' ALL_TABLES on this host, against the same
-    module run in a fresh process without the card (pure Python: a
-    sanity line, not a check of the device); prints the Fig 7 headline."""
+def paper_tables_headline(torch):
+    """``core/paper_tables``' ALL_TABLES on this host (pure Python: a
+    sanity line, not a check of the device; tests/test_torch_hwmodel.py
+    holds the tables against the reference's): prints the Fig 7 headline."""
     from repro_torch.core import hwmodel, paper_tables
     rows = [fn() for fn in paper_tables.ALL_TABLES]
-    script = ("import json; from repro_torch.core.paper_tables import ALL_TABLES; "
-              "print(json.dumps([fn() for fn in ALL_TABLES]))")
-    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                         timeout=300, check=True,
-                         env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
-                                  CUDA_VISIBLE_DEVICES=""))
-    other = json.loads(out.stdout.strip().splitlines()[-1])
-    same = json.loads(json.dumps(rows)) == other
     heads = {s: hwmodel.scale_average(s) for s in ("256GOPS", "1TOPS", "4TOPS")}
-    print(f"paper tables: {len(rows)} tables, {sum(len(r[0]) for r in rows)} rows, "
-          f"{'equal to' if same else 'DIFFERENT FROM'} a fresh CPU process's; model "
+    print(f"paper tables: {len(rows)} tables, {sum(len(r[0]) for r in rows)} rows; model "
           "area / energy efficiency gains (paper 8.7 / 12.2 / 11.0%, 13.0 / 17.5 / 15.5%): "
           + ", ".join(f"{k} +{100 * v['area_eff']:.1f}% / +{100 * v['energy_eff']:.1f}%"
                       for k, v in heads.items()), flush=True)
-    if not same:
-        raise AssertionError("paper tables differ between this process and a fresh one")
     return heads
 
 
@@ -5591,6 +5850,10 @@ def main():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    # every check holds launches to the plans of an empty tuning table: no
+    # cache of this host's (the tuning phase keeps its own)
+    isolated = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    os.environ["REPRO_TORCH_TUNING_CACHE"] = os.path.join(isolated.name, "tuning.json")
     # float32 products and convolutions in full float32 on the card (the
     # matmul default; the port runs no convolution)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5615,30 +5878,43 @@ def main():
 
     t = phase("kernel checks")
     timer = Timer(torch)
-    mm = check_matmuls(torch, timer)
-    ring_mm = check_ring_matmuls(torch, timer)
-    n_stream = check_stream(torch)
-    n_tc = check_tc(torch)
-    cut = check_cut(torch, timer)
-    k2 = check_flash(torch, timer)
-    k2o = check_flash_offsets(torch, timer)
-    k2r = check_ring_decode(torch, timer)
-    k3 = check_paged(torch, timer)
-    k3i = check_paged(torch, timer, int8_kv=True)
-    k8p = check_ssd_prefill(torch, timer)
-    mamba_mm = check_ring_matmuls(torch, timer, MAMBA_SHAPES, MAMBA_MATMUL_M, "mamba2-370m", 17)
-    del timer
+
+    def checked(what, fn, *args, **kwargs):
+        out = fn(*args, **kwargs)
+        check_workspace_zero(torch, what)
+        return out
+    mm = checked("check_matmuls", check_matmuls, torch, timer)
+    ring_mm = checked("check_ring_matmuls", check_ring_matmuls, torch, timer)
+    n_stream = checked("check_stream", check_stream, torch)
+    n_tc = checked("check_tc", check_tc, torch)
+    cut = checked("check_cut", check_cut, torch, timer)
+    k2 = checked("check_flash", check_flash, torch, timer)
+    k2o = checked("check_flash_offsets", check_flash_offsets, torch, timer)
+    k2r = checked("check_ring_decode", check_ring_decode, torch, timer)
+    k3 = checked("check_paged", check_paged, torch, timer)
+    k3i = checked("check_paged (int8 KV)", check_paged, torch, timer, int8_kv=True)
+    k8p = checked("check_ssd_prefill", check_ssd_prefill, torch, timer)
+    mamba_mm = checked("check_ring_matmuls (mamba2-370m)", check_ring_matmuls, torch, timer,
+                       MAMBA_SHAPES, MAMBA_MATMUL_M, "mamba2-370m", 17)
     done(t, "kernel checks")
+
+    t = phase("tuning")
+    tuned = checked("tuning", tuning_phase, torch, timer)
+    del timer
+    done(t, "tuning")
 
     serves = {}
     for config in SERVE_CONFIGS:
         t = phase(f"serve qwen2.5-3b full width, {config}")
         serves[config] = serve_full_width(torch, config)
         done(t, f"serve qwen2.5-3b full width, {config}")
+        check_workspace_zero(torch, f"serve qwen2.5-3b full width, {config}")
     t = phase("serve qwen2.5-3b full width, EN-T, shared prefix")
     shared = serve_shared_prefix(torch)
     done(t, "serve qwen2.5-3b full width, EN-T, shared prefix")
-    t = phase(f"serve qwen2.5-3b full width, EN-T, speculative (k = {SPEC_K})")
+    check_workspace_zero(torch, "serve qwen2.5-3b full width, EN-T, shared prefix")
+    what = f"serve qwen2.5-3b full width, EN-T, speculative (k = {SPEC_K})"
+    t = phase(what)
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch
     ent_model, ent_params = launch.build(get_config("qwen2.5-3b"), seed=0, quantize=True)
@@ -5646,10 +5922,13 @@ def main():
     spec = serve_spec(torch, plain_ent[5], plain_ent[1], ent_model, ent_params, plain_ent[6])
     engine_rows = {key: r for key, r in plain_ent[6].items() if key[0] < SLOTS}   # generate's
     plain_ent[6].clear()
-    done(t, f"serve qwen2.5-3b full width, EN-T, speculative (k = {SPEC_K})")
-    t = phase("serve qwen2.5-3b full width, EN-T, scheduler, faults, elastic, HTTP")
+    done(t, what)
+    check_workspace_zero(torch, what)
+    what = "serve qwen2.5-3b full width, EN-T, scheduler, faults, elastic, HTTP"
+    t = phase(what)
     sched = serve_scheduler(torch, ent_model, ent_params)
-    done(t, "serve qwen2.5-3b full width, EN-T, scheduler, faults, elastic, HTTP")
+    done(t, what)
+    check_workspace_zero(torch, what)
     t = phase("generate qwen2.5-3b full width, EN-T")
     gen = generate_ent(torch, ent_model, ent_params, {u: plain_ent[5][u] for u in range(SLOTS)},
                        engine_rows)
@@ -5657,16 +5936,20 @@ def main():
     del ent_model, ent_params
     torch.cuda.empty_cache()
     done(t, "generate qwen2.5-3b full width, EN-T")
+    check_workspace_zero(torch, "generate qwen2.5-3b full width, EN-T")
     t = phase("serve starcoder2-15b full width, EN-T, ring")
     ring = serve_ring(torch)
     done(t, "serve starcoder2-15b full width, EN-T, ring")
+    check_workspace_zero(torch, "serve starcoder2-15b full width, EN-T, ring")
     t = phase("serve mamba2-370m full width, EN-T")
     mamba = serve_mamba2(torch)
     done(t, "serve mamba2-370m full width, EN-T")
+    check_workspace_zero(torch, "serve mamba2-370m full width, EN-T")
     what = f"serve mixtral-8x7b full width, {MIXTRAL_LAYERS} of 32 layers, EN-T, ring"
     t = phase(what)
     mixtral = serve_mixtral(torch)
     done(t, what)
+    check_workspace_zero(torch, what)
 
     t = phase("kernels vs plain, 2 layers")
     # Limits between the sound readings and the planted faults' on the
@@ -5702,6 +5985,7 @@ def main():
     serving_2l = {arch: kernels_vs_plain_serving(torch, arch, 0.07)
                   for arch in ("mamba2-370m", "mixtral-8x7b")}
     done(t, "kernels vs plain, 2 layers")
+    check_workspace_zero(torch, "kernels vs plain, 2 layers")
 
     t = phase("training kernel checks")
     timer = Timer(torch)
@@ -5742,7 +6026,7 @@ def main():
     done(t, "encoders and multipliers")
 
     t = phase("paper tables")
-    tables = check_paper_tables(torch)
+    tables = paper_tables_headline(torch)
     done(t, "paper tables")
 
     t = phase("multi-device, NCCL world of 1")
@@ -5914,6 +6198,13 @@ def main():
               launches_quickstart=quick["ent_matmul_packed"],
               **routed("ent_matmul_packed", ent_t, serves[config_of["ent_matmul_packed_fused"]][2])),
     ]
+    for k in kernels:   # the tuning phase's autotune of kernels 1 and 3
+        fam = {"ent_matmul_packed_fused": "ent_matmul_packed_fused",
+               "paged_attention_kernel": "paged_attention"}.get(k["name"])
+        if fam:
+            k["tuning"] = dict(tuned[fam], autotune_s=tuned["autotune_s"],
+                               lookup_us=tuned["lookup_us"],
+                               stream_plan_us=tuned["stream_plan_us"])
     sched_launches = sched["a"]["runs"][1]["launches"]
     for k in kernels:   # kernels 1, 2 and 3 on the prefix-shared, speculative, scheduler runs
         if k["name"] in ("ent_matmul_packed_fused", "flash_attention_masked",

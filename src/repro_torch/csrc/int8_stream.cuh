@@ -42,6 +42,13 @@
 //   leaves them zero), applies the epilogue and resets its ticket: one
 //   launch per call, and the caller's workspace (zeroed once, when it is
 //   allocated) is zero again for the next call on the same stream.
+// * The ticket's ordering is the paged decode's combine's (and cooperative
+//   groups' grid barrier's): after the barrier that follows the block's
+//   atomics, thread 0 fences (a release, cumulative over every thread's
+//   sums through the barrier) and takes the ticket; if its block is the
+//   last, it fences again (an acquire) before the barrier that publishes
+//   `last`, so the drain reads every block's sums.  int8_tc.cuh's combine
+//   is the same.
 #pragma once
 
 #include "int8_common.cuh"
@@ -218,14 +225,17 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ planes,
   }
   if (!split) return;
 
-  // the last block of this (strip, M chunk) applies the epilogue
-  __threadfence();
+  // the last block of this (strip, M chunk) applies the epilogue; the
+  // ticket's fences as in the paged decode's combine (see the header)
   __syncthreads();
   const int strip = blockIdx.z * gridDim.x + blockIdx.x;
-  if (tid == 0) last = atomicAdd(tickets + strip, 1) == static_cast<int>(gridDim.y) - 1;
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(tickets + strip, 1) == static_cast<int>(gridDim.y) - 1;
+    if (last) __threadfence();
+  }
   __syncthreads();
   if (!last) return;
-  __threadfence();
   for (int o = tid; o < MB * BN; o += THREADS) {
     const int m = m0 + o / BN, n = n0 + o % BN;
     if (m >= M || n >= N) continue;

@@ -515,14 +515,17 @@ tc_kernel(const XT* __restrict__ x, const int8_t* __restrict__ planes,
   }
   if (!split) return;
 
-  // the last block of this (M, N) tile applies the epilogue
-  __threadfence();
+  // the last block of this (M, N) tile applies the epilogue; the ticket's
+  // fences as in int8_stream.cuh's combine (see its header)
   __syncthreads();
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0) last = atomicAdd(tickets + tile, 1) == static_cast<int>(gridDim.z) - 1;
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(tickets + tile, 1) == static_cast<int>(gridDim.z) - 1;
+    if (last) __threadfence();
+  }
   __syncthreads();
   if (!last) return;
-  __threadfence();
   for (int o = tid; o < R * BN; o += THREADS) {
     const int m = m0 + o / BN, n = n0 + o % BN;
     if (m >= M || n >= N) continue;

@@ -16,9 +16,13 @@ kernel 6's in its own module): up to the cut (the decode shape) the
 split-K weight stream of ``csrc/int8_stream.cuh``, counted in
 ``.stream_launches``; above, the int8 tensor-core loop of
 ``csrc/int8_tc.cuh``, counted in ``.tc_launches``, both among their
-``.launches``.  ``out_dtype`` is float32 (the default, as in the
-reference), bfloat16, or int32 for the int32 accumulator itself (no
-epilogue: the quantity the ``*_int32_ref`` oracles return).
+``.launches``.  The route and its knobs (the stream's rows a block and K
+slice, the tensor-core loop's K slice) come from ``kernels/tuning``,
+whose heuristic is ``route_of`` by the wrapper's cut, ``stream_plan``
+and ``tc_plan``: an empty table launches as those do.  ``out_dtype`` is
+float32 (the default, as in the reference), bfloat16, or int32 for the
+int32 accumulator itself (no epilogue: the quantity the ``*_int32_ref``
+oracles return).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.multiplier import NUM_PACKED_PLANES, PACKED_MAX_K
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 from repro_torch.kernels.ent_matmul.ref import (ent_matmul_int32_ref, ent_matmul_ref,
                                                 ent_packed_matmul_int32_ref,
                                                 ent_packed_matmul_ref,
@@ -151,7 +155,8 @@ def ent_matmul_packed_fused(x, packed, scale_x, scale_w, out_dtype=torch.float32
         if out_dtype == torch.int32:
             return ent_packed_matmul_int32_ref(xq, packed)
         return ent_packed_matmul_ref(xq, packed, scale_x, scale_w, out_dtype)
-    return _launch_fused(x, packed, scale_x, scale_w, out_dtype, route_of(m))
+    return _launch_fused(x, packed, scale_x, scale_w, out_dtype,
+                         table_route("ent_matmul_packed_fused", x, m, n, k, M_STREAM))
 
 
 def route_of(m: int, cut: int | None = None) -> str:
@@ -160,14 +165,30 @@ def route_of(m: int, cut: int | None = None) -> str:
     return "stream" if m <= (M_STREAM if cut is None else cut) else "tc"
 
 
+def table_route(family: str, x, m: int, n: int, k: int, cut: int) -> str:
+    """The route of a launch of kernel ``family`` (1, 4, 5 or 6) on card
+    operands: ``kernels/tuning``'s plan, which is ``route_of(m, cut)``
+    unless the table holds another (an empty table needs no SM count)."""
+    if tuning.empty():
+        return route_of(m, cut)
+    return tuning.get_block_config(family, (m, k, n), sms=_build.sm_count(x.device),
+                                   cut=cut)["route"]
+
+
+def tc_bm(family: str) -> int:
+    """Rows a tensor-core block of kernel ``family`` (1, 4, 5 or 6)."""
+    return TC_BM_PLANES if family == "ent_matmul" else TC_BM
+
+
 _FUSED_ENTRIES = {"stream": "ent_matmul_packed_fused_stream",
                   "tc": "ent_matmul_packed_fused_tc"}
 
 
-def _launch_fused(x, packed, scale_x, scale_w, out_dtype, route: str):
+def _launch_fused(x, packed, scale_x, scale_w, out_dtype, route: str, plan=None):
     """Launch kernel 1 on checked card operands through ``route``
-    ("stream" or "tc"); the wrapper chooses by M, chip_smoke.py calls this
-    to time the two loops at one M."""
+    ("stream" or "tc"), ``plan`` overriding the table's knobs; the wrapper
+    chooses by M, chip_smoke.py calls this to time the two loops at one M
+    and to tune."""
     m, k = x.shape
     n = packed.shape[-1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -175,29 +196,34 @@ def _launch_fused(x, packed, scale_x, scale_w, out_dtype, route: str):
         return out
     lead = (x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
             scale_x.data_ptr(), scale_w.data_ptr(), out.data_ptr(), OUT_KINDS[out_dtype])
-    rc = launch_route("ent_matmul", _FUSED_ENTRIES, lead, x, m, n, k, route)
+    rc = launch_route("ent_matmul_packed_fused", "ent_matmul", _FUSED_ENTRIES, lead, x, m, n, k,
+                      route, plan)
     _build.check(rc, "ent_matmul_packed_fused")
     count_launch(ent_matmul_packed_fused, route)
     return out
 
 
-def launch_route(source, entries, lead, x, m, n, k, route: str, tc_bm: int = TC_BM) -> int:
+def launch_route(family, source, entries, lead, x, m, n, k, route: str, overrides=None) -> int:
     """Call ``route``'s C entry point of ``csrc/<source>.cu`` (``entries``:
     route -> name) with the operand arguments ``lead``, then, for the
-    stream and the tensor-core loop (``tc_bm`` rows a block), the split-K
-    workspace and tickets (None, 0 when K is not split), the shape and the
-    route's plan; returns the entry point's error code."""
+    stream and the tensor-core loop, the split-K workspace and tickets
+    (None, 0 when K is not split), the shape and the route's plan, which
+    ``kernels/tuning`` resolves for kernel ``family`` (``overrides`` win);
+    returns the entry point's error code."""
     if route not in entries:
         raise ValueError(f"route must be one of {tuple(entries)}, got {route!r}")
     cuda_stream = _build.stream_of(x)
     fn = _build.entry(source, entries[route])
     dev = x.device
+    cfg = tuning.get_block_config(family, (m, k, n), overrides, sms=_build.sm_count(dev),
+                                  route=route)
+    kslice = cfg["kslice"]
     if route == "stream":
-        mb, kslice, splits, (strips, _, chunks) = stream_plan(m, n, k, _build.sm_count(dev))
-        plan, tickets = (mb, kslice, splits), strips * chunks
+        splits = -(-k // kslice)
+        plan, tickets = (cfg["mb"], kslice, splits), -(-n // STREAM_BN) * -(-m // cfg["mb"])
     else:
-        kslice, splits, (mt, nt, _) = tc_plan(m, n, k, _build.sm_count(dev), tc_bm)
-        plan, tickets = (kslice, splits), mt * nt
+        splits = max(1, -(-k // kslice))
+        plan, tickets = (kslice, splits), -(-m // tc_bm(family)) * -(-n // TC_BN)
     ws = tk = None
     if splits > 1:
         ws, tk = _build.stream_workspace((dev, cuda_stream), m * n, tickets)
@@ -222,7 +248,7 @@ def ent_matmul_packed(x, packed, scale_x, scale_w, out_dtype=torch.float32):
             return ent_packed_matmul_int32_ref(x, packed)
         return ent_packed_matmul_ref(x, packed, scale_x, scale_w, out_dtype)
     return _launch_packed(x, packed, scale_x, scale_w, out_dtype,
-                          route_of(m, M_STREAM_PACKED))
+                          table_route("ent_matmul_packed", x, m, n, k, M_STREAM_PACKED))
 
 
 def ent_matmul(x, planes, scale_x, scale_w, out_dtype=torch.float32):
@@ -235,7 +261,8 @@ def ent_matmul(x, planes, scale_x, scale_w, out_dtype=torch.float32):
         if out_dtype == torch.int32:
             return ent_matmul_int32_ref(x, planes)
         return ent_matmul_ref(x, planes, scale_x, scale_w, out_dtype)
-    return _launch_planes(x, planes, scale_x, scale_w, out_dtype, route_of(m, M_STREAM_PLANES))
+    return _launch_planes(x, planes, scale_x, scale_w, out_dtype,
+                          table_route("ent_matmul", x, m, n, k, M_STREAM_PLANES))
 
 
 _PACKED_ENTRIES = {"stream": "ent_matmul_packed_stream", "tc": "ent_matmul_packed_tc"}
@@ -246,21 +273,20 @@ def _launch_packed(x, packed, scale_x, scale_w, out_dtype, route: str):
     """Launch kernel 4 on checked card operands through ``route``
     ("stream" or "tc"); the wrapper chooses by M, chip_smoke.py calls this
     to time the two loops at one M."""
-    return _launch_int8_x(ent_matmul_packed, _PACKED_ENTRIES, TC_BM, x, packed, scale_x,
-                          scale_w, out_dtype, route)
+    return _launch_int8_x(ent_matmul_packed, _PACKED_ENTRIES, x, packed, scale_x, scale_w,
+                          out_dtype, route)
 
 
 def _launch_planes(x, planes, scale_x, scale_w, out_dtype, route: str):
     """Launch kernel 5 on checked card operands through ``route``
     ("stream" or "tc"), as ``_launch_packed`` does kernel 4."""
-    return _launch_int8_x(ent_matmul, _PLANES_ENTRIES, TC_BM_PLANES, x, planes, scale_x,
-                          scale_w, out_dtype, route)
+    return _launch_int8_x(ent_matmul, _PLANES_ENTRIES, x, planes, scale_x, scale_w, out_dtype,
+                          route)
 
 
-def _launch_int8_x(wrapper, entries, tc_bm, x, planes, scale_x, scale_w, out_dtype, route):
+def _launch_int8_x(wrapper, entries, x, planes, scale_x, scale_w, out_dtype, route):
     """Kernel 4 or 5 (int8 X, ``wrapper``'s planes) through ``route``'s
-    entry of ``entries``, ``tc_bm`` rows a tensor-core block; counted on
-    ``wrapper``."""
+    entry of ``entries``; counted on ``wrapper``."""
     m, k = x.shape
     n = planes.shape[-1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -268,7 +294,7 @@ def _launch_int8_x(wrapper, entries, tc_bm, x, planes, scale_x, scale_w, out_dty
         return out
     lead = (x.data_ptr(), planes.data_ptr(), scale_x.data_ptr(), scale_w.data_ptr(),
             out.data_ptr(), OUT_KINDS[out_dtype])
-    rc = launch_route("ent_matmul", entries, lead, x, m, n, k, route, tc_bm)
+    rc = launch_route(wrapper.__name__, "ent_matmul", entries, lead, x, m, n, k, route)
     _build.check(rc, wrapper.__name__)
     count_launch(wrapper, route)
     return out

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ent_matmul.ent_matmul import (OUT_KINDS, check_operands, count_launch,
-                                                       launch_route, route_of)
+                                                       launch_route, table_route)
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_int32_ref, int8_matmul_ref
 
 # int32-overflow-safe contraction bound: |x * w| <= 128 * 128
@@ -43,7 +43,8 @@ def int8_matmul(x, w, scale_x, scale_w, out_dtype=torch.bfloat16):
         if out_dtype == torch.int32:
             return int8_matmul_int32_ref(x, w)
         return int8_matmul_ref(x, w, scale_x, scale_w, out_dtype)
-    return _launch(x, w, scale_x, scale_w, out_dtype, route_of(m, M_STREAM))
+    return _launch(x, w, scale_x, scale_w, out_dtype,
+                   table_route("int8_matmul", x, m, n, k, M_STREAM))
 
 
 def _launch(x, w, scale_x, scale_w, out_dtype, route: str):
@@ -57,7 +58,7 @@ def _launch(x, w, scale_x, scale_w, out_dtype, route: str):
         return out
     lead = (x.data_ptr(), w.data_ptr(), scale_x.data_ptr(), scale_w.data_ptr(),
             out.data_ptr(), OUT_KINDS[out_dtype])
-    rc = launch_route("int8_matmul", _ENTRIES, lead, x, m, n, k, route)
+    rc = launch_route("int8_matmul", "int8_matmul", _ENTRIES, lead, x, m, n, k, route)
     _build.check(rc, "int8_matmul")
     count_launch(int8_matmul, route)
     return out

@@ -11,7 +11,9 @@ flash-decode in one launch: ``split_plan`` cuts each table row into
 runs of pages, one block per (run, kv head, slot), and the last block of
 each (slot, kv head) combines the runs' partials in a fixed order
 through the workspace that ``_build.stream_workspace`` keeps per
-(device, CUDA stream).  ``paged_attention_kernel.launches`` counts kernel
+(device, CUDA stream).  Pages a split (and the ring form's rows a split)
+come from ``kernels/tuning``, whose heuristic is ``split_plan`` (and
+``ring_split_plan``).  ``paged_attention_kernel.launches`` counts kernel
 launches (one a call), and ``.int8_kv_launches`` those of the int8-KV
 branch among them.  ``fault`` (0 on every path of the port) plants a
 kernel fault for ``chip_smoke.py``'s checks (see the source); the plain
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref, ring_decode_ref
 
 HEAD_DIMS = (64, 128)
@@ -109,10 +111,10 @@ def _check_cuda(q, pools, group, operands):
 
 def paged_attention_kernel(q, k_pages, v_pages, block_table, pos, start,
                            k_scales=None, v_scales=None, *, page_size: int,
-                           scale: float | None = None, fault: int = 0):
+                           scale: float | None = None, fault: int = 0, plan=None):
     """q [B, Hq, 1, D]; pools [P, page, Hkv, D] (page 0 = null);
     block_table int32 [B, pages_per_slot]; pos/start int32 [B] ->
-    f32 [B, Hq, 1, D]."""
+    f32 [B, Hq, 1, D].  ``plan`` overrides the table's pages a split."""
     b, hq, sq, d = q.shape
     npool, page, hkv, d2 = k_pages.shape
     if sq != 1 or d2 != d or v_pages.shape != k_pages.shape:
@@ -150,7 +152,9 @@ def paged_attention_kernel(q, k_pages, v_pages, block_table, pos, start,
         return out
     pps = block_table.shape[1]
     stream = _build.stream_of(q)
-    pages, splits = split_plan(b, hkv, pps, _build.sm_count(q.device))
+    pages = tuning.get_block_config("paged_attention", (b, hkv, pps), plan,
+                                    sms=_build.sm_count(q.device))["pages"]
+    splits = max(1, -(-pps // pages))
     ws = tk = None
     if splits > 1:   # f32 partials [B, Hkv, splits, G, D + 2], a ticket a (slot, kv head)
         ws, tk = _build.stream_workspace((q.device, stream, "paged"),
@@ -206,7 +210,9 @@ def ring_decode_kernel(q, k_ring, v_ring, pos, start, k_scales=None, v_scales=No
     if b == 0:
         return out
     stream = _build.stream_of(q)
-    rows, splits = ring_split_plan(b, hkv, w, _build.sm_count(q.device))
+    rows = tuning.get_block_config("ring_decode", (b, hkv, w),
+                                   sms=_build.sm_count(q.device))["rows"]
+    splits = max(1, -(-w // rows))
     ws = tk = None
     if splits > 1:   # kernel 3's workspace: f32 partials, a ticket a (slot, kv head)
         ws, tk = _build.stream_workspace((q.device, stream, "paged"),

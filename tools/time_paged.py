@@ -35,6 +35,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("time_paged: no CUDA card available", file=sys.stderr)
         return 2
+    from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.paged_attention import paged_attention_kernel
     import repro_torch
     print(cs.card_line(), flush=True)
@@ -46,7 +47,9 @@ def main(argv=None):
             page = kp.shape[1]
             ms = timer(lambda: paged_attention_kernel(q, kp, vp, table, pos, start, *scales,
                                                       page_size=page))
-            bnd, by, live = cs.paged_bound(torch, q, table, pos, start, page, kp.shape[2], int8_kv)
+            bnd, by = cs.cost_bounds(paged_ops, "paged_attention_kernel", q, kp, vp, table, pos,
+                                     start, *scales, page_size=page)["paged_attention_kernel"][:2]
+            live = cs.live_pages(torch, table, pos, start, page)
             rows[f"{name}{'[int8_kv]' if int8_kv else ''}"] = dict(ms=ms, bound_ms=bnd,
                                                                     bound_by=by, live_pages=live)
     print(json.dumps({"src": os.path.dirname(repro_torch.__file__), "paged": rows}), flush=True)
