@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import OptimConfig
 from repro_torch.optim.schedule import lr_at
 from repro_torch.tree import leaves, map_tree
@@ -49,26 +50,28 @@ def update(cfg: OptimConfig, grads, state, params, norm=None):
     ``grads``, ``state`` and ``params`` are a rank's shards (the norm of
     the shards alone differs on every rank).  Returns (params, new state,
     {"grad_norm", "lr"})."""
-    grads = map_tree(lambda g: g.to(torch.float32), grads)
-    if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm)
-    else:
-        gnorm = global_norm(grads) if norm is None else norm
-    step = state["step"] + 1
-    lr = lr_at(cfg, step)
-    f = np.float32
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = float(f(1.0) - f(b1) ** f(step))
-    bc2 = float(f(1.0) - f(b2) ** f(step))
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
-                          leaves(state["v"])):
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        delta.add_(p, alpha=cfg.weight_decay).mul_(lr)
-        if p.dtype == torch.float32:
-            p.sub_(delta)
+    p_leaves = leaves(params)
+    with tracing.span("train.adamw", leaves=len(p_leaves)):
+        grads = map_tree(lambda g: g.to(torch.float32), grads)
+        if cfg.grad_clip > 0:
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm)
         else:
-            p.copy_(p.to(torch.float32) - delta)
-    new_state = {"m": state["m"], "v": state["v"], "step": step}
-    return params, new_state, {"grad_norm": gnorm, "lr": lr}
+            gnorm = global_norm(grads) if norm is None else norm
+        step = state["step"] + 1
+        lr = lr_at(cfg, step)
+        f = np.float32
+        b1, b2 = cfg.beta1, cfg.beta2
+        bc1 = float(f(1.0) - f(b1) ** f(step))
+        bc2 = float(f(1.0) - f(b2) ** f(step))
+        for p, g, m, v in zip(p_leaves, leaves(grads), leaves(state["m"]),
+                              leaves(state["v"])):
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+            delta.add_(p, alpha=cfg.weight_decay).mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(delta)
+            else:
+                p.copy_(p.to(torch.float32) - delta)
+        new_state = {"m": state["m"], "v": state["v"], "step": step}
+        return params, new_state, {"grad_norm": gnorm, "lr": lr}

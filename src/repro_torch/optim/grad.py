@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.tree import leaves, map_tree, unflatten
 
 
@@ -35,7 +36,8 @@ def accumulate(loss_of, params, microbatches, grad_dtype=None):
     total, n = None, 0
     for mb in microbatches:
         loss = loss_of(params, mb)
-        loss.backward()
+        with tracing.span("train.backward", microbatch=n):
+            loss.backward()
         total = loss.detach().float() if total is None else total + loss.detach().float()
         n += 1
         if not direct:

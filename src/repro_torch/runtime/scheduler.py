@@ -105,6 +105,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import upload
 from repro_torch.runtime import sampling
 from repro_torch.runtime.faults import fault_point
@@ -177,6 +178,7 @@ class _QEntry:
     seq: int
     req: Request = field(compare=False)
     deadline: float | None = field(compare=False, default=None)
+    queued_ns: int = field(compare=False, default=0)   # submit (time_ns): req.queued's start
 
 
 @dataclass
@@ -300,7 +302,8 @@ class PipelinedScheduler:
             self._seq += 1
             heapq.heappush(self._heap, _QEntry(
                 priority, self._seq, req,
-                None if deadline is None else self._clock() + deadline))
+                None if deadline is None else self._clock() + deadline,
+                queued_ns=time.time_ns()))
             self._queued += 1
             self._status[uid] = QUEUED
             if on_token is not None:
@@ -489,7 +492,7 @@ class PipelinedScheduler:
                 if ok:
                     eng._free.remove(slot)
                     self._status[req.uid] = ACTIVE
-                    self.metrics.admitted(req.uid)
+                    self._admitted(req.uid)
                     if slot in eng._active:   # not done at its first token
                         self._set_feed(slot, int(eng._next_tok[slot]))
             if not ok:
@@ -499,6 +502,11 @@ class PipelinedScheduler:
                 # a multi-chunk admission paces itself one chunk a tick
                 self._advance_chunk()
                 return
+
+    def _admitted(self, uid: int) -> None:
+        """``uid`` (the entry ``_pop_ready`` returned last) left the queue."""
+        self.metrics.admitted(uid)
+        tracing.close("req.queued", self._qe_backout.queued_ns, uid=uid)
 
     def _start_admission(self, slot: int, req: Request) -> bool:
         """Begin split-stream admission: map the prompt's pages (shared
@@ -511,7 +519,7 @@ class PipelinedScheduler:
         if pos0 is None:
             return False
         eng._free.remove(slot)
-        self.metrics.admitted(req.uid)
+        self._admitted(req.uid)
         n = len(req.tokens)
         if pos0 >= n:
             layers = [c.prefill_view(slot) for c in eng.cache["layers"]]
@@ -587,7 +595,7 @@ class PipelinedScheduler:
         then process the pipeline entries past the allowed depth.  In
         fault-tolerant mode the tick runs inside the snapshot / rollback
         envelope.  Returns True while there is (or will be) work."""
-        with self._lock:
+        with self._lock, tracing.span("sched.tick"):
             if not self._ft:
                 return self._tick_inner()
             return self._tick_ft()
@@ -606,7 +614,8 @@ class PipelinedScheduler:
             return self.busy
         dispatched = False
         if eng._active:
-            self._pipeline.append(self._dispatch_decode())
+            with tracing.span("sched.decode", rows=len(eng._active)):
+                self._pipeline.append(self._dispatch_decode())
             dispatched = True
         if self._prefill is not None:
             self._advance_chunk()

@@ -31,9 +31,11 @@ of the step; a gather layer by layer would cut that peak.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch import collectives, sharding
+from repro_torch import collectives, sharding, tracing
 from repro_torch.configs.base import OptimConfig, TrainConfig
 from repro_torch.launch.mesh import axes_of
 from repro_torch.models import layers as L
@@ -71,6 +73,16 @@ def _expert_stack(path: str, t) -> bool:
             and parts[-1] in ("wi", "wi_gate", "wi_up", "wo") and t.dim() == 3)
 
 
+def _spanned(step):
+    """``step`` inside the span ``train.step``."""
+    @functools.wraps(step)
+    def train_step(params, opt_state, batch):
+        with tracing.span("train.step"):
+            return step(params, opt_state, batch)
+
+    return train_step
+
+
 def make_train_step(model: Model, ocfg: OptimConfig, tcfg: TrainConfig,
                     data_axes=None, grad_shardings=None):
     """``data_axes``: the mesh axes of the batch dim; with it the step is
@@ -81,6 +93,7 @@ def make_train_step(model: Model, ocfg: OptimConfig, tcfg: TrainConfig,
     if data_axes is not None:
         return _sharded_step(model, ocfg, tcfg, data_axes, grad_shardings, gdt, loss_of)
 
+    @_spanned
     def train_step(params, opt_state, batch):
         """``batch``: {"tokens", "labels"} [B, S] integer tensors on the
         model's device."""
@@ -112,6 +125,7 @@ def _sharded_step(model, ocfg, tcfg, data_axes, specs, gdt, loss_of):
     local_mb = mb // nd if split else mb
     experts = axes_of(data_axes) + ("model",)
 
+    @_spanned
     def train_step(params, opt_state, batch):
         """``params`` and ``opt_state``: this rank's shards; ``batch``: this
         rank's rows, {"tokens" (or "embeds"), "labels"} [B_loc, S]."""
